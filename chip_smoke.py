@@ -5,19 +5,29 @@
 Run from the repository root on a machine with one CUDA card. Phases:
 
 1. the device, and its name and power limit from nvidia-smi;
-2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc;
-3. each kernel against its plain PyTorch version at the full-corpus shapes
-   (21,818 videos, lp=104, D=256, 1,000 queries): B1 and B3-int8 bit-equal,
-   B2 and B3 in bf16 and f32 within f32 summation slack, block maxima exact;
+2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc, one
+   compiler per source, side by side;
+3. each video-score kernel against its plain PyTorch version at the
+   full-corpus shapes (21,818 videos, lp=104, D=256, 1,000 queries): B1 and
+   B3-int8 bit-equal, B2 and B3 in bf16 and f32 within f32 summation slack,
+   block maxima exact;
 4. end to end through the port's entry points (``encode_corpus``,
    ``retrieve``): the full-width XML with seeded random weights on a
    synthetic corpus, on the card with the kernels and on the CPU with the
    plain versions, compared; the VCMR / SVMR / VR metrics of the card run;
 5. full-corpus throughput of ``_score_query_batch`` in the exact flagship
    modes, timed with CUDA events; B1 must launch once per batch;
-6. a ``kernels`` JSON line (``launches`` counted over phase 4,
-   ``launches_throughput`` over phase 5's warm-up and timed batches);
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. the byte-row gather B4 against ``index_select`` on the full TVR byte
+   tables (21,818 rows of 308,224 and of 77,824 bytes, 128 indices with
+   duplicates): equal, no copy of the table, timed in turns;
+7. training at full width through ``XMLTrainer`` on the GPU-resident
+   float8 corpus of a synthetic world: the first batch's loss on the card
+   against the CPU, two epochs of optimizer steps (finite, falling losses;
+   B4 twice per step), an eval-loss pass, ``encode_corpus_resident`` and
+   ``retrieve`` from the resident query table;
+8. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3 and
+   over phase 7 for B4, ``launches_throughput`` over phase 5);
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without that last line, when no CUDA device is present,
 when the package is missing, or when any check fails.
@@ -33,6 +43,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,16 +57,35 @@ LP = 104
 CHUNK_V = 16
 B2_ATOL = 1e-5      # f32 summation-order slack of 256-term unit-vector dots
 TIMED_RUNS, WARMUP_RUNS = 10, 2
+# TVR's resident float8 byte tables: 100 clips x 3074 (video) / 770 (sub)
+# bytes, padded to 1,024-byte multiples and held as (N, 8, W) int8
+GATHER_W = {"video": 38528, "sub": 9728}
+TRAIN_BSZ, SCAN_STEPS = 128, 8
+TRAIN_VIDEOS, TRAIN_QUERIES, TRAIN_EVAL_QUERIES = 1024, 4096, 1024
+TRAIN_EPOCHS = 3
+TRAIN_LR = 1e-3     # 72 steps must show a falling loss; 1e-4 (the default) is for 100 epochs
+LOSS_ATOL = 2e-4    # card vs CPU loss: f32 summation order through the encoders
+# published dense peaks of one H100 SXM (NVIDIA data sheet): device memory
+# bytes/s, and operations/s by input type (f32 outside the tensor cores)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.int8: 1979e12, torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
+def cuda_ms(fn, reps: int = 5, blocker=None) -> float:
+    """Device time of one ``fn()``, the mean over ``reps`` launches between
+    two CUDA events. ``blocker``: a long launch put on the stream first, so
+    that the host queues all ``reps`` launches while the device is still
+    busy and the events time them back to back; without it a launch shorter
+    than the host's time to issue it would measure the host."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if blocker is not None:
+        blocker()
     start.record()
     for _ in range(reps):
         fn()
@@ -64,11 +94,33 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def alternate_ms(plain, kernel, reps: int = 5):
+def alternate_ms(plain, kernel, reps: int = 5, blocker=None):
     """plain, kernel, kernel, plain on one card; the mean of each pair."""
-    p1, k1, k2, p2 = cuda_ms(plain, reps), cuda_ms(kernel, reps), \
-        cuda_ms(kernel, reps), cuda_ms(plain, reps)
+    p1, k1, k2, p2 = cuda_ms(plain, reps, blocker), cuda_ms(kernel, reps, blocker), \
+        cuda_ms(kernel, reps, blocker), cuda_ms(plain, reps, blocker)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(n_bytes: float, n_ops: float, dtype=None) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate of their type."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3 if n_ops else 0.0
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def video_score_bound(q, feat, n_out: int) -> dict:
+    """B1-B3 at their inputs: two query matrices and two flat caches read
+    once, ``n_out`` f32 written; one multiply-add per (query, row, feature)
+    and stream."""
+    n_bytes = 2 * (q.numel() + feat.numel()) * q.element_size() + 4 * n_out
+    n_ops = 2 * 2 * q.shape[1] * feat.shape[0] * feat.shape[1]
+    return bound(n_bytes, n_ops, feat.dtype)
+
+
+def bound_str(b: dict) -> str:
+    return f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}"
 
 
 def unit(shape, gen, dev):
@@ -113,8 +165,10 @@ def phase_kernels(dev, vs):
                              f"{(k - p).abs().max().item()}")
     ms, pms = alternate_ms(lambda: vs.video_scores_flat_plain(*args8[:6]),
                            lambda: vs.video_scores_flat_i8(*args8[:6]))
-    rec["B1"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
-    log("kernels", f"B1 video_scores_flat_i8: bit-equal; {ms:.3f} ms vs plain {pms:.3f} ms")
+    rec["B1"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                     **video_score_bound(q8["v"], i8["v"], N_QUERIES * nv))
+    log("kernels", f"B1 video_scores_flat_i8: bit-equal; {ms:.3f} ms vs plain {pms:.3f} ms; "
+        f"{bound_str(rec['B1'])}")
     b1_scores = k
 
     # B2 (bf16, f32): f32 summation slack, identical top-100 outside near-ties
@@ -136,10 +190,12 @@ def phase_kernels(dev, vs):
         b2_err = max(b2_err, err)
         ms, pms = alternate_ms(lambda: vs.video_scores_flat_plain(*args),
                                lambda: vs.video_scores_flat(*args))
+        bnd = video_score_bound(args[0], args[2], N_QUERIES * nv)
         if name == "bf16":
-            rec["B2"] = dict(ms=ms, plain_ms=pms)
+            rec["B2"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
         log("kernels", f"B2 video_scores_flat ({name}): max |d| {err:.3e} <= {B2_ATOL}, "
-            f"top-100 identical outside near-ties; {ms:.3f} ms vs plain {pms:.3f} ms")
+            f"top-100 identical outside near-ties; {ms:.3f} ms vs plain {pms:.3f} ms; "
+            f"{bound_str(bnd)}")
     rec["B2"]["max_abs_err"] = b2_err
 
     # B3: scores and exact block maxima, int8 (bit-equal), bf16 and f32
@@ -164,11 +220,12 @@ def phase_kernels(dev, vs):
         b3_err = max(b3_err, err)
         ms, pms = alternate_ms(lambda: vs.video_scores_flat_bmax_plain(*args),
                                lambda: vs.video_scores_flat_bmax(*args))
+        bnd = video_score_bound(args[0], args[2], ks.numel() + kb.numel())
         if name == "int8":
-            rec["B3"] = dict(ms=ms, plain_ms=pms)
+            rec["B3"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
         log("kernels", f"B3 video_scores_flat_bmax ({name}): max |d| {err:.3e}"
             f"{' (bit-equal)' if exact else ''}, bmax exact, pads -inf; "
-            f"{ms:.3f} ms vs plain {pms:.3f} ms")
+            f"{ms:.3f} ms vs plain {pms:.3f} ms; {bound_str(bnd)}")
     rec["B3"]["max_abs_err"] = b3_err
     return rec
 
@@ -183,9 +240,9 @@ def phase_end_to_end(dev):
     """Phase 4: encode_corpus + retrieve on the card (kernels) and on the
     CPU (plain versions) with the same seeded weights; returns the card
     run's metrics."""
-    from tvretrieval_tpu.data.datasets import ExampleBuilder
-    from tvretrieval_tpu.data.synthetic import make_synthetic_world
-    from tvretrieval_tpu.evaluation.metrics import eval_retrieval_arrays
+    from tvretrieval_tpu_torch.data.datasets import ExampleBuilder
+    from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
+    from tvretrieval_tpu_torch.evaluation.metrics import eval_retrieval_arrays
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
     from tvretrieval_tpu_torch.ops.video_score import quantize_unit_i8
     from tvretrieval_tpu_torch.retrieval.engine import (
@@ -314,6 +371,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     """Phase 5: _score_query_batch at the full corpus in the exact
     flagship modes (the bench.py cache, synthesized on the card)."""
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.ops import gather as gt_ops
     from tvretrieval_tpu_torch.ops import video_score as vs
     from tvretrieval_tpu_torch.retrieval.engine import (
         RetrievalConfig, _maybe_pad_clip_axis, _score_query_batch)
@@ -347,6 +405,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
                                      None, mask, gt, True, feat2_cat=feat2_cat)
     torch.cuda.reset_peak_memory_stats(dev)
     vs.reset_launch_counts()
+    gt_ops.reset_launch_counts()
     for _ in range(WARMUP_RUNS):
         out = run()
     torch.cuda.synchronize()
@@ -357,9 +416,9 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / TIMED_RUNS
-    launches = dict(vs.LAUNCHES)
+    launches = {**vs.LAUNCHES, **gt_ops.LAUNCHES}
     want = {"video_scores_flat_i8": WARMUP_RUNS + TIMED_RUNS, "video_scores_flat": 0,
-            "video_scores_flat_bmax": 0}
+            "video_scores_flat_bmax": 0, "gather_byte_rows": 0}
     if launches != want:
         raise AssertionError(f"throughput run: kernel launches {launches}, expected {want}")
     for k, v in out.items():
@@ -384,10 +443,244 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     return launches
 
 
+def phase_gather(dev, gt):
+    """Phase 6: B4 against index_select on the full TVR byte tables.
+    Returns the kernel's record (times summed over the two tables, the two
+    launches of one train step)."""
+    n, b = N_VIDEOS_FULL, TRAIN_BSZ
+    gen = torch.Generator(device=dev).manual_seed(2)
+    # a different index set per launch, so no launch finds its rows in the
+    # 50 MB L2 left by the one before (a train step gathers fresh rows)
+    idx_sets = [torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+                for _ in range(16)]
+    idx = idx_sets[0]
+    idx[:4] = torch.tensor([0, n - 1, int(idx[5]), int(idx[5])], dtype=torch.int32)
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bound_by="bytes", per_table={})
+    big = torch.randn((8192, 8192), generator=gen, device=dev)
+    for stream, w in GATHER_W.items():
+        table = torch.randint(-128, 128, (n, 8, w), generator=gen, device=dev,
+                              dtype=torch.int8)
+        row_bytes = 8 * w
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = gt.gather_byte_rows(table, idx)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated(dev) - held
+        if not grew <= b * row_bytes + 2**20:
+            raise AssertionError(f"B4 ({stream}): memory rose by {grew} bytes for an "
+                                 f"output of {b * row_bytes}: the table was copied")
+        ref = gt.gather_byte_rows_plain(table, idx)
+        if out.shape != (b, 8, w) or out.dtype != torch.int8 or not torch.equal(out, ref):
+            raise AssertionError(f"B4 ({stream}) differs from index_select")
+        gt.check_indices(dev)
+        del out, ref
+        calls = {"plain": 0, "kernel": 0}
+
+        def run(fn, which):
+            calls[which] += 1
+            return fn(table, idx_sets[calls[which] % len(idx_sets)])
+
+        plain = lambda: run(gt.gather_byte_rows_plain, "plain")
+        kernel = lambda: run(gt.gather_byte_rows, "kernel")
+        # device time: a launch here is shorter than the host's time to
+        # issue it, so the launches queue up behind a ~20 ms product
+        ms, pms = alternate_ms(plain, kernel, reps=32, blocker=lambda: torch.mm(big, big))
+        # and paced by the host, one call after the other, as a step issues them
+        host_ms, host_pms = alternate_ms(plain, kernel, reps=32)
+        bnd = bound(2 * b * row_bytes + 4 * b, 0)
+        log("gather", f"B4 gather_byte_rows ({stream}): table ({n}, 8, {w}) int8 "
+            f"{table.numel() / 2**30:.2f} GiB, B={b}: equal to index_select, memory rose by "
+            f"{grew / 2**20:.1f} MiB (output {b * row_bytes / 2**20:.1f} MiB); device time "
+            f"{ms * 1e3:.1f} us vs index_select {pms * 1e3:.1f} us; bound "
+            f"{bnd['bound_ms'] * 1e3:.1f} us ({2 * b * row_bytes / ms / 1e6:.0f} GB/s of "
+            f"{PEAK_BYTES / 1e9:.0f}); issued one by one from the host {host_ms * 1e3:.1f} us "
+            f"vs {host_pms * 1e3:.1f} us per call")
+        rec["per_table"][stream] = dict(ms=ms, library_ms=pms, bound_ms=bnd["bound_ms"],
+                                        host_paced_ms=host_ms, host_paced_library_ms=host_pms)
+        rec["ms"] += ms
+        rec["plain_ms"] += pms
+        rec["library_ms"] += pms
+        rec["bound_ms"] += bnd["bound_ms"]
+        del table
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train(dev, gt, gather_rec, profile_dir):
+    """Phase 7: XMLTrainer on the GPU-resident float8 corpus at full width.
+    Returns B4's launch count over the train and eval-loss epochs."""
+    from tvretrieval_tpu_torch.data.datasets import ExampleBuilder
+    from tvretrieval_tpu_torch.data.device_corpus import assemble_batch, build_device_data
+    from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
+    from tvretrieval_tpu_torch.evaluation.metrics import eval_retrieval_arrays
+    from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.retrieval.engine import (
+        RetrievalConfig, encode_corpus_resident, retrieve)
+    from tvretrieval_tpu_torch.training.xml_trainer import (
+        LOSS_KEYS, TrainSettings, XMLTrainer)
+
+    t0 = time.perf_counter()
+    world = make_synthetic_world(n_videos=TRAIN_VIDEOS, n_queries=TRAIN_QUERIES,
+                                 vid_dim=3072, text_dim=768, query_dim=768,
+                                 max_clips=N_CLIPS, seed=1)
+    builder = ExampleBuilder(
+        query_source=world.query_source, video_source=world.video_source,
+        sub_source=world.sub_source, ctx_mode="video_sub_tef", max_desc_l=30,
+        max_ctx_l=N_CLIPS, clip_length=world.clip_length)
+    n_train = TRAIN_QUERIES - TRAIN_EVAL_QUERIES
+    train_rows, eval_rows = world.annotations[:n_train], world.annotations[n_train:]
+    t1 = time.perf_counter()
+    dd = build_device_data(builder, world.corpus, train_rows, eval_rows,
+                           dtype_name="float8_e4m3fn", device=dev)
+    t2 = time.perf_counter()
+    v_bytes, s_bytes = dd.ctx_device["v_bytes"], dd.ctx_device["s_bytes"]
+    if (tuple(v_bytes.shape[1:]), tuple(s_bytes.shape[1:])) != \
+            ((8, GATHER_W["video"]), (8, GATHER_W["sub"])) or not dd.use_kernel:
+        raise AssertionError(f"resident tables {tuple(v_bytes.shape)} {tuple(s_bytes.shape)}")
+    log("train", f"world {TRAIN_VIDEOS} videos x {N_CLIPS} clips (3072 / 768 features), "
+        f"{n_train} + {len(eval_rows)} queries, built in {t1 - t0:.1f} s; resident float8 "
+        f"tables {(v_bytes.numel() + s_bytes.numel()) / 2**30:.2f} GiB on the card, built "
+        f"and copied in {t2 - t1:.1f} s")
+
+    cfg = XMLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768,
+                    hidden_size=HIDDEN, n_heads=4, max_ctx_l=N_CLIPS, max_desc_l=30)
+    settings = TrainSettings(bsz=TRAIN_BSZ, scan_steps=SCAN_STEPS, n_epoch=TRAIN_EPOCHS,
+                             lr=TRAIN_LR, seed=0)
+    trainer = XMLTrainer(cfg, settings, builder, train_rows, device_data=dd, device=dev)
+    steps = trainer.steps_per_epoch
+    if steps < 16:
+        raise AssertionError(f"{steps} steps per epoch; the phase needs at least 16")
+
+    # the first batch of epoch 0, with the initial weights, dropout off and
+    # the same injected negative ranks: the card (B4) against the CPU (plain)
+    order = np.arange(n_train)
+    np.random.default_rng(settings.seed).shuffle(order)
+    chunk = dd.train_queries.chunk(order[:TRAIN_BSZ])
+    rank_gen = torch.Generator().manual_seed(3)
+    ranks = tuple(torch.randint(1, TRAIN_BSZ, (TRAIN_BSZ,), generator=rank_gen)
+                  for _ in range(2))
+    model_cpu = XML(cfg).eval()
+    model_cpu.load_state_dict(trainer.model.state_dict())
+    ctx_cpu = dd.ctx_table.device_arrays("cpu")
+    losses = {}
+    for name, model, ctx, device in (("card", trainer.model.eval(), dd.ctx_device, dev),
+                                     ("cpu", model_cpu, ctx_cpu, "cpu")):
+        on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        akw = dict(dd.assemble_kwargs, use_kernel=name == "card")
+        gt.reset_launch_counts()
+        with torch.no_grad():
+            batch = assemble_batch(ctx, *map(on, chunk), max_desc_l=30, **akw)
+            _, loss_dict = model(**batch, lw_st_ed=settings.lw_st_ed,
+                                 neg_sample_upper=TRAIN_BSZ,
+                                 neg_ranks=tuple(r.to(device) for r in ranks))
+        if gt.LAUNCHES["gather_byte_rows"] != (2 if name == "card" else 0):
+            raise AssertionError(f"first batch on the {name}: B4 launches {gt.LAUNCHES}")
+        losses[name] = {k: float(v) for k, v in loss_dict.items()}
+    del ctx_cpu, model_cpu
+    err = max(abs(losses["card"][k] - losses["cpu"][k]) for k in LOSS_KEYS)
+    log("train", f"first batch, initial weights, eval mode: card {losses['card']} vs CPU "
+        f"{losses['cpu']}; max |d| {err:.3e} (bound {LOSS_ATOL})")
+    if not err <= LOSS_ATOL:
+        raise AssertionError(f"first-batch loss on the card differs from the CPU: {err}")
+
+    # training: TRAIN_EPOCHS epochs of `steps` optimizer steps
+    torch.cuda.reset_peak_memory_stats(dev)
+    gt.reset_launch_counts()
+    step_losses, epoch_ms = [], []
+    for epoch in range(TRAIN_EPOCHS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = trainer.train_epoch(epoch)
+        end.record()
+        end.synchronize()
+        epoch_ms.append(start.elapsed_time(end) / steps)
+        if out["steps"] != steps:
+            raise AssertionError(f"epoch {epoch} ran {out['steps']} of {steps} steps")
+        step_losses += [ld["loss_overall"] for ld in trainer.last_step_losses]
+    n_steps = TRAIN_EPOCHS * steps
+    launches_train = gt.LAUNCHES["gather_byte_rows"]
+    if launches_train != 2 * n_steps or trainer.global_step != n_steps:
+        raise AssertionError(f"B4 launched {launches_train} times in {n_steps} train steps "
+                             f"(global step {trainer.global_step}); expected 2 per step")
+    if not np.isfinite(step_losses).all():
+        raise AssertionError(f"non-finite train loss: {step_losses}")
+    first, last = float(np.mean(step_losses[:4])), float(np.mean(step_losses[-4:]))
+    log("train", "loss per step: " + " ".join(f"{x:.4f}" for x in step_losses))
+    if not last < first:
+        raise AssertionError(f"the loss did not fall: first 4 steps {first}, last 4 {last}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = epoch_ms[-1]
+    host_paced = sum(t["host_paced_ms"] for t in gather_rec["per_table"].values())
+    log("train", f"{n_steps} steps of batch {TRAIN_BSZ} (scan_steps {SCAN_STEPS}, lr {TRAIN_LR}): "
+        f"mean loss {first:.4f} -> {last:.4f}; {step_ms:.2f} ms per step in the last epoch "
+        f"(first epoch {epoch_ms[0]:.2f}); B4's two launches take {gather_rec['ms'] * 1e3:.1f} us "
+        f"of device time = {100 * gather_rec['ms'] / step_ms:.2f}% of a step, and "
+        f"{host_paced * 1e3:.1f} us = {100 * host_paced / step_ms:.2f}% when the host issues "
+        f"them one by one; peak memory {peak:.2f} GiB; B4 launches {launches_train}")
+
+    # eval loss over every eval batch: two more launches per batch
+    eval_losses = trainer.eval_loss_epoch(eval_rows, TRAIN_EPOCHS - 1)
+    n_eval = -(-len(eval_rows) // TRAIN_BSZ)
+    launches = gt.LAUNCHES["gather_byte_rows"]
+    if launches - launches_train != 2 * n_eval:
+        raise AssertionError(f"B4 launched {launches - launches_train} times in {n_eval} "
+                             "eval-loss batches; expected 2 per batch")
+    if not np.isfinite(list(eval_losses.values())).all():
+        raise AssertionError(f"non-finite eval loss: {eval_losses}")
+    log("train", f"eval loss over {n_eval} batches: {json.dumps(eval_losses)}")
+
+    # retrieval from the resident corpus, in the trainer's default exact modes
+    rcfg = RetrievalConfig(clip_length=world.clip_length)
+    t0 = time.perf_counter()
+    model = trainer.model.eval()
+    cache = encode_corpus_resident(model, dd, world.corpus, rcfg)
+    arrays = retrieve(model, builder, cache, eval_rows, world.corpus, rcfg,
+                      return_arrays=True, query_table=dd.retrieval_queries)
+    torch.cuda.synchronize()
+    if cache.video_feat1.shape != (TRAIN_VIDEOS, N_CLIPS, HIDDEN):
+        raise AssertionError(f"resident cache shape {tuple(cache.video_feat1.shape)}")
+    for task, (vid, spans, scores) in arrays.items():
+        if vid.shape[0] != len(eval_rows) or not (np.isfinite(scores).all()
+                                                  and np.isfinite(spans).all()):
+            raise AssertionError(f"retrieval after training, {task}: bad output")
+    metrics = eval_retrieval_arrays(eval_rows, world.corpus.video2idx,
+                                    vcmr=arrays["VCMR"][:2], svmr=arrays["SVMR"][:2],
+                                    vr=arrays["VR"][0])
+    log("train", f"encode_corpus_resident + retrieve ({len(eval_rows)} held-out queries x "
+        f"{TRAIN_VIDEOS} videos) in {time.perf_counter() - t0:.2f} s; after {n_steps} steps: "
+        + "; ".join(f"{t} {json.dumps(metrics[t])}" for t in ("VCMR", "SVMR", "VR")))
+    if gt.LAUNCHES["gather_byte_rows"] != launches:
+        raise AssertionError("retrieval from the resident corpus slices; it gathers nothing")
+    if profile_dir:
+        # one more epoch under the profiler (past t_total the learning rate is 0)
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_epoch(TRAIN_EPOCHS)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        events = prof.key_averages()
+        # the device's own rows: kernels and copies, not the operators that
+        # launched them nor the optimizer's annotation span
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+        log("train", f"profiled epoch of {steps} steps: {busy_ms:.2f} ms of device time and "
+            f"{sum(e.count for e in kernels) / steps:.0f} device launches per step; the "
+            f"device is busy {100 * busy_ms / step_ms:.1f}% of the {step_ms:.2f} ms step "
+            f"measured without the profiler ({wall_ms:.2f} ms per step under it)")
+        print(events.table(sort_by="self_cuda_time_total", row_limit=30,
+                           max_name_column_width=70), flush=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="", help="write a torch.profiler trace of one "
-                    "throughput batch to this directory")
+                    "throughput batch to this directory, and print the profile of it "
+                    "and of one training epoch")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -396,6 +689,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tvretrieval_tpu_torch.ops import _build
+    from tvretrieval_tpu_torch.ops import gather as gt
     from tvretrieval_tpu_torch.ops import video_score as vs
 
     dev = torch.device("cuda", 0)
@@ -406,11 +700,13 @@ def main() -> int:
         f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    report = _build.build()
-    log("build", f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log("build", line.strip())
+    with ThreadPoolExecutor() as pool:      # one nvcc per source, side by side
+        reports = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
+    log("build", f"{len(reports)} kernel libraries built in {time.perf_counter() - t0:.1f} s")
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log("build", f"{name}: {line.strip()}")
 
     rec = phase_kernels(dev, vs)
     torch.cuda.empty_cache()
@@ -427,19 +723,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches_tp = phase_throughput(dev, rec, args.profile)
+    torch.cuda.empty_cache()
 
-    if any(m in sys.modules for m in ("jax", "flax", "optax")):
-        raise AssertionError("JAX was imported")
-    src = "tvretrieval_tpu_torch/csrc/video_score.cu"
-    table = [("B1", "video_scores_flat_i8", "tvretrieval_tpu/ops/pallas_score.py:363"),
-             ("B2", "video_scores_flat", "tvretrieval_tpu/ops/pallas_score.py:133"),
-             ("B3", "video_scores_flat_bmax", "tvretrieval_tpu/ops/pallas_score.py:290")]
+    rec["B4"] = phase_gather(dev, gt)
+    launches["gather_byte_rows"] = phase_train(dev, gt, rec["B4"], args.profile)
+
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "flax", "optax", "tvretrieval_tpu")]
+    if bad:
+        raise AssertionError(f"JAX or the JAX package was imported: {bad}")
+    vs_src, gt_src = (f"tvretrieval_tpu_torch/csrc/{n}.cu" for n in ("video_score", "gather"))
+    table = [("B1", "video_scores_flat_i8", vs_src, "tvretrieval_tpu/ops/pallas_score.py:363"),
+             ("B2", "video_scores_flat", vs_src, "tvretrieval_tpu/ops/pallas_score.py:133"),
+             ("B3", "video_scores_flat_bmax", vs_src, "tvretrieval_tpu/ops/pallas_score.py:290"),
+             ("B4", "gather_byte_rows", gt_src, "tvretrieval_tpu/ops/pallas_gather.py:183")]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[name], "launches_throughput": launches_tp[name],
-         "max_abs_err": rec[b]["max_abs_err"],
-         "ms": rec[b]["ms"], "plain_ms": rec[b]["plain_ms"]}
-        for b, name, where in table]}), flush=True)
+         **{k: rec[b][k] for k in keys}}
+        for b, name, src, where in table]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

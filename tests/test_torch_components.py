@@ -5,6 +5,7 @@ through ``convert.flax_params_to_state_dict``. Tolerance: 2e-4, the bound
 the JAX package meets against the original torch model
 (tests/test_xml.py:426); both sides run float32 at full precision."""
 import os
+import re
 import subprocess
 import sys
 
@@ -224,15 +225,32 @@ def test_converter_rejects_unknown_leaf():
 
 
 def test_port_imports_without_jax():
-    """The port and the host modules it shares import no JAX."""
-    code = ("import sys\n"
-            "import tvretrieval_tpu_torch.retrieval.engine\n"
-            "import tvretrieval_tpu_torch.convert, tvretrieval_tpu_torch.testing\n"
-            "import tvretrieval_tpu_torch.ops._build\n"
-            "import tvretrieval_tpu.evaluation.metrics\n"
-            "bad = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]\n"
+    """Importing every module of the port leaves neither JAX nor any module
+    of the JAX package in ``sys.modules``."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import tvretrieval_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+            "assert len(names) > 20, names\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', 'tvretrieval_tpu')]\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": REPO}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_port_sources_do_not_name_the_jax_package():
+    """No source of the port, nor chip_smoke.py, imports ``tvretrieval_tpu``
+    (the JAX package) or JAX itself."""
+    pat = re.compile(r"^\s*(import|from)\s+(tvretrieval_tpu|jax|flax|optax|orbax|ml_dtypes)"
+                     r"(\.|\s|$)", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "tvretrieval_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, REPO), m.group(0).strip())
+           for f in files for m in pat.finditer(open(f).read())]
+    assert not bad, bad

@@ -213,11 +213,52 @@ def test_video_chunk_v_and_einsum_agree(setup):
     _compare(outs[0], outs[3], Q2C_F32, SPAN_F32, world.clip_length)
 
 
+def test_engine_gather_grouped_defaults_match_jax(setup):
+    """The trainer's default exact modes: span mode "gather" (feature-row
+    gather, XML.merged_st_ed_scores_gathered) with span top-k "grouped" and
+    einsum video scores, f32 caches; then gather on bf16 caches."""
+    world = setup[0]
+    common = {k: v for k, v in COMMON.items() if k not in ("span_sim_pad_l",
+                                                           "span_topk_mode")}
+    _, _, _, tm = setup[1:]
+    for dtype, span_tol in (("float32", SPAN_F32), ("bfloat16", SPAN_BF16)):
+        mode = dict(span_score_mode="gather", span_topk_mode="grouped",
+                    video_score_mode="einsum", cache_dtype_str=dtype)
+        jcfg, tcfg = je.RetrievalConfig(**common, **mode), te.RetrievalConfig(**common, **mode)
+        assert tcfg == te.RetrievalConfig(**common, cache_dtype_str=dtype)      # the defaults
+        jcache = je.encode_corpus(setup[2], setup[3], setup[1], world.corpus, jcfg)
+        tcache = te.encode_corpus(tm, setup[1], world.corpus, tcfg)
+        assert tcache.feat2_cat is None and tcache.video_feat2.shape == jcache.video_feat2.shape
+        ja = je.retrieve(setup[2], setup[3], setup[1], jcache, world.annotations, world.corpus,
+                         jcfg, return_arrays=True)
+        ta = te.retrieve(tm, setup[1], tcache, world.annotations, world.corpus, tcfg,
+                         return_arrays=True)
+        _compare(ja, ta, Q2C_F32 if dtype == "float32" else 5e-3, span_tol, world.clip_length)
+    # gather and the concatenated sweep agree inside the port too
+    sweep = te.RetrievalConfig(**common, span_score_mode="simsweep_cat",
+                               span_topk_mode="grouped_shift")
+    tb = te.retrieve(tm, setup[1], te.encode_corpus(tm, setup[1], world.corpus, sweep),
+                     world.annotations, world.corpus, sweep, return_arrays=True)
+    tcfg = te.RetrievalConfig(**common)
+    ta = te.retrieve(tm, setup[1], te.encode_corpus(tm, setup[1], world.corpus, tcfg),
+                     world.annotations, world.corpus, tcfg, return_arrays=True)
+    _compare(tb, ta, 1e-6, 1e-4, world.clip_length)
+
+
+def test_arrays_to_submission_matches_jax(setup):
+    world, builder, _, _, tm = setup
+    cfg = te.RetrievalConfig(**COMMON, span_score_mode="simsweep_cat")
+    arrays = te.retrieve(tm, builder, te.encode_corpus(tm, builder, world.corpus, cfg),
+                         world.annotations, world.corpus, cfg, return_arrays=True)
+    assert te.arrays_to_submission(arrays, world.annotations, top_n=7) == \
+        je.arrays_to_submission(arrays, world.annotations, top_n=7)
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("span_score_mode", "gather", "A15"), ("span_score_mode", "simsweep", "A15"),
+    ("span_score_mode", "simsweep", "A15"),
     ("span_score_mode", "simsweep_cat_int8", "A11"),
     ("span_score_mode", "simsweep_cat_int8_flat", "A11"),
-    ("span_topk_mode", "grouped", "A15"), ("span_topk_mode", "grouped_shift8", "A15"),
+    ("span_topk_mode", "grouped_shift8", "A15"),
     ("span_topk_mode", "grouped_shift_approx", "A11"),
     ("span_topk_mode", "grouped_shift_psort", "A11"),
     ("video_topk_approx", True, "A11"), ("video_topk_psort", True, "A11"),

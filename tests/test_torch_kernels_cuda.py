@@ -1,11 +1,16 @@
-"""The CUDA video-score kernels (B1-B3, csrc/video_score.cu) against
-their plain PyTorch versions on the card, at edge shapes the full-corpus
-check in chip_smoke.py does not reach: query and video counts off the
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+edge shapes the full-size checks in chip_smoke.py do not reach.
+
+Video scores (B1-B3, csrc/video_score.cu): query and video counts off the
 64 x 32 block tile, feature rows shorter than one 128-byte stage or with a
 tail, lp = 8, and block maxima whose chunk is not a power of two or spans
-several warps. Every test carries the ``cuda`` marker and skips (its
-``dev`` fixture) without a CUDA card. Imports no JAX, so on a machine with
-the card it runs as
+several warps. Byte-row gather (B4, csrc/gather.cu): one index to a
+thousand, rows of one to nineteen 16 KiB segments, duplicate and boundary
+indices, a strided and an int64 index tensor, an index outside the table.
+
+Every test carries the ``cuda`` marker and skips (its ``dev`` fixture)
+without a CUDA card. Imports no JAX, so on a machine with the card it runs
+as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
@@ -14,6 +19,7 @@ import math
 import pytest
 import torch
 
+from tvretrieval_tpu_torch.ops import gather as gt
 from tvretrieval_tpu_torch.ops import video_score as vs
 
 F32_ATOL = 1e-5     # f32 summation order of unit-vector dots
@@ -110,3 +116,78 @@ def test_wrappers_reject_what_the_kernel_does_not_take(dev):
         vs.video_scores_flat(q4, s4, f4, g4, 10, lp=8)
     with pytest.raises(ValueError, match="one CUDA device"):
         vs.video_scores_flat_i8(qv.cpu(), qs.cpu(), fv, fs, 10, lp=8)
+
+
+def _table(dev, n, w, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-128, 128, (n, 8, w), generator=g, device=dev, dtype=torch.int8), g
+
+
+@pytest.mark.parametrize("w", [128, 9728, 38528])
+@pytest.mark.parametrize("b", [1, 5, 128, 1000])
+def test_b4_gather_equals_index_select(dev, b, w):
+    n = 257
+    table, g = _table(dev, n, w, seed=b)
+    idx = torch.randint(0, n, (b,), generator=g, device=dev, dtype=torch.int32)
+    idx[0] = n - 1                                  # boundary rows, and duplicates
+    if b >= 5:
+        idx[1], idx[2], idx[3] = 0, n - 1, 0
+    n0 = gt.LAUNCHES["gather_byte_rows"]
+    out = gt.gather_byte_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES["gather_byte_rows"] == n0 + 1
+    assert out.shape == (b, 8, w) and out.dtype == torch.int8
+    assert torch.equal(out, gt.gather_byte_rows_plain(table, idx))
+    gt.check_indices(dev)
+
+
+def test_b4_takes_strided_and_int64_indices(dev):
+    """A non-contiguous index tensor is compacted; int64 indices are
+    accepted and narrowed to int32 on the device."""
+    n, w = 100, 256
+    table, g = _table(dev, n, w)
+    wide = torch.randint(0, n, (40, 2), generator=g, device=dev, dtype=torch.int32)
+    strided = wide[:, 1]
+    assert not strided.is_contiguous()
+    assert torch.equal(gt.gather_byte_rows(table, strided), table[strided.long()])
+    idx64 = strided.long()
+    assert torch.equal(gt.gather_byte_rows(table, idx64), table[idx64])
+    assert gt.gather_byte_rows(table, idx64[:0]).shape == (0, 8, w)
+    gt.check_indices(dev)
+
+
+def test_b4_reports_an_index_outside_the_table(dev):
+    """No wait for the device at the launch: the row comes back as zeros and
+    check_indices raises at the next read-back."""
+    n, w = 10, 128
+    table, _ = _table(dev, n, w)
+    gt.check_indices(dev)
+    for bad in (torch.tensor([3, n, 4], dtype=torch.int32),
+                torch.tensor([3, -1, 4], dtype=torch.int32),
+                torch.tensor([3, 2 ** 32 + 4, 4], dtype=torch.int64)):   # no wrap-around
+        out = gt.gather_byte_rows(table, bad.to(dev))
+        assert torch.equal(out[0], table[3]) and torch.equal(out[2], table[4])
+        assert not bool(out[1].any())
+        with pytest.raises(IndexError, match="1 indices"):
+            gt.check_indices(dev)
+        gt.check_indices(dev)                        # the count starts over
+
+
+def test_b4_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    table, _ = _table(dev, 10, 128)
+    idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        gt.gather_byte_rows(table.to(torch.uint8), idx)
+    with pytest.raises(TypeError):
+        gt.gather_byte_rows(table.view(10, 4, 256), idx)
+    with pytest.raises(TypeError):
+        gt.gather_byte_rows(table, idx.float())
+    with pytest.raises(ValueError, match="idx on"):
+        gt.gather_byte_rows(table, idx.cpu())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gt.gather_byte_rows(_table(dev, 10, 24)[0], idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gt.gather_byte_rows(_table(dev, 10, 256)[0][:, :, ::2], idx)
+    with pytest.raises(ValueError, match="aligned"):
+        gt.gather_byte_rows(_table(dev, 11, 136)[0].view(-1)[8:8 + 10 * 8 * 128]
+                            .view(10, 8, 128), idx)

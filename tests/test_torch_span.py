@@ -99,6 +99,21 @@ def test_banded_topk_spans_grouped_shift_matches(nq, v, L, min_l, max_l, top_n, 
         _eq(a, b)
 
 
+@pytest.mark.parametrize("nq,v,L,min_l,max_l,top_n,ties", [
+    (3, 9, 14, 1, 8, 50, False),
+    (2, 7, 12, 2, 6, 40, True),            # planted ties: canonical order
+    (2, 2, 5, 1, 4, 30, True),             # pool smaller than top_n: zero pad
+])
+def test_banded_topk_spans_grouped_matches(nq, v, L, min_l, max_l, top_n, ties):
+    """Engine span top-k mode "grouped" against the JAX function of that name."""
+    st, ed, vs = _probs(np.random.default_rng(nq * 10 + L), nq, v, L, ties)
+    jo = js.banded_topk_spans_grouped(jnp.asarray(st), jnp.asarray(ed), jnp.asarray(vs),
+                                      min_l, max_l, top_n)
+    to = ts.banded_topk_spans_grouped(T(st), T(ed), T(vs), min_l, max_l, top_n)
+    for a, b in zip(jo, to):
+        _eq(a, b)
+
+
 @pytest.mark.parametrize("L,min_l,max_l,top_n,ties", [(14, 1, 8, 50, False),
                                                        (12, 2, 16, 200, True)])
 def test_banded_top_spans_from_probs_matches(L, min_l, max_l, top_n, ties):

@@ -1,14 +1,18 @@
 """tvretrieval_tpu_torch: the PyTorch / CUDA port of ``tvretrieval_tpu``.
 
 The JAX package stays the reference; this package mirrors its layout
-(``models/``, ``ops/``, ``retrieval/``) so each counterpart sits under the
-same module name. Numpy-only host modules (``tvretrieval_tpu.data`` except
-``device_corpus``, ``tvretrieval_tpu.evaluation``, ``tvretrieval_tpu.utils.io``)
-are imported from the JAX package instead of copied: they pull in no JAX.
+(``models/``, ``ops/``, ``data/``, ``training/``, ``retrieval/``,
+``evaluation/``, ``utils/``) so each counterpart sits under the same module
+name. It imports nothing of the JAX package, not even a module there that
+imports no JAX: it keeps its own copy of the numpy-only host modules
+(``data``, ``evaluation``, ``utils``). Only the tests import both.
 
 Ported so far: exact full-corpus XML retrieval (``retrieval.engine``) with
 the hand-written CUDA video-score kernels (``csrc/video_score.cu``,
-``ops.video_score``).
+``ops.video_score``), and XML training (``training.train_xml``,
+``training.xml_trainer``) on host-built batches or on the GPU-resident
+corpus (``data.device_corpus``) with the hand-written CUDA byte-row gather
+(``csrc/gather.cu``, ``ops.gather``).
 
 Precision: the reference holds float32 matmuls at full precision. PyTorch
 already defaults matmuls to full float32 on the card, but lets cuDNN

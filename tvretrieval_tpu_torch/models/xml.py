@@ -1,21 +1,22 @@
-"""XML (Cross-modal Moment Localization), inference half, in PyTorch.
+"""XML (Cross-modal Moment Localization) in PyTorch.
 
 Port of tvretrieval_tpu/models/xml.py for the flagship configuration
 (``bench.py``: video_sub, transformer encoders, cross-attention, one merged
 ConvSE conv pair): dual video/subtitle context encoders with
 cross-attention (reference model_xml.py:344-375), the modular query
-encoder (:399-423), video-level cosine scores (:436-453) and the merged
-ConvSE span logits (:455-502), including the corpus-inference form that
-gathers top-V similarity rows from one concatenated-cache sweep.
+encoder (:399-423), video-level cosine scores (:436-453), the merged
+ConvSE span logits (:455-502) in their per-pair, gathered-rows and
+concatenated-sweep forms, and the training forward with its span
+cross-entropy and in-batch ranking losses (:212-251, :588-637).
 
-Every other ``XMLConfig`` value raises ``NotImplementedError`` at
-construction (ROADMAP A8 ports the variants); training (losses, dropout
-schedules) is ROADMAP A7.
+Dropout follows ``model.train()`` / ``model.eval()``. Every other
+``XMLConfig`` value raises ``NotImplementedError`` at construction
+(ROADMAP A8 ports the variants).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -206,6 +207,23 @@ class XML(nn.Module):
         st, ed = self._merged_span_conv(similarity)
         return mask_logits(st, mask), mask_logits(ed, mask)
 
+    def merged_st_ed_scores_gathered(self, video_query, video_feat2_g, sub_query,
+                                     sub_feat2_g, mask_g):
+        """Span logits on per-query GATHERED video rows (engine span mode
+        "gather"): equal to ``merged_st_ed_scores(..., cross=True)``
+        followed by a row gather, since the conv and the mask act per row.
+
+        video_query / sub_query (Nq, D); video_feat2_g / sub_feat2_g
+        (Nq, V, L, D) at the cache dtype; mask_g (Nq, V, L). The queries
+        are cast to the cache dtype, the products accumulate in f32.
+        Returns masked st, ed logits (Nq, V, L)."""
+        vq = self.video_query_linear(video_query).to(video_feat2_g.dtype)
+        sq = self.sub_query_linear(sub_query).to(sub_feat2_g.dtype)
+        sim_v = torch.einsum("qd,qvld->qvl", vq.float(), video_feat2_g.float())
+        sim_s = torch.einsum("qd,qvld->qvl", sq.float(), sub_feat2_g.float())
+        st, ed = self._merged_span_conv((sim_v + sim_s) / 2)
+        return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+
     def merged_st_ed_scores_simgather_cat(self, video_query, sub_query, feat2_cat,
                                           context_mask, gather_idx,
                                           sim_dtype: Optional[torch.dtype] = None):
@@ -247,3 +265,124 @@ class XML(nn.Module):
         mask_g = context_mask[gather_idx]
         st, ed = self._merged_span_conv(similarity)
         return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+
+    # ------------------------------------------------------------- prediction
+    def get_pred_from_raw_query(self, query_feat, query_mask, video_feat1, video_feat2,
+                                video_mask, sub_feat1, sub_feat2, sub_mask,
+                                cross: bool = False):
+        """(q2ctx_scores, st_logits, ed_logits), the merged two-stream
+        branch (reference model_xml.py:553-586). cross=False: in-batch
+        pairs, q2ctx (N, N), spans (N, L); cross=True: all queries against
+        all videos, q2ctx (Nq, Nv), spans (Nq, Nv, L)."""
+        c = self.cfg
+        video_query, sub_query = self.encode_query(query_feat, query_mask)
+        v_scores = cosine_video_scores(video_query, video_feat1, video_mask)
+        s_scores = cosine_video_scores(sub_query, sub_feat1, sub_mask)
+        q2ctx = (v_scores + s_scores) / c.n_streams
+        st, ed = self.merged_st_ed_scores(video_query, video_feat2, sub_query,
+                                          sub_feat2, video_mask, cross)
+        return q2ctx, st, ed
+
+    # --------------------------------------------------------------- training
+    def forward(self, query_feat, query_mask, video_feat, video_mask, sub_feat,
+                sub_mask, st_ed_indices, lw_st_ed: float = 0.01,
+                neg_sample_upper: Optional[int] = None,
+                generator: Optional[torch.Generator] = None,
+                neg_ranks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """Training forward: total loss and the per-loss dict (reference
+        model_xml.py:212-251).
+
+        lw_st_ed: span-loss weight (0 before train_span_start_epoch).
+        neg_sample_upper: exclusive upper bound of the sampled negative
+        *rank*; the batch size when hard negatives are off,
+        1 + hard_pool_size once they are on (reference :608-624). It is
+        clamped to the actual batch size, which matters for a smaller
+        final batch.
+        generator: draws the negative ranks in training mode (None: the
+        global generator); in eval mode a fixed seed is used, so the eval
+        loss does not depend on the caller's random state.
+        neg_ranks: optional ((N,) ctx ranks, (N,) query ranks) taking the
+        place of the draw (tests inject the ranks another framework drew).
+        """
+        c = self.cfg
+        vf1, vf2, sf1, sf2 = self.encode_context(video_feat, video_mask, sub_feat, sub_mask)
+        q2ctx, st_logits, ed_logits = self.get_pred_from_raw_query(
+            query_feat, query_mask, vf1, vf2, video_mask, sf1, sf2, sub_mask, cross=False)
+        loss_st = _cross_entropy(st_logits.float(), st_ed_indices[:, 0])
+        loss_ed = _cross_entropy(ed_logits.float(), st_ed_indices[:, 1])
+        loss_st_ed = loss_st + loss_ed
+
+        bsz = q2ctx.shape[0]
+        upper = bsz if neg_sample_upper is None else min(int(neg_sample_upper), bsz)
+        if not self.training and generator is None:
+            generator = torch.Generator().manual_seed(0)
+        loss_neg_ctx, loss_neg_q = video_level_ranking_losses(
+            q2ctx.float(), generator, margin=c.margin, loss_type=c.ranking_loss_type,
+            neg_sample_upper=upper, ranks=neg_ranks)
+
+        loss = lw_st_ed * loss_st_ed + c.lw_neg_ctx * loss_neg_ctx + c.lw_neg_q * loss_neg_q
+        return loss, {
+            "loss_st_ed": lw_st_ed * loss_st_ed,
+            "loss_neg_ctx": c.lw_neg_ctx * loss_neg_ctx,
+            "loss_neg_q": c.lw_neg_q * loss_neg_q,
+            "loss_overall": loss,
+        }
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, 1, labels[:, None].long()).mean()
+
+
+def draw_negative_ranks(n: int, neg_sample_upper: int,
+                        generator: Optional[torch.Generator],
+                        device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two (n,) int64 rank vectors, uniform on [1, max(neg_sample_upper, 2)),
+    for the context and the query negatives, on ``device``. The draw runs
+    on the generator's own device (the CPU for the global generator) and
+    is copied over, so it never waits for the device."""
+    gen_dev = generator.device if generator is not None else "cpu"
+    ranks = torch.randint(1, max(int(neg_sample_upper), 2), (2, n),
+                          generator=generator, device=gen_dev)
+    ranks = ranks.to(device, non_blocking=True)
+    return ranks[0], ranks[1]
+
+
+def video_level_ranking_losses(scores: torch.Tensor,
+                               generator: Optional[torch.Generator], margin: float,
+                               loss_type: str, neg_sample_upper: int,
+                               ranks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """In-batch ranking losses with randomized (optionally hard) negatives.
+
+    scores: (N, N) cosine similarities, diagonal = positives. For each row
+    a negative is drawn uniformly from ranks [1, neg_sample_upper) of the
+    descending-sorted row (the diagonal pinned to rank 0 by a +999 mask),
+    then a hinge or LSE loss pushes the positive above it (reference
+    model_xml.py:588-637). The sort is stable, so tied scores rank by
+    ascending index, as ``jnp.argsort(-s)`` ranks them. ``ranks``: the
+    (ctx, query) rank vectors to use instead of drawing them.
+    """
+    n = scores.shape[0]
+    idx = torch.arange(n, device=scores.device)
+    pos = scores[idx, idx]
+    eye = torch.eye(n, dtype=scores.dtype, device=scores.device)
+    masked = scores * (1 - eye) + eye * 999.0
+    if ranks is None:
+        ranks = draw_negative_ranks(n, neg_sample_upper, generator, scores.device)
+
+    def sample_neg(s, s_masked, r):
+        order = torch.sort(-s_masked, dim=1, stable=True).indices   # rank 0 = diagonal
+        neg_cols = torch.gather(order, 1, r.long()[:, None])[:, 0]
+        return s[idx, neg_cols]
+
+    neg_ctx = sample_neg(scores, masked, ranks[0])              # pos query, neg video
+    neg_q = sample_neg(scores.T, masked.T, ranks[1])            # neg query, pos video
+
+    def rank_loss(p, ng):
+        if loss_type == "hinge":
+            return torch.clamp_min(margin + ng - p, 0.0).mean()
+        if loss_type == "lse":
+            return torch.log1p(torch.exp(ng - p)).mean()
+        raise NotImplementedError(loss_type)
+
+    return rank_loss(pos, neg_ctx), rank_loss(pos, neg_q)

@@ -1,11 +1,11 @@
-"""Build and load the port's CUDA kernels (``csrc/video_score.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The source compiles alone with ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes`` (no PyTorch headers: a build
-takes seconds). The library goes to ``tvretrieval_tpu_torch/_build/``
-under a name keyed on a hash of the source and the flags, so an edited
+Each source compiles alone with ``nvcc`` into a shared library of its own
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a
+build takes seconds). A library goes to ``tvretrieval_tpu_torch/_build/``
+under a name keyed on a hash of its source and the flags, so an edited
 source rebuilds and an unchanged one is reused. Nothing compiles at
-import: ``load()`` builds on first use.
+import: ``load(name)`` builds on first use.
 """
 from __future__ import annotations
 
@@ -17,17 +17,24 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "video_score.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# tvr_video_scores(kind, qv, qs, fv, fs, nq, nv_pad, lp, d_words, n_videos,
-#                  out, out_cols, bmax, chunk, stream) -> cudaError_t
-_P, _I = ctypes.c_void_p, ctypes.c_int
-ENTRY_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# library name -> (source, {entry point: argtypes}); every entry returns cudaError_t
+SOURCES: Dict[str, tuple] = {
+    # tvr_video_scores(kind, qv, qs, fv, fs, nq, nv_pad, lp, d_words, n_videos,
+    #                  out, out_cols, bmax, chunk, stream)
+    "video_score": (_PKG / "csrc" / "video_score.cu", {
+        "tvr_video_scores": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P]}),
+    # tvr_gather_byte_rows(table, idx, out, n_rows, n_idx, row_bytes, bad, stream)
+    "gather": (_PKG / "csrc" / "gather.cu", {
+        "tvr_gather_byte_rows": [_P, _P, _P, _L, _I, _L, _P, _P]}),
+}
 
 
 class KernelBuildError(RuntimeError):
@@ -44,35 +51,38 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libvideo_score_{digest.hexdigest()[:16]}.so"
+def library_path(name: str) -> Path:
+    source = SOURCES[name][0]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> str:
-    """Compile the library if it is missing; return the compiler output
+def build(name: str) -> str:
+    """Compile library ``name`` if it is missing; return the compiler output
     (ptxas register / spill report), empty if it was already built.
     Raises KernelBuildError if nvcc fails."""
-    lib = library_path()
+    lib = library_path(name)
     if lib.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name][0])],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
         os.unlink(tmp)
-        raise KernelBuildError(f"nvcc exit {proc.returncode}\n{proc.stdout}")
+        raise KernelBuildError(f"{name}: nvcc exit {proc.returncode}\n{proc.stdout}")
     os.replace(tmp, lib)          # atomic: concurrent builds agree
     return proc.stdout
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if missing."""
-    build()
-    lib = ctypes.CDLL(str(library_path()))
-    lib.tvr_video_scores.argtypes = ENTRY_ARGTYPES
-    lib.tvr_video_scores.restype = ctypes.c_int
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if missing."""
+    build(name)
+    lib = ctypes.CDLL(str(library_path(name)))
+    for entry, argtypes in SOURCES[name][1].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

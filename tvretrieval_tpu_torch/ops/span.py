@@ -148,6 +148,18 @@ def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tens
     return (*_decode(flat, L, W, min_l), scores)
 
 
+def banded_topk_spans_grouped(st_probs: torch.Tensor, ed_probs: torch.Tensor,
+                              video_scores: torch.Tensor, min_l: int, max_l: int,
+                              top_n: int):
+    """Engine span top-k mode "grouped" (span.py:289-383). The JAX package's
+    "grouped" and "grouped_shift" differ only in how they fetch the selected
+    groups' ed values (a gather from the materialized band against one-hot
+    shifts); both fetch the same values, so here they share the direct
+    gather of ``banded_topk_spans_grouped_shift``."""
+    return banded_topk_spans_grouped_shift(st_probs, ed_probs, video_scores, min_l,
+                                           max_l, top_n)
+
+
 def banded_top_spans_from_probs(st_probs: torch.Tensor, ed_probs: torch.Tensor,
                                 min_l: int, max_l: int, top_n: int):
     """Top-N banded spans of single videos, (N, L) probs -> (st, ed,

@@ -220,7 +220,7 @@ def _launch(name: str, qvt, qst, fv_flat, fs_flat, n_videos: int, lp: int,
         # the kernel folds block maxima in with atomics: start from -inf
         bmax = torch.full((nq, nv_pad // chunk), -math.inf, dtype=torch.float32,
                           device=dev)
-    fn = _build.load().tvr_video_scores
+    fn = _build.load("video_score").tvr_video_scores
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_KIND[fv_flat.dtype], qv.data_ptr(), qs.data_ptr(),

@@ -9,13 +9,16 @@ The corpus is encoded once (``encode_corpus``); each query batch then runs
    (ops.video_score) under ``video_score_mode`` "pallas" / "pallas_int8",
    or the einsum path under "einsum";
 3. ``exp(alpha * q2c)`` and an exact stable top-V;
-4. one corpus-wide similarity sweep over the concatenated feat2 cache,
-   the top-V (+ GT) row gather, ConvSE and softmax
-   (``XML.merged_st_ed_scores_simgather_cat``);
+4. span logits of the top-V (+ GT) videos: one corpus-wide similarity
+   sweep over the concatenated feat2 cache and a row gather
+   (``XML.merged_st_ed_scores_simgather_cat``), or under span mode
+   "gather" the feature rows themselves
+   (``XML.merged_st_ed_scores_gathered``); then ConvSE and softmax;
 5. the exact banded span top-N and the SVMR row (ops.span).
 
-``retrieve`` turns the results into the submission the shared evaluator
-(tvretrieval_tpu.evaluation) scores. Mode names are the JAX package's so
+``encode_corpus_resident`` encodes from the device-resident corpus
+(data.device_corpus) instead of host-built batches. ``retrieve`` turns the
+results into the submission the evaluator (evaluation.metrics) scores. Mode names are the JAX package's so
 configurations carry over; "pallas" here means the CUDA kernel. Modes not
 ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -27,14 +30,20 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from tvretrieval_tpu.data.datasets import CorpusIndex, ExampleBuilder
+from tvretrieval_tpu_torch.data.datasets import CorpusIndex, ExampleBuilder
+from tvretrieval_tpu_torch.data.device_corpus import (
+    assemble_context_slice,
+    assemble_queries,
+)
 from tvretrieval_tpu_torch.models.xml import XML
 from tvretrieval_tpu_torch.ops.span import (
     banded_top_spans_from_probs,
+    banded_topk_spans_grouped,
     banded_topk_spans_grouped_shift,
     topk_from_block_max,
     topk_stable_blocked,
 )
+from tvretrieval_tpu_torch.utils.io import load_json
 from tvretrieval_tpu_torch.ops.video_score import (
     build_flat_feat1,
     flat_lp,
@@ -60,7 +69,8 @@ class RetrievalConfig:
     context_bsz: int = 200           # eval_context_bsz (63)
     clip_length: float = 1.5
     cache_dtype_str: str = "float32"  # corpus cache dtype ("bfloat16" halves memory)
-    # ported: "simsweep_cat", "simsweep_cat_bf16" (similarity stored bf16)
+    # ported: "gather" (feature-row gather), "simsweep_cat",
+    # "simsweep_cat_bf16" (similarity stored bf16)
     span_score_mode: str = "gather"
     # zero-pad the concatenated cache's clip axis to this length (0 = off)
     span_sim_pad_l: int = 0
@@ -69,7 +79,7 @@ class RetrievalConfig:
     # upper bound on the videos per block maximum (B3) and the flat-cache
     # video padding multiple
     video_chunk_v: int = 16
-    # ported: "grouped_shift"
+    # ported: "grouped", "grouped_shift" (equal bit for bit)
     span_topk_mode: str = "grouped"
     video_topk_approx: bool = False
     video_topk_psort: bool = False
@@ -100,18 +110,18 @@ def check_supported(cfg: RetrievalConfig) -> None:
         raise NotImplementedError(
             f"span_score_mode={cfg.span_score_mode!r}: the int8 sweeps are "
             "ROADMAP A11 (kernel B5)")
-    if cfg.span_score_mode not in ("simsweep_cat", "simsweep_cat_bf16"):
+    if cfg.span_score_mode not in ("gather", "simsweep_cat", "simsweep_cat_bf16"):
         raise NotImplementedError(
-            f"span_score_mode={cfg.span_score_mode!r}: gather / simsweep are "
-            "ROADMAP A15; use 'simsweep_cat' or 'simsweep_cat_bf16'")
+            f"span_score_mode={cfg.span_score_mode!r}: simsweep is ROADMAP A15; "
+            "use 'gather', 'simsweep_cat' or 'simsweep_cat_bf16'")
     if cfg.span_topk_mode in ("grouped_shift_approx", "grouped_shift_psort"):
         raise NotImplementedError(
             f"span_topk_mode={cfg.span_topk_mode!r}: approximate and psort "
             "selection are ROADMAP A11 (kernel B6)")
-    if cfg.span_topk_mode != "grouped_shift":
+    if cfg.span_topk_mode not in ("grouped", "grouped_shift"):
         raise NotImplementedError(
             f"span_topk_mode={cfg.span_topk_mode!r} is ROADMAP A15; use "
-            "'grouped_shift' (bit-equal)")
+            "'grouped' or 'grouped_shift' (bit-equal)")
     if cfg.video_topk_approx or cfg.video_topk_psort:
         raise NotImplementedError(
             "video_topk_approx / video_topk_psort are ROADMAP A11")
@@ -197,23 +207,68 @@ def encode_corpus(model: XML, builder: ExampleBuilder, corpus: CorpusIndex,
         chunks["sf2"].append(sf2.to(dt))
         chunks["mask"].append(vm)
     cat = {k: torch.cat(v) for k, v in chunks.items()}
-    vf2_all, sf2_all = cat["vf2"], cat["sf2"]
-    feat2_cat = None
     if cfg.cat_mode:
-        feat2_cat = _maybe_pad_clip_axis(torch.cat([vf2_all, sf2_all], dim=-1), cfg)
-        vf2_all = sf2_all = None
-    vf1_all, sf1_all, mask_all = cat["vf1"], cat["sf1"], cat["mask"]
+        cat["feat2_cat"] = torch.cat([cat.pop("vf2"), cat.pop("sf2")], dim=-1)
+    return _finish_cache(model, cfg, corpus, cat)
+
+
+def _finish_cache(model: XML, cfg: RetrievalConfig, corpus: CorpusIndex,
+                  bufs: Dict[str, torch.Tensor]) -> CorpusCache:
+    """Whole-corpus buffers (vf1, sf1, mask and either vf2 + sf2 or
+    feat2_cat) -> CorpusCache: the clip-axis pad of feat2_cat and the flat
+    (int8) feat1 layout of the kernel video-score modes. Buffers are
+    popped as they are replaced, so a source frees once its copy exists."""
+    feat2_cat = _maybe_pad_clip_axis(bufs.pop("feat2_cat", None), cfg)
+    vf1_all, sf1_all, mask_all = bufs.pop("vf1"), bufs.pop("sf1"), bufs["mask"]
     if cfg.video_score_mode in ("pallas", "pallas_int8") and _uses_fast_path(model):
         vf1_all = build_flat_feat1(vf1_all, mask_all, chunk_v=cfg.video_chunk_v)
         sf1_all = build_flat_feat1(sf1_all, mask_all, chunk_v=cfg.video_chunk_v)
         if cfg.video_score_mode == "pallas_int8":
             vf1_all, sf1_all = quantize_unit_i8(vf1_all), quantize_unit_i8(sf1_all)
     return CorpusCache(
-        video_feat1=vf1_all, video_feat2=vf2_all, sub_feat1=sf1_all,
-        sub_feat2=sf2_all, mask=mask_all, n_videos=n,
+        video_feat1=vf1_all, video_feat2=bufs.get("vf2"), sub_feat1=sf1_all,
+        sub_feat2=bufs.get("sf2"), mask=mask_all, n_videos=len(corpus),
         metas=[{"vid_name": v, "duration": d}
                for v, d in zip(corpus.vid_names, corpus.durations)],
         feat2_cat=feat2_cat)
+
+
+@torch.no_grad()
+def encode_corpus_resident(model: XML, device_data, corpus: CorpusIndex,
+                           cfg: RetrievalConfig) -> CorpusCache:
+    """encode_corpus against the device-resident context block
+    (data/device_corpus.py): no host-to-device feature transfer per epoch.
+
+    Equal to encode_corpus: chunks of context_bsz videos are sliced from
+    the resident block, assembled on the device (TEF + mask from clip
+    counts), encoded, and written in place into PREALLOCATED cache buffers,
+    so peak memory is cache + one chunk rather than twice the cache (the
+    concatenation in encode_corpus holds both for a moment). The final
+    partial chunk overlaps the one before (encoding is deterministic per
+    video, so rewriting rows is exact), keeping one chunk shape.
+    """
+    check_supported(cfg)
+    akw = device_data.assemble_kwargs
+    ctx = device_data.ctx_device
+    nv = len(corpus)
+    bsz = min(cfg.context_bsz, nv)
+    dt = cfg.cache_dtype
+    norm = lambda x: (x / (torch.linalg.norm(x.float(), dim=-1, keepdim=True)
+                           + 1e-12)).to(dt)
+    bufs: Dict[str, torch.Tensor] = {}
+    for start in list(range(0, nv - bsz, bsz)) + [nv - bsz]:
+        vfeat, mask, sfeat, _ = assemble_context_slice(ctx, start, bsz, **akw)
+        vf1, vf2, sf1, sf2 = model.encode_context(vfeat, mask, sfeat, mask)
+        parts = {"vf1": norm(vf1), "sf1": norm(sf1), "mask": mask}
+        if cfg.cat_mode:
+            parts["feat2_cat"] = torch.cat([vf2.to(dt), sf2.to(dt)], dim=-1)
+        else:
+            parts.update(vf2=vf2.to(dt), sf2=sf2.to(dt))
+        for k, v in parts.items():
+            if k not in bufs:
+                bufs[k] = torch.zeros((nv,) + v.shape[1:], dtype=v.dtype, device=v.device)
+            bufs[k][start:start + bsz] = v
+    return _finish_cache(model, cfg, corpus, bufs)
 
 
 def _normalize(q: torch.Tensor) -> torch.Tensor:
@@ -283,14 +338,22 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
     topv_idx = topv_idx.long()
     gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
                   if do_svmr else topv_idx)                      # (Nq, V[+1])
-    st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
-        vq, sq, feat2_cat, ctx_mask, gather_idx,
-        sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
-                   else None))
+    if cfg.cat_mode:
+        st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
+            vq, sq, feat2_cat, ctx_mask, gather_idx,
+            sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
+                       else None))
+    else:
+        # gathered rows stay at the cache dtype: (Nq, V[+1], L, D) per stream
+        st_logits, ed_logits = model.merged_st_ed_scores_gathered(
+            vq, video_feat2[gather_idx], sq, sub_feat2[gather_idx],
+            ctx_mask[gather_idx])
     st_probs = torch.softmax(st_logits.to(f32), dim=-1)
     ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
 
-    vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = banded_topk_spans_grouped_shift(
+    span_topk = (banded_topk_spans_grouped if cfg.span_topk_mode == "grouped"
+                 else banded_topk_spans_grouped_shift)
+    vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = span_topk(
         st_probs[:, :V], ed_probs[:, :V], topv_scores, cfg.min_pred_l,
         cfg.max_pred_l, cfg.max_before_nms)
     out = dict(topv_scores=topv_scores, topv_idx=topv_idx.to(torch.int32),
@@ -308,8 +371,6 @@ def load_external_vr_submission(path: str, corpus: CorpusIndex,
                                 cache_metas: List[dict], top_n: int):
     """VR submission JSON -> {desc_id: (meta_idx_list, score_list)}
     (reference load_external_vr_res2 + meta mapping, inference.py:244-273)."""
-    from tvretrieval_tpu.utils.io import load_json
-
     sub = load_json(path)
     video_idx2meta = {corpus.video2idx[m["vid_name"]]: i
                       for i, m in enumerate(cache_metas)}
@@ -325,7 +386,7 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
              query_rows: List[dict], corpus: CorpusIndex, cfg: RetrievalConfig,
              tasks: Sequence[str] = ("VCMR", "SVMR", "VR"),
              external_vr_path: Optional[str] = None,
-             return_arrays: bool = False) -> Dict[str, list]:
+             return_arrays: bool = False, query_table=None) -> Dict[str, list]:
     """Score all queries against the cached corpus; return submission
     entries per task (reference compute_query2ctx_info,
     inference.py:252-445), or with ``return_arrays`` the row-aligned numpy
@@ -333,6 +394,9 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
 
     external_vr_path: a VR submission whose top videos and scores replace
     the internal video ranking (reference --external_inference_vr_res_path).
+    query_table: optional data.device_corpus.QueryTable row-aligned with
+    query_rows; query features then stream quantized and are assembled on
+    the device, skipping the host's per-row batch building each epoch.
     """
     do_svmr = "SVMR" in tasks
     device = cache.mask.device
@@ -345,12 +409,21 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
     n_q = len(query_rows)
     if n_q == 0:
         return {}
+    if query_table is not None and len(query_table.q_len) != n_q:
+        raise ValueError("query_table must be row-aligned with query_rows")
     on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     collected = []
     # shapes need not be static here: the last batch is not padded
     for i in range(0, n_q, cfg.query_bsz):
         rows = query_rows[i:i + cfg.query_bsz]
-        qb = builder.build_query_batch(rows)
+        if query_table is not None:
+            qf, ql, _, _ = query_table.chunk(np.arange(i, i + len(rows)))
+            q_feat, q_mask = assemble_queries(
+                on(qf), on(ql), dtype_name=query_table.dtype_name,
+                max_desc_l=query_table.max_desc_l)
+        else:
+            qb = builder.build_query_batch(rows)
+            q_feat, q_mask = on(qb.query_feat), on(qb.query_mask)
         gt_idx = np.asarray([vid2meta.get(r.get("vid_name") or "", 0) for r in rows],
                             dtype=np.int64)
         ext_args = {}
@@ -366,7 +439,7 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
             ext_args = dict(use_external_vr=True, external_idx=on(ext_idx),
                             external_scores=on(ext_scores))
         out = _score_query_batch(
-            model, cfg, on(qb.query_feat), on(qb.query_mask),
+            model, cfg, q_feat, q_mask,
             cache.video_feat1, cache.video_feat2, cache.sub_feat1, cache.sub_feat2,
             cache.mask, on(gt_idx), do_svmr, feat2_cat=cache.feat2_cat, **ext_args)
         collected.append({k: v.cpu().numpy() for k, v in out.items()})
@@ -427,4 +500,19 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
              "predictions": [[int(p[0]), 0 if task == "VR" else p[1],
                               0 if task == "VR" else p[2], p[3]] for p in preds]}
             for row, preds in zip(query_rows, entries[task])]
+    return out
+
+
+def arrays_to_submission(arrays: Dict[str, tuple], query_rows: List[dict],
+                         top_n: int = 100) -> Dict[str, list]:
+    """Convert retrieve(return_arrays=True) output into submission dicts
+    (only done for the best epoch / final inference)."""
+    out: Dict[str, list] = {}
+    for task, (vid, spans, scores) in arrays.items():
+        out[task] = [
+            {"desc_id": row["desc_id"], "desc": row.get("desc", ""),
+             "predictions": [[int(v), float(st), float(ed), float(sc)]
+                             for v, (st, ed), sc in zip(vid[qi, :top_n], spans[qi, :top_n],
+                                                        scores[qi, :top_n])]}
+            for qi, row in enumerate(query_rows)]
     return out
