@@ -7,16 +7,22 @@ Run from the repository root on a machine with one CUDA card. Phases:
 1. the device, and its name and power limit from nvidia-smi;
 2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc, one
    compiler per source, side by side;
-3. each video-score kernel against its plain PyTorch version at the
-   full-corpus shapes (21,818 videos, lp=104, D=256, 1,000 queries): B1 and
-   B3-int8 bit-equal, B2 and B3 in bf16 and f32 within f32 summation slack,
-   block maxima exact;
+3. each kernel against its plain PyTorch version at the full-corpus
+   shapes (21,818 videos, 1,000 queries): the video scores (lp=104, D=256)
+   B1 and B3-int8 bit-equal, B2 and B3 in bf16 and f32 within f32 summation
+   slack, block maxima exact; the int8 span sweep B5 (2,793,472 flat rows,
+   K=512) bit-equal over all its outputs, pads exactly zero; the sorting
+   top-k B6 at the engine's five row shapes equal in values and indices on
+   rows with planted ties;
 4. end to end through the port's entry points (``encode_corpus``,
    ``retrieve``): the full-width XML with seeded random weights on a
    synthetic corpus, on the card with the kernels and on the CPU with the
-   plain versions, compared; the VCMR / SVMR / VR metrics of the card run;
-5. full-corpus throughput of ``_score_query_batch`` in the exact flagship
-   modes, timed with CUDA events; B1 must launch once per batch;
+   plain versions, compared, in the bf16 / f32 modes, the int8 span modes
+   and the psort selections (which must equal the card's own exact
+   selection); the VCMR / SVMR / VR metrics of the card run;
+5. full-corpus throughput of ``_score_query_batch``, timed with CUDA
+   events, in the exact flagship modes (B1 must launch once per batch) and
+   in the all-int8 psort modes (B1 once, B5 once, B6 five times per batch);
 6. the byte-row gather B4 against ``index_select`` on the full TVR byte
    tables (21,818 rows of 308,224 and of 77,824 bytes, 128 indices with
    duplicates): equal, no copy of the table, timed in turns;
@@ -25,8 +31,8 @@ Run from the repository root on a machine with one CUDA card. Phases:
    against the CPU, two epochs of optimizer steps (finite, falling losses;
    B4 twice per step), an eval-loss pass, ``encode_corpus_resident`` and
    ``retrieve`` from the resident query table;
-8. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3 and
-   over phase 7 for B4, ``launches_throughput`` over phase 5);
+8. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3,
+   B5 and B6 and over phase 7 for B4, ``launches_throughput`` over phase 5);
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without that last line, when no CUDA device is present,
@@ -54,7 +60,12 @@ E2E_VIDEOS, E2E_QUERIES = 320, 300     # phase 4, kept small for its CPU side
 HIDDEN = 256
 N_CLIPS = 100
 LP = 104
+SPAN_LP = 128       # rows per video of the flat int8 feat2 cache
 CHUNK_V = 16
+# the row shapes the engine's psort modes sort at Nv=21,818, V=100, L=100,
+# top_n=200: video block maxima, video pool, group block maxima, group
+# pool, final span pool
+SORT_SHAPES = ((1364, 100), (1600, 100), (1250, 200), (1600, 200), (2800, 200))
 B2_ATOL = 1e-5      # f32 summation-order slack of 256-term unit-vector dots
 TIMED_RUNS, WARMUP_RUNS = 10, 2
 # TVR's resident float8 byte tables: 100 clips x 3074 (video) / 770 (sub)
@@ -230,6 +241,97 @@ def phase_kernels(dev, vs):
     return rec
 
 
+def phase_span_sim(dev, vs):
+    """Phase 3, B5: the int8 span sweep at the full corpus against its plain
+    version, bit for bit, block of videos by block."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    nv, nq, k = N_VIDEOS_FULL, N_QUERIES, 2 * HIDDEN
+    feat2_cat = torch.randn((nv, N_CLIPS, k), generator=gen, device=dev).to(torch.bfloat16)
+    f8, fs = vs.build_flat_feat2_i8(feat2_cat, lp=SPAN_LP, chunk_v=CHUNK_V)
+    qcat = torch.randn((nq, k), generator=gen, device=dev) * 0.5
+    q8, qs = vs.quantize_rows_i8(qcat)
+    qs = qs[:, None].contiguous()
+    nv_pad = fs.shape[0]
+    if f8.shape != (nv_pad * SPAN_LP, k) or nv_pad % CHUNK_V or nv_pad < nv:
+        raise AssertionError(f"flat feat2 cache {tuple(f8.shape)} {tuple(fs.shape)}")
+    out = vs.span_sim_cat_i8(q8, qs, f8, fs, lp=SPAN_LP)
+    torch.cuda.synchronize()
+    if out.shape != (nq, nv_pad, SPAN_LP) or out.dtype != torch.bfloat16:
+        raise AssertionError(f"B5 output {tuple(out.shape)} {out.dtype}")
+    block, bad = 512, 0
+    for v0 in range(0, nv_pad, block):
+        ref = vs.span_sim_int8_xla(q8, qs, f8[v0 * SPAN_LP:(v0 + block) * SPAN_LP],
+                                   fs[v0:v0 + block], lp=SPAN_LP)
+        bad += int((out[:, v0:v0 + block].view(torch.int16) != ref.view(torch.int16)).sum())
+    if bad:
+        raise AssertionError(f"B5 differs from its plain version at {bad} of {out.numel()} outputs")
+    if bool(out[:, :, N_CLIPS:].any()) or bool(out[:, nv:].any()):
+        raise AssertionError("B5: a pad row or a pad video is not exactly zero")
+    if not bool(out[:, :nv, :N_CLIPS].float().abs().amax() > 0):
+        raise AssertionError("B5: the similarity is all zero")
+    del out, ref
+    ms, pms = alternate_ms(lambda: vs.span_sim_int8_xla(q8, qs, f8, fs, lp=SPAN_LP),
+                           lambda: vs.span_sim_cat_i8(q8, qs, f8, fs, lp=SPAN_LP), reps=3)
+    n_out = nq * nv_pad * SPAN_LP
+    bnd = bound(q8.numel() + f8.numel() + 4 * (qs.numel() + fs.numel()) + 2 * n_out,
+                2 * nq * f8.shape[0] * k, torch.int8)
+    # the path it replaces: the bf16 sweep of simsweep_cat_bf16 on the same corpus
+    flat_bf = torch.nn.functional.pad(feat2_cat, (0, 0, 0, SPAN_LP - N_CLIPS)).reshape(-1, k)
+    q_bf = qcat.to(torch.bfloat16)
+    sweep_ms = cuda_ms(lambda: q_bf @ flat_bf.T, reps=3)
+    log("kernels", f"B5 span_sim_cat_i8: Nq={nq} rows={f8.shape[0]} (Nv_pad={nv_pad} x "
+        f"{SPAN_LP}) K={k}: bit-equal over {n_out} outputs, pads exactly zero; {ms:.3f} ms "
+        f"({2 * nq * f8.shape[0] * k / ms / 1e9:.1f} TOPS) vs plain {pms:.3f} ms; "
+        f"{bound_str(bnd)}; the bf16 torch.matmul sweep of simsweep_cat_bf16 on this corpus "
+        f"{sweep_ms:.3f} ms; caches int8 flat {f8.numel() / 1e9:.3f} GB + scales "
+        f"{fs.numel() * 4 / 1e6:.1f} MB vs bf16 {flat_bf.numel() * 2 / 1e9:.3f} GB")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None,
+                replaced_bf16_sweep_ms=sweep_ms, **bnd)
+
+
+def phase_topk_sort(dev, tsort):
+    """Phase 3, B6: the sorting top-k at the engine's five row shapes (and a
+    small and an n <= k shape) against its plain version, values and
+    indices, on rows with planted ties and exact zeros. Times are summed
+    over the five shapes: one query batch's five launches."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    big = torch.randn((8192, 8192), generator=gen, device=dev)
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bound_by="bytes", per_shape={})
+    for n, k in SORT_SHAPES + ((17, 2), (64, 100)):
+        # 65 distinct values, zeros among them: every row is full of ties
+        x = torch.round(torch.rand((N_QUERIES, n), generator=gen, device=dev) * 64) / 64
+        kv, ki = tsort.topk_transposed(x, k)
+        torch.cuda.synchronize()
+        pv, pi = tsort.topk_transposed_plain(x, k)
+        if kv.shape != (N_QUERIES, min(k, n)) or ki.dtype != torch.int32:
+            raise AssertionError(f"B6 ({n}, k={k}): output {tuple(kv.shape)} {ki.dtype}")
+        if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+            raise AssertionError(f"B6 ({n}, k={k}) differs from its plain version")
+        if (n, k) not in SORT_SHAPES:
+            log("kernels", f"B6 topk_transposed ({N_QUERIES}, {n}) k={k}: equal")
+            continue
+        # launches of tens of microseconds: queued behind a ~20 ms product
+        blocker = lambda: torch.mm(big, big)
+        ms, pms = alternate_ms(lambda: tsort.topk_transposed_plain(x, k),
+                               lambda: tsort.topk_transposed(x, k), reps=32, blocker=blocker)
+        lms = cuda_ms(lambda: torch.topk(x, k, dim=-1), reps=32, blocker=blocker)
+        bnd = bound(4 * x.numel() + 8 * kv.numel(), 0)
+        log("kernels", f"B6 topk_transposed ({N_QUERIES}, {n}) k={k}: values and indices "
+            f"equal, ties included; {ms * 1e3:.1f} us vs plain (stable torch.sort) "
+            f"{pms * 1e3:.1f} us vs torch.topk {lms * 1e3:.1f} us; bound "
+            f"{bnd['bound_ms'] * 1e3:.2f} us by bytes")
+        rec["per_shape"][f"{n}_k{k}"] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                                            bound_ms=bnd["bound_ms"])
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("bound_ms", bnd["bound_ms"])):
+            rec[key] += val
+    log("kernels", f"B6, a batch's five launches: {rec['ms'] * 1e3:.1f} us vs plain "
+        f"{rec['plain_ms'] * 1e3:.1f} us vs torch.topk {rec['library_ms'] * 1e3:.1f} us; "
+        f"bound {rec['bound_ms'] * 1e3:.2f} us")
+    return rec
+
+
 def cache_to(cache, dev):
     return dataclasses.replace(cache, **{
         f.name: getattr(cache, f.name).to(dev) for f in dataclasses.fields(cache)
@@ -289,8 +391,15 @@ def phase_end_to_end(dev):
     #   to the neighbouring bf16 (2^-8 relative), moving a 256-term unit
     #   dot by ~3e-5 per rounding, and a span logit by ~1%;
     # - int8 video scores on identical int8 caches: exact, except the
-    #   query flips above (per query).
+    #   query flips above (per query);
+    # - the int8 span modes on identical int8 caches: the integer dots are
+    #   exact, so what differs is a quantized span-query component rounding
+    #   to its neighbour (one step of 127 in one of 512 components) and, in
+    #   the flat mode, the bf16 store: the bf16 tolerance;
+    # - the psort selections: a parity mode, exactly equal to the card's own
+    #   "f32" run on the same cache, and held to the CPU like it.
     base = dict(span_sim_pad_l=128, span_topk_mode="grouped_shift", query_bsz=100)
+    psort = dict(span_topk_mode="grouped_shift_psort", video_topk_psort=True, query_bsz=100)
     runs = [
         # (name, config, q2c tol, span rtol, score the card's cache on the CPU)
         ("int8", RetrievalConfig(video_score_mode="pallas_int8", cache_dtype_str="bfloat16",
@@ -307,7 +416,21 @@ def phase_end_to_end(dev):
                                        cache_dtype_str="bfloat16",
                                        span_score_mode="simsweep_cat_bf16", **base),
          5e-4, 3e-2, False),
+        ("int8_all_psort", RetrievalConfig(video_score_mode="pallas_int8",
+                                           cache_dtype_str="bfloat16",
+                                           span_score_mode="simsweep_cat_int8_flat", **psort),
+         int8_tol, 3e-2, True),
+        ("int8_span", RetrievalConfig(video_score_mode="pallas_int8", cache_dtype_str="bfloat16",
+                                      span_score_mode="simsweep_cat_int8",
+                                      span_topk_mode="grouped_shift", query_bsz=100),
+         int8_tol, 3e-2, True),
+        ("f32_psort", RetrievalConfig(video_score_mode="pallas", cache_dtype_str="float32",
+                                      span_score_mode="simsweep_cat", span_sim_pad_l=128,
+                                      **psort),
+         1e-6, 3e-5, False),
     ]
+    parity = {"f32_psort": "f32"}        # run -> the exact run it must equal on the card
+    kept = {}
     clip = world.clip_length
     span_key = lambda v, s: ((v.astype(np.int64) * 1000 + np.rint(s[..., 0] / clip)) * 1000
                              + np.rint(s[..., 1] / clip))
@@ -315,10 +438,24 @@ def phase_end_to_end(dev):
     for name, rcfg, q2c_tol, span_rtol, share_cache in runs:
         t0 = time.perf_counter()
         cache_gpu = encode_corpus(model_gpu, builder, world.corpus, rcfg)
+        if name in parity:
+            # score the exact run's own cache, so that only the selection differs
+            cache_gpu, ref_out = kept[parity[name]]
         gpu = retrieve(model_gpu, builder, cache_gpu, rows, world.corpus, rcfg,
                        return_arrays=True)
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
+        if name in parity:
+            for task, arrays in gpu.items():
+                for a, b in zip(arrays, ref_out[task]):
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"{name} {task}: the psort selection differs "
+                                             f"from the card's own {parity[name]} result")
+            note_parity = f"; equal to the card's {parity[name]} run in every array"
+        else:
+            note_parity = ""
+        if name in parity.values():
+            kept[name] = (cache_gpu, gpu)
         cache_cpu = encode_corpus(model_cpu, builder, world.corpus, rcfg)
         note = ""
         if share_cache:
@@ -326,8 +463,9 @@ def phase_end_to_end(dev):
             # kernel video scores see identical inputs; report the flips
             n_flip = sum(int((getattr(cache_cpu, k) != getattr(cache_gpu, k).cpu()).sum())
                          for k in ("video_feat1", "sub_feat1"))
-            note = f", int8 cache bytes differing between devices: {n_flip}"
+            note = f", int8 feat1 cache bytes differing between devices: {n_flip}"
             cache_cpu = cache_to(cache_gpu, "cpu")
+        note += note_parity
         cpu = retrieve(model_cpu, builder, cache_cpu, rows, world.corpus, rcfg,
                        return_arrays=True)
         for task, (vid, spans, scores) in gpu.items():
@@ -368,22 +506,18 @@ def phase_end_to_end(dev):
 
 
 def phase_throughput(dev, kernel_rec, profile_dir):
-    """Phase 5: _score_query_batch at the full corpus in the exact
-    flagship modes (the bench.py cache, synthesized on the card)."""
+    """Phase 5: _score_query_batch at the full corpus (the bench.py cache,
+    synthesized on the card) in two configurations: the exact flagship
+    modes over bf16 feat2, and the all-int8 psort modes over the int8 flat
+    feat2 cache. Returns the kernel launches summed over both."""
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
     from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import sort as tsort
     from tvretrieval_tpu_torch.ops import video_score as vs
     from tvretrieval_tpu_torch.retrieval.engine import (
         RetrievalConfig, _maybe_pad_clip_axis, _score_query_batch)
 
-    rcfg = RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_bf16",
-                           video_score_mode="pallas_int8", span_topk_mode="grouped_shift",
-                           span_sim_pad_l=128, video_chunk_v=CHUNK_V)
     nv, nq = N_VIDEOS_FULL, N_QUERIES
-    nv_pad = -(-nv // CHUNK_V) * CHUNK_V
-    log("throughput", f"memory reckoning: int8 flat feat1 2 x {nv_pad * LP * HIDDEN / 2**30:.2f} GiB, "
-        f"bf16 feat2_cat {nv * 128 * 2 * HIDDEN * 2 / 2**30:.2f} GiB, bf16 similarity "
-        f"({nq}, {nv}, 128) {nq * nv * 128 * 2 / 2**30:.2f} GiB")
     cfg = XMLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768,
                     hidden_size=HIDDEN, n_heads=4, max_ctx_l=N_CLIPS, max_desc_l=30)
     model = XML(cfg).init_weights(torch.Generator().manual_seed(0)).eval().to(dev)
@@ -395,52 +529,92 @@ def phase_throughput(dev, kernel_rec, profile_dir):
                                 mask, chunk_v=CHUNK_V)
         feat1.append(vs.quantize_unit_i8(f))
         del f
-    feat2_cat = _maybe_pad_clip_axis(torch.cat(
+    feat2_raw = torch.cat(
         [torch.randn((nv, N_CLIPS, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
-         for _ in range(2)], dim=-1), rcfg)
+         for _ in range(2)], dim=-1)
     q_feat = torch.randn((nq, 30, 768), generator=gen, device=dev)
     q_mask = torch.ones((nq, 30), device=dev)
     gt = torch.zeros((nq,), dtype=torch.long, device=dev)
-    run = lambda: _score_query_batch(model, rcfg, q_feat, q_mask, feat1[0], None, feat1[1],
-                                     None, mask, gt, True, feat2_cat=feat2_cat)
-    torch.cuda.reset_peak_memory_stats(dev)
-    vs.reset_launch_counts()
-    gt_ops.reset_launch_counts()
-    for _ in range(WARMUP_RUNS):
-        out = run()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(TIMED_RUNS):
-        out = run()
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / TIMED_RUNS
-    launches = {**vs.LAUNCHES, **gt_ops.LAUNCHES}
-    want = {"video_scores_flat_i8": WARMUP_RUNS + TIMED_RUNS, "video_scores_flat": 0,
-            "video_scores_flat_bmax": 0, "gather_byte_rows": 0}
-    if launches != want:
-        raise AssertionError(f"throughput run: kernel launches {launches}, expected {want}")
-    for k, v in out.items():
-        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"throughput run: non-finite {k}")
-    if (out["vcmr_scores"].shape != (nq, rcfg.max_before_nms)
-            or out["topv_idx"].shape != (nq, min(rcfg.max_vcmr_video, nv))):
-        raise AssertionError("throughput run: unexpected output shapes")
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    log("throughput", f"_score_query_batch Nq={nq} x Nv={nv}: {ms:.2f} ms per batch = "
-        f"{nq * 1000.0 / ms:.1f} q/s ({TIMED_RUNS} timed runs after {WARMUP_RUNS}); "
-        f"peak memory {peak:.2f} GiB; B1 at this shape {kernel_rec['B1']['ms']:.3f} ms "
-        f"vs plain {kernel_rec['B1']['plain_ms']:.3f} ms; launches {launches}")
-    if profile_dir:
-        from torch.profiler import ProfilerActivity, profile
-        os.makedirs(profile_dir, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(os.path.join(profile_dir, "score_query_batch.json"))
-        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25), flush=True)
-    return launches
+    n_runs = WARMUP_RUNS + TIMED_RUNS
+    no_launch = {"video_scores_flat": 0, "video_scores_flat_bmax": 0, "gather_byte_rows": 0}
+    configs = [
+        ("bf16 flagship",
+         RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_bf16",
+                         video_score_mode="pallas_int8", span_topk_mode="grouped_shift",
+                         span_sim_pad_l=128, video_chunk_v=CHUNK_V),
+         {"video_scores_flat_i8": n_runs, "span_sim_cat_i8": 0, "topk_transposed": 0}),
+        ("all-int8 psort",
+         RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_int8_flat",
+                         video_score_mode="pallas_int8", span_topk_mode="grouped_shift_psort",
+                         video_topk_psort=True, video_chunk_v=CHUNK_V),
+         {"video_scores_flat_i8": n_runs, "span_sim_cat_i8": n_runs,
+          "topk_transposed": 5 * n_runs}),
+    ]
+    feat1_bytes = sum(f.numel() for f in feat1)
+    total = {}
+    for name, rcfg, want in configs:
+        if rcfg.span_score_mode == "simsweep_cat_int8_flat":
+            feat2_cat, feat2_scale = vs.build_flat_feat2_i8(feat2_raw, chunk_v=CHUNK_V)
+            feat2_bytes = feat2_cat.numel() + 4 * feat2_scale.numel()
+        else:
+            feat2_cat, feat2_scale = _maybe_pad_clip_axis(feat2_raw, rcfg), None
+            feat2_bytes = 2 * feat2_cat.numel()
+        run = lambda: _score_query_batch(model, rcfg, q_feat, q_mask, feat1[0], None, feat1[1],
+                                         None, mask, gt, True, feat2_cat=feat2_cat,
+                                         feat2_cat_scale=feat2_scale)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = (torch.cuda.memory_allocated(dev) - feat2_raw.numel() * 2) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        for ops in (vs, gt_ops, tsort):
+            ops.reset_launch_counts()
+        for _ in range(WARMUP_RUNS):
+            out = run()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(TIMED_RUNS):
+            out = run()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / TIMED_RUNS
+        launches = {**vs.LAUNCHES, **gt_ops.LAUNCHES, **tsort.LAUNCHES}
+        if launches != {**no_launch, **want}:
+            raise AssertionError(f"throughput run ({name}): kernel launches {launches}, "
+                                 f"expected {({**no_launch, **want})}")
+        for k, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"throughput run ({name}): non-finite {k}")
+        if (out["vcmr_scores"].shape != (nq, rcfg.max_before_nms)
+                or out["topv_idx"].shape != (nq, min(rcfg.max_vcmr_video, nv))):
+            raise AssertionError(f"throughput run ({name}): unexpected output shapes")
+        # the seeded random feat2 stays on the card beside the cache built
+        # from it; a deployment holds the cache alone, so take it off
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 - feat2_raw.numel() * 2 / 2**30
+        log("throughput", f"{name} ({rcfg.video_score_mode} + {rcfg.span_score_mode} + "
+            f"{rcfg.span_topk_mode}{' + video_topk_psort' if rcfg.video_topk_psort else ''}) "
+            f"Nq={nq} x Nv={nv}: {ms:.2f} ms per batch = {nq * 1000.0 / ms:.1f} q/s "
+            f"({TIMED_RUNS} timed runs after {WARMUP_RUNS}); caches feat1 int8 "
+            f"{feat1_bytes / 1e9:.3f} GB + feat2 {feat2_bytes / 1e9:.3f} GB; peak memory "
+            f"{peak:.2f} GiB ({held:.2f} GiB held before the first batch); launches per "
+            f"batch {({k: v // n_runs for k, v in launches.items() if v})}")
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+            os.makedirs(profile_dir, exist_ok=True)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(os.path.join(
+                profile_dir, f"score_query_batch_{name.replace(' ', '_')}.json"))
+            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+                                            max_name_column_width=60), flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del feat2_cat, feat2_scale, out, run
+    log("throughput", f"B1 at this shape {kernel_rec['B1']['ms']:.3f} ms, B5 "
+        f"{kernel_rec['B5']['ms']:.3f} ms, B6's five launches {kernel_rec['B6']['ms']:.3f} ms "
+        f"(phase 3); launches over both configurations {total}")
+    return total
 
 
 def phase_gather(dev, gt):
@@ -537,7 +711,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     t2 = time.perf_counter()
     v_bytes, s_bytes = dd.ctx_device["v_bytes"], dd.ctx_device["s_bytes"]
     if (tuple(v_bytes.shape[1:]), tuple(s_bytes.shape[1:])) != \
-            ((8, GATHER_W["video"]), (8, GATHER_W["sub"])) or not dd.use_kernel:
+            ((8, GATHER_W["video"]), (8, GATHER_W["sub"])) or dd.device.type != "cuda":
         raise AssertionError(f"resident tables {tuple(v_bytes.shape)} {tuple(s_bytes.shape)}")
     log("train", f"world {TRAIN_VIDEOS} videos x {N_CLIPS} clips (3072 / 768 features), "
         f"{n_train} + {len(eval_rows)} queries, built in {t1 - t0:.1f} s; resident float8 "
@@ -568,7 +742,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     for name, model, ctx, device in (("card", trainer.model.eval(), dd.ctx_device, dev),
                                      ("cpu", model_cpu, ctx_cpu, "cpu")):
         on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        akw = dict(dd.assemble_kwargs, use_kernel=name == "card")
+        akw = dd.assemble_kwargs
         gt.reset_launch_counts()
         with torch.no_grad():
             batch = assemble_batch(ctx, *map(on, chunk), max_desc_l=30, **akw)
@@ -690,6 +864,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import gather as gt
+    from tvretrieval_tpu_torch.ops import sort as tsort
     from tvretrieval_tpu_torch.ops import video_score as vs
 
     dev = torch.device("cuda", 0)
@@ -710,10 +885,15 @@ def main() -> int:
 
     rec = phase_kernels(dev, vs)
     torch.cuda.empty_cache()
+    rec["B5"] = phase_span_sim(dev, vs)
+    torch.cuda.empty_cache()
+    rec["B6"] = phase_topk_sort(dev, tsort)
+    torch.cuda.empty_cache()
 
     vs.reset_launch_counts()
+    tsort.reset_launch_counts()
     metrics = phase_end_to_end(dev)
-    launches = dict(vs.LAUNCHES)
+    launches = {**vs.LAUNCHES, **tsort.LAUNCHES}
     log("e2e", f"kernel launches on the main path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
@@ -732,11 +912,14 @@ def main() -> int:
            if m.split(".")[0] in ("jax", "flax", "optax", "tvretrieval_tpu")]
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
-    vs_src, gt_src = (f"tvretrieval_tpu_torch/csrc/{n}.cu" for n in ("video_score", "gather"))
+    vs_src, gt_src, ss_src, ts_src = (f"tvretrieval_tpu_torch/csrc/{n}.cu" for n in (
+        "video_score", "gather", "span_sim", "topk_sort"))
     table = [("B1", "video_scores_flat_i8", vs_src, "tvretrieval_tpu/ops/pallas_score.py:363"),
              ("B2", "video_scores_flat", vs_src, "tvretrieval_tpu/ops/pallas_score.py:133"),
              ("B3", "video_scores_flat_bmax", vs_src, "tvretrieval_tpu/ops/pallas_score.py:290"),
-             ("B4", "gather_byte_rows", gt_src, "tvretrieval_tpu/ops/pallas_gather.py:183")]
+             ("B4", "gather_byte_rows", gt_src, "tvretrieval_tpu/ops/pallas_gather.py:183"),
+             ("B5", "span_sim_cat_i8", ss_src, "tvretrieval_tpu/ops/pallas_score.py:437"),
+             ("B6", "topk_transposed", ts_src, "tvretrieval_tpu/ops/pallas_sort.py:171")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,

@@ -140,18 +140,27 @@ def test_assemble_context_slice_equals_gathered_rows():
 
 
 def test_gather_rows_kernel_flag_follows_the_device():
-    table = torch.zeros(4, 8, 128, dtype=torch.int8)
+    """No flag chooses between the gather kernel and its plain version: the
+    table's device does. A CPU table takes the plain version (no launch is
+    counted) and the assembly functions take no ``use_kernel``."""
+    from tvretrieval_tpu_torch.ops import gather as gt
+    table = torch.arange(4 * 8 * 128, dtype=torch.int32).to(torch.int8).view(4, 8, 128)
     idx = torch.tensor([1, 3], dtype=torch.int32)
-    assert tdc.gather_rows(table, idx, use_kernel=False).shape == (2, 8, 128)
-    with pytest.raises(ValueError, match="use_kernel"):
-        tdc.gather_rows(table, idx, use_kernel=True)
+    gt.reset_launch_counts()
+    assert torch.equal(tdc.gather_byte_rows(table, idx), table[idx.long()])
+    assert gt.LAUNCHES["gather_byte_rows"] == 0
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tdc.gather_byte_rows(table.to("meta"), idx.to("meta"))
+    with pytest.raises(TypeError, match="use_kernel"):
+        tdc.assemble_context({}, idx, dtype_name="float16", use_video=True, use_sub=True,
+                             use_tef=True, v_shape=(1, 1), s_shape=(1, 1), use_kernel=False)
 
 
 def test_build_device_data_cpu():
     _, (tw, tb) = _worlds()
     dd = tdc.build_device_data(tb, tw.corpus, tw.annotations[:30], tw.annotations[30:],
                                dtype_name="float16", device="cpu")
-    assert not dd.use_kernel and dd.device.type == "cpu"
+    assert not hasattr(dd, "use_kernel") and dd.device.type == "cpu"
     assert dd.retrieval_queries is dd.eval_queries and len(dd.train_queries.q_len) == 30
     assert dd.ctx_device["v_bytes"].dtype == torch.int8
     assert dd.assemble_kwargs["v_shape"] == (12, 34)

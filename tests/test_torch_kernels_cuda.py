@@ -7,6 +7,11 @@ tail, lp = 8, and block maxima whose chunk is not a power of two or spans
 several warps. Byte-row gather (B4, csrc/gather.cu): one index to a
 thousand, rows of one to nineteen 16 KiB segments, duplicate and boundary
 indices, a strided and an int64 index tensor, an index outside the table.
+Span similarity (B5, csrc/span_sim.cu): query counts off the 64-query tile,
+row counts off the 256-row tile, K with a tail past one 64-byte stage,
+lp = 4 to 256, bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
+and one below a power of two, k = n - 1, k >= n, all-equal rows, rows with
+fewer than k finite values, rows past one launch's limit.
 
 Every test carries the ``cuda`` marker and skips (its ``dev`` fixture)
 without a CUDA card. Imports no JAX, so on a machine with the card it runs
@@ -20,6 +25,7 @@ import pytest
 import torch
 
 from tvretrieval_tpu_torch.ops import gather as gt
+from tvretrieval_tpu_torch.ops import sort as tsort
 from tvretrieval_tpu_torch.ops import video_score as vs
 
 F32_ATOL = 1e-5     # f32 summation order of unit-vector dots
@@ -191,3 +197,127 @@ def test_b4_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="aligned"):
         gt.gather_byte_rows(_table(dev, 11, 136)[0].view(-1)[8:8 + 10 * 8 * 128]
                             .view(10, 8, 128), idx)
+
+
+# ------------------------------------------------------------------ B5
+@pytest.mark.parametrize("nq,nv,L,k,lp,chunk_v", [
+    (1, 3, 7, 16, 8, 1),             # one query, 24 rows, one 16-byte piece of K
+    (70, 37, 12, 32, 128, 8),        # queries and rows off the block tile
+    (130, 16, 100, 512, 128, 16),    # the flagship row shape
+    (65, 9, 20, 80, 24, 3),          # K = 80: a tail past one 64-byte stage
+    (64, 5, 3, 64, 4, 1),            # lp = 4: 20 rows
+    (33, 4, 100, 48, 256, 4),
+])
+def test_b5_span_sim_bit_equal(dev, nq, nv, L, k, lp, chunk_v):
+    g = torch.Generator(device=dev).manual_seed(nq + nv)
+    feat2 = torch.randn(nv, L, k, generator=g, device=dev) * 3.0
+    feat2[nv // 2, L // 2] = 0.0                       # an all-zero row
+    f8, fs = vs.build_flat_feat2_i8(feat2, lp=lp, chunk_v=chunk_v)
+    q8, qs = vs.quantize_rows_i8(torch.randn(nq, k, generator=g, device=dev))
+    n0 = vs.LAUNCHES["span_sim_cat_i8"]
+    out = vs.span_sim_cat_i8(q8, qs[:, None], f8, fs, lp=lp)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["span_sim_cat_i8"] == n0 + 1
+    ref = vs.span_sim_int8_xla(q8, qs[:, None], f8, fs, lp=lp)
+    assert out.shape == ref.shape == (nq, f8.shape[0] // lp, lp) and out.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert not out[:, :, L:].any() and not out[:, nv:].any()
+    # extreme bytes: every product 127 * 127, the largest sum K * 127^2
+    q8.fill_(127)
+    f8[:lp].fill_(-127)
+    out = vs.span_sim_cat_i8(q8, qs[:, None], f8, fs, lp=lp)
+    ref = vs.span_sim_int8_xla(q8, qs[:, None], f8, fs, lp=lp)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+def test_b5_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q8 = torch.zeros(2, 16, dtype=torch.int8, device=dev)
+    qs = torch.ones(2, 1, device=dev)
+    f8 = torch.zeros(4 * 8, 16, dtype=torch.int8, device=dev)
+    fs = torch.ones(4, 8, device=dev)
+    assert vs.span_sim_cat_i8(q8, qs, f8, fs, lp=8).shape == (2, 4, 8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        vs.span_sim_cat_i8(q8, qs, f8[:4 * 6], fs[:, :6].contiguous(), lp=6)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        vs.span_sim_cat_i8(q8[:, :8].contiguous(), qs, f8[:, :8].contiguous(), fs, lp=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        vs.span_sim_cat_i8(q8, qs, torch.zeros(32, 32, dtype=torch.int8, device=dev)[:, ::2],
+                           fs, lp=8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        vs.span_sim_cat_i8(q8.cpu(), qs.cpu(), f8, fs, lp=8)
+    with pytest.raises(TypeError):
+        vs.span_sim_cat_i8(q8.float(), qs, f8, fs, lp=8)
+
+
+# ------------------------------------------------------------------ B6
+def _rows(dev, nq, n, seed, ties):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(nq, n, generator=g, device=dev)
+    return torch.round(x * 4) / 4 if ties else x      # ties: 5 values, exact zeros
+
+
+def _same(x, k):
+    n0 = tsort.LAUNCHES["topk_transposed"]
+    kv, ki = tsort.topk_transposed(x, k)
+    torch.cuda.synchronize()
+    assert tsort.LAUNCHES["topk_transposed"] > n0
+    pv, pi = tsort.topk_transposed_plain(x, k)
+    assert kv.dtype == torch.float32 and ki.dtype == torch.int32
+    assert kv.shape == ki.shape == (x.shape[0], min(k, x.shape[1]))
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    return kv, ki
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n,k", [
+    (1, 1), (2, 1), (17, 2), (31, 30), (33, 32), (129, 100), (127, 126), (1024, 200),
+    (1025, 1024), (1364, 100), (2800, 200), (4095, 7), (4097, 200), (9000, 300),
+    (16384, 100), (64, 64), (40, 100)])
+def test_b6_topk_equals_plain(dev, n, k, ties):
+    _same(_rows(dev, 37, n, n + k, ties), k)
+
+
+def test_b6_equal_rows_and_rows_short_of_finite_values(dev):
+    x = torch.full((5, 300), -math.inf, device=dev)
+    x[0, [3, 7, 250]] = torch.tensor([1.0, 1.0, 2.0], device=dev)
+    x[1] = 0.25                                       # all equal: index order
+    x[2, 299] = -0.0
+    x[3, ::7] = 0.0
+    _, ki = _same(x, 120)
+    assert ki[0, :5].tolist() == [250, 3, 7, 0, 1] and ki[1, :4].tolist() == [0, 1, 2, 3]
+    _same(x.to(torch.bfloat16), 50)                   # the wrapper widens to f32
+    _same(x[:, ::2], 50)                              # and compacts a strided row
+
+
+@pytest.mark.parametrize("n,k", [(16385, 100), (40000, 200), (70000, 8192)])
+def test_b6_rows_longer_than_one_launch(dev, n, k):
+    """Chunks of MAX_ROW, then a second launch over the survivors."""
+    x = _rows(dev, 3, n, n, True)
+    x[0, n - 5:] = -math.inf
+    n0 = tsort.LAUNCHES["topk_transposed"]
+    _same(x, k)
+    assert tsort.LAUNCHES["topk_transposed"] >= n0 + 2
+    with pytest.raises(ValueError, match=str(tsort.MAX_ROW // 2)):
+        tsort.topk_transposed(x, tsort.MAX_ROW // 2 + 1)
+
+
+def test_b6_psort_span_ops_equal_the_plain_selections(dev):
+    from tvretrieval_tpu_torch.ops import span as ts
+    x = _rows(dev, 50, 21818, 1, True)
+    n0 = tsort.LAUNCHES["topk_transposed"]
+    kv, ki = ts.topk_stable_blocked_psort(x, 100, block=16)
+    assert tsort.LAUNCHES["topk_transposed"] == n0 + 2
+    pv, pi = ts.topk_stable_blocked(x, 100, block=16)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+    g = torch.Generator(device=dev).manual_seed(2)
+    st, ed = (torch.softmax(torch.round(torch.randn(20, 100, 100, generator=g, device=dev)), -1)
+              for _ in range(2))
+    vsc = torch.exp(torch.round(torch.rand(20, 100, generator=g, device=dev) * 8) / 4)
+    keep = (torch.rand(20, 100, generator=g, device=dev) < 0.7).float()
+    for km in (None, keep):
+        n0 = tsort.LAUNCHES["topk_transposed"]
+        a = ts.banded_topk_spans_grouped_shift_psort(st, ed, vsc, 2, 16, 200, keep_mask=km)
+        assert tsort.LAUNCHES["topk_transposed"] == n0 + 3
+        b = ts.banded_topk_spans_grouped_shift(st, ed, vsc, 2, 16, 200, keep_mask=km)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)

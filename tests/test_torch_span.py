@@ -132,3 +132,65 @@ def test_band_helpers_match():
                                   js.min_max_length_mask(10, 2, 6))
     for a, b in zip(ts._band_indices(10, 2, 6), js._band_indices(10, 2, 6)):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- the span ops with no engine caller: exactly equal, planted ties
+@pytest.mark.parametrize("L,min_l,max_l,top_n,ties", [(14, 1, 8, 50, False),
+                                                       (12, 2, 6, 30, True)])
+def test_top_spans_from_probs_matches(L, min_l, max_l, top_n, ties):
+    st, ed, _ = _probs(np.random.default_rng(L + 1), 1, 5, L, ties)
+    st, ed = st[0], ed[0]
+    lm = js.min_max_length_mask(L, min_l, max_l)
+    jo = js.top_spans_from_probs(jnp.asarray(st), jnp.asarray(ed), jnp.asarray(lm), top_n)
+    to = ts.top_spans_from_probs(T(st), T(ed), T(lm), top_n)
+    for a, b in zip(jo, to):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("nq,v,L,min_l,max_l,top_n,ties,keep", [
+    (3, 9, 14, 1, 8, 50, False, False),
+    (2, 7, 12, 2, 6, 40, True, False),
+    (3, 9, 14, 1, 8, 50, True, True),
+    (2, 2, 5, 1, 4, 30, True, False),      # band smaller than top_n: zero pad
+])
+def test_banded_topk_spans_flat_and_two_stage_match(nq, v, L, min_l, max_l, top_n, ties, keep):
+    rng = np.random.default_rng(nq * 7 + v)
+    st, ed, vs = _probs(rng, nq, v, L, ties)
+    km = (rng.random((nq, v)) < 0.6).astype(np.float32) if keep else None
+    jo = js.banded_topk_spans(jnp.asarray(st), jnp.asarray(ed), jnp.asarray(vs), min_l, max_l,
+                              top_n, keep_mask=None if km is None else jnp.asarray(km))
+    to = ts.banded_topk_spans(T(st), T(ed), T(vs), min_l, max_l, top_n,
+                              keep_mask=None if km is None else T(km))
+    for a, b in zip(jo, to):
+        _eq(a, b)
+    if not keep:
+        j2 = js.banded_topk_spans_two_stage(jnp.asarray(st), jnp.asarray(ed), jnp.asarray(vs),
+                                            min_l, max_l, top_n)
+        t2 = ts.banded_topk_spans_two_stage(T(st), T(ed), T(vs), min_l, max_l, top_n)
+        for a, b in zip(j2, t2):
+            _eq(a, b)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_flat_topk_spans_matches(ties):
+    joint = _scores(np.random.default_rng(3), (3, 4, 9, 9), ties)
+    jo = js.flat_topk_spans(jnp.asarray(joint), 40)
+    to = ts.flat_topk_spans(T(joint), 40)
+    for a, b in zip(jo, to):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("nv,block", [(37, 8), (16, 2048), (50, 16)])
+def test_chunked_masked_max_scores_matches(nv, block):
+    """Small integers keep every product and partial sum exact in f32, so
+    the two frameworks' sums agree exactly whatever their order."""
+    rng = np.random.default_rng(nv)
+    q = rng.integers(-4, 5, size=(6, 16)).astype(np.float32)
+    f = rng.integers(-4, 5, size=(nv, 11, 16)).astype(np.float32)
+    mask = (np.arange(11)[None] < rng.integers(0, 12, size=(nv, 1))).astype(np.float32)
+    jo = js.chunked_masked_max_scores(jnp.asarray(q), jnp.asarray(f), jnp.asarray(mask),
+                                      block=block)
+    to = ts.chunked_masked_max_scores(T(q), T(f), T(mask), block=block)
+    _eq(jo, to)
+    ref = (np.einsum("md,nld->mnl", q, f) * mask[None] + (1 - mask[None]) * -1e10).max(-1)
+    np.testing.assert_array_equal(to.numpy(), ref.astype(np.float32))

@@ -7,9 +7,11 @@ name. It imports nothing of the JAX package, not even a module there that
 imports no JAX: it keeps its own copy of the numpy-only host modules
 (``data``, ``evaluation``, ``utils``). Only the tests import both.
 
-Ported so far: exact full-corpus XML retrieval (``retrieval.engine``) with
-the hand-written CUDA video-score kernels (``csrc/video_score.cu``,
-``ops.video_score``), and XML training (``training.train_xml``,
+Ported so far: full-corpus XML retrieval (``retrieval.engine``) in every
+exact and int8 engine mode, with the hand-written CUDA video-score kernels
+(``csrc/video_score.cu``, ``ops.video_score``), int8 span sweep
+(``csrc/span_sim.cu``, ``ops.video_score``) and sorting top-k
+(``csrc/topk_sort.cu``, ``ops.sort``), and XML training (``training.train_xml``,
 ``training.xml_trainer``) on host-built batches or on the GPU-resident
 corpus (``data.device_corpus``) with the hand-written CUDA byte-row gather
 (``csrc/gather.cu``, ``ops.gather``).

@@ -135,16 +135,6 @@ def from_byte_rows(rows: torch.Tensor, L: int, D: int, dtype_name: str) -> torch
     return flat.view(dt).reshape(B, L, D)
 
 
-def gather_rows(table: torch.Tensor, slots: torch.Tensor, use_kernel: bool) -> torch.Tensor:
-    """(N, 8, W) byte-table row gather. ``use_kernel`` is true exactly when
-    the table lies on a CUDA device: the wrapper then launches the gather
-    kernel or raises, and on the CPU runs its plain version."""
-    if use_kernel != (table.device.type == "cuda"):
-        raise ValueError(f"gather_rows: use_kernel={use_kernel} with a table on "
-                         f"{table.device}; the kernel runs exactly for CUDA tables")
-    return gather_byte_rows(table, slots)
-
-
 @dataclass
 class ContextTable:
     """Host-built, corpus-ordered context feature block.
@@ -279,25 +269,26 @@ def _finish_context(v, s, n, *, use_video: bool, use_sub: bool, use_tef: bool):
 
 def assemble_context(ctx: Dict[str, torch.Tensor], slots: torch.Tensor, *,
                      dtype_name: str, use_video: bool, use_sub: bool, use_tef: bool,
-                     v_shape, s_shape, use_kernel: bool = False):
+                     v_shape, s_shape):
     """Gather + dequantize context rows for ``slots`` (B,), recomputing TEF
     exactly and the mask from clip counts. Returns (video_feat, video_mask,
     sub_feat, sub_mask) matching ExampleBuilder.context + _pad_to output
-    bit for bit under float32 storage."""
+    bit for bit under float32 storage. The rows are gathered by
+    ``ops.gather.gather_byte_rows``: the CUDA kernel for tables on a card,
+    its plain version on the CPU."""
     v = dequantize(from_byte_rows(
-        gather_rows(ctx["v_bytes"], slots, use_kernel), *v_shape, dtype_name), dtype_name)
+        gather_byte_rows(ctx["v_bytes"], slots), *v_shape, dtype_name), dtype_name)
     s = dequantize(from_byte_rows(
-        gather_rows(ctx["s_bytes"], slots, use_kernel), *s_shape, dtype_name), dtype_name)
+        gather_byte_rows(ctx["s_bytes"], slots), *s_shape, dtype_name), dtype_name)
     n = ctx["ctx_l"][slots.long()]
     return _finish_context(v, s, n, use_video=use_video, use_sub=use_sub, use_tef=use_tef)
 
 
 def assemble_context_slice(ctx: Dict[str, torch.Tensor], start: int, size: int, *,
                            dtype_name: str, use_video: bool, use_sub: bool,
-                           use_tef: bool, v_shape, s_shape, use_kernel: bool = False):
+                           use_tef: bool, v_shape, s_shape):
     """Contiguous-chunk variant for corpus encoding: a slice of the byte
     tables (a view, no gather)."""
-    del use_kernel
     sl = lambda t: t[start:start + size]
     v = dequantize(from_byte_rows(sl(ctx["v_bytes"]), *v_shape, dtype_name), dtype_name)
     s = dequantize(from_byte_rows(sl(ctx["s_bytes"]), *s_shape, dtype_name), dtype_name)
@@ -321,13 +312,12 @@ def assemble_queries(q_feat: torch.Tensor, q_len: torch.Tensor, *, dtype_name: s
 
 def assemble_batch(ctx: Dict[str, torch.Tensor], q_feat, q_len, slots, st_ed, *,
                    dtype_name: str, use_video: bool, use_sub: bool, use_tef: bool,
-                   max_desc_l: int, v_shape, s_shape,
-                   use_kernel: bool = False) -> Dict[str, torch.Tensor]:
+                   max_desc_l: int, v_shape, s_shape) -> Dict[str, torch.Tensor]:
     """Full on-device train / eval-loss batch (ExampleBuilder.build_train_batch
     equivalent; exactness-tested under float32 storage)."""
     v, mask, s, _ = assemble_context(
         ctx, slots, dtype_name=dtype_name, use_video=use_video, use_sub=use_sub,
-        use_tef=use_tef, v_shape=v_shape, s_shape=s_shape, use_kernel=use_kernel)
+        use_tef=use_tef, v_shape=v_shape, s_shape=s_shape)
     q, q_mask = assemble_queries(q_feat, q_len, dtype_name=dtype_name,
                                  max_desc_l=max_desc_l)
     return dict(query_feat=q, query_mask=q_mask, video_feat=v, video_mask=mask,
@@ -343,7 +333,6 @@ class DeviceData:
     train_queries: Optional[QueryTable] = None
     eval_queries: Optional[QueryTable] = None       # train-style labels (loss)
     retrieval_queries: Optional[QueryTable] = None  # same features; labels unused
-    use_kernel: bool = False   # the CUDA gather kernel vs its plain version (CPU)
 
     @property
     def device(self) -> torch.device:
@@ -353,7 +342,7 @@ class DeviceData:
     def assemble_kwargs(self) -> dict:
         t = self.ctx_table
         return dict(dtype_name=t.dtype_name, use_video=t.use_video, use_sub=t.use_sub,
-                    use_tef=t.use_tef, use_kernel=self.use_kernel, **t.shapes)
+                    use_tef=t.use_tef, **t.shapes)
 
 
 def build_device_data(builder: ExampleBuilder, corpus: CorpusIndex,
@@ -372,10 +361,9 @@ def build_device_data(builder: ExampleBuilder, corpus: CorpusIndex,
     logger.info("query tables built in %.0fs", time.time() - t0)
     t0 = time.time()
     dev = ctx.device_arrays(device)
-    use_kernel = dev["v_bytes"].device.type == "cuda"
-    if use_kernel:
+    if dev["v_bytes"].device.type == "cuda":
         torch.cuda.synchronize(dev["v_bytes"].device)
     logger.info("context block resident on %s (%.1f GB, %.0fs)", dev["v_bytes"].device,
                 ctx.nbytes() / 1e9, time.time() - t0)
     return DeviceData(ctx_table=ctx, ctx_device=dev, train_queries=tq, eval_queries=eq,
-                      retrieval_queries=eq, use_kernel=use_kernel)
+                      retrieval_queries=eq)

@@ -5,8 +5,9 @@ Port of tvretrieval_tpu/models/xml.py for the flagship configuration
 ConvSE conv pair): dual video/subtitle context encoders with
 cross-attention (reference model_xml.py:344-375), the modular query
 encoder (:399-423), video-level cosine scores (:436-453), the merged
-ConvSE span logits (:455-502) in their per-pair, gathered-rows and
-concatenated-sweep forms, and the training forward with its span
+ConvSE span logits (:455-502) in their per-pair, gathered-rows, two-stream
+sweep, concatenated-sweep and int8-sweep forms, and the training forward
+with its span
 cross-entropy and in-batch ranking losses (:212-251, :588-637).
 
 Dropout follows ``model.train()`` / ``model.eval()``. Every other
@@ -30,6 +31,7 @@ from tvretrieval_tpu_torch.models.components import (
     init_like_flax,
 )
 from tvretrieval_tpu_torch.ops.masking import mask_logits
+from tvretrieval_tpu_torch.ops.video_score import quantize_rows_i8, span_sim_cat_i8
 
 
 @dataclass(frozen=True)
@@ -224,6 +226,38 @@ class XML(nn.Module):
         st, ed = self._merged_span_conv((sim_v + sim_s) / 2)
         return mask_logits(st, mask_g), mask_logits(ed, mask_g)
 
+    def _finish_span_logits(self, sim, context_mask, gather_idx):
+        """Gather each query's rows ``gather_idx`` of a corpus-wide
+        (Nq, Nv, >= L) similarity, cut the clip axis to the mask's L, and
+        run the ConvSE conv and the mask on the (Nq, V, L) f32 rows."""
+        rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
+        L = context_mask.shape[1]
+        similarity = sim[rows, gather_idx][:, :, :L].float()
+        mask_g = context_mask[gather_idx]
+        st, ed = self._merged_span_conv(similarity)
+        return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+
+    def merged_st_ed_scores_simgather(self, video_query, video_feat2, sub_query,
+                                      sub_feat2, context_mask, gather_idx):
+        """Span logits of each query's selected videos from a corpus-wide
+        similarity sweep per stream and a row gather of the similarities
+        (engine span mode "simsweep"; JAX xml.py:359-398). Equal to
+        ``merged_st_ed_scores_gathered`` on rows ``gather_idx`` up to the
+        summation order of the products: the stream merge (v + s) / 2 runs
+        after the gather on f32 values, and the conv and mask act per row.
+        The queries are cast to the cache dtype; the sweeps are matrix
+        products in f32, one block of videos at a time."""
+        sims = []
+        for q, feat2 in ((self.video_query_linear(video_query), video_feat2),
+                         (self.sub_query_linear(sub_query), sub_feat2)):
+            nv, L, d = feat2.shape
+            sim = _blocked_sweep(q.to(feat2.dtype).float(), feat2.reshape(nv * L, d), L)
+            rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
+            sims.append(sim.view(-1, nv, L)[rows, gather_idx])          # (Nq, V, L)
+        mask_g = context_mask[gather_idx]
+        st, ed = self._merged_span_conv((sims[0] + sims[1]) / 2)
+        return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+
     def merged_st_ed_scores_simgather_cat(self, video_query, sub_query, feat2_cat,
                                           context_mask, gather_idx,
                                           sim_dtype: Optional[torch.dtype] = None):
@@ -258,13 +292,61 @@ class XML(nn.Module):
             sim = qcat.float() @ flat.float().T
             if sim_dtype is not None:
                 sim = sim.to(sim_dtype)
-        sim = sim.view(qcat.shape[0], nv, lp)
+        return self._finish_span_logits(sim.view(qcat.shape[0], nv, lp), context_mask,
+                                        gather_idx)
+
+    def _quantized_cat_query(self, video_query, sub_query):
+        """The halved concatenated query vectors quantized per query:
+        (q8 (Nq, 2D) int8, q_scale (Nq, 1) f32). The JAX source writes the
+        quantizer out inline (xml.py:480-482); it is ``quantize_rows_i8``,
+        whose scale multiplies by f32(1/127) as XLA compiles the division
+        by 127, and whose rounding divides by the scale tensor."""
+        vq = self.video_query_linear(video_query)
+        sq = self.sub_query_linear(sub_query)
+        q8, q_scale = quantize_rows_i8(torch.cat([vq, sq], dim=-1).float() * 0.5)
+        return q8, q_scale[:, None]
+
+    def merged_st_ed_scores_simgather_cat_i8(self, video_query, sub_query, feat2_cat_i8,
+                                             feat2_scale, context_mask, gather_idx):
+        """``merged_st_ed_scores_simgather_cat`` over the int8 concatenated
+        cache (engine span mode "simsweep_cat_int8"; JAX xml.py:454-491).
+
+        feat2_cat_i8 (Nv, L, 2D) int8 with feat2_scale (Nv, L) f32 come from
+        ``quantize_rows_i8``; the halved query vectors quantize per query
+        here. The corpus-wide integer dots run as f32 matrix products, one
+        block of videos at a time, which is exact (every partial sum is an
+        integer below 2^24 for 2D <= 1040); the gathered (Nq, V, L) dots
+        are rescaled as s * (q_scale * f_scale). Not a parity mode: the
+        two input roundings are the approximation."""
+        q8, q_scale = self._quantized_cat_query(video_query, sub_query)
+        nv, L, k = feat2_cat_i8.shape
+        if k * 127 * 127 >= 2 ** 24:
+            raise ValueError(f"2D={k}: the integer dots are exact in f32 only for 2D <= 1040")
+        sim = _blocked_sweep(q8.float(), feat2_cat_i8.reshape(nv * L, k), L)
         rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
-        L = context_mask.shape[1]
-        similarity = sim[rows, gather_idx][:, :, :L].float()       # (Nq, V, L)
+        g = sim.view(-1, nv, L)[rows, gather_idx]                      # (Nq, V, L)
+        similarity = g * (q_scale[:, None] * feat2_scale[gather_idx])
         mask_g = context_mask[gather_idx]
         st, ed = self._merged_span_conv(similarity)
         return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+
+    def merged_st_ed_scores_pallas_cat_i8(self, video_query, sub_query, f8_flat,
+                                          f_scales, context_mask, gather_idx):
+        """``merged_st_ed_scores_simgather_cat_i8`` with the corpus-wide
+        sweep run by the span-similarity kernel B5 (engine span mode
+        "simsweep_cat_int8_flat"; JAX xml.py:493-537; "pallas" in the name
+        means the CUDA kernel, as in the engine's modes).
+
+        f8_flat (Nv_pad * lp, 2D) int8 and f_scales (Nv_pad, lp) f32 come
+        from ``ops.video_score.build_flat_feat2_i8``. ``span_sim_cat_i8``
+        writes the similarity as bf16 in (Nq, Nv_pad, lp); its s32 dots
+        never reach device memory. The same integer dot as
+        "simsweep_cat_int8", rescaled as (s * q_scale) * f_scale and rounded
+        once to bf16; the gathered rows are upcast, so the conv and softmax
+        run in f32. Not a parity mode."""
+        q8, q_scale = self._quantized_cat_query(video_query, sub_query)
+        sim = span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp=f_scales.shape[1])
+        return self._finish_span_logits(sim, context_mask, gather_idx)
 
     # ------------------------------------------------------------- prediction
     def get_pred_from_raw_query(self, query_feat, query_mask, video_feat1, video_feat2,
@@ -327,6 +409,18 @@ class XML(nn.Module):
             "loss_neg_q": c.lw_neg_q * loss_neg_q,
             "loss_overall": loss,
         }
+
+
+def _blocked_sweep(q: torch.Tensor, flat: torch.Tensor, L: int,
+                   block_videos: int = 2048) -> torch.Tensor:
+    """(Nq, K) f32 queries x (Nv * L, K) cache rows of any dtype ->
+    (Nq, Nv * L) f32 products, the cache upcast one block of videos at a
+    time so that no f32 copy of it exists."""
+    out = torch.empty((q.shape[0], flat.shape[0]), dtype=torch.float32, device=q.device)
+    step = block_videos * L
+    for r0 in range(0, flat.shape[0], step):
+        out[:, r0:r0 + step] = q @ flat[r0:r0 + step].float().T
+    return out
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,12 @@ SOURCES: Dict[str, tuple] = {
     # tvr_gather_byte_rows(table, idx, out, n_rows, n_idx, row_bytes, bad, stream)
     "gather": (_PKG / "csrc" / "gather.cu", {
         "tvr_gather_byte_rows": [_P, _P, _P, _L, _I, _L, _P, _P]}),
+    # tvr_span_sim_i8(q8, q_scale, f8, f_scale, nq, rows, k_words, out, stream)
+    "span_sim": (_PKG / "csrc" / "span_sim.cu", {
+        "tvr_span_sim_i8": [_P, _P, _P, _P, _I, _L, _I, _P, _P]}),
+    # tvr_topk_sort(x, nq, n, k, out_v, out_i, stream)
+    "topk_sort": (_PKG / "csrc" / "topk_sort.cu", {
+        "tvr_topk_sort": [_P, _I, _I, _I, _P, _P, _P]}),
 }
 
 

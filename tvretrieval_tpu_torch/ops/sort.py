@@ -1,0 +1,113 @@
+"""Exact stable top-k of every row by a sorting kernel.
+
+``topk_transposed`` (B6, csrc/topk_sort.cu) replaces
+tvretrieval_tpu/ops/pallas_sort.py::topk_transposed: the ``k`` best
+elements of each row of a 2-D tensor under ``lax.top_k``'s order, value
+descending and then index ascending, as (f32 values, int32 indices clamped
+to ``n - 1``). The engine's psort modes select through it
+(ops.span.topk_stable_blocked_psort,
+ops.span.banded_topk_spans_grouped_shift_psort).
+
+``topk_transposed_plain`` is its plain version, a stable descending
+``torch.sort`` (``torch.topk`` leaves the order of ties open). The wrapper
+given a CPU tensor runs the plain version; given a CUDA tensor it launches
+the kernel or raises. ``LAUNCHES`` counts kernel launches (plain runs are
+not counted).
+
+The name keeps the TPU kernel's, whose layout is transposed (queries along
+the lanes); here one thread block sorts one row in shared memory and
+nothing is transposed. The TPU function fails at trace time when
+``ceil8(k) > next_pow2(n)`` and leaves ``n <= k`` to ``lax.top_k``; this
+kernel has no 8-row alignment and serves both.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+LAUNCHES: Dict[str, int] = {"topk_transposed": 0}
+
+# the longest row one launch sorts: 16,384 (value, index) pairs are 128 KiB
+# of a block's shared memory (csrc/topk_sort.cu::kMaxPadded)
+MAX_ROW = 16384
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name: str, x: torch.Tensor, k: int) -> None:
+    if x.dim() != 2 or not x.is_floating_point():
+        raise TypeError(f"{name}: x must be a 2-D floating tensor, got "
+                        f"{tuple(x.shape)} {x.dtype}")
+    if k < 1 or x.shape[1] < 1:
+        raise ValueError(f"{name}: k={k} and n={x.shape[1]} must be positive")
+
+
+def topk_transposed_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B6: (Nq, n) -> ((Nq, min(k, n)) f32 values, int32
+    indices), value descending, ties by ascending index."""
+    _check("topk_transposed_plain", x, k)
+    k = min(k, x.shape[1])
+    vals, idx = torch.sort(x.float(), dim=-1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
+
+
+def _launch(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch over contiguous f32 rows of at most MAX_ROW elements, on
+    the current stream; counts it."""
+    from tvretrieval_tpu_torch.ops import _build
+
+    nq, n = x.shape
+    dev = x.device
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    fn = _build.load("topk_sort").tvr_topk_sort
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), nq, n, k, vals.data_ptr(), idx.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"topk_transposed: kernel launch failed with CUDA error {err}")
+    LAUNCHES["topk_transposed"] += 1
+    return vals, idx
+
+
+def topk_transposed(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6: exact stable top-k along the last axis of (Nq, n) ``x``.
+
+    Returns ((Nq, min(k, n)) f32 values, int32 indices), equal to
+    ``topk_transposed_plain`` in values and indices, ties included. Real
+    ``-inf`` elements rank before the kernel's own padding, so a row with
+    fewer than ``k`` finite values returns its ``-inf`` elements in index
+    order. A row longer than MAX_ROW is sorted in chunks of MAX_ROW, each
+    keeping its top ``k`` with their positions in the row, and a second
+    launch selects among the survivors; that is exact, because survivors
+    of equal value stay in ascending index order. It needs
+    ``k <= MAX_ROW / 2``. Replaces pallas_sort.topk_transposed."""
+    name = "topk_transposed"
+    _check(name, x, k)
+    if x.device.type == "cpu":
+        return topk_transposed_plain(x, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: x on {x.device}; expected cpu or cuda")
+    nq, n = x.shape
+    k = min(k, n)
+    x = x.float().contiguous()
+    if nq == 0:
+        return x[:, :k], torch.empty((0, k), dtype=torch.int32, device=x.device)
+    if n <= MAX_ROW:
+        return _launch(x, k)
+    if k > MAX_ROW // 2:
+        raise ValueError(f"{name}: rows of {n} elements are sorted in chunks of "
+                         f"{MAX_ROW}, which needs k <= {MAX_ROW // 2}, got k={k}")
+    nc = -(-n // MAX_ROW)
+    padded = F.pad(x, (0, nc * MAX_ROW - n), value=-float("inf"))
+    vals, idx = _launch(padded.view(nq * nc, MAX_ROW), k)
+    offsets = torch.arange(nc, dtype=torch.int32, device=x.device) * MAX_ROW
+    idx = (idx.view(nq, nc, k) + offsets[None, :, None]).view(nq, nc * k)
+    vals, pos = topk_transposed(vals.view(nq, nc * k), k)
+    idx = torch.gather(idx, 1, pos.long())
+    return vals, torch.clamp_max(idx, n - 1)

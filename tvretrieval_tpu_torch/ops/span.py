@@ -3,13 +3,17 @@
 Every selection reproduces ``jax.lax.top_k``'s order: value descending,
 then index ascending. ``torch.topk`` leaves the order of ties unspecified,
 so the primitive here is ``topk_stable``: a stable descending sort, which
-keeps equal values in ascending index order.
+keeps equal values in ascending index order. The ``_psort`` functions
+select through the sorting kernel instead (ops.sort.topk_transposed, B6),
+with equal results.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from tvretrieval_tpu_torch.ops.sort import topk_transposed
 
 
 def min_max_length_mask(length: int, min_l: int, max_l: int) -> np.ndarray:
@@ -26,21 +30,24 @@ def topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def topk_stable_blocked(scores: torch.Tensor, k: int, block: int = 16):
+def topk_stable_blocked(scores: torch.Tensor, k: int, block: int = 16,
+                        select=topk_stable):
     """Exact stable top-k over the last axis by block-max pruning, equal
     to ``topk_stable`` (span.py:88-127): every top-k element lies in one of
     the stable top-min(k, nb) blocks by block max; the selected blocks are
     re-sorted by index so the candidate pool keeps original index order,
-    and the pool's stable top-k is the row's. Returns (values, int32 idx)."""
+    and the pool's stable top-k is the row's. ``select`` is the stable
+    top-k both selections run through; short rows (n <= k or n <= 2 *
+    block) go to it directly. Returns (values, int32 idx)."""
     nq, n = scores.shape
     if n <= k or n <= 2 * block:
-        vals, idx = topk_stable(scores, min(k, n))
+        vals, idx = select(scores, min(k, n))
         return vals, idx.to(torch.int32)
     pad = (-n) % block
     padded = F.pad(scores, (0, pad), value=-float("inf"))
     nb = padded.shape[1] // block
     blocks = padded.view(nq, nb, block)
-    return _topk_from_blocks(blocks, blocks.amax(dim=-1), k, n - 1)
+    return _topk_from_blocks(blocks, blocks.amax(dim=-1), k, n - 1, select)
 
 
 def topk_from_block_max(scores_padded: torch.Tensor, bmax: torch.Tensor, k: int,
@@ -57,12 +64,21 @@ def topk_from_block_max(scores_padded: torch.Tensor, bmax: torch.Tensor, k: int,
     return _topk_from_blocks(blocks, bmax, k, n_pad - 1)
 
 
-def _topk_from_blocks(blocks, bmax, k: int, max_index: int):
+def topk_stable_blocked_psort(scores: torch.Tensor, k: int, block: int = 8):
+    """``topk_stable_blocked`` with both selections run by the sorting
+    kernel (ops.sort.topk_transposed; span.py:130-161): equal in values and
+    indices, since the kernel keeps the stable tie order and the cover
+    argument does not depend on how the selection is computed."""
+    return topk_stable_blocked(scores, k, block, select=topk_transposed)
+
+
+def _topk_from_blocks(blocks, bmax, k: int, max_index: int, select=topk_stable):
     nq, nb, block = blocks.shape
-    _, bidx = topk_stable(bmax, min(k, nb))
-    bidx = torch.sort(bidx, dim=1).values
+    _, bidx = select(bmax, min(k, nb))
+    bidx = torch.sort(bidx.long(), dim=1).values
     pool = torch.gather(blocks, 1, bidx[:, :, None].expand(-1, -1, block))
-    vals, pos = topk_stable(pool.reshape(nq, -1), min(k, bidx.shape[1] * block))
+    vals, pos = select(pool.reshape(nq, -1), min(k, bidx.shape[1] * block))
+    pos = pos.long()
     src = torch.gather(bidx, 1, pos // block) * block + pos % block
     # finite inputs never select a -inf pad element; the clamp keeps
     # indices in range (as the reference's) if NaNs break the cover argument
@@ -89,7 +105,8 @@ def _decode(flat: torch.Tensor, L: int, W: int, min_l: int):
 def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tensor,
                                     video_scores: torch.Tensor, min_l: int,
                                     max_l: int, top_n: int,
-                                    keep_mask: torch.Tensor | None = None):
+                                    keep_mask: torch.Tensor | None = None,
+                                    psort: bool = False):
     """Exact hierarchical top-N spans over (videos x starts x band ends)
     (span.py:289-471), equal bit for bit to a flat stable top-N over
     ``st[m] * ed[n] * video_score`` under the min/max length band.
@@ -107,6 +124,8 @@ def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tens
 
     keep_mask: optional (Nq, V) {0, 1}; spans of non-kept videos become
     exactly -1, below any real span (>= 0), in selection and in the pool.
+    psort: run the two selections (groups, final pool) through the sorting
+    kernel, as ``banded_topk_spans_grouped_shift_psort`` does.
     Returns (video_local_idx, st_idx, ed_idx, scores), each (Nq, top_n).
     """
     nq, v, L = st_probs.shape
@@ -121,7 +140,8 @@ def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tens
         gmax = gmax * keep_mask[:, :, None] - (1.0 - keep_mask)[:, :, None]
 
     k_groups = min(top_n, v * L)
-    _, gidx = topk_stable_blocked(gmax.reshape(nq, v * L), k_groups, block=8)
+    blocked = topk_stable_blocked_psort if psort else topk_stable_blocked
+    _, gidx = blocked(gmax.reshape(nq, v * L), k_groups, block=8)
     gidx = torch.sort(gidx.long(), dim=1).values                        # (Nq, G)
     g_vid = gidx // L
     g_st = gidx % L
@@ -140,12 +160,39 @@ def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tens
 
     pool = vals.reshape(nq, -1)
     k = min(top_n, pool.shape[1])
-    scores, pos = topk_stable(pool, k)
-    flat = torch.gather(canon.reshape(nq, -1), 1, pos)
+    scores, pos = (topk_transposed if psort else topk_stable)(pool, k)
+    flat = torch.gather(canon.reshape(nq, -1), 1, pos.long())
     if k < top_n:
         scores = F.pad(scores, (0, top_n - k))
         flat = F.pad(flat, (0, top_n - k))
     return (*_decode(flat, L, W, min_l), scores)
+
+
+def banded_topk_spans_grouped_shift_psort(st_probs: torch.Tensor, ed_probs: torch.Tensor,
+                                          video_scores: torch.Tensor, min_l: int,
+                                          max_l: int, top_n: int,
+                                          keep_mask: torch.Tensor | None = None):
+    """Engine span top-k mode "grouped_shift_psort" (span.py:474-545):
+    ``banded_topk_spans_grouped_shift`` with the group selection
+    (``topk_stable_blocked_psort``: two launches) and the final pool
+    selection (one launch) run by the sorting kernel B6. A parity mode:
+    the kernel keeps the stable tie order, so the outputs are equal bit for
+    bit to the other exact modes'."""
+    return banded_topk_spans_grouped_shift(st_probs, ed_probs, video_scores, min_l,
+                                           max_l, top_n, keep_mask=keep_mask, psort=True)
+
+
+def banded_topk_spans_grouped_shift8(st_probs: torch.Tensor, ed_probs: torch.Tensor,
+                                     video_scores: torch.Tensor, min_l: int, max_l: int,
+                                     top_n: int, keep_mask: torch.Tensor | None = None):
+    """Engine span top-k mode "grouped_shift8" (span.py:622-716). The JAX
+    function fetches each selected group's ed window from aligned blocks of
+    8 of the flat (V * L) ed axis, a gather shaped for the TPU's sublane
+    tile; what it reads past a video's end is cancelled by the exact
+    ``* valid`` zero. It fetches the values ``banded_topk_spans_grouped_shift``
+    fetches, so here the two share the direct gather, like "grouped"."""
+    return banded_topk_spans_grouped_shift(st_probs, ed_probs, video_scores, min_l,
+                                           max_l, top_n, keep_mask=keep_mask)
 
 
 def banded_topk_spans_grouped(st_probs: torch.Tensor, ed_probs: torch.Tensor,
@@ -177,3 +224,99 @@ def banded_top_spans_from_probs(st_probs: torch.Tensor, ed_probs: torch.Tensor,
     m = flat // W
     n = m + min_l + flat % W
     return m.to(torch.int32), n.to(torch.int32), scores
+
+
+def _pad_top_n(scores: torch.Tensor, idx: torch.Tensor, top_n: int):
+    """Zero-pad a selection narrower than top_n to the advertised width."""
+    k = scores.shape[1]
+    if k < top_n:
+        scores, idx = F.pad(scores, (0, top_n - k)), F.pad(idx, (0, top_n - k))
+    return scores, idx
+
+
+def top_spans_from_probs(st_probs: torch.Tensor, ed_probs: torch.Tensor,
+                         length_mask: torch.Tensor, top_n: int):
+    """Top-N (st, ed) pairs by st_prob * ed_prob under an (L, L) length
+    mask; (N, L) probs -> (st_idx, ed_idx, scores), each (N, top_n)
+    (span.py:28-47; reference find_max_triples_from_upper_triangle_product)."""
+    n, L = st_probs.shape
+    joint = st_probs[:, :, None] * ed_probs[:, None, :] * length_mask[None]
+    scores, idx = topk_stable(joint.reshape(n, L * L), top_n)
+    return (idx // L).to(torch.int32), (idx % L).to(torch.int32), scores
+
+
+def chunked_masked_max_scores(queries_n: torch.Tensor, feat1_n: torch.Tensor,
+                              mask: torch.Tensor, block: int = 2048) -> torch.Tensor:
+    """(M, D) x (Nv, L, D) -> (M, Nv) masked max-over-clips dot scores, one
+    block of videos at a time so that only an (M, block, L) tile of the
+    similarity exists (span.py:50-84). Equal to ``einsum('md,nld->mln')``,
+    mask, max, up to the summation order of the product."""
+    nv, L, d = feat1_n.shape
+    q = queries_n.to(feat1_n.dtype).float()
+    outs = []
+    for v0 in range(0, nv, block):
+        fb, mb = feat1_n[v0:v0 + block].float(), mask[v0:v0 + block].float()
+        s = (q @ fb.reshape(-1, d).T).view(q.shape[0], -1, L)
+        outs.append((s * mb[None] + (1.0 - mb[None]) * -1e10).amax(dim=2))
+    return torch.cat(outs, dim=1)
+
+
+def _banded_joint(st_probs, ed_probs, video_scores, min_l: int, max_l: int):
+    """(Nq, V, L, W) banded joint st * ed * video_score, invalid ends zero."""
+    L = st_probs.shape[-1]
+    idx_np, valid_np, _ = _band_indices(L, min_l, max_l)
+    dev = st_probs.device
+    ed_band = ed_probs[:, :, torch.as_tensor(idx_np, device=dev)]
+    return (st_probs[:, :, :, None] * ed_band * video_scores[:, :, None, None]
+            * torch.as_tensor(valid_np, device=dev)[None, None])
+
+
+def banded_topk_spans(st_probs: torch.Tensor, ed_probs: torch.Tensor,
+                      video_scores: torch.Tensor, min_l: int, max_l: int, top_n: int,
+                      keep_mask: torch.Tensor | None = None):
+    """Flat stable top-N over the (videos x starts x band ends) joint, the
+    (Nq, V, L, W) band materialized (span.py:241-286): what the grouped
+    modes are exact against. keep_mask as in
+    ``banded_topk_spans_grouped_shift``."""
+    nq, v, L = st_probs.shape
+    W = max_l - min_l
+    joint = _banded_joint(st_probs, ed_probs, video_scores, min_l, max_l)
+    if keep_mask is not None:
+        joint = (joint * keep_mask[:, :, None, None]
+                 - (1.0 - keep_mask)[:, :, None, None])
+    flat = joint.reshape(nq, v * L * W)
+    scores, flat_idx = _pad_top_n(*topk_stable(flat, min(top_n, flat.shape[-1])), top_n)
+    return (*_decode(flat_idx, L, W, min_l), scores)
+
+
+def banded_topk_spans_two_stage(st_probs: torch.Tensor, ed_probs: torch.Tensor,
+                                video_scores: torch.Tensor, min_l: int, max_l: int,
+                                top_n: int):
+    """Exact two-stage variant of ``banded_topk_spans`` (span.py:212-238):
+    a top-K over each (query, video) band, then a global top-N over the
+    V * K candidates; exact because the global top-N holds at most top_n
+    spans of one video."""
+    nq, v, L = st_probs.shape
+    W = max_l - min_l
+    joint = _banded_joint(st_probs, ed_probs, video_scores, min_l, max_l)
+    k1 = min(top_n, L * W)
+    s1, i1 = topk_stable(joint.reshape(nq * v, L * W), k1)
+    s1, i1 = s1.reshape(nq, v * k1), i1.reshape(nq, v * k1)
+    scores, sel = _pad_top_n(*topk_stable(s1, min(top_n, v * k1)), top_n)
+    vid = (sel // k1).to(torch.int32)
+    flat = torch.gather(i1, 1, sel)
+    m = flat // W
+    n = m + min_l + flat % W
+    return vid, m.to(torch.int32), n.to(torch.int32), scores
+
+
+def flat_topk_spans(joint_scores: torch.Tensor, top_n: int):
+    """Top-N over (Nq, V, L, L) joint scores flattened over (V, L, L):
+    (video_local_idx, st_idx, ed_idx, scores), each (Nq, top_n)
+    (span.py:737-750; reference inference.py:378-386, 423-431)."""
+    n_q, v, L, _ = joint_scores.shape
+    scores, idx = topk_stable(joint_scores.reshape(n_q, v * L * L), top_n)
+    vid = idx // (L * L)
+    rem = idx % (L * L)
+    return (vid.to(torch.int32), (rem // L).to(torch.int32), (rem % L).to(torch.int32),
+            scores)

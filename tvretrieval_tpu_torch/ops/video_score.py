@@ -1,25 +1,30 @@
-"""Corpus video-score stage: flat feat1 caches, int8 quantizers, and the
-CUDA video-score kernels with their plain PyTorch versions.
+"""Corpus video-score stage and int8 span sweep: flat feat1 / feat2 caches,
+int8 quantizers, and the CUDA kernels with their plain PyTorch versions.
 
-Port of tvretrieval_tpu/ops/pallas_score.py:124-228, 344-407, 569-619.
-The reference op is model_xml.py:436-453 (``get_video_level_scores``:
+Port of tvretrieval_tpu/ops/pallas_score.py:124-228, 344-619.
+The reference ops are model_xml.py:436-453 (``get_video_level_scores``:
 einsum -> mask -> max over clips) against the whole corpus per query batch
-(inference.py:308-317).
+(inference.py:308-317), and model_xml.py:463-480 (the span similarity).
 
-Kernel wrappers (csrc/video_score.cu), each beside its plain version:
+Kernel wrappers, each beside its plain version:
 
 - ``video_scores_flat_i8``   (B1, replaces ``video_scores_pallas_flat_i8``)
 - ``video_scores_flat``      (B2, replaces ``video_scores_pallas_flat``)
 - ``video_scores_flat_bmax`` (B3, replaces ``video_scores_pallas_flat_bmax``)
+- ``span_sim_cat_i8``        (B5, replaces ``span_sim_pallas_cat_i8``)
+
+B1-B3 are csrc/video_score.cu, B5 is csrc/span_sim.cu.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches per
 wrapper (plain runs are not counted).
 
-What bounds the kernels on the H100 is arithmetic: 2 x Nv_pad * lp x D x
-Nq MACs (1.16e12 at the full corpus, Nq=1000) through dp4a / FMA; the
-(Nq, Nv_pad * lp) dot matrix never reaches device memory. See the source
-for the tiling.
+What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
+* lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000) through dp4a /
+FMA; the (Nq, Nv_pad * lp) dot matrix never reaches device memory. B5 does
+Nv_pad * 128 x 2D x Nq MACs through dp4a and writes the rescaled
+similarity as bf16; its s32 dots never reach device memory. See the
+sources for the tiling.
 """
 from __future__ import annotations
 
@@ -36,8 +41,12 @@ from tvretrieval_tpu_torch.ops.masking import NEG_INF
 I8_SCALE = float(np.float32(0.5 / (127.0 * 127.0)))
 _INV_127 = float(np.float32(1.0 / 127.0))
 
+# rows per video in the flat int8 feat2 cache: the JAX package's value (its
+# kernel needs lp % 128 == 0), kept so that cache bytes are equal
+SPAN_LP = 128
+
 LAUNCHES: Dict[str, int] = {"video_scores_flat_i8": 0, "video_scores_flat": 0,
-                            "video_scores_flat_bmax": 0}
+                            "video_scores_flat_bmax": 0, "span_sim_cat_i8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -280,3 +289,123 @@ def video_scores_flat_bmax(qvt, qst, fv_flat, fs_flat, n_videos: int,
     chunk = math.gcd(fv_flat.shape[0] // lp, chunk_v)
     return _launch("video_scores_flat_bmax", qvt, qst, fv_flat, fs_flat, n_videos,
                    lp, chunk=chunk)
+
+
+# ------------------------------------------------------- int8 span sweep
+def build_flat_feat2_i8(feat2_cat: torch.Tensor, lp: int = SPAN_LP,
+                        chunk_v: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Nv, L, 2D) concatenated feat2 -> the int8 video-major flat cache of
+    ``span_sim_cat_i8``: (f8_flat (Nv_pad * lp, 2D) int8, f_scales
+    (Nv_pad, lp) f32).
+
+    Rows are quantized per (video, clip) with ``quantize_rows_i8`` (feat2 is
+    not unit-norm, so the scales are kept). The L -> lp pad rows and the
+    Nv -> chunk_v-multiple pad videos are zeros with scale zero: they score
+    exactly 0 and are sliced off after the engine's row gather. Masked
+    clips keep their encoder outputs, as in every other sweep mode: the
+    conv runs over them and the mask is applied afterwards. ``lp`` must be
+    a multiple of 4 (``span_sim_cat_i8`` stores four similarities at a
+    time); the default equals the JAX package's."""
+    nv, L, k = feat2_cat.shape
+    if lp % 4:
+        raise ValueError(f"lp={lp} must be a multiple of 4: span_sim_cat_i8 stores "
+                         "four bf16 similarities at a time (SPAN_LP)")
+    if L > lp:
+        raise ValueError(f"max_ctx_l={L} exceeds the span-sweep row pad lp={lp}; use "
+                         "span_score_mode='simsweep_cat' for longer contexts")
+    q, scales = quantize_rows_i8(feat2_cat)                  # (Nv, L, K), (Nv, L)
+    pad_v = (-nv) % chunk_v
+    q = torch.nn.functional.pad(q, (0, 0, 0, lp - L, 0, pad_v))
+    scales = torch.nn.functional.pad(scales, (0, lp - L, 0, pad_v))
+    return q.reshape((nv + pad_v) * lp, k).contiguous(), scales.contiguous()
+
+
+def _check_span_sim(name: str, q8, q_scale, f8_flat, f_scales, lp: int) -> None:
+    nq, k = q8.shape
+    rows = f8_flat.shape[0]
+    if q8.dtype != torch.int8 or f8_flat.dtype != torch.int8:
+        raise TypeError(f"{name}: q8 and f8_flat must be int8, got {q8.dtype}, "
+                        f"{f8_flat.dtype}")
+    if q_scale.dtype != torch.float32 or f_scales.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be float32, got {q_scale.dtype}, "
+                        f"{f_scales.dtype}")
+    if lp < 1 or rows % lp:
+        raise ValueError(f"{name}: lp={lp} does not divide {rows} rows")
+    if (f8_flat.shape != (rows, k) or q_scale.shape != (nq, 1)
+            or f_scales.shape != (rows // lp, lp)):
+        raise ValueError(
+            f"{name}: shapes {[tuple(t.shape) for t in (q8, q_scale, f8_flat, f_scales)]} "
+            "are not (Nq, K), (Nq, 1), (Nv_pad * lp, K), (Nv_pad, lp)")
+
+
+def span_sim_int8_xla(q8, q_scale, f8_flat, f_scales, lp: int = SPAN_LP,
+                      block_videos: int = 64) -> torch.Tensor:
+    """Plain version of B5 (port of pallas_score.span_sim_int8_xla):
+    sim[q, v, l] = bf16((f32(q8[q] . f8[v * lp + l]) * q_scale[q]) * f_scales[v, l]),
+    (Nq, Nv_pad, lp) bf16.
+
+    The integer dot runs as an f32 matrix product per block of videos,
+    which is exact while K * 127^2 < 2^24 (every partial sum is an integer
+    below 2^24; K <= 1040), else in f64. The two f32 multiplications keep
+    this association and the result rounds once to bf16."""
+    _check_span_sim("span_sim_int8_xla", q8, q_scale, f8_flat, f_scales, lp)
+    nq, k = q8.shape
+    nv_pad = f_scales.shape[0]
+    dt = torch.float64 if k * 127 * 127 >= 2 ** 24 else torch.float32
+    q = q8.to(dt)
+    out = torch.empty((nq, nv_pad, lp), dtype=torch.bfloat16, device=f8_flat.device)
+    for v0 in range(0, nv_pad, block_videos):
+        rows = f8_flat[v0 * lp:(v0 + block_videos) * lp].to(dt)
+        s = (q @ rows.T).float() * q_scale                   # (Nq, bv * lp)
+        out[:, v0:v0 + block_videos] = (
+            s.view(nq, -1, lp) * f_scales[None, v0:v0 + block_videos]).to(torch.bfloat16)
+    return out
+
+
+def span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp: int = SPAN_LP) -> torch.Tensor:
+    """B5: the corpus-wide int8 concatenated span-similarity sweep (engine
+    mode ``span_score_mode="simsweep_cat_int8_flat"``), (Nq, Nv_pad, lp)
+    bf16, bit-equal to ``span_sim_int8_xla``.
+
+    q8: (Nq, K) int8 quantized halved concatenated query vectors; q_scale:
+    (Nq, 1) f32; f8_flat: (Nv_pad * lp, K) int8 and f_scales: (Nv_pad, lp)
+    f32 from ``build_flat_feat2_i8``. The layout serves the engine's top-V
+    row gather, which reads contiguous lp-runs. The kernel loads 16-byte
+    vectors along K and stores four bf16 at a time, so K must be a
+    multiple of 16 and lp of 4. (The TPU wrapper's chunk_v and q_tile only
+    tile its grid, so they have no counterpart here.) Replaces
+    pallas_score.span_sim_pallas_cat_i8."""
+    name = "span_sim_cat_i8"
+    _check_span_sim(name, q8, q_scale, f8_flat, f_scales, lp)
+    if f8_flat.device.type == "cpu":
+        return span_sim_int8_xla(q8, q_scale, f8_flat, f_scales, lp)
+    from tvretrieval_tpu_torch.ops import _build
+
+    ts = (q8, q_scale, f8_flat, f_scales)
+    dev = f8_flat.device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: all operands must be on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    nq, k = q8.shape
+    rows = f8_flat.shape[0]
+    if lp % 4:
+        raise ValueError(f"{name}: lp={lp} must be a multiple of 4: the kernel stores "
+                         "four bf16 similarities at a time")
+    if k % 16 or nq == 0 or rows == 0:
+        raise ValueError(f"{name}: K={k} must be a positive multiple of 16 (the kernel "
+                         f"loads 16-byte vectors), Nq={nq} and rows={rows} positive")
+    if not (f8_flat.is_contiguous() and f_scales.is_contiguous()):
+        raise ValueError(f"{name}: the flat cache and its scales must be contiguous")
+    q8, q_scale = q8.contiguous(), q_scale.contiguous()
+    out = torch.empty((nq, rows // lp, lp), dtype=torch.bfloat16, device=dev)
+    if any(t.data_ptr() % 16 for t in (q8, f8_flat, f_scales, out)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    fn = _build.load("span_sim").tvr_span_sim_i8
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q8.data_ptr(), q_scale.data_ptr(), f8_flat.data_ptr(),
+                 f_scales.data_ptr(), nq, rows, k // 4, out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out

@@ -1,4 +1,4 @@
-"""Whole-corpus VCMR / SVMR / VR inference engine, exact modes, in PyTorch.
+"""Whole-corpus VCMR / SVMR / VR inference engine, exact and int8 modes, in PyTorch.
 
 Port of tvretrieval_tpu/retrieval/engine.py (reference inference.py:32-445).
 The corpus is encoded once (``encode_corpus``); each query batch then runs
@@ -8,22 +8,29 @@ The corpus is encoded once (``encode_corpus``); each query batch then runs
 2. q2c video scores against every video — the CUDA video-score kernels
    (ops.video_score) under ``video_score_mode`` "pallas" / "pallas_int8",
    or the einsum path under "einsum";
-3. ``exp(alpha * q2c)`` and an exact stable top-V;
+3. ``exp(alpha * q2c)`` and an exact stable top-V (through the sorting
+   kernel, ops.sort, under ``video_topk_psort``);
 4. span logits of the top-V (+ GT) videos: one corpus-wide similarity
-   sweep over the concatenated feat2 cache and a row gather
-   (``XML.merged_st_ed_scores_simgather_cat``), or under span mode
-   "gather" the feature rows themselves
-   (``XML.merged_st_ed_scores_gathered``); then ConvSE and softmax;
-5. the exact banded span top-N and the SVMR row (ops.span).
+   sweep and a row gather of the similarities, over the concatenated feat2
+   cache (``XML.merged_st_ed_scores_simgather_cat``), its int8 forms
+   ("simsweep_cat_int8": ``..._simgather_cat_i8``; "simsweep_cat_int8_flat":
+   the CUDA span-similarity kernel, ``..._pallas_cat_i8``) or the two
+   streams ("simsweep"); or under span mode "gather" the feature rows
+   themselves (``XML.merged_st_ed_scores_gathered``); then ConvSE and
+   softmax;
+5. the exact banded span top-N (through the sorting kernel under
+   "grouped_shift_psort") and the SVMR row (ops.span).
 
 ``encode_corpus_resident`` encodes from the device-resident corpus
 (data.device_corpus) instead of host-built batches. ``retrieve`` turns the
 results into the submission the evaluator (evaluation.metrics) scores. Mode names are the JAX package's so
-configurations carry over; "pallas" here means the CUDA kernel. Modes not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+configurations carry over; "pallas" here means the CUDA kernel. The
+approximate selection modes are not ported and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -40,13 +47,18 @@ from tvretrieval_tpu_torch.ops.span import (
     banded_top_spans_from_probs,
     banded_topk_spans_grouped,
     banded_topk_spans_grouped_shift,
+    banded_topk_spans_grouped_shift8,
+    banded_topk_spans_grouped_shift_psort,
     topk_from_block_max,
     topk_stable_blocked,
+    topk_stable_blocked_psort,
 )
 from tvretrieval_tpu_torch.utils.io import load_json
 from tvretrieval_tpu_torch.ops.video_score import (
     build_flat_feat1,
+    build_flat_feat2_i8,
     flat_lp,
+    quantize_rows_i8,
     quantize_unit_i8,
     video_scores_flat,
     video_scores_flat_bmax,
@@ -69,19 +81,30 @@ class RetrievalConfig:
     context_bsz: int = 200           # eval_context_bsz (63)
     clip_length: float = 1.5
     cache_dtype_str: str = "float32"  # corpus cache dtype ("bfloat16" halves memory)
-    # ported: "gather" (feature-row gather), "simsweep_cat",
-    # "simsweep_cat_bf16" (similarity stored bf16)
+    # "gather" (feature-row gather); "simsweep" (a similarity sweep per
+    # stream, then a gather of similarity rows); "simsweep_cat" (one sweep
+    # over the concatenated cache); "simsweep_cat_bf16" (similarity stored
+    # bf16); "simsweep_cat_int8" (int8 cache + per-row scales, integer
+    # dots, rescale on the gathered rows); "simsweep_cat_int8_flat" (the
+    # int8 sweep as the B5 CUDA kernel over the video-major flat cache,
+    # similarity stored bf16). The int8 modes are not parity modes.
     span_score_mode: str = "gather"
-    # zero-pad the concatenated cache's clip axis to this length (0 = off)
+    # zero-pad the concatenated cache's clip axis to this length (0 = off;
+    # "simsweep_cat" / "simsweep_cat_bf16" only)
     span_sim_pad_l: int = 0
-    # ported: "einsum", "pallas" (B2/B3 CUDA kernel), "pallas_int8" (B1/B3)
+    # "einsum"; "pallas" (B2/B3 CUDA kernel); "pallas_int8" (B1/B3)
     video_score_mode: str = "einsum"
     # upper bound on the videos per block maximum (B3) and the flat-cache
     # video padding multiple
     video_chunk_v: int = 16
-    # ported: "grouped", "grouped_shift" (equal bit for bit)
+    # "grouped", "grouped_shift", "grouped_shift8", "grouped_shift_psort"
+    # (selections by the B6 sorting kernel): equal bit for bit.
+    # "grouped_shift_approx" is not ported (ROADMAP A11)
     span_topk_mode: str = "grouped"
+    # approximate video top-V: not ported (ROADMAP A11)
     video_topk_approx: bool = False
+    # video top-V through the B6 sorting kernel: a parity mode (the fused
+    # and external selections take precedence; composes with pre_exp)
     video_topk_psort: bool = False
     topk_approx_recall: float = 0.99
     # TPU interpret switch; kept so configurations carry over, unused here
@@ -102,29 +125,29 @@ class RetrievalConfig:
         return torch.bfloat16 if self.cache_dtype_str == "bfloat16" else torch.float32
 
 
+SPAN_SCORE_MODES = ("gather", "simsweep", "simsweep_cat", "simsweep_cat_bf16",
+                    "simsweep_cat_int8", "simsweep_cat_int8_flat")
+SPAN_TOPK = {"grouped": banded_topk_spans_grouped,
+             "grouped_shift": banded_topk_spans_grouped_shift,
+             "grouped_shift8": banded_topk_spans_grouped_shift8,
+             "grouped_shift_psort": banded_topk_spans_grouped_shift_psort}
+
+
 def check_supported(cfg: RetrievalConfig) -> None:
-    """Raise NotImplementedError for engine modes the port does not run yet."""
+    """Raise NotImplementedError for the engine modes the port does not run
+    (the approximate selections), ValueError for a mode name nobody has."""
     if cfg.video_score_mode not in ("einsum", "pallas", "pallas_int8"):
-        raise NotImplementedError(f"video_score_mode={cfg.video_score_mode!r}")
-    if cfg.span_score_mode in ("simsweep_cat_int8", "simsweep_cat_int8_flat"):
+        raise ValueError(f"video_score_mode={cfg.video_score_mode!r}")
+    if cfg.span_score_mode not in SPAN_SCORE_MODES:
+        raise ValueError(f"span_score_mode={cfg.span_score_mode!r}; one of "
+                         f"{SPAN_SCORE_MODES}")
+    if cfg.span_topk_mode == "grouped_shift_approx" or cfg.video_topk_approx:
         raise NotImplementedError(
-            f"span_score_mode={cfg.span_score_mode!r}: the int8 sweeps are "
-            "ROADMAP A11 (kernel B5)")
-    if cfg.span_score_mode not in ("gather", "simsweep_cat", "simsweep_cat_bf16"):
-        raise NotImplementedError(
-            f"span_score_mode={cfg.span_score_mode!r}: simsweep is ROADMAP A15; "
-            "use 'gather', 'simsweep_cat' or 'simsweep_cat_bf16'")
-    if cfg.span_topk_mode in ("grouped_shift_approx", "grouped_shift_psort"):
-        raise NotImplementedError(
-            f"span_topk_mode={cfg.span_topk_mode!r}: approximate and psort "
-            "selection are ROADMAP A11 (kernel B6)")
-    if cfg.span_topk_mode not in ("grouped", "grouped_shift"):
-        raise NotImplementedError(
-            f"span_topk_mode={cfg.span_topk_mode!r} is ROADMAP A15; use "
-            "'grouped' or 'grouped_shift' (bit-equal)")
-    if cfg.video_topk_approx or cfg.video_topk_psort:
-        raise NotImplementedError(
-            "video_topk_approx / video_topk_psort are ROADMAP A11")
+            "grouped_shift_approx / video_topk_approx: approximate selection is "
+            "ROADMAP A11 (it needs a top-k of its own, held to a recall)")
+    if cfg.span_topk_mode not in SPAN_TOPK:
+        raise ValueError(f"span_topk_mode={cfg.span_topk_mode!r}; one of "
+                         f"{tuple(SPAN_TOPK)}")
 
 
 @dataclass
@@ -134,7 +157,9 @@ class CorpusCache:
     Under video_score_mode "pallas" / "pallas_int8" the feat1 slots hold
     the flat mask-free (Nv_pad * flat_lp(L), D) layout (int8 for
     pallas_int8); under the cat span modes feat2_cat = [vf2 ; sf2]
-    replaces the two feat2 streams."""
+    replaces the two feat2 streams: (Nv, L, 2D) at the cache dtype, int8
+    under "simsweep_cat_int8", and the video-major flat (Nv_pad * lp, 2D)
+    int8 layout under "simsweep_cat_int8_flat"."""
 
     video_feat1: Optional[torch.Tensor]
     video_feat2: Optional[torch.Tensor]
@@ -144,6 +169,9 @@ class CorpusCache:
     n_videos: int
     metas: List[dict]                    # per-video {vid_name, duration}
     feat2_cat: Optional[torch.Tensor] = None
+    # per-row quantization scales of an int8 feat2_cat: (Nv, L) f32, or
+    # (Nv_pad, lp) for the flat layout
+    feat2_cat_scale: Optional[torch.Tensor] = None
 
 
 def _maybe_pad_clip_axis(feat2_cat, cfg: RetrievalConfig):
@@ -156,7 +184,8 @@ def _maybe_pad_clip_axis(feat2_cat, cfg: RetrievalConfig):
     if cfg.span_score_mode not in ("simsweep_cat", "simsweep_cat_bf16"):
         raise ValueError(
             "span_sim_pad_l only composes with span_score_mode="
-            f"'simsweep_cat'/'simsweep_cat_bf16', got {cfg.span_score_mode!r}")
+            "'simsweep_cat'/'simsweep_cat_bf16' (the int8 flat layout has its "
+            f"own SPAN_LP pad), got {cfg.span_score_mode!r}")
     if feat2_cat is None:
         return feat2_cat
     L = feat2_cat.shape[1]
@@ -168,9 +197,10 @@ def _maybe_pad_clip_axis(feat2_cat, cfg: RetrievalConfig):
 
 
 def _video_sel(cfg: RetrievalConfig):
-    """The exact video top-V selector of the fast path."""
+    """The exact video top-V selector of the fast path: through the
+    sorting kernel under cfg.video_topk_psort, equal either way."""
     if cfg.video_topk_psort:
-        raise NotImplementedError("video_topk_psort is ROADMAP A11 (kernel B6)")
+        return functools.partial(topk_stable_blocked_psort, block=16)
     return topk_stable_blocked
 
 
@@ -182,10 +212,15 @@ def _uses_fast_path(model: XML) -> bool:
 
 @torch.no_grad()
 def encode_corpus(model: XML, builder: ExampleBuilder, corpus: CorpusIndex,
-                  cfg: RetrievalConfig) -> CorpusCache:
+                  cfg: RetrievalConfig, batch_cache: Optional[list] = None) -> CorpusCache:
     """Encode every corpus video once with the context encoders, on the
     model's device. feat1 is L2-normalized here, so query-time cosine
-    scoring normalizes only the queries."""
+    scoring normalizes only the queries.
+
+    batch_cache: optional mutable list. Empty: the host-built context
+    batches are appended to it, their features as float16 (half the host
+    memory and copy; the model upcasts them); non-empty: they are reused,
+    so re-encoding the corpus every epoch skips the host's batch building."""
     check_supported(cfg)
     device = next(model.parameters()).device
     dt = cfg.cache_dtype
@@ -195,12 +230,20 @@ def encode_corpus(model: XML, builder: ExampleBuilder, corpus: CorpusIndex,
     norm = lambda x: (x / (torch.linalg.norm(x.float(), dim=-1, keepdim=True)
                            + 1e-12)).to(dt)
     on = lambda a: torch.from_numpy(a).to(device)
-    for i in range(0, n, bsz):
-        batch = builder.build_context_batch(corpus.vid_names[i:i + bsz],
-                                            corpus.durations[i:i + bsz])
+    reuse = bool(batch_cache)
+    for bi, i in enumerate(range(0, n, bsz)):
+        if reuse:
+            batch = batch_cache[bi]
+        else:
+            batch = builder.build_context_batch(corpus.vid_names[i:i + bsz],
+                                                corpus.durations[i:i + bsz])
+            if batch_cache is not None:
+                batch.video_feat = batch.video_feat.astype(np.float16)
+                batch.sub_feat = batch.sub_feat.astype(np.float16)
+                batch_cache.append(batch)
         vm, sm = on(batch.video_mask), on(batch.sub_mask)
-        vf1, vf2, sf1, sf2 = model.encode_context(on(batch.video_feat), vm,
-                                                  on(batch.sub_feat), sm)
+        vf1, vf2, sf1, sf2 = model.encode_context(on(batch.video_feat).float(), vm,
+                                                  on(batch.sub_feat).float(), sm)
         chunks["vf1"].append(norm(vf1))
         chunks["vf2"].append(vf2.to(dt))
         chunks["sf1"].append(norm(sf1))
@@ -215,10 +258,17 @@ def encode_corpus(model: XML, builder: ExampleBuilder, corpus: CorpusIndex,
 def _finish_cache(model: XML, cfg: RetrievalConfig, corpus: CorpusIndex,
                   bufs: Dict[str, torch.Tensor]) -> CorpusCache:
     """Whole-corpus buffers (vf1, sf1, mask and either vf2 + sf2 or
-    feat2_cat) -> CorpusCache: the clip-axis pad of feat2_cat and the flat
-    (int8) feat1 layout of the kernel video-score modes. Buffers are
-    popped as they are replaced, so a source frees once its copy exists."""
+    feat2_cat) -> CorpusCache: the clip-axis pad or the int8 layouts of
+    feat2_cat and the flat (int8) feat1 layout of the kernel video-score
+    modes. Buffers are popped as they are replaced, so a source frees once
+    its copy exists."""
     feat2_cat = _maybe_pad_clip_axis(bufs.pop("feat2_cat", None), cfg)
+    feat2_cat_scale = None
+    if cfg.span_score_mode == "simsweep_cat_int8":
+        # per-(video, clip) rows; feat2 is not unit-norm, so scales are kept
+        feat2_cat, feat2_cat_scale = quantize_rows_i8(feat2_cat)
+    elif cfg.span_score_mode == "simsweep_cat_int8_flat":
+        feat2_cat, feat2_cat_scale = build_flat_feat2_i8(feat2_cat)
     vf1_all, sf1_all, mask_all = bufs.pop("vf1"), bufs.pop("sf1"), bufs["mask"]
     if cfg.video_score_mode in ("pallas", "pallas_int8") and _uses_fast_path(model):
         vf1_all = build_flat_feat1(vf1_all, mask_all, chunk_v=cfg.video_chunk_v)
@@ -230,7 +280,7 @@ def _finish_cache(model: XML, cfg: RetrievalConfig, corpus: CorpusIndex,
         sub_feat2=bufs.get("sf2"), mask=mask_all, n_videos=len(corpus),
         metas=[{"vid_name": v, "duration": d}
                for v, d in zip(corpus.vid_names, corpus.durations)],
-        feat2_cat=feat2_cat)
+        feat2_cat=feat2_cat, feat2_cat_scale=feat2_cat_scale)
 
 
 @torch.no_grad()
@@ -280,7 +330,7 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
                        video_feat1, video_feat2, sub_feat1, sub_feat2, ctx_mask,
                        gt_meta_idx, do_svmr: bool, use_external_vr: bool = False,
                        external_idx=None, external_scores=None,
-                       feat2_cat=None) -> Dict[str, torch.Tensor]:
+                       feat2_cat=None, feat2_cat_scale=None) -> Dict[str, torch.Tensor]:
     """Score one query batch against the whole cached corpus (fast path:
     merged two-stream ConvSE). Video scores cover every video; span
     probabilities only the gathered top-V (+ GT) rows, exact-equivalent to
@@ -338,11 +388,20 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
     topv_idx = topv_idx.long()
     gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
                   if do_svmr else topv_idx)                      # (Nq, V[+1])
-    if cfg.cat_mode:
+    if cfg.span_score_mode == "simsweep_cat_int8":
+        st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat_i8(
+            vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
+    elif cfg.span_score_mode == "simsweep_cat_int8_flat":
+        st_logits, ed_logits = model.merged_st_ed_scores_pallas_cat_i8(
+            vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
+    elif cfg.cat_mode:
         st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
             vq, sq, feat2_cat, ctx_mask, gather_idx,
             sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
                        else None))
+    elif cfg.span_score_mode == "simsweep":
+        st_logits, ed_logits = model.merged_st_ed_scores_simgather(
+            vq, video_feat2, sq, sub_feat2, ctx_mask, gather_idx)
     else:
         # gathered rows stay at the cache dtype: (Nq, V[+1], L, D) per stream
         st_logits, ed_logits = model.merged_st_ed_scores_gathered(
@@ -351,9 +410,7 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
     st_probs = torch.softmax(st_logits.to(f32), dim=-1)
     ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
 
-    span_topk = (banded_topk_spans_grouped if cfg.span_topk_mode == "grouped"
-                 else banded_topk_spans_grouped_shift)
-    vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = span_topk(
+    vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = SPAN_TOPK[cfg.span_topk_mode](
         st_probs[:, :V], ed_probs[:, :V], topv_scores, cfg.min_pred_l,
         cfg.max_pred_l, cfg.max_before_nms)
     out = dict(topv_scores=topv_scores, topv_idx=topv_idx.to(torch.int32),
@@ -441,7 +498,8 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
         out = _score_query_batch(
             model, cfg, q_feat, q_mask,
             cache.video_feat1, cache.video_feat2, cache.sub_feat1, cache.sub_feat2,
-            cache.mask, on(gt_idx), do_svmr, feat2_cat=cache.feat2_cat, **ext_args)
+            cache.mask, on(gt_idx), do_svmr, feat2_cat=cache.feat2_cat,
+            feat2_cat_scale=cache.feat2_cat_scale, **ext_args)
         collected.append({k: v.cpu().numpy() for k, v in out.items()})
 
     res = {k: np.concatenate([c[k] for c in collected], axis=0) for k in collected[0]}

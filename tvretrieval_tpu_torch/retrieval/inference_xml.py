@@ -77,8 +77,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--video_topk_approx", type=int, default=None,
                    help="1: approximate video top-V (not ported: ROADMAP A11)")
     p.add_argument("--video_topk_psort", type=int, default=None,
-                   help="1: video top-V via the transposed sort kernel (not "
-                        "ported: ROADMAP A11)")
+                   help="1: video top-V through the sorting kernel (a parity "
+                        "mode, equal to the default selection)")
     p.add_argument("--topk_approx_recall", type=float, default=None,
                    help="recall target for every approximate top-k site")
     p.add_argument("--span_sim_pad_l", type=int, default=None,

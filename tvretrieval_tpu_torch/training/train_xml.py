@@ -183,7 +183,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    choices=["gather", "simsweep", "simsweep_cat", "simsweep_cat_bf16",
                             "simsweep_cat_int8", "simsweep_cat_int8_flat"],
                    help="retrieval-eval span scoring path (engine.py; gather "
-                        "is the reference-faithful default)")
+                        "is the reference-faithful default; the int8 modes "
+                        "store the feat2 cache as int8 and are not parity modes)")
     p.add_argument("--video_score_mode", type=str, default="einsum",
                    choices=["einsum", "pallas", "pallas_int8"],
                    help="retrieval-eval video-level scoring path ('pallas': "
@@ -191,8 +192,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--span_topk_mode", type=str, default="grouped",
                    choices=["grouped", "grouped_shift", "grouped_shift8",
                             "grouped_shift_approx", "grouped_shift_psort"],
-                   help="VCMR span top-k expansion (grouped and grouped_shift "
-                        "are bit-equal)")
+                   help="VCMR span top-k expansion (grouped, grouped_shift, "
+                        "grouped_shift8 and grouped_shift_psort are bit-equal; "
+                        "grouped_shift_approx is not ported: ROADMAP A11)")
     p.add_argument("--video_topk_fused", type=int, default=0,
                    help="1: the flat video-score kernel emits block maxima "
                         "and video top-k runs fused (pre-exp semantics; "
@@ -200,8 +202,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--video_topk_approx", type=int, default=0,
                    help="1: approximate video top-V (not ported: ROADMAP A11)")
     p.add_argument("--video_topk_psort", type=int, default=0,
-                   help="1: video top-V via the transposed sort kernel (not "
-                        "ported: ROADMAP A11)")
+                   help="1: video top-V through the sorting kernel (a parity "
+                        "mode, equal to the default selection)")
     p.add_argument("--topk_approx_recall", type=float, default=0.99,
                    help="recall target for every approximate top-k site")
     p.add_argument("--span_sim_pad_l", type=int, default=0,
@@ -291,7 +293,7 @@ def check_args_supported(args) -> None:
         raise NotImplementedError(
             f"--n_devices {args.n_devices}: data-parallel training is ROADMAP A10")
     _check_supported(model_config(args, None))              # model variants: A8
-    check_supported(retrieval_config(args, 1))              # engine modes: A11, A15
+    check_supported(retrieval_config(args, 1))              # approximate modes: A11
 
 
 def setup_world(args):
@@ -342,11 +344,11 @@ def setup_world(args):
     return train_rows, eval_rows, builder, corpus
 
 
-def _encode(model, builder, corpus, rcfg, device_data):
+def _encode(model, builder, corpus, rcfg, device_data, batch_cache=None):
     model.eval()
     if device_data is not None:
         return encode_corpus_resident(model, device_data, corpus, rcfg)
-    return encode_corpus(model, builder, corpus, rcfg)
+    return encode_corpus(model, builder, corpus, rcfg, batch_cache=batch_cache)
 
 
 def evaluate_retrieval(model, builder, corpus, eval_rows, args, tasks,
@@ -394,14 +396,16 @@ def evaluate_retrieval(model, builder, corpus, eval_rows, args, tasks,
 
 
 def evaluate_retrieval_fast(model, builder, corpus, eval_rows, args, tasks,
-                            device_data=None):
+                            device_data=None, ctx_batch_cache=None):
     """Array-path per-epoch eval: no prediction dicts, no files. Returns
     (metrics, arrays); a submission is built from the arrays only when
     needed (best epoch). DiDeMo multi-annotation rows need the dict path.
     device_data: the device-resident corpus (encoding and query streaming
-    then skip all host feature building)."""
+    then skip all host feature building). ctx_batch_cache: a list that
+    keeps the host-built context batches (float16) from one epoch's corpus
+    encoding to the next (``encode_corpus``'s ``batch_cache``)."""
     rcfg = retrieval_config(args, len(corpus))
-    cache = _encode(model, builder, corpus, rcfg, device_data)
+    cache = _encode(model, builder, corpus, rcfg, device_data, ctx_batch_cache)
     arrays = retrieve(model, builder, cache, eval_rows, corpus, rcfg, tasks=tasks,
                       return_arrays=True,
                       external_vr_path=args.external_inference_vr_res_path,
@@ -485,12 +489,14 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
     save = lambda epoch: save_checkpoint(ckpt_dir, model.state_dict(),
                                          trainer.optimizer.state_dict(), model_cfg, epoch)
     eval_kw = dict(tasks=settings.eval_tasks, device_data=device_data)
+    # host-built context batches, reused by every epoch's corpus encoding
+    fast_kw = dict(eval_kw, ctx_batch_cache=[])
     metrics_logger = MetricsLogger(results_dir)
     with open(os.path.join(results_dir, "train.log.txt"), "a") as train_log, \
             open(os.path.join(results_dir, "eval.log.txt"), "a") as eval_log:
         if args.eval_untrained and eval_rows:
             metrics, _ = evaluate_retrieval_fast(model, builder, corpus, eval_rows,
-                                                 args, **eval_kw)
+                                                 args, **fast_kw)
             eval_log.write(f"[epoch -1] {json.dumps(metrics)}\n")
             eval_log.flush()
             logger.info("untrained eval: %s", json.dumps(
@@ -524,7 +530,7 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
                 eval_arrays = None
             else:
                 metrics, eval_arrays = evaluate_retrieval_fast(
-                    model, builder, corpus, eval_rows, args, **eval_kw)
+                    model, builder, corpus, eval_rows, args, **fast_kw)
             eval_log.write(f"[epoch {epoch}] {json.dumps(metrics)}\n")
             eval_log.flush()
             if eval_losses:
