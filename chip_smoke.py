@@ -31,9 +31,23 @@ Run from the repository root on a machine with one CUDA card. Phases:
    against the CPU, two epochs of optimizer steps (finite, falling losses;
    B4 twice per step), an eval-loss pass, ``encode_corpus_resident`` and
    ``retrieve`` from the resident query table;
-8. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3,
-   B5 and B6 and over phase 7 for B4, ``launches_throughput`` over phase 5);
-9. the last line: ``{"ok": true, "device": {...}}``.
+8. the four study kernels, which no engine mode runs, against their plain
+   versions at the same corpus scale (1,000 queries, 21,818 videos of 100
+   clips, D=256, 100 + 1 selected rows, W=14, top_n=200): the masked video
+   scores B9 and the one-stream fused scores B10 in bf16 and f32 within f32
+   summation slack, planted fully masked videos exactly -1e10; the fused
+   gather + similarity B7 in bf16 and f32 within 1e-5 of the largest
+   similarity; the fused banded top-N B8 equal in all four outputs on
+   near-uniform, peaked and tied probabilities;
+9. the stage-study path through its entry point
+   (``profiling.engine_modes.run``) at full width: the flagship combination
+   and its psort variant (equal span candidates), then, with the counts
+   set to 0, "gather" / "einsum" combinations; the stage study follows
+   each call, and in the second B7-B10 must each launch;
+10. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3,
+   B5 and B6, over phase 7 for B4 and over phase 9 for B7-B10,
+   ``launches_throughput`` over phase 5);
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without that last line, when no CUDA device is present,
 when the package is missing, or when any check fails.
@@ -511,8 +525,10 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     modes over bf16 feat2, and the all-int8 psort modes over the int8 flat
     feat2 cache. Returns the kernel launches summed over both."""
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt_ops
     from tvretrieval_tpu_torch.ops import sort as tsort
+    from tvretrieval_tpu_torch.ops import topk as ttopk
     from tvretrieval_tpu_torch.ops import video_score as vs
     from tvretrieval_tpu_torch.retrieval.engine import (
         RetrievalConfig, _maybe_pad_clip_axis, _score_query_batch)
@@ -536,7 +552,9 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     q_mask = torch.ones((nq, 30), device=dev)
     gt = torch.zeros((nq,), dtype=torch.long, device=dev)
     n_runs = WARMUP_RUNS + TIMED_RUNS
-    no_launch = {"video_scores_flat": 0, "video_scores_flat_bmax": 0, "gather_byte_rows": 0}
+    no_launch = {"video_scores_flat": 0, "video_scores_flat_bmax": 0, "gather_byte_rows": 0,
+                 "video_scores_masked": 0, "gathered_similarity": 0,
+                 "fused_video_scores_clip_major": 0, "banded_topk_spans_fused": 0}
     configs = [
         ("bf16 flagship",
          RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_bf16",
@@ -566,7 +584,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         torch.cuda.empty_cache()
         held = (torch.cuda.memory_allocated(dev) - feat2_raw.numel() * 2) / 2**30
         torch.cuda.reset_peak_memory_stats(dev)
-        for ops in (vs, gt_ops, tsort):
+        for ops in (vs, gt_ops, tsort, fsc, ttopk):
             ops.reset_launch_counts()
         for _ in range(WARMUP_RUNS):
             out = run()
@@ -578,7 +596,8 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / TIMED_RUNS
-        launches = {**vs.LAUNCHES, **gt_ops.LAUNCHES, **tsort.LAUNCHES}
+        launches = {**vs.LAUNCHES, **gt_ops.LAUNCHES, **tsort.LAUNCHES, **fsc.LAUNCHES,
+                    **ttopk.LAUNCHES}
         if launches != {**no_launch, **want}:
             raise AssertionError(f"throughput run ({name}): kernel launches {launches}, "
                                  f"expected {({**no_launch, **want})}")
@@ -850,6 +869,226 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     return launches
 
 
+def phase_study_kernels(dev, vs):
+    """Phase 8: B7-B10 against their plain versions at corpus scale.
+    Returns their records for the kernels line (B9, B10 and B7 in bf16)."""
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+    from tvretrieval_tpu_torch.ops import gather as gt
+    from tvretrieval_tpu_torch.ops import topk as ttopk
+    from tvretrieval_tpu_torch.ops.span import banded_topk_spans, topk_stable
+    from tvretrieval_tpu_torch.profiling.engine_modes import in_query_blocks
+    from tvretrieval_tpu_torch.testing import rank_mismatches
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    nv, nq, L, d = N_VIDEOS_FULL, N_QUERIES, N_CLIPS, HIDDEN
+    big = torch.randn((8192, 8192), generator=gen, device=dev)
+    blocker = lambda: torch.mm(big, big)
+    rec = {}
+
+    # ---- B9, B10: random prefix masks, a few fully masked videos planted
+    lengths = torch.randint(1, L + 1, (nv,), generator=gen, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
+    dead = torch.tensor([0, 31, 32, 7777, nv - 1], device=dev)
+    mask[dead] = 0.0
+    live = torch.ones(nv, dtype=torch.bool, device=dev)
+    live[dead] = False
+    f32 = {s: unit((nv, L, d), gen, dev) for s in ("v", "s")}
+    q32 = {s: unit((nq, d), gen, dev) for s in ("v", "s")}
+    mask_t = mask.T[:, None, :].contiguous()
+
+    def same_top100(ref, got, name):
+        pv, pi = topk_stable(ref, 100)
+        _, ki = topk_stable(got, 100)
+        bad = rank_mismatches(pi.cpu(), pv.cpu(), ki.cpu(), atol=2 * B2_ATOL)
+        if bad:
+            raise AssertionError(f"{name}: top-100 differs at {bad} positions outside near-ties")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        fv, fs = f32["v"].to(dtype), f32["s"].to(dtype)
+        qv, qs = q32["v"].to(dtype), q32["s"].to(dtype)
+        # B9 against the einsum stage, 250 queries at a time (the stage
+        # materializes an (Nq, L, Nv) similarity per stream)
+        plain = lambda: in_query_blocks(
+            lambda sl: vs.video_scores_xla(qv[sl], qs[sl], fv, fs, mask), nq, 250)
+        kernel = lambda: vs.video_scores_masked(qv, qs, fv, fs, mask)
+        k, p = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (k[:, live] - p[:, live]).abs().max().item()
+        if not err <= B2_ATOL:
+            raise AssertionError(f"B9-{tag} max |d| {err} > {B2_ATOL}")
+        if not bool((k[:, dead] == -1e10).all()):
+            raise AssertionError(f"B9-{tag}: a fully masked video is not exactly -1e10")
+        same_top100(p, k, f"B9-{tag}")
+        del k, p
+        ms, pms = alternate_ms(plain, kernel, reps=3)
+        bnd = bound(2 * (qv.numel() + fv.numel()) * qv.element_size() + 4 * mask.numel()
+                    + 4 * nq * nv, 2 * 2 * nq * nv * L * d, dtype)
+        if dtype == torch.bfloat16:
+            rec["B9"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, **bnd)
+        log("study", f"B9 video_scores_masked ({tag}): max |d| {err:.3e} <= {B2_ATOL}, "
+            f"{len(dead)} fully masked videos exactly -1e10, top-100 identical outside "
+            f"near-ties; {ms:.3f} ms vs plain (video_scores_xla) {pms:.3f} ms; {bound_str(bnd)}")
+
+        # B10: one stream, clip-major copy made once, exp fused and not
+        fv_t = fv.transpose(0, 1).contiguous()
+        del fs
+        for alpha in (20.0, None):
+            plain = lambda: fsc.fused_video_scores_xla(qv, fv, mask, alpha)
+            kernel = lambda: fsc.fused_video_scores_clip_major(qv, fv_t, mask_t, alpha)
+            k, p = kernel(), plain()
+            torch.cuda.synchronize()
+            if alpha is None:
+                err = (k[:, live] - p[:, live]).abs().max().item()
+                tol, what, planted = B2_ATOL, "max |d|", -1e10
+                same_top100(p, k, f"B10-{tag}")
+            else:
+                # exp(20 s) turns the 1e-5 slack of s into 2e-4 relative, plus expf's last bits
+                err = ((k - p).abs() / p.clamp_min(1e-30))[:, live].max().item()
+                tol, what, planted = 3e-4, "max rel |d|", 0.0
+            if not err <= tol:
+                raise AssertionError(f"B10-{tag} alpha={alpha}: {what} {err} > {tol}")
+            if not bool((k[:, dead] == planted).all()):
+                raise AssertionError(f"B10-{tag} alpha={alpha}: a fully masked video is not "
+                                     f"exactly {planted}")
+            del k, p
+            ms, pms = alternate_ms(plain, kernel, reps=3)
+            bnd = bound((qv.numel() + fv.numel()) * qv.element_size() + 4 * mask.numel()
+                        + 4 * nq * nv, 2 * nq * nv * L * d, dtype)
+            if dtype == torch.bfloat16 and alpha is not None:
+                rec["B10"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
+            elif dtype == torch.bfloat16:
+                rec["B10"]["max_abs_err"] = err      # the absolute error is that of alpha=None
+            log("study", f"B10 fused_video_scores_clip_major ({tag}, alpha={alpha}): {what} "
+                f"{err:.3e} <= {tol}, masked videos exactly {planted}; {ms:.3f} ms vs plain "
+                f"(blocked f32 product + max) {pms:.3f} ms; {bound_str(bnd)}")
+        del fv, fv_t, qv, qs
+    del f32, q32, mask, mask_t
+    torch.cuda.empty_cache()
+
+    # ---- B7: 101 selected rows a query, duplicates and the boundary rows among them
+    v1 = 101
+    idx = torch.randint(0, nv, (nq, v1), generator=gen, device=dev)
+    idx[0, :3] = torch.tensor([0, nv - 1, nv - 1], device=dev)
+    vq, sq = (torch.randn((nq, d), generator=gen, device=dev) * 0.1 for _ in range(2))
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        vf2, sf2 = (torch.randn((nv, L, d), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+        plain = lambda: gt.gathered_similarity_plain(vq, sq, vf2, sf2, idx)
+        kernel = lambda: gt.gathered_similarity(vq, sq, vf2, sf2, idx)
+        k, p = kernel(), plain()
+        torch.cuda.synchronize()
+        gt.check_indices(dev)
+        if k.shape != (nq, v1, L) or k.dtype != torch.float32:
+            raise AssertionError(f"B7-{tag} output {tuple(k.shape)} {k.dtype}")
+        err, top = (k - p).abs().max().item(), p.abs().max().item()
+        if not err <= 1e-5 * top:
+            raise AssertionError(f"B7-{tag} max |d| {err} > 1e-5 x max |sim| {top}")
+        del k, p
+        ms, pms = alternate_ms(plain, kernel, reps=2)
+        n_bytes = (2 * nq * v1 * L * d + 2 * nq * d) * vf2.element_size() \
+            + 4 * nq * v1 + 4 * nq * v1 * L
+        bnd = bound(n_bytes, 2 * 2 * nq * v1 * L * d, dtype)
+        if dtype == torch.bfloat16:
+            rec["B7"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, **bnd)
+        log("study", f"B7 gathered_similarity ({tag}): Nq={nq} x {v1} rows of ({L}, {d}) from "
+            f"{nv}: max |d| {err:.3e} <= 1e-5 x max |sim| {top:.2f}; {ms:.3f} ms "
+            f"({n_bytes / ms / 1e9:.2f} TB/s) vs plain (index, upcast, two f32 einsums, 32 "
+            f"queries at a time) {pms:.3f} ms; {bound_str(bnd)}")
+        del vf2, sf2
+    torch.cuda.empty_cache()
+
+    # ---- B8: near-uniform, peaked and tied probabilities
+    V, min_l, max_l, top_n = 100, 2, 16, 200
+    logits = [torch.randn((nq, V, L), generator=gen, device=dev) * 0.3 for _ in range(2)]
+    cos = torch.rand((nq, V), generator=gen, device=dev) * 0.2 + 0.3
+    vsc = torch.exp(20.0 * torch.sort(cos, dim=1, descending=True).values)
+    tied = []
+    for x in logits:
+        # probabilities on 9 levels with a tail of exact zeros, as softmax
+        # underflow leaves at masked clips: every row is full of exact ties
+        p = torch.round(torch.softmax(x, -1) * 800) / 800
+        p[..., 70:] = 0.0
+        tied.append(p)
+    cases = (("near-uniform", [torch.softmax(x, -1) for x in logits]),
+             ("peaked", [torch.softmax(x * 20.0, -1) for x in logits]),
+             ("tied", tied))
+    for name, (st, ed) in cases:
+        plain = lambda: in_query_blocks(lambda sl: banded_topk_spans(
+            st[sl], ed[sl], vsc[sl], min_l, max_l, top_n), nq, 125)
+        kernel = lambda: ttopk.banded_topk_spans_fused(st, ed, vsc, min_l, max_l, top_n,
+                                                       return_sorted=True)
+        k, p = kernel(), plain()
+        torch.cuda.synchronize()
+        for out_name, a, b in zip(("vid", "st", "ed", "scores"), p, k):
+            if b.shape != (nq, top_n) or not torch.equal(a, b):
+                raise AssertionError(f"B8 ({name}): {out_name} differs from the plain version")
+        share = k[4].float().mean().item() / V
+        n_ties = int((k[3][:, 1:] == k[3][:, :-1]).sum())
+        del k, p
+        ms, pms = alternate_ms(plain, kernel, reps=4, blocker=blocker)
+        bnd = bound(4 * (2 * st.numel() + vsc.numel()) + 16 * nq * top_n, 0)
+        if name == "near-uniform":
+            rec["B8"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None, **bnd)
+        log("study", f"B8 banded_topk_spans_fused ({name}): Nq={nq} V={V} L={L} W={max_l - min_l} "
+            f"top_n={top_n}: all four outputs equal ({n_ties} adjacent equal scores among the "
+            f"selected); {100 * share:.1f}% of the videos reached the sort; {ms:.3f} ms vs plain "
+            f"(joint + stable torch.sort, 125 queries at a time) {pms:.3f} ms; {bound_str(bnd)}")
+    return rec
+
+
+def phase_study_path(dev):
+    """Phase 9: the stage-study entry point at full width. Returns the
+    launches of B7-B10 counted over its second call."""
+    from tvretrieval_tpu_torch.profiling import engine_modes
+
+    def check(records, what):
+        for r in records:
+            if "MISMATCH" in r.get("exact", "") + r.get("agreement", ""):
+                raise AssertionError(f"{what}: {r.get('combo', r.get('kernel'))}: MISMATCH")
+            if r["kind"] == "combo":
+                if not all(np.isfinite(a).all() for a in r["spans"]) or \
+                        r["spans"][3].shape != (N_QUERIES, 200):
+                    raise AssertionError(f"{what}: {r['combo']}: bad span candidates")
+
+    parse = engine_modes.build_arg_parser().parse_args
+    common = ["--nq", str(N_QUERIES), "--n_videos", str(N_VIDEOS_FULL), "--hidden", str(HIDDEN),
+              "--chunk_v", str(CHUNK_V), "--iters", "4", "--warmup", "1"]
+    flagship = "simsweep_cat_bf16/pallas_int8/grouped_shift/pad128"
+    records = engine_modes.run(parse(common + ["--modes", flagship,
+                               "simsweep_cat_bf16/pallas_int8/grouped_shift_psort/pad128/vpsort"]))
+    check(records, "flagship combos")
+    exact = [r["exact"] for r in records if r["kind"] == "combo"]
+    if exact != ["ref", "bit-exact vs " + flagship]:
+        raise AssertionError(f"flagship combos: {exact}")
+    torch.cuda.empty_cache()
+
+    for ops in engine_modes.vs, engine_modes.fused_score, engine_modes.gather, engine_modes.topk:
+        ops.reset_launch_counts()
+    records = engine_modes.run(parse(common + ["--modes", "gather/einsum/grouped",
+                                               "gather/einsum/grouped_shift"]))
+    launches = engine_modes.launch_counts()
+    check(records, "study combos")
+    study = {(r["kernel"], r["case"]): r for r in records if r["kind"] == "study"}
+    if len(study) != 6:
+        raise AssertionError(f"the stage study printed {sorted(study)}")
+    limits = {"max_abs_err": B2_ATOL, "max_rel_err": 1e-5}
+    for (kernel, case), r in study.items():
+        for key, limit in limits.items():
+            if key in r and not r[key] <= limit:
+                raise AssertionError(f"stage study {kernel} ({case}): {key} {r[key]} > {limit}")
+        if kernel == "fused_video_scores_clip_major" and \
+                not r["max_err"] <= (B2_ATOL if case == "alpha=None" else 3e-4):
+            raise AssertionError(f"stage study {kernel} ({case}): {r['max_err']}")
+        if kernel == "banded_topk_spans_fused" and not r["equal"]:
+            raise AssertionError(f"stage study {kernel} ({case}): outputs differ")
+    log("path", f"kernel launches of the stage-study path: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a study kernel was not launched on its path: {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default="", help="write a torch.profiler trace of one "
@@ -893,7 +1132,9 @@ def main() -> int:
     vs.reset_launch_counts()
     tsort.reset_launch_counts()
     metrics = phase_end_to_end(dev)
-    launches = {**vs.LAUNCHES, **tsort.LAUNCHES}
+    # the study kernel of ops.video_score (B9) has its own path, phase 9
+    launches = {k: n for k, n in {**vs.LAUNCHES, **tsort.LAUNCHES}.items()
+                if k != "video_scores_masked"}
     log("e2e", f"kernel launches on the main path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
@@ -907,19 +1148,31 @@ def main() -> int:
 
     rec["B4"] = phase_gather(dev, gt)
     launches["gather_byte_rows"] = phase_train(dev, gt, rec["B4"], args.profile)
+    torch.cuda.empty_cache()
+
+    rec.update(phase_study_kernels(dev, vs))
+    torch.cuda.empty_cache()
+    launches.update(phase_study_path(dev))
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "tvretrieval_tpu")]
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
-    vs_src, gt_src, ss_src, ts_src = (f"tvretrieval_tpu_torch/csrc/{n}.cu" for n in (
-        "video_score", "gather", "span_sim", "topk_sort"))
+    vs_src, gt_src, ss_src, ts_src, ms_src, gs_src, bt_src = (
+        f"tvretrieval_tpu_torch/csrc/{n}.cu" for n in (
+            "video_score", "gather", "span_sim", "topk_sort", "masked_score", "gathered_sim",
+            "banded_topk"))
     table = [("B1", "video_scores_flat_i8", vs_src, "tvretrieval_tpu/ops/pallas_score.py:363"),
              ("B2", "video_scores_flat", vs_src, "tvretrieval_tpu/ops/pallas_score.py:133"),
              ("B3", "video_scores_flat_bmax", vs_src, "tvretrieval_tpu/ops/pallas_score.py:290"),
              ("B4", "gather_byte_rows", gt_src, "tvretrieval_tpu/ops/pallas_gather.py:183"),
              ("B5", "span_sim_cat_i8", ss_src, "tvretrieval_tpu/ops/pallas_score.py:437"),
-             ("B6", "topk_transposed", ts_src, "tvretrieval_tpu/ops/pallas_sort.py:171")]
+             ("B6", "topk_transposed", ts_src, "tvretrieval_tpu/ops/pallas_sort.py:171"),
+             ("B7", "gathered_similarity", gs_src, "tvretrieval_tpu/ops/pallas_gather.py:100"),
+             ("B8", "banded_topk_spans_fused", bt_src, "tvretrieval_tpu/ops/pallas_topk.py:197"),
+             ("B9", "video_scores_masked", ms_src, "tvretrieval_tpu/ops/pallas_score.py:67"),
+             ("B10", "fused_video_scores_clip_major", ms_src,
+              "tvretrieval_tpu/ops/pallas_kernels.py:67")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,

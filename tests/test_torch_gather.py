@@ -28,7 +28,7 @@ def test_gather_plain_matches_pallas_interpret(b):
         got = fn(torch.from_numpy(src), torch.from_numpy(idx))
         assert got.dtype == torch.int8 and got.shape == (b, 8, 256)
         np.testing.assert_array_equal(got.numpy(), want)
-    assert gather.LAUNCHES == {"gather_byte_rows": 0}       # CPU: plain only
+    assert gather.LAUNCHES["gather_byte_rows"] == 0          # CPU: plain only
 
 
 def test_gather_accepts_int64_and_strided_indices():

@@ -11,7 +11,14 @@ Span similarity (B5, csrc/span_sim.cu): query counts off the 64-query tile,
 row counts off the 256-row tile, K with a tail past one 64-byte stage,
 lp = 4 to 256, bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
 and one below a power of two, k = n - 1, k >= n, all-equal rows, rows with
-fewer than k finite values, rows past one launch's limit.
+fewer than k finite values, rows past one launch's limit. Masked video
+scores (B9, B10, csrc/masked_score.cu): query, video and clip counts off the
+64 x 32 x 8 tile, fractional masks, fully masked videos exactly -1e10, the
+exp fused and not. Gathered similarity (B7, csrc/gathered_sim.cu): one
+selected row, clip counts off the 8 warps, one to eight 16-byte pieces a
+lane, indices outside the corpus. Banded top-N (B8, csrc/banded_topk.cu):
+one query, one video, L = 128 with W = 16 and top_n = 256, top_n above the
+span count, rows full of ties and masked tails.
 
 Every test carries the ``cuda`` marker and skips (its ``dev`` fixture)
 without a CUDA card. Imports no JAX, so on a machine with the card it runs
@@ -24,8 +31,11 @@ import math
 import pytest
 import torch
 
+from tvretrieval_tpu_torch.ops import fused_score as fsc
 from tvretrieval_tpu_torch.ops import gather as gt
 from tvretrieval_tpu_torch.ops import sort as tsort
+from tvretrieval_tpu_torch.ops import span as tspan
+from tvretrieval_tpu_torch.ops import topk as ttopk
 from tvretrieval_tpu_torch.ops import video_score as vs
 
 F32_ATOL = 1e-5     # f32 summation order of unit-vector dots
@@ -321,3 +331,183 @@ def test_b6_psort_span_ops_equal_the_plain_selections(dev):
         b = ts.banded_topk_spans_grouped_shift(st, ed, vsc, 2, 16, 200, keep_mask=km)
         for u, v in zip(a, b):
             assert torch.equal(u, v)
+
+
+# ------------------------------------------------------------- B9, B10
+def _masked_case(dev, nq, nv, L, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    unit = lambda *s: torch.nn.functional.normalize(
+        torch.randn(*s, generator=g, device=dev), dim=-1).to(dtype)
+    lengths = torch.randint(1, L + 1, (nv,), generator=g, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
+    mask[nv // 2] = 0.0                                # a fully masked video
+    if nv > 2:
+        mask[1, 0] = 0.25                              # a fractional mask value
+    return unit(nq, d), unit(nq, d), unit(nv, L, d), unit(nv, L, d), mask
+
+
+MASKED_SHAPES = [  # nq, nv, L, d
+    (1, 1, 1, 8), (3, 5, 7, 16), (70, 33, 12, 64), (130, 100, 100, 256), (65, 40, 20, 72)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nv,L,d", MASKED_SHAPES)
+def test_b9_masked_scores_close(dev, dtype, nq, nv, L, d):
+    qv, qs, fv, fs, mask = _masked_case(dev, nq, nv, L, d, dtype, nq + nv)
+    n0 = vs.LAUNCHES["video_scores_masked"]
+    out = vs.video_scores_masked(qv, qs, fv, fs, mask)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_masked"] == n0 + 1
+    ref = vs.video_scores_xla(qv, qs, fv, fs, mask)
+    assert out.shape == ref.shape == (nq, nv) and out.dtype == torch.float32
+    assert bool((out[:, nv // 2] == -1e10).all())
+    live = torch.arange(nv, device=dev) != nv // 2
+    # -1e10 * 0.75 terms of the fractional mask round at 2^10: compare the rest tightly
+    if nv > 2:
+        live[1] = False
+        assert torch.allclose(out[:, 1], ref[:, 1], rtol=1e-6)
+    assert (out[:, live] - ref[:, live]).abs().max().item() <= F32_ATOL if live.any() else True
+
+
+@pytest.mark.parametrize("alpha", [None, 20.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nv,L,d", MASKED_SHAPES)
+def test_b10_fused_scores_close(dev, dtype, alpha, nq, nv, L, d):
+    q, _, f, _, mask = _masked_case(dev, nq, nv, L, d, dtype, nq + nv + 1)
+    mask = (mask > 0.5).float()
+    n0 = fsc.LAUNCHES["fused_video_scores_clip_major"]
+    out = fsc.fused_video_scores(q, f, mask, alpha)
+    torch.cuda.synchronize()
+    assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n0 + 1
+    ref = fsc.fused_video_scores_xla(q, f, mask, alpha)
+    assert out.shape == ref.shape == (nq, nv)
+    if alpha is None:
+        assert bool((out[:, nv // 2] == -1e10).all())
+        assert (out - ref).abs().max().item() <= F32_ATOL
+    else:
+        assert bool((out[:, nv // 2] == 0).all())
+        # exp(20 s) turns the 1e-5 slack of s into 2e-4 relative
+        assert torch.allclose(out, ref, rtol=3e-4, atol=0)
+
+
+def test_b9_b10_wrappers_reject_what_the_kernel_does_not_take(dev):
+    qv, qs, fv, fs, mask = _masked_case(dev, 4, 6, 5, 16, torch.float32, 0)
+    with pytest.raises(TypeError):
+        vs.video_scores_masked(qv.bfloat16(), qs, fv, fs, mask)
+    with pytest.raises(TypeError):
+        vs.video_scores_masked(qv.half(), qs.half(), fv.half(), fs.half(), mask)
+    with pytest.raises(ValueError, match="mask"):
+        vs.video_scores_masked(qv, qs, fv, fs, mask[:, :4])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        vs.video_scores_masked(qv.cpu(), qs, fv, fs, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        vs.video_scores_masked(qv, qs, fv.transpose(0, 1).contiguous().transpose(0, 1), fs, mask)
+    q6, s6, f6, g6, m6 = _masked_case(dev, 4, 6, 5, 6, torch.float32, 0)   # 24-byte rows
+    with pytest.raises(ValueError, match="multiple of 16"):
+        vs.video_scores_masked(q6, s6, f6, g6, m6)
+    with pytest.raises(ValueError, match=r"\(L, 1, Nv\)"):
+        fsc.fused_video_scores_clip_major(qv, fv.transpose(0, 1).contiguous(), mask.T.contiguous())
+
+
+# ------------------------------------------------------------------ B7
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,L,nq,v1,d", [
+    (17, 16, 5, 7, 128), (40, 24, 9, 12, 128),     # the shapes of the JAX kernel's test
+    (3, 1, 1, 1, 8),                                # one row, one clip, one piece
+    (50, 100, 33, 101, 256),                        # the engine's row shape
+    (9, 13, 4, 3, 24),                              # L and D the TPU kernel refuses
+    (6, 10, 3, 5, 520), (5, 9, 2, 4, 1024)])        # two to eight pieces a lane
+def test_b7_gathered_similarity_close(dev, dtype, n, L, nq, v1, d):
+    g = torch.Generator(device=dev).manual_seed(n + nq)
+    vf2, sf2 = (torch.randn(n, L, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    vq, sq = (torch.randn(nq, d, generator=g, device=dev) for _ in range(2))
+    idx = torch.randint(0, n, (nq, v1), generator=g, device=dev, dtype=torch.int32)
+    idx[0, 0] = n - 1
+    n0 = gt.LAUNCHES["gathered_similarity"]
+    out = gt.gathered_similarity(vq, sq, vf2, sf2, idx)
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES["gathered_similarity"] == n0 + 1
+    ref = gt.gathered_similarity_plain(vq, sq, vf2, sf2, idx)
+    assert out.shape == ref.shape == (nq, v1, L) and out.dtype == torch.float32
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+    assert torch.equal(gt.gathered_similarity(vq, sq, vf2, sf2, idx.long()), out)
+    gt.check_indices(dev)
+
+
+def test_b7_reports_an_index_outside_the_corpus_and_guards(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    vf2, sf2 = (torch.randn(6, 5, 16, generator=g, device=dev) for _ in range(2))
+    q = torch.randn(2, 16, generator=g, device=dev)
+    gt.check_indices(dev)
+    idx = torch.tensor([[0, 6, 2], [-1, 5, 2 ** 33]], device=dev)
+    out = gt.gathered_similarity(q, q, vf2, sf2, idx)
+    ok = gt.gathered_similarity_plain(q, q, vf2, sf2, idx.clamp(0, 5))
+    good = torch.tensor([[True, False, True], [False, True, False]], device=dev)
+    assert torch.allclose(out[good], ok[good], atol=1e-5) and not bool(out[~good].any())
+    with pytest.raises(IndexError, match="3 indices"):
+        gt.check_indices(dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gt.gathered_similarity(q[:, :6], q[:, :6], vf2[..., :6].contiguous(),
+                               sf2[..., :6].contiguous(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gt.gathered_similarity(q[:, :8], q[:, :8], vf2[..., ::2], sf2[..., ::2], idx)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gt.gathered_similarity(q, q, vf2, sf2, idx.cpu())
+    with pytest.raises(TypeError):
+        gt.gathered_similarity(q, q, vf2, sf2, idx.float())
+
+
+# ------------------------------------------------------------------ B8
+def _span_case(dev, nq, v, L, seed, masked_tail=0, levels=0, peaked=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    st, ed = (torch.rand(nq, v, L, generator=g, device=dev) for _ in range(2))
+    if peaked:
+        st, ed = torch.softmax(st * 40, -1), torch.softmax(ed * 40, -1)
+    if masked_tail:
+        st[..., L - masked_tail:] = 0.0
+        ed[..., L - masked_tail:] = 0.0
+    if levels:
+        st, ed = torch.round(st * levels) / levels, torch.round(ed * levels) / levels
+    vsc = torch.exp(4.0 * torch.rand(nq, v, generator=g, device=dev))
+    return st, ed, torch.sort(vsc, dim=1, descending=True).values
+
+
+@pytest.mark.parametrize("nq,v,L,min_l,max_l,top_n,kw", [
+    (3, 9, 20, 1, 7, 50, {}),
+    (2, 5, 33, 2, 16, 200, {}),
+    (2, 6, 20, 1, 9, 64, {"masked_tail": 8}),
+    (2, 7, 16, 1, 5, 100, {"levels": 2}),
+    (1, 3, 10, 2, 6, 120, {}),                      # top_n above the positive span count
+    (1, 1, 4, 1, 3, 200, {}),                       # top_n above the band's element count
+    (2, 4, 128, 2, 18, 256, {}),                    # L = 128, W = 16, top_n = 256
+    (37, 100, 100, 2, 16, 200, {}),                 # the engine's shape, near-uniform
+    (37, 100, 100, 2, 16, 200, {"peaked": True}),
+    (37, 100, 100, 2, 16, 200, {"levels": 4, "masked_tail": 30}),
+    (5, 100, 100, 0, 16, 1, {}),                    # min_l = 0, top_n = 1
+])
+def test_b8_banded_topk_equals_plain(dev, nq, v, L, min_l, max_l, top_n, kw):
+    st, ed, vsc = _span_case(dev, nq, v, L, nq * 100 + v, **kw)
+    n0 = ttopk.LAUNCHES["banded_topk_spans_fused"]
+    got = ttopk.banded_topk_spans_fused(st, ed, vsc, min_l, max_l, top_n, return_sorted=True)
+    torch.cuda.synchronize()
+    assert ttopk.LAUNCHES["banded_topk_spans_fused"] == n0 + 1
+    ref = tspan.banded_topk_spans(st, ed, vsc, min_l, max_l, top_n)
+    for name, r, k in zip(("vid", "st", "ed", "scores"), ref, got):
+        assert k.shape == (nq, top_n) and k.dtype == r.dtype, name
+        assert torch.equal(k, r), name
+    assert got[4].shape == (nq,) and bool(((got[4] >= 1) & (got[4] <= v)).all())
+
+
+def test_b8_unsorted_video_scores_and_limits(dev):
+    """Descending video scores matter for speed only; the limits raise."""
+    st, ed, vsc = _span_case(dev, 4, 30, 50, 1)
+    vsc = vsc.flip(1).contiguous()
+    got = ttopk.banded_topk_spans_fused(st, ed, vsc, 2, 16, 200)
+    for r, k in zip(tspan.banded_topk_spans(st, ed, vsc, 2, 16, 200), got):
+        assert torch.equal(k, r)
+    with pytest.raises(ValueError, match="kernel limits"):
+        ttopk.banded_topk_spans_fused(st, ed, vsc, 1, 18 + 1, 50)
+    with pytest.raises(ValueError, match="kernel limits"):
+        ttopk.banded_topk_spans_fused(st, ed, vsc, 2, 16, 257)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ttopk.banded_topk_spans_fused(st, ed, vsc.cpu(), 2, 16, 50)

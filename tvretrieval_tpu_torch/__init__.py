@@ -14,7 +14,13 @@ exact and int8 engine mode, with the hand-written CUDA video-score kernels
 (``csrc/topk_sort.cu``, ``ops.sort``), and XML training (``training.train_xml``,
 ``training.xml_trainer``) on host-built batches or on the GPU-resident
 corpus (``data.device_corpus``) with the hand-written CUDA byte-row gather
-(``csrc/gather.cu``, ``ops.gather``).
+(``csrc/gather.cu``, ``ops.gather``), and the stage-study entry point
+(``profiling.engine_modes``) with the four study kernels that no engine
+mode runs: fused gather + similarity (``csrc/gathered_sim.cu``,
+``ops.gather``), fused banded top-N (``csrc/banded_topk.cu``, ``ops.topk``),
+masked video scores and one-stream clip-major scores
+(``csrc/masked_score.cu``, ``ops.video_score``, ``ops.fused_score``). Every
+Pallas kernel of the JAX package now has its CUDA counterpart.
 
 Precision: the reference holds float32 matmuls at full precision. PyTorch
 already defaults matmuls to full float32 on the card, but lets cuDNN

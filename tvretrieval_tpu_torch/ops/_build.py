@@ -24,7 +24,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # library name -> (source, {entry point: argtypes}); every entry returns cudaError_t
 SOURCES: Dict[str, tuple] = {
     # tvr_video_scores(kind, qv, qs, fv, fs, nq, nv_pad, lp, d_words, n_videos,
@@ -40,6 +40,19 @@ SOURCES: Dict[str, tuple] = {
     # tvr_topk_sort(x, nq, n, k, out_v, out_i, stream)
     "topk_sort": (_PKG / "csrc" / "topk_sort.cu", {
         "tvr_topk_sort": [_P, _I, _I, _I, _P, _P, _P]}),
+    # tvr_masked_scores(kind, qv, qs, fv, fs, mask, nq, nv, n_clips, d_words, f_video,
+    #                   f_clip, m_video, m_clip, n_streams, init, use_exp, alpha, out, stream)
+    "masked_score": (_PKG / "csrc" / "masked_score.cu", {
+        "tvr_masked_scores": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _I,
+                              _F, _I, _F, _P, _P]}),
+    # tvr_gathered_similarity(kind, qv, qs, vf2, sf2, idx, n_rows, nq, v1, n_clips,
+    #                         clip_bytes, out, bad, stream)
+    "gathered_sim": (_PKG / "csrc" / "gathered_sim.cu", {
+        "tvr_gathered_similarity": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P]}),
+    # tvr_banded_topk(st, ed, vs, nq, V, L, min_l, max_l, top_n, out_vid, out_st, out_ed,
+    #                 out_score, sorted, stream)
+    "banded_topk": (_PKG / "csrc" / "banded_topk.cu", {
+        "tvr_banded_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]}),
 }
 
 

@@ -1,4 +1,5 @@
-"""Byte-row gather for the GPU-resident training corpus.
+"""Row gathers: the byte-row gather of the GPU-resident training corpus, and
+the gather fused with the span similarity.
 
 ``gather_byte_rows`` (B4, csrc/gather.cu) replaces
 tvretrieval_tpu/ops/pallas_gather.py::gather_byte_rows: ``out[b] =
@@ -12,10 +13,19 @@ wrapper given a CPU table runs the plain version; given a CUDA table it
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches (plain
 runs are not counted).
 
-The kernel is bound by bytes: a row is read once and written once. An
-index outside ``[0, N)`` cannot be reported without waiting for the device,
-so the kernel writes zeros for that row and counts it on the device;
-``check_indices(device)`` reads the count (one synchronisation) and raises.
+``gathered_similarity`` (B7, csrc/gathered_sim.cu) replaces
+tvretrieval_tpu/ops/pallas_gather.py::gathered_similarity: the merged span
+similarity of each query's selected corpus rows, ``(vq . vf2[idx] + sq .
+sf2[idx]) / 2``, without the gathered rows reaching device memory.
+``gathered_similarity_plain`` is its plain version (row gather, two f32
+products). No engine mode runs it: it is a measured alternative to span
+mode "gather", run beside it by ``profiling.engine_modes``.
+
+Both kernels are bound by bytes: a row is read once (and, for B4, written
+once). An index outside ``[0, N)`` cannot be reported without waiting for
+the device, so a kernel writes zeros for that row and counts it on the
+device; ``check_indices(device)`` reads the count (one synchronisation) and
+raises.
 """
 from __future__ import annotations
 
@@ -23,7 +33,12 @@ from typing import Dict
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"gather_byte_rows": 0}
+LAUNCHES: Dict[str, int] = {"gather_byte_rows": 0, "gathered_similarity": 0}
+
+# the longest clip feature row B7 holds in a lane's registers
+# (csrc/gathered_sim.cu: 8 x 16-byte pieces a lane)
+MAX_CLIP_BYTES = 4096
+_KIND = {torch.bfloat16: 1, torch.float32: 2}
 
 # per-device int32 counter of out-of-range indices seen by the kernel
 _BAD: Dict[torch.device, torch.Tensor] = {}
@@ -84,9 +99,7 @@ def gather_byte_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: table and output must be 16-byte aligned")
     if idx32.shape[0] == 0:
         return out
-    bad = _BAD.get(dev)
-    if bad is None:
-        bad = _BAD[dev] = torch.zeros((), dtype=torch.int32, device=dev)
+    bad = _bad_counter(dev)
     fn = _build.load("gather").tvr_gather_byte_rows
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -98,10 +111,108 @@ def gather_byte_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _bad_counter(dev: torch.device) -> torch.Tensor:
+    bad = _BAD.get(dev)
+    if bad is None:
+        bad = _BAD[dev] = torch.zeros((), dtype=torch.int32, device=dev)
+    return bad
+
+
+def gathered_similarity_plain(video_query, sub_query, video_feat2, sub_feat2, gather_idx,
+                              block_queries: int = 32) -> torch.Tensor:
+    """Plain version of B7: (Nq, D) queries x (N, L, D) corpora x (Nq, V)
+    row indices -> (Nq, V, L) f32. The queries are cast to the corpus
+    dtype; the gathered rows are upcast and the two products run in f32
+    (so a bf16 corpus does not round the output to bf16), ``block_queries``
+    queries at a time: the gathered (block, V, L, D) rows exist twice."""
+    dt = video_feat2.dtype
+    idx = gather_idx.long()
+    outs = []
+    for q0 in range(0, idx.shape[0], block_queries):
+        sl = slice(q0, q0 + block_queries)
+        sv = torch.einsum("qd,qvld->qvl", video_query[sl].to(dt).float(),
+                          video_feat2[idx[sl]].float())
+        ss = torch.einsum("qd,qvld->qvl", sub_query[sl].to(dt).float(),
+                          sub_feat2[idx[sl]].float())
+        outs.append((sv + ss) / 2)
+    return torch.cat(outs)
+
+
+def gathered_similarity(video_query: torch.Tensor, sub_query: torch.Tensor,
+                        video_feat2: torch.Tensor, sub_feat2: torch.Tensor,
+                        gather_idx: torch.Tensor) -> torch.Tensor:
+    """B7: (Nq, D) queries x (N, L, D) corpora x (Nq, V) row indices ->
+    (Nq, V, L) merged similarity, f32.
+
+    The queries are cast to the corpus dtype (bf16 or f32), the dots
+    accumulate in f32. gather_idx: int32, or int64 narrowed on the device.
+    The TPU function needs ``L % 8 == 0`` and ``D % 128 == 0`` for its DMA
+    tiling; this kernel reads 16-byte vectors, so it needs ``D * itemsize``
+    to be a multiple of 16 and at most MAX_CLIP_BYTES, and takes any L. An
+    index outside the corpus gives a row of zeros and is counted for
+    ``check_indices``. Replaces pallas_gather.gathered_similarity."""
+    name = "gathered_similarity"
+    if (video_feat2.dim() != 3 or sub_feat2.shape != video_feat2.shape
+            or gather_idx.dim() != 2
+            or video_query.shape != (gather_idx.shape[0], video_feat2.shape[2])
+            or sub_query.shape != video_query.shape):
+        raise ValueError(
+            f"{name}: shapes {[tuple(t.shape) for t in (video_query, sub_query, video_feat2, sub_feat2, gather_idx)]} "
+            "are not (Nq, D), (Nq, D), (N, L, D), (N, L, D), (Nq, V)")
+    if gather_idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name}: gather_idx must be int32 or int64, got {gather_idx.dtype}")
+    n, L, d = video_feat2.shape
+    dt = video_feat2.dtype
+    clip_bytes = d * video_feat2.element_size()
+    if clip_bytes % 16 or clip_bytes > MAX_CLIP_BYTES:
+        raise ValueError(
+            f"{name}: a clip's features are {clip_bytes} bytes (D={d}); the kernel reads "
+            f"16-byte vectors held in registers, so D * itemsize must be a multiple of "
+            f"16 and at most {MAX_CLIP_BYTES}")
+    if video_feat2.device.type == "cpu":
+        return gathered_similarity_plain(video_query, sub_query, video_feat2, sub_feat2,
+                                         gather_idx)
+    dev = video_feat2.device
+    ts = (video_query, sub_query, video_feat2, sub_feat2, gather_idx)
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"{name}: all operands must be on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if dt not in _KIND or sub_feat2.dtype != dt:
+        raise TypeError(f"{name}: corpora must share bfloat16 or float32, got {dt}, "
+                        f"{sub_feat2.dtype}")
+    if not (video_feat2.is_contiguous() and sub_feat2.is_contiguous()):
+        raise ValueError(f"{name}: the corpora must be contiguous")
+    if n == 0 or L == 0 or n >= 2 ** 31:
+        raise ValueError(f"{name}: corpus {tuple(video_feat2.shape)} needs 0 < N < 2^31 "
+                         "and L > 0")
+    from tvretrieval_tpu_torch.ops import _build
+
+    nq, v1 = gather_idx.shape
+    if gather_idx.dtype == torch.int64:
+        gather_idx = gather_idx.clamp(-1, n)     # what lies outside stays outside
+    idx32 = gather_idx.to(torch.int32).contiguous()
+    qv, qs = video_query.to(dt).contiguous(), sub_query.to(dt).contiguous()
+    out = torch.empty((nq, v1, L), dtype=torch.float32, device=dev)
+    if nq == 0 or v1 == 0:
+        return out
+    if any(t.data_ptr() % 16 for t in (qv, qs, video_feat2, sub_feat2)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    fn = _build.load("gathered_sim").tvr_gathered_similarity
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_KIND[dt], qv.data_ptr(), qs.data_ptr(), video_feat2.data_ptr(),
+                 sub_feat2.data_ptr(), idx32.data_ptr(), n, nq, v1, L, clip_bytes,
+                 out.data_ptr(), _bad_counter(dev).data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
 def check_indices(device) -> None:
-    """Raise IndexError if any ``gather_byte_rows`` launch on ``device``
-    since the last check saw an index outside its table (waits for the
-    device; call where the host synchronises anyway)."""
+    """Raise IndexError if any gather launch on ``device`` since the last
+    check saw an index outside its table (waits for the device; call where
+    the host synchronises anyway)."""
     device = torch.device(device)
     for dev, bad in _BAD.items():
         # "cuda" without an index stands for every card
@@ -110,5 +221,5 @@ def check_indices(device) -> None:
         n_bad = int(bad.item())
         if n_bad:
             bad.zero_()
-            raise IndexError(f"gather_byte_rows: {n_bad} indices were outside their "
-                             f"table on {dev}; their output rows are zeros")
+            raise IndexError(f"gather: {n_bad} indices were outside their table on "
+                             f"{dev}; their output rows are zeros")

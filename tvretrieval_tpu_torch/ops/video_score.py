@@ -12,8 +12,12 @@ Kernel wrappers, each beside its plain version:
 - ``video_scores_flat``      (B2, replaces ``video_scores_pallas_flat``)
 - ``video_scores_flat_bmax`` (B3, replaces ``video_scores_pallas_flat_bmax``)
 - ``span_sim_cat_i8``        (B5, replaces ``span_sim_pallas_cat_i8``)
+- ``video_scores_masked``    (B9, replaces ``video_scores_pallas``: the
+  unflattened (Nv, L, D) caches with the mask applied in the kernel; a
+  measured alternative to the einsum stage, run by profiling.engine_modes)
 
-B1-B3 are csrc/video_score.cu, B5 is csrc/span_sim.cu.
+B1-B3 are csrc/video_score.cu, B5 is csrc/span_sim.cu, B9 is
+csrc/masked_score.cu (which ops.fused_score shares for B10).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches per
@@ -46,7 +50,8 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 SPAN_LP = 128
 
 LAUNCHES: Dict[str, int] = {"video_scores_flat_i8": 0, "video_scores_flat": 0,
-                            "video_scores_flat_bmax": 0, "span_sim_cat_i8": 0}
+                            "video_scores_flat_bmax": 0, "span_sim_cat_i8": 0,
+                            "video_scores_masked": 0}
 
 
 def reset_launch_counts() -> None:
@@ -407,5 +412,83 @@ def span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp: int = SPAN_LP) -> torch.
                  f_scales.data_ptr(), nq, rows, k // 4, out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+# ------------------------------------------------- masked video scores (B9)
+def launch_masked_scores(name: str, queries, feats, mask, nv: int, n_clips: int,
+                         f_strides, m_strides, init: float,
+                         alpha: Optional[float]) -> torch.Tensor:
+    """Check the operands of csrc/masked_score.cu and launch it on the
+    current stream: one (B10) or two (B9) streams of (Nq, D) ``queries``
+    against ``feats`` whose video and clip axes have ``f_strides`` (in
+    elements), ``mask`` with ``m_strides``; the running max starts at
+    ``init``; ``alpha`` not None applies exp(alpha * score). Returns
+    (Nq, nv) f32. The caller counts the launch."""
+    from tvretrieval_tpu_torch.ops import _build
+
+    ts = (*queries, *feats)
+    dev = feats[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in (*ts, mask)):
+        raise ValueError(f"{name}: all operands must be on one CUDA device, got "
+                         f"{[str(t.device) for t in (*ts, mask)]}")
+    dt = feats[0].dtype
+    if dt not in (torch.bfloat16, torch.float32) or any(t.dtype != dt for t in ts):
+        raise TypeError(f"{name}: queries and caches must share bfloat16 or float32, "
+                        f"got {[t.dtype for t in ts]}")
+    nq, d = queries[0].shape
+    if any(q.shape != (nq, d) for q in queries) or any(
+            f.shape != feats[0].shape or f.shape[-1] != d for f in feats):
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ts]} do not agree "
+                         "on Nq, Nv, L, D")
+    row_bytes = d * feats[0].element_size()
+    if row_bytes % 16:
+        raise ValueError(f"{name}: a feature row is {row_bytes} bytes; the kernel loads "
+                         "16-byte vectors, so D * itemsize must be a multiple of 16")
+    if not all(f.is_contiguous() for f in feats):
+        raise ValueError(f"{name}: feature caches must be contiguous")
+    if nq == 0 or nv == 0 or n_clips == 0:
+        raise ValueError(f"{name}: Nq={nq}, Nv={nv} and L={n_clips} must be positive")
+    queries = [q.contiguous() for q in queries]
+    mask = mask.to(torch.float32).contiguous()
+    if any(t.data_ptr() % 16 for t in (*queries, *feats)):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+    per_word = 4 // feats[0].element_size()
+    out = torch.empty((nq, nv), dtype=torch.float32, device=dev)
+    fn = _build.load("masked_score").tvr_masked_scores
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_KIND[dt], queries[0].data_ptr(), queries[-1].data_ptr(),
+                 feats[0].data_ptr(), feats[-1].data_ptr(), mask.data_ptr(), nq, nv,
+                 n_clips, row_bytes // 4, f_strides[0] // per_word, f_strides[1] // per_word,
+                 m_strides[0], m_strides[1], len(feats), init,
+                 int(alpha is not None), float(alpha or 0.0), out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    return out
+
+
+def video_scores_masked(qv, qs, feat1_v, feat1_s, mask) -> torch.Tensor:
+    """B9: q2c scores over the unflattened caches, (Nq, Nv) f32, pre-exp.
+
+    qv / qs: (Nq, D) normalized queries cast to the cache dtype; feat1_v /
+    feat1_s: (Nv, L, D) normalized caches, bf16 or f32; mask: (Nv, L) float
+    clip validity. Per stream the max over clips of ``s * m + (1 - m) *
+    -1e10`` with f32-accumulated dots, the two maxima averaged: what
+    ``video_scores_xla`` (its plain version, the engine's "einsum" stage)
+    computes, up to f32 summation order. A fully masked video scores
+    exactly -1e10. The (Nq, Nv, L) similarity never reaches device memory.
+    (The TPU wrapper's chunk_v only tiles its grid, so it has no
+    counterpart here.) Replaces pallas_score.video_scores_pallas."""
+    if feat1_v.device.type == "cpu":
+        return video_scores_xla(qv, qs, feat1_v, feat1_s, mask)
+    name = "video_scores_masked"
+    if feat1_v.dim() != 3 or mask.shape != feat1_v.shape[:2]:
+        raise ValueError(f"{name}: caches must be (Nv, L, D) and mask (Nv, L), got "
+                         f"{tuple(feat1_v.shape)}, {tuple(mask.shape)}")
+    nv, L, d = feat1_v.shape
+    out = launch_masked_scores(name, (qv, qs), (feat1_v, feat1_s), mask, nv, L,
+                               (L * d, d), (L, 1), -math.inf, None)
     LAUNCHES[name] += 1
     return out
