@@ -1,12 +1,13 @@
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--parent DIR]
 
 Run from the repository root on a machine with one CUDA card. Phases:
 
 1. the device, and its name and power limit from nvidia-smi;
 2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc, one
-   compiler per source, side by side;
+   compiler per source, side by side; the int8 video-score kernel's SASS
+   must hold IMMA (tensor-core) instructions and the library no IDP (dp4a);
 3. each kernel against its plain PyTorch version at the full-corpus
    shapes (21,818 videos, 1,000 queries): the video scores (lp=104, D=256)
    B1 and B3-int8 bit-equal, B2 and B3 in bf16 and f32 within f32 summation
@@ -43,11 +44,18 @@ Run from the repository root on a machine with one CUDA card. Phases:
    (``profiling.engine_modes.run``) at full width: the flagship combination
    and its psort variant (equal span candidates), then, with the counts
    set to 0, "gather" / "einsum" combinations; the stage study follows
-   each call, and in the second B7-B10 must each launch;
+   each call (B9 / B10 on a mask with one fully and one partly masked video
+   planted, the fully masked one exactly -1e10 in kernel and stage), and
+   in the second B7-B10 must each launch;
 10. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3,
    B5 and B6, over phase 7 for B4 and over phase 9 for B7-B10,
    ``launches_throughput`` over phase 5);
 11. the last line: ``{"ok": true, "device": {...}}``.
+
+``--parent DIR`` (a ``git archive`` of another commit, outside the
+package directory) runs that commit's phases 3 and 5 in a process of its
+own before and after this run, on the same card, its lines prefixed
+``[parent 1]`` / ``[parent 2]``.
 
 Exits non-zero, without that last line, when no CUDA device is present,
 when the package is missing, or when any check fails.
@@ -144,6 +152,22 @@ def video_score_bound(q, feat, n_out: int) -> dict:
     return bound(n_bytes, n_ops, feat.dtype)
 
 
+def check_tensor_cores(_build) -> str:
+    """Phase 2: the int8 video-score kernel runs on the tensor cores: its
+    SASS holds IMMA instructions, and the library holds no IDP (dp4a)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("video_score"))],
+                          capture_output=True, text=True, check=True).stdout
+    functions = sass.split("Function : ")[1:]
+    i8 = [f for f in functions if "video_score_i8_kernel" in f.split("\n", 1)[0]]
+    imma = [f.count("IMMA") for f in i8]
+    idp = sass.count("IDP")
+    if not i8 or not all(imma) or idp:
+        raise AssertionError(f"video_score SASS: IMMA per int8 kernel {imma}, {idp} IDP")
+    return (f"video_score SASS: IMMA in each of the {len(i8)} instances of "
+            f"video_score_i8_kernel {imma}, {idp} IDP in the library")
+
+
 def bound_str(b: dict) -> str:
     return f"bound {b['bound_ms']:.3f} ms by {b['bound_by']}"
 
@@ -192,8 +216,10 @@ def phase_kernels(dev, vs):
                            lambda: vs.video_scores_flat_i8(*args8[:6]))
     rec["B1"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                      **video_score_bound(q8["v"], i8["v"], N_QUERIES * nv))
-    log("kernels", f"B1 video_scores_flat_i8: bit-equal; {ms:.3f} ms vs plain {pms:.3f} ms; "
-        f"{bound_str(rec['B1'])}")
+    n_ops = 2 * 2 * N_QUERIES * i8["v"].shape[0] * HIDDEN
+    log("kernels", f"B1 video_scores_flat_i8: bit-equal; {ms:.3f} ms ({n_ops / ms / 1e9:.1f} "
+        f"TOPS of {PEAK_OPS[torch.int8] / 1e12:.0f}) vs plain {pms:.3f} ms; "
+        f"{bound_str(rec['B1'])}, {100 * rec['B1']['bound_ms'] / ms:.1f}% of its rate")
     b1_scores = k
 
     # B2 (bf16, f32): f32 summation slack, identical top-100 outside near-ties
@@ -250,7 +276,8 @@ def phase_kernels(dev, vs):
             rec["B3"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
         log("kernels", f"B3 video_scores_flat_bmax ({name}): max |d| {err:.3e}"
             f"{' (bit-equal)' if exact else ''}, bmax exact, pads -inf; "
-            f"{ms:.3f} ms vs plain {pms:.3f} ms; {bound_str(bnd)}")
+            f"{ms:.3f} ms vs plain {pms:.3f} ms; {bound_str(bnd)}, "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate")
     rec["B3"]["max_abs_err"] = b3_err
     return rec
 
@@ -306,7 +333,8 @@ def phase_span_sim(dev, vs):
 def phase_topk_sort(dev, tsort):
     """Phase 3, B6: the sorting top-k at the engine's five row shapes (and a
     small and an n <= k shape) against its plain version, values and
-    indices, on rows with planted ties and exact zeros. Times are summed
+    indices, on rows with planted ties and exact zeros, and on the same rows
+    with 0.0 and -0.0 mixed. Times (on the first rows) are summed
     over the five shapes: one query batch's five launches."""
     gen = torch.Generator(device=dev).manual_seed(5)
     big = torch.randn((8192, 8192), generator=gen, device=dev)
@@ -315,13 +343,16 @@ def phase_topk_sort(dev, tsort):
     for n, k in SORT_SHAPES + ((17, 2), (64, 100)):
         # 65 distinct values, zeros among them: every row is full of ties
         x = torch.round(torch.rand((N_QUERIES, n), generator=gen, device=dev) * 64) / 64
-        kv, ki = tsort.topk_transposed(x, k)
-        torch.cuda.synchronize()
-        pv, pi = tsort.topk_transposed_plain(x, k)
-        if kv.shape != (N_QUERIES, min(k, n)) or ki.dtype != torch.int32:
-            raise AssertionError(f"B6 ({n}, k={k}): output {tuple(kv.shape)} {ki.dtype}")
-        if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
-            raise AssertionError(f"B6 ({n}, k={k}) differs from its plain version")
+        # and the same rows with half the values negated: 0.0 and -0.0 tie
+        flip = torch.rand((N_QUERIES, n), generator=gen, device=dev) < 0.5
+        for rows in (x, torch.where(flip, -x, x)):
+            kv, ki = tsort.topk_transposed(rows, k)
+            torch.cuda.synchronize()
+            pv, pi = tsort.topk_transposed_plain(rows, k)
+            if kv.shape != (N_QUERIES, min(k, n)) or ki.dtype != torch.int32:
+                raise AssertionError(f"B6 ({n}, k={k}): output {tuple(kv.shape)} {ki.dtype}")
+            if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+                raise AssertionError(f"B6 ({n}, k={k}) differs from its plain version")
         if (n, k) not in SORT_SHAPES:
             log("kernels", f"B6 topk_transposed ({N_QUERIES}, {n}) k={k}: equal")
             continue
@@ -342,7 +373,8 @@ def phase_topk_sort(dev, tsort):
             rec[key] += val
     log("kernels", f"B6, a batch's five launches: {rec['ms'] * 1e3:.1f} us vs plain "
         f"{rec['plain_ms'] * 1e3:.1f} us vs torch.topk {rec['library_ms'] * 1e3:.1f} us; "
-        f"bound {rec['bound_ms'] * 1e3:.2f} us")
+        f"bound {rec['bound_ms'] * 1e3:.2f} us, {100 * rec['bound_ms'] / rec['ms']:.1f}% of "
+        "its rate")
     return rec
 
 
@@ -1083,10 +1115,52 @@ def phase_study_path(dev):
             raise AssertionError(f"stage study {kernel} ({case}): {r['max_err']}")
         if kernel == "banded_topk_spans_fused" and not r["equal"]:
             raise AssertionError(f"stage study {kernel} ({case}): outputs differ")
+        if kernel in ("video_scores_masked", "fused_video_scores_clip_major") and not (
+                r["masked_exact"] and r["planted_fully_masked"] == 1
+                and r["planted_partly_masked"] == 1):
+            raise AssertionError(f"stage study {kernel} ({case}): the planted fully masked "
+                                 "video is not exactly -1e10 in kernel and stage")
     log("path", f"kernel launches of the stage-study path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a study kernel was not launched on its path: {launches}")
     return launches
+
+
+# phases 3 and 5 of another commit's chip_smoke.py, run from its checkout
+PARENT_PHASES = """
+import sys
+from concurrent.futures import ThreadPoolExecutor
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from tvretrieval_tpu_torch.ops import _build, sort as tsort, video_score as vs
+with ThreadPoolExecutor() as pool:
+    list(pool.map(_build.build, _build.SOURCES))
+dev = torch.device("cuda", 0)
+rec = cs.phase_kernels(dev, vs)
+torch.cuda.empty_cache()
+rec["B5"] = cs.phase_span_sim(dev, vs)
+torch.cuda.empty_cache()
+rec["B6"] = cs.phase_topk_sort(dev, tsort)
+torch.cuda.empty_cache()
+cs.phase_throughput(dev, rec, "")
+"""
+
+
+def run_parent(parent_dir: str, label: str) -> None:
+    """Phases 3 and 5 of the chip_smoke.py in ``parent_dir`` (a git archive
+    of another commit), in a process of its own on this card; its lines
+    are printed with ``label``."""
+    if not os.path.isfile(os.path.join(parent_dir, "chip_smoke.py")):
+        raise AssertionError(f"--parent {parent_dir}: no chip_smoke.py there")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", PARENT_PHASES], cwd=parent_dir,
+                          capture_output=True, text=True)
+    for line in proc.stdout.splitlines():
+        print(f"[{label}] {line}", flush=True)
+    if proc.returncode:
+        raise AssertionError(f"{label} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    log(label, f"phases 3 and 5 of {parent_dir} took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1094,6 +1168,9 @@ def main() -> int:
     ap.add_argument("--profile", default="", help="write a torch.profiler trace of one "
                     "throughput batch to this directory, and print the profile of it "
                     "and of one training epoch")
+    ap.add_argument("--parent", default="", help="a checkout of another commit (git "
+                    "archive): run its phases 3 and 5 before and after this run's, on "
+                    "the same card")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1113,10 +1190,14 @@ def main() -> int:
     log("device", f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
 
+    if args.parent:
+        run_parent(args.parent, "parent 1")
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:      # one nvcc per source, side by side
         reports = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
     log("build", f"{len(reports)} kernel libraries built in {time.perf_counter() - t0:.1f} s")
+    log("build", check_tensor_cores(_build))
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -1154,6 +1235,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_study_path(dev))
 
+    if args.parent:
+        torch.cuda.empty_cache()
+        run_parent(args.parent, "parent 2")
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "flax", "optax", "tvretrieval_tpu")]
     if bad:

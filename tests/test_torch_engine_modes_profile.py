@@ -11,7 +11,7 @@ combination equal to the JAX engine's wherever the JAX scores are not
 near-ties, scores within the f32 tolerances of tests/test_torch_engine.py;
 combinations that share their stages equal to the reference combination
 bit for bit; the six stage-study lines present, with the agreement each
-reports; the approximate flags raising; no card and no ``--device cpu``
+reports, B9 and B10 on planted masked videos; the approximate flags raising; no card and no ``--device cpu``
 exiting 1 with one line.
 """
 import dataclasses
@@ -143,6 +143,23 @@ def test_stage_study_lines(records):
     assert study[1]["max_err"] <= 1e-5 and study[2]["max_err"] <= 1e-6
     assert study[4]["equal"] and study[5]["equal"]
     assert study[4]["sorted_share"] == study[5]["sorted_share"] == 1.0
+
+
+def test_stage_study_plants_masked_videos(setup, records):
+    """B9 and B10 run their masked branch: the study's records carry one
+    fully and one partly masked video, the fully masked one exactly -1e10
+    (0.0 after exp) in kernel and stage; the caller's mask is untouched."""
+    study = [r for r in records if r["kind"] == "study"][:3]
+    for r in study:
+        assert (r["planted_fully_masked"], r["planted_partly_masked"]) == (1, 1)
+        assert r["masked_exact"] is True and "1 + 1 planted masked videos" in r["agreement"]
+    mask = setup[4]["mask"]
+    planted, (fully, partly) = engine_modes.plant_masked_videos(mask)
+    assert (fully, partly) == ([NV - 1], [0]) and bool((mask == 1).all())
+    assert float(planted[NV - 1].sum()) == 0 and float(planted[0].sum()) == L // 2
+    assert bool((planted[1:NV - 1] == mask[1:NV - 1]).all())
+    single, ids = engine_modes.plant_masked_videos(torch.ones((1, 5)))
+    assert ids == ([0], []) and float(single.sum()) == 0
 
 
 def test_main_prints_one_line_per_combo_and_study(capsys):

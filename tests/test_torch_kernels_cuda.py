@@ -2,16 +2,19 @@
 edge shapes the full-size checks in chip_smoke.py do not reach.
 
 Video scores (B1-B3, csrc/video_score.cu): query and video counts off the
-64 x 32 block tile, feature rows shorter than one 128-byte stage or with a
-tail, lp = 8, and block maxima whose chunk is not a power of two or spans
+block tiles (128 x 16 int8, 64 x 32 bf16 / f32), feature rows shorter than
+one 32-byte k-step or with a tail, lp = 8 to 256, int8 bytes all +-127, and
+block maxima whose chunk is not a power of two or spans
 several warps. Byte-row gather (B4, csrc/gather.cu): one index to a
 thousand, rows of one to nineteen 16 KiB segments, duplicate and boundary
 indices, a strided and an int64 index tensor, an index outside the table.
 Span similarity (B5, csrc/span_sim.cu): query counts off the 64-query tile,
 row counts off the 256-row tile, K with a tail past one 64-byte stage,
 lp = 4 to 256, bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
-and one below a power of two, k = n - 1, k >= n, all-equal rows, rows with
-fewer than k finite values, rows past one launch's limit. Masked video
+and one below a power of two, k = 1, k = n - 1, k = n, k >= n, rows of one
+repeated value, ties across the cut with 0.0 and -0.0 mixed, the engine's
+five shapes with 65-value ties, rows with fewer than k finite values, rows
+past one launch's limit. Masked video
 scores (B9, B10, csrc/masked_score.cu): query, video and clip counts off the
 64 x 32 x 8 tile, fractional masks, fully masked videos exactly -1e10, the
 exp fused and not. Gathered similarity (B7, csrc/gathered_sim.cu): one
@@ -117,6 +120,50 @@ def test_b3_block_maxima(dev, dtype, nv, build_chunk, chunk_v):
         assert (scores[:, :nv] - ps[:, :nv]).abs().max().item() <= F32_ATOL
 
 
+def _flat_i8(dev, nq, nv_pad, lp, d, seed, extremes=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda *s: torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
+    q = [draw(d, nq) for _ in range(2)]
+    f = [draw(nv_pad * lp, d) for _ in range(2)]
+    if extremes:                                    # every byte +-127
+        q, f = ([torch.where(x >= 0, 127, -127).to(torch.int8) for x in xs] for xs in (q, f))
+    return q[0], q[1], f[0], f[1]
+
+
+@pytest.mark.parametrize("lp", [8, 104, 128, 256])
+@pytest.mark.parametrize("nq", [1, 129])
+def test_b1_b3_int8_off_the_query_tile(dev, nq, lp):
+    """One query and one past the 128-query tile; lp from one n8 fragment
+    a video to 32; 37 real videos of 40, off the 16-video tile."""
+    nv, nv_pad, d = 37, 40, 256
+    qv, qs, fv, fs = _flat_i8(dev, nq, nv_pad, lp, d, seed=nq + lp)
+    out = vs.video_scores_flat_i8(qv, qs, fv, fs, nv, lp=lp)
+    assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp))
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=8)
+    ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv, lp, 8)
+    assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+    assert torch.equal(scores[:, :nv], out)
+
+
+def test_b1_b3_int8_extremes(dev):
+    """Every byte +-127 at D = 256: s32 dots up to 256 x 127^2 = 4,129,024,
+    maxima of both signs, many equal dots."""
+    nq, nv, lp, d = 200, 48, 104, 256
+    qv, qs, fv, fs = _flat_i8(dev, nq, nv, lp, d, seed=7, extremes=True)
+    out = vs.video_scores_flat_i8(qv, qs, fv, fs, nv, lp=lp)
+    ref = vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp)
+    assert torch.equal(out, ref)
+    qv[:, 0] = fv[0]                                # query 0 is video 0's first row
+    qs[:, 0] = fs[0]
+    out = vs.video_scores_flat_i8(qv, qs, fv, fs, nv, lp=lp)
+    top = torch.tensor(2 * d * 127 * 127, dtype=torch.float32) * vs.I8_SCALE
+    assert out[0, 0].item() == top.item()          # the one f32 rescale of 8,258,048
+    assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp))
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=16)
+    ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv, lp, 16)
+    assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take(dev):
     qv, qs, fv, fs = _caches(dev, 8, 10, 7, 16, 8, 4, torch.int8)
     with pytest.raises(TypeError):
@@ -132,6 +179,9 @@ def test_wrappers_reject_what_the_kernel_does_not_take(dev):
         vs.video_scores_flat(q4, s4, f4, g4, 10, lp=8)
     with pytest.raises(ValueError, match="one CUDA device"):
         vs.video_scores_flat_i8(qv.cpu(), qs.cpu(), fv, fs, 10, lp=8)
+    wide = _flat_i8(dev, 4, 16, 8, vs.I8_MAX_D + 16, seed=1)
+    with pytest.raises(ValueError, match=str(vs.I8_MAX_D)):
+        vs.video_scores_flat_i8(*wide, 16, lp=8)
 
 
 def _table(dev, n, w, seed=0):
@@ -297,6 +347,46 @@ def test_b6_equal_rows_and_rows_short_of_finite_values(dev):
     assert ki[0, :5].tolist() == [250, 3, 7, 0, 1] and ki[1, :4].tolist() == [0, 1, 2, 3]
     _same(x.to(torch.bfloat16), 50)                   # the wrapper widens to f32
     _same(x[:, ::2], 50)                              # and compacts a strided row
+
+
+@pytest.mark.parametrize("n,k", [(7, 3), (300, 120), (1364, 100), (2800, 200), (5000, 1000)])
+def test_b6_ties_across_the_cut_with_signed_zeros(dev, n, k):
+    """The k-th value is 0.0 and more zeros, of both signs, than the cut
+    keeps: the first of them in index order are kept, -0.0 tying with 0.0."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = -torch.rand(4, n, generator=g, device=dev) - 0.5
+    above = k // 3
+    x[:, :above] = torch.rand(4, above, generator=g, device=dev) + 0.5
+    zeros = torch.randperm(n - above, generator=g, device=dev)[:k] + above
+    x[:, zeros] = 0.0
+    x[:, zeros[::2]] = -0.0
+    x = x[:, torch.randperm(n, generator=g, device=dev)].contiguous()
+    kv, ki = _same(x, k)
+    assert int((kv == 0.0).sum(1).min()) >= 1 and int((x == 0.0).sum(1).min()) > k - above
+    assert bool(torch.signbit(x).gather(1, ki.long()).eq(torch.signbit(kv)).all())
+
+
+@pytest.mark.parametrize("value", [0.25, -0.0, -math.inf, 3e38])
+@pytest.mark.parametrize("n,k", [(1, 1), (100, 1), (2800, 200), (4096, 4096), (16384, 300)])
+def test_b6_rows_of_one_repeated_value(dev, value, n, k):
+    _, ki = _same(torch.full((3, n), value, device=dev), k)
+    assert torch.equal(ki, torch.arange(k, device=dev, dtype=torch.int32).expand(3, k))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 33, 256, 257, 1600, 9000])
+def test_b6_k_one_and_k_n(dev, n, ties):
+    x = _rows(dev, 9, n, 3 * n, ties)
+    _same(x, 1)
+    _same(x, n)
+
+
+@pytest.mark.parametrize("n,k", [(1364, 100), (1600, 100), (1250, 200), (1600, 200),
+                                 (2800, 200)])
+def test_b6_engine_shapes_with_65_value_ties(dev, n, k):
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    x = torch.round(torch.rand((1000, n), generator=g, device=dev) * 64) / 64
+    _same(x, k)
 
 
 @pytest.mark.parametrize("n,k", [(16385, 100), (40000, 200), (70000, 8192)])

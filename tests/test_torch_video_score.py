@@ -202,3 +202,21 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing():
     with pytest.raises(ValueError, match="CUDA device"):
         vs._launch("video_scores_flat_i8", q8[0], q8[1], fvf, fsf, 20, 16)
     assert all(v == 0 for v in vs.LAUNCHES.values())
+
+
+def test_library_names_hash_the_included_headers(tmp_path, monkeypatch):
+    """A kernel library is keyed on its source and the csrc/ headers it
+    includes, so an edited header builds anew instead of reusing a stale
+    library."""
+    from tvretrieval_tpu_torch.ops import _build
+
+    assert [p.name for p in _build.sources_of("video_score")] == ["video_score.cu",
+                                                                   "s8_mma.cuh"]
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setitem(_build.SOURCES, "k", (tmp_path / "k.cu", {}))
+    assert [p.name for p in _build.sources_of("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    before = _build.library_path("k")
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build.library_path("k") != before

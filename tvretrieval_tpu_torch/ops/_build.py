@@ -3,9 +3,10 @@
 Each source compiles alone with ``nvcc`` into a shared library of its own
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: a
 build takes seconds). A library goes to ``tvretrieval_tpu_torch/_build/``
-under a name keyed on a hash of its source and the flags, so an edited
-source rebuilds and an unchanged one is reused. Nothing compiles at
-import: ``load(name)`` builds on first use.
+under a name keyed on a hash of its source, the headers it includes from
+``csrc/`` and the flags, so an edited source or header rebuilds and an
+unchanged one is reused. Nothing compiles at import: ``load(name)`` builds
+on first use.
 """
 from __future__ import annotations
 
@@ -13,11 +14,12 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
@@ -70,9 +72,28 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources_of(name: str) -> List[Path]:
+    """Library ``name``'s source and, transitively, the headers it includes
+    with quotes (looked up beside the including file), in include order."""
+    seen: List[Path] = []
+    todo = [SOURCES[name][0]]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    source = SOURCES[name][0]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for path in sources_of(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

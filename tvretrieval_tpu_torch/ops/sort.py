@@ -1,4 +1,4 @@
-"""Exact stable top-k of every row by a sorting kernel.
+"""Exact stable top-k of every row by a select-then-sort kernel.
 
 ``topk_transposed`` (B6, csrc/topk_sort.cu) replaces
 tvretrieval_tpu/ops/pallas_sort.py::topk_transposed: the ``k`` best
@@ -15,8 +15,11 @@ the kernel or raises. ``LAUNCHES`` counts kernel launches (plain runs are
 not counted).
 
 The name keeps the TPU kernel's, whose layout is transposed (queries along
-the lanes); here one thread block sorts one row in shared memory and
-nothing is transposed. The TPU function fails at trace time when
+the lanes); here one thread block takes one row and nothing is transposed:
+it radix-selects the k-th largest value on order-preserving u32 keys
+(-0.0 tying with 0.0), keeps exactly k survivors (ties at the cut by
+index) and sorts only those (csrc/topk_sort.cu; tests/test_torch_sort_select.py
+holds a numpy model of the algorithm). The TPU function fails at trace time when
 ``ceil8(k) > next_pow2(n)`` and leaves ``n <= k`` to ``lax.top_k``; this
 kernel has no 8-row alignment and serves both.
 """
@@ -29,8 +32,9 @@ import torch.nn.functional as F
 
 LAUNCHES: Dict[str, int] = {"topk_transposed": 0}
 
-# the longest row one launch sorts: 16,384 (value, index) pairs are 128 KiB
-# of a block's shared memory (csrc/topk_sort.cu::kMaxPadded)
+# the longest row one launch takes: 16,384 u32 keys (64 KiB) beside up to
+# 16,384 survivors (128 KiB) in a block's shared memory
+# (csrc/topk_sort.cu::kMaxRow)
 MAX_ROW = 16384
 
 
@@ -79,10 +83,9 @@ def topk_transposed(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     """B6: exact stable top-k along the last axis of (Nq, n) ``x``.
 
     Returns ((Nq, min(k, n)) f32 values, int32 indices), equal to
-    ``topk_transposed_plain`` in values and indices, ties included. Real
-    ``-inf`` elements rank before the kernel's own padding, so a row with
-    fewer than ``k`` finite values returns its ``-inf`` elements in index
-    order. A row longer than MAX_ROW is sorted in chunks of MAX_ROW, each
+    ``topk_transposed_plain`` in values and indices, ties included: a row
+    with fewer than ``k`` finite values returns its ``-inf`` elements in
+    index order. A row longer than MAX_ROW is sorted in chunks of MAX_ROW, each
     keeping its top ``k`` with their positions in the row, and a second
     launch selects among the survivors; that is exact, because survivors
     of equal value stay in ascending index order. It needs

@@ -24,8 +24,9 @@ launches the kernel or raises. ``LAUNCHES`` counts kernel launches per
 wrapper (plain runs are not counted).
 
 What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
-* lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000) through dp4a /
-FMA; the (Nq, Nv_pad * lp) dot matrix never reaches device memory. B5 does
+* lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000), int8 on the s8
+tensor cores (``mma.sync``), bf16 / f32 through FMA; the (Nq, Nv_pad * lp)
+dot matrix never reaches device memory. B5 does
 Nv_pad * 128 x 2D x Nq MACs through dp4a and writes the rescaled
 similarity as bf16; its s32 dots never reach device memory. See the
 sources for the tiling.
@@ -48,6 +49,10 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 # rows per video in the flat int8 feat2 cache: the JAX package's value (its
 # kernel needs lp % 128 == 0), kept so that cache bytes are equal
 SPAN_LP = 128
+
+# the longest int8 feature row B1 / B3-int8 take: both streams' query tiles
+# stay in the block's shared memory (csrc/video_score.cu::kI8MaxRowBytes)
+I8_MAX_D = 384
 
 LAUNCHES: Dict[str, int] = {"video_scores_flat_i8": 0, "video_scores_flat": 0,
                             "video_scores_flat_bmax": 0, "span_sim_cat_i8": 0,
@@ -220,6 +225,9 @@ def _launch(name: str, qvt, qst, fv_flat, fs_flat, n_videos: int, lp: int,
     if row_bytes % 16:
         raise ValueError(f"{name}: a feature row is {row_bytes} bytes; the kernel "
                          "loads 16-byte vectors, so D * itemsize must be a multiple of 16")
+    if fv_flat.dtype == torch.int8 and d > I8_MAX_D:
+        raise ValueError(f"{name}: D={d} int8 features; the tensor-core kernel holds "
+                         f"rows of at most {I8_MAX_D} bytes")
     if not (fv_flat.is_contiguous() and fs_flat.is_contiguous()):
         raise ValueError(f"{name}: feature caches must be contiguous")
     # the kernel reads (Nq, D) query rows
@@ -253,9 +261,11 @@ def video_scores_flat_i8(qvt_i8, qst_i8, fv_flat_i8, fs_flat_i8, n_videos: int,
 
     qvt_i8 / qst_i8: (D, Nq) int8 quantized normalized queries
     (``quantize_unit_i8(q).T``); fv/fs: (Nv_pad * lp, D) int8 flat caches.
-    s8 x s8 -> s32 dots, exact integer max per video, one f32 rescale:
-    bit-equal to ``video_scores_int8_xla``. (The TPU wrapper's chunk_v
-    only tiles its grid, so it has no counterpart here.) Replaces pallas_score.video_scores_pallas_flat_i8.
+    s8 x s8 -> s32 dots on the tensor cores, exact integer max per video,
+    one f32 rescale: bit-equal to ``video_scores_int8_xla``. D (a multiple
+    of 16) is at most ``I8_MAX_D``. (The TPU wrapper's chunk_v only tiles
+    its grid, so it has no counterpart here.) Replaces
+    pallas_score.video_scores_pallas_flat_i8.
     """
     if fv_flat_i8.device.type == "cpu":
         return video_scores_flat_plain(qvt_i8, qst_i8, fv_flat_i8, fs_flat_i8,

@@ -30,7 +30,10 @@ query batch: each of the four kernels that no engine mode runs, beside the
 stage it is an alternative to, one line each with both times and their
 agreement:
 
-  * video_scores_masked (B9)            | the "einsum" video-score stage
+  * video_scores_masked (B9)            | the "einsum" video-score stage,
+                                        | both on the run's mask with one
+                                        | fully and one partly masked
+                                        | video planted
   * fused_video_scores_clip_major (B10) | the same stage, one stream, with
                                         | exp(alpha * s) fused and without
   * gathered_similarity (B7)            | span mode "gather": the row gather
@@ -169,13 +172,37 @@ def launch_counts() -> Dict[str, int]:
     return {k: counts[k] for k in STUDY_KERNELS}
 
 
+def plant_masked_videos(mask: torch.Tensor):
+    """The stage study's mask: the run's ``mask`` with its last video fully
+    masked and, where there are two or more videos, its first video masked
+    from clip L // 2 on. Returns (mask, (fully masked ids, partly masked
+    ids)); the caller's mask is not changed."""
+    nv, L = mask.shape
+    fully, partly = [nv - 1], ([0] if nv > 1 else [])
+    planted = mask.clone()
+    planted[fully] = 0.0
+    planted[partly, max(1, L // 2):] = 0.0
+    return planted, (fully, partly)
+
+
 @torch.no_grad()
 def stage_study(model: XML, rcfg: RetrievalConfig, data: Dict[str, torch.Tensor],
                 iters: int, warmup: int) -> List[dict]:
     """Each study kernel beside its engine stage on the run's caches and
-    query batch; prints one line each and returns their records."""
+    query batch; prints one line each and returns their records.
+
+    B9 and B10 (and the top-V selection after them) see the run's mask with
+    one fully and one partly masked video planted (``plant_masked_videos``),
+    so that their masked branch runs; their records carry the planted
+    counts and ``masked_exact``: the fully masked video scores exactly
+    -1e10 (0.0 after exp) in kernel and stage alike."""
     dev = data["mask"].device
     vf1, sf1, vf2, sf2, mask = (data[k] for k in ("vf1", "sf1", "vf2", "sf2", "mask"))
+    study_mask, (fully, partly) = plant_masked_videos(mask)
+    planted = dict(planted_fully_masked=len(fully), planted_partly_masked=len(partly))
+    exact_at = lambda got, ref, value: bool((got[:, fully] == value).all()
+                                            and (ref[:, fully] == value).all())
+    note = f"; {len(fully)} + {len(partly)} planted masked videos"
     nq = data["qf"].shape[0]
     nv, L = mask.shape
     V = min(rcfg.max_vcmr_video, nv)
@@ -195,25 +222,30 @@ def stage_study(model: XML, rcfg: RetrievalConfig, data: Dict[str, torch.Tensor]
     qv, qs = _normalize(vq).to(vf1.dtype), _normalize(sq).to(sf1.dtype)
 
     # B9 beside the einsum video-score stage
-    stage = lambda: vs.video_scores_xla(qv, qs, vf1, sf1, mask)
-    kernel = lambda: vs.video_scores_masked(qv, qs, vf1, sf1, mask)
+    stage = lambda: vs.video_scores_xla(qv, qs, vf1, sf1, study_mask)
+    kernel = lambda: vs.video_scores_masked(qv, qs, vf1, sf1, study_mask)
     q2c = stage()
-    err = (kernel() - q2c).abs().max().item()
+    got = kernel()
+    err = (got - q2c).abs().max().item()
     report("video_scores_masked", "video_scores_xla (einsum)", str(vf1.dtype)[6:],
-           timed(kernel), timed(stage), f"max |d| {err:.3e}", max_abs_err=err)
+           timed(kernel), timed(stage), f"max |d| {err:.3e}{note}", max_abs_err=err,
+           masked_exact=exact_at(got, q2c, -1e10), **planted)
+    del got
 
     # B10 beside the same stage, one stream: the clip-major copy is made once
     feat1_t = vf1.transpose(0, 1).contiguous()
-    mask_t = mask.T[:, None, :].contiguous()
+    mask_t = study_mask.T[:, None, :].contiguous()
     for a in (alpha, None):
-        stage = lambda: fused_score.fused_video_scores_xla(qv, vf1, mask, a)
+        stage = lambda: fused_score.fused_video_scores_xla(qv, vf1, study_mask, a)
         kernel = lambda: fused_score.fused_video_scores_clip_major(qv, feat1_t, mask_t, a)
-        ref = stage()
-        d = (kernel() - ref).abs()
+        ref, got = stage(), kernel()
+        d = (got - ref).abs()
         err = (d / ref.abs().clamp_min(1e-30)).max().item() if a is not None else d.max().item()
         report("fused_video_scores_clip_major", "fused_video_scores_xla",
                f"alpha={a:g}" if a is not None else "alpha=None", timed(kernel), timed(stage),
-               f"max {'rel ' if a is not None else ''}|d| {err:.3e}", max_err=err)
+               f"max {'rel ' if a is not None else ''}|d| {err:.3e}{note}", max_err=err,
+               masked_exact=exact_at(got, ref, 0.0 if a is not None else -1e10), **planted)
+        del ref, got, d
     del feat1_t, mask_t
 
     # the engine's top-V selection and its (Nq, V + 1) gather indices
