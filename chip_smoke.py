@@ -6,13 +6,17 @@ Run from the repository root on a machine with one CUDA card. Phases:
 
 1. the device, and its name and power limit from nvidia-smi;
 2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc, one
-   compiler per source, side by side; the int8 video-score kernel's SASS
-   must hold IMMA (tensor-core) instructions and the library no IDP (dp4a);
+   compiler per source, side by side; the SASS must hold IMMA (s8 tensor
+   core) instructions in the int8 video-score kernel and in B5, HMMA (bf16)
+   in the bf16 video-score kernel and none in the f32 one, and no IDP
+   (dp4a); then the mma.sync ceiling: s8 and bf16 products from registers
+   on every SM (csrc/mma_probe.cu), in TOPS beside the data sheet's peaks;
 3. each kernel against its plain PyTorch version at the full-corpus
    shapes (21,818 videos, 1,000 queries): the video scores (lp=104, D=256)
    B1 and B3-int8 bit-equal, B2 and B3 in bf16 and f32 within f32 summation
    slack, block maxima exact; the int8 span sweep B5 (2,793,472 flat rows,
-   K=512) bit-equal over all its outputs, pads exactly zero; the sorting
+   K=512) bit-equal over all its outputs, pads exactly zero (B1, B2-bf16 and
+   B5 as a share of the peak and of the probed ceiling); the sorting
    top-k B6 at the engine's five row shapes equal in values and indices on
    rows with planted ties;
 4. end to end through the port's entry points (``encode_corpus``,
@@ -22,8 +26,10 @@ Run from the repository root on a machine with one CUDA card. Phases:
    and the psort selections (which must equal the card's own exact
    selection); the VCMR / SVMR / VR metrics of the card run;
 5. full-corpus throughput of ``_score_query_batch``, timed with CUDA
-   events, in the exact flagship modes (B1 must launch once per batch) and
-   in the all-int8 psort modes (B1 once, B5 once, B6 five times per batch);
+   events, in the exact flagship modes (B1 must launch once per batch), in
+   the all-int8 psort modes (B1 once, B5 once, B6 five times per batch) and
+   in bf16 parity, the flagship's modes with the bf16 video scores over the
+   bf16 flat feat1 cache (B2 once per batch, no other kernel);
 6. the byte-row gather B4 against ``index_select`` on the full TVR byte
    tables (21,818 rows of 308,224 and of 77,824 bytes, 128 indices with
    duplicates): equal, no copy of the table, timed in turns;
@@ -153,19 +159,68 @@ def video_score_bound(q, feat, n_out: int) -> dict:
 
 
 def check_tensor_cores(_build) -> str:
-    """Phase 2: the int8 video-score kernel runs on the tensor cores: its
-    SASS holds IMMA instructions, and the library holds no IDP (dp4a)."""
+    """Phase 2: the kernels run on the tensor cores. In the SASS of
+    video_score each int8 instance holds IMMA and each bf16 instance HMMA,
+    the f32 (FMA) instance no HMMA (no TF32 by another door); each instance
+    of span_sim holds IMMA; neither library holds IDP (dp4a)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("video_score"))],
-                          capture_output=True, text=True, check=True).stdout
-    functions = sass.split("Function : ")[1:]
-    i8 = [f for f in functions if "video_score_i8_kernel" in f.split("\n", 1)[0]]
-    imma = [f.count("IMMA") for f in i8]
-    idp = sass.count("IDP")
-    if not i8 or not all(imma) or idp:
-        raise AssertionError(f"video_score SASS: IMMA per int8 kernel {imma}, {idp} IDP")
-    return (f"video_score SASS: IMMA in each of the {len(i8)} instances of "
-            f"video_score_i8_kernel {imma}, {idp} IDP in the library")
+    counts, idp = {}, 0
+    for lib, kernels in (("video_score", (("int8", "S8Mma", "IMMA"), ("bf16", "Bf16Mma", "HMMA"),
+                                          ("f32", "video_score_kernel", "HMMA"))),
+                         ("span_sim", (("span_sim", "span_sim_kernel", "IMMA"),))):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        idp += sass.count("IDP")
+        functions = sass.split("Function : ")[1:]
+        for what, key, op in kernels:
+            counts[what] = (op, [f.count(op) for f in functions if key in f.split("\n", 1)[0]])
+    summary = "; ".join(f"{what}: {op} per instance {n}" for what, (op, n) in counts.items())
+    f32 = counts.pop("f32")[1]
+    if idp or not f32 or any(f32) or not all(n and all(n) for _, n in counts.values()):
+        raise AssertionError(f"SASS: {summary}; {idp} IDP")
+    return f"SASS: {summary}; {idp} IDP in video_score and span_sim"
+
+
+def probe_mma(dev, _build) -> dict:
+    """Phase 2: the mma.sync ceiling on this card: back-to-back s8 m16n8k32
+    and bf16 m16n8k16 products from registers on every SM
+    (csrc/mma_probe.cu), at 2 and 4 blocks of 8 warps an SM, the faster
+    kept. Returns operations/s by input type."""
+    lib = _build.load("mma_probe")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    iters, chains, warps = 4096, 8, 8          # csrc/mma_probe.cu: kChains, kThreads / 32
+    out = torch.empty(4 * n_sm * 256, device=dev)
+    ceiling = {}
+    for kind, dtype, ops, name in ((0, torch.int8, 16 * 8 * 32 * 2, "s8 m16n8k32"),
+                                   (1, torch.bfloat16, 16 * 8 * 16 * 2, "bf16 m16n8k16")):
+        rates = []
+        for per_sm in (2, 4):
+            blocks = per_sm * n_sm
+
+            def launch():
+                err = lib.tvr_mma_probe(kind, blocks, iters, out.data_ptr(),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+                if err:
+                    raise RuntimeError(f"mma_probe: launch failed with CUDA error {err}")
+
+            ms = cuda_ms(launch, reps=5)
+            rates.append(blocks * warps * iters * chains * ops / ms * 1e3)
+        ceiling[dtype] = max(rates)
+        log("build", f"mma.sync probe, {name}: {ceiling[dtype] / 1e12:.1f} TOPS "
+            f"({' / '.join(f'{r / 1e12:.1f}' for r in rates)} at 2 / 4 blocks an SM, "
+            f"{n_sm} SMs) = {100 * ceiling[dtype] / PEAK_OPS[dtype]:.1f}% of the data "
+            f"sheet's {PEAK_OPS[dtype] / 1e12:.0f}")
+    return ceiling
+
+
+def rate_str(n_ops: float, ms: float, dtype, ceiling) -> str:
+    """Operations/s of a kernel as a share of the data sheet's peak and of
+    the probed mma.sync ceiling."""
+    rate = n_ops / ms * 1e3
+    probed = f", {100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync ceiling" \
+        if ceiling else ""
+    return (f"{rate / 1e12:.1f} TOPS = {100 * rate / PEAK_OPS[dtype]:.1f}% of the "
+            f"{PEAK_OPS[dtype] / 1e12:.0f} peak{probed}")
 
 
 def bound_str(b: dict) -> str:
@@ -177,9 +232,11 @@ def unit(shape, gen, dev):
     return x / x.norm(dim=-1, keepdim=True)
 
 
-def phase_kernels(dev, vs):
+def phase_kernels(dev, vs, ceiling=None):
     """Phase 3: every kernel against its plain version at the main path's
-    shapes. Returns the per-kernel record for the kernels line."""
+    shapes. Returns the per-kernel record for the kernels line. ``ceiling``:
+    the probed mma.sync rates (phase 2), for the tensor-core kernels' share;
+    None when a later commit's ``--parent`` run calls this phase alone."""
     from tvretrieval_tpu_torch.ops.span import topk_stable
     from tvretrieval_tpu_torch.testing import rank_mismatches
 
@@ -217,8 +274,8 @@ def phase_kernels(dev, vs):
     rec["B1"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                      **video_score_bound(q8["v"], i8["v"], N_QUERIES * nv))
     n_ops = 2 * 2 * N_QUERIES * i8["v"].shape[0] * HIDDEN
-    log("kernels", f"B1 video_scores_flat_i8: bit-equal; {ms:.3f} ms ({n_ops / ms / 1e9:.1f} "
-        f"TOPS of {PEAK_OPS[torch.int8] / 1e12:.0f}) vs plain {pms:.3f} ms; "
+    log("kernels", f"B1 video_scores_flat_i8: bit-equal; {ms:.3f} ms "
+        f"({rate_str(n_ops, ms, torch.int8, ceiling)}) vs plain {pms:.3f} ms; "
         f"{bound_str(rec['B1'])}, {100 * rec['B1']['bound_ms'] / ms:.1f}% of its rate")
     b1_scores = k
 
@@ -244,9 +301,10 @@ def phase_kernels(dev, vs):
         bnd = video_score_bound(args[0], args[2], N_QUERIES * nv)
         if name == "bf16":
             rec["B2"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
+        tc = f" ({rate_str(n_ops, ms, torch.bfloat16, ceiling)})" if name == "bf16" else ""
         log("kernels", f"B2 video_scores_flat ({name}): max |d| {err:.3e} <= {B2_ATOL}, "
-            f"top-100 identical outside near-ties; {ms:.3f} ms vs plain {pms:.3f} ms; "
-            f"{bound_str(bnd)}")
+            f"top-100 identical outside near-ties; {ms:.3f} ms{tc} vs plain {pms:.3f} ms; "
+            f"{bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate")
     rec["B2"]["max_abs_err"] = b2_err
 
     # B3: scores and exact block maxima, int8 (bit-equal), bf16 and f32
@@ -282,7 +340,7 @@ def phase_kernels(dev, vs):
     return rec
 
 
-def phase_span_sim(dev, vs):
+def phase_span_sim(dev, vs, ceiling=None):
     """Phase 3, B5: the int8 span sweep at the full corpus against its plain
     version, bit for bit, block of videos by block."""
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -322,10 +380,12 @@ def phase_span_sim(dev, vs):
     sweep_ms = cuda_ms(lambda: q_bf @ flat_bf.T, reps=3)
     log("kernels", f"B5 span_sim_cat_i8: Nq={nq} rows={f8.shape[0]} (Nv_pad={nv_pad} x "
         f"{SPAN_LP}) K={k}: bit-equal over {n_out} outputs, pads exactly zero; {ms:.3f} ms "
-        f"({2 * nq * f8.shape[0] * k / ms / 1e9:.1f} TOPS) vs plain {pms:.3f} ms; "
-        f"{bound_str(bnd)}; the bf16 torch.matmul sweep of simsweep_cat_bf16 on this corpus "
-        f"{sweep_ms:.3f} ms; caches int8 flat {f8.numel() / 1e9:.3f} GB + scales "
-        f"{fs.numel() * 4 / 1e6:.1f} MB vs bf16 {flat_bf.numel() * 2 / 1e9:.3f} GB")
+        f"({rate_str(2 * nq * f8.shape[0] * k, ms, torch.int8, ceiling)}) vs plain "
+        f"{pms:.3f} ms; {bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate, "
+        f"{2 * n_out / ms / 1e9:.2f} TB/s of bf16 output; the bf16 torch.matmul sweep of "
+        f"simsweep_cat_bf16 on this corpus {sweep_ms:.3f} ms; caches int8 flat "
+        f"{f8.numel() / 1e9:.3f} GB + scales {fs.numel() * 4 / 1e6:.1f} MB vs bf16 "
+        f"{flat_bf.numel() * 2 / 1e9:.3f} GB")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                 replaced_bf16_sweep_ms=sweep_ms, **bnd)
 
@@ -555,7 +615,9 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     """Phase 5: _score_query_batch at the full corpus (the bench.py cache,
     synthesized on the card) in two configurations: the exact flagship
     modes over bf16 feat2, and the all-int8 psort modes over the int8 flat
-    feat2 cache. Returns the kernel launches summed over both."""
+    feat2 cache, and (bf16 parity) the flagship's modes with the bf16 video
+    scores B2 over the bf16 flat feat1 cache in place of B1. Returns the
+    kernel launches summed over the three."""
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt_ops
@@ -571,12 +633,10 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     model = XML(cfg).init_weights(torch.Generator().manual_seed(0)).eval().to(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     mask = torch.ones((nv, N_CLIPS), device=dev)
-    feat1 = []
-    for _ in range(2):
-        f = vs.build_flat_feat1(unit((nv, N_CLIPS, HIDDEN), gen, dev).to(torch.bfloat16),
-                                mask, chunk_v=CHUNK_V)
-        feat1.append(vs.quantize_unit_i8(f))
-        del f
+    # the bf16 flat caches (the bf16 parity batch) and their int8 quantization
+    feat1_bf = [vs.build_flat_feat1(unit((nv, N_CLIPS, HIDDEN), gen, dev).to(torch.bfloat16),
+                                    mask, chunk_v=CHUNK_V) for _ in range(2)]
+    feat1_i8 = [vs.quantize_unit_i8(f) for f in feat1_bf]
     feat2_raw = torch.cat(
         [torch.randn((nv, N_CLIPS, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
          for _ in range(2)], dim=-1)
@@ -599,8 +659,13 @@ def phase_throughput(dev, kernel_rec, profile_dir):
                          video_topk_psort=True, video_chunk_v=CHUNK_V),
          {"video_scores_flat_i8": n_runs, "span_sim_cat_i8": n_runs,
           "topk_transposed": 5 * n_runs}),
+        ("bf16 parity",
+         RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_bf16",
+                         video_score_mode="pallas", span_topk_mode="grouped_shift",
+                         span_sim_pad_l=128, video_chunk_v=CHUNK_V),
+         {"video_scores_flat_i8": 0, "video_scores_flat": n_runs, "span_sim_cat_i8": 0,
+          "topk_transposed": 0}),
     ]
-    feat1_bytes = sum(f.numel() for f in feat1)
     total = {}
     for name, rcfg, want in configs:
         if rcfg.span_score_mode == "simsweep_cat_int8_flat":
@@ -609,12 +674,18 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         else:
             feat2_cat, feat2_scale = _maybe_pad_clip_axis(feat2_raw, rcfg), None
             feat2_bytes = 2 * feat2_cat.numel()
+        feat1 = feat1_bf if rcfg.video_score_mode == "pallas" else feat1_i8
+        feat1_bytes = sum(f.numel() * f.element_size() for f in feat1)
         run = lambda: _score_query_batch(model, rcfg, q_feat, q_mask, feat1[0], None, feat1[1],
                                          None, mask, gt, True, feat2_cat=feat2_cat,
                                          feat2_cat_scale=feat2_scale)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        held = (torch.cuda.memory_allocated(dev) - feat2_raw.numel() * 2) / 2**30
+        # the seeded random feat2 and the other type's feat1 stay on the card
+        # beside this configuration's caches; a deployment holds its own alone
+        aside = feat2_raw.numel() * 2 + sum(
+            f.numel() * f.element_size() for f in (feat1_i8 if feat1 is feat1_bf else feat1_bf))
+        held = (torch.cuda.memory_allocated(dev) - aside) / 2**30
         torch.cuda.reset_peak_memory_stats(dev)
         for ops in (vs, gt_ops, tsort, fsc, ttopk):
             ops.reset_launch_counts()
@@ -639,14 +710,13 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         if (out["vcmr_scores"].shape != (nq, rcfg.max_before_nms)
                 or out["topv_idx"].shape != (nq, min(rcfg.max_vcmr_video, nv))):
             raise AssertionError(f"throughput run ({name}): unexpected output shapes")
-        # the seeded random feat2 stays on the card beside the cache built
-        # from it; a deployment holds the cache alone, so take it off
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30 - feat2_raw.numel() * 2 / 2**30
+        peak = (torch.cuda.max_memory_allocated(dev) - aside) / 2**30
         log("throughput", f"{name} ({rcfg.video_score_mode} + {rcfg.span_score_mode} + "
             f"{rcfg.span_topk_mode}{' + video_topk_psort' if rcfg.video_topk_psort else ''}) "
             f"Nq={nq} x Nv={nv}: {ms:.2f} ms per batch = {nq * 1000.0 / ms:.1f} q/s "
-            f"({TIMED_RUNS} timed runs after {WARMUP_RUNS}); caches feat1 int8 "
-            f"{feat1_bytes / 1e9:.3f} GB + feat2 {feat2_bytes / 1e9:.3f} GB; peak memory "
+            f"({TIMED_RUNS} timed runs after {WARMUP_RUNS}); caches feat1 "
+            f"{str(feat1[0].dtype)[6:]} {feat1_bytes / 1e9:.3f} GB + feat2 "
+            f"{feat2_bytes / 1e9:.3f} GB; peak memory "
             f"{peak:.2f} GiB ({held:.2f} GiB held before the first batch); launches per "
             f"batch {({k: v // n_runs for k, v in launches.items() if v})}")
         if profile_dir:
@@ -662,9 +732,10 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         del feat2_cat, feat2_scale, out, run
-    log("throughput", f"B1 at this shape {kernel_rec['B1']['ms']:.3f} ms, B5 "
-        f"{kernel_rec['B5']['ms']:.3f} ms, B6's five launches {kernel_rec['B6']['ms']:.3f} ms "
-        f"(phase 3); launches over both configurations {total}")
+    log("throughput", f"B1 at this shape {kernel_rec['B1']['ms']:.3f} ms, B2-bf16 "
+        f"{kernel_rec['B2']['ms']:.3f} ms, B5 {kernel_rec['B5']['ms']:.3f} ms, B6's five "
+        f"launches {kernel_rec['B6']['ms']:.3f} ms (phase 3); launches over the "
+        f"{len(configs)} configurations {total}")
     return total
 
 
@@ -1198,14 +1269,15 @@ def main() -> int:
         reports = dict(zip(_build.SOURCES, pool.map(_build.build, _build.SOURCES)))
     log("build", f"{len(reports)} kernel libraries built in {time.perf_counter() - t0:.1f} s")
     log("build", check_tensor_cores(_build))
+    ceiling = probe_mma(dev, _build)
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log("build", f"{name}: {line.strip()}")
 
-    rec = phase_kernels(dev, vs)
+    rec = phase_kernels(dev, vs, ceiling)
     torch.cuda.empty_cache()
-    rec["B5"] = phase_span_sim(dev, vs)
+    rec["B5"] = phase_span_sim(dev, vs, ceiling)
     torch.cuda.empty_cache()
     rec["B6"] = phase_topk_sort(dev, tsort)
     torch.cuda.empty_cache()

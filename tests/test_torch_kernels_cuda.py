@@ -2,15 +2,19 @@
 edge shapes the full-size checks in chip_smoke.py do not reach.
 
 Video scores (B1-B3, csrc/video_score.cu): query and video counts off the
-block tiles (128 x 16 int8, 64 x 32 bf16 / f32), feature rows shorter than
-one 32-byte k-step or with a tail, lp = 8 to 256, int8 bytes all +-127, and
-block maxima whose chunk is not a power of two or spans
-several warps. Byte-row gather (B4, csrc/gather.cu): one index to a
-thousand, rows of one to nineteen 16 KiB segments, duplicate and boundary
+block tiles (128 x 16 int8 and bf16 on the tensor cores, 64 x 32 f32),
+feature rows shorter than one 32-byte k-step or with a tail, bf16 rows of
+two and three 256-byte ring steps (D = 256, 384) and videos that cross a
+64-row ring step, lp = 8 to 256, int8 bytes all +-127, and block maxima
+whose chunk is not a power of two or spans several warps. Byte-row
+gather (B4, csrc/gather.cu): one index to a thousand, rows of one to
+nineteen 16 KiB segments, duplicate and boundary
 indices, a strided and an int64 index tensor, an index outside the table.
-Span similarity (B5, csrc/span_sim.cu): query counts off the 64-query tile,
-row counts off the 256-row tile, K with a tail past one 64-byte stage,
-lp = 4 to 256, bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
+Span similarity (B5, csrc/span_sim.cu): query counts on and off the
+64-query warp group and the 128-query tile, row counts off the 128-row tile
+and not a multiple of 8 (8-byte stores), K with a tail inside and past one
+128-byte chunk, K past 512 (query chunks streamed), lp = 4 to 256, bytes
+all +-127, bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
 and one below a power of two, k = 1, k = n - 1, k = n, k >= n, rows of one
 repeated value, ties across the cut with 0.0 and -0.0 mixed, the engine's
 five shapes with 65-value ties, rows with fewer than k finite values, rows
@@ -184,6 +188,41 @@ def test_wrappers_reject_what_the_kernel_does_not_take(dev):
         vs.video_scores_flat_i8(*wide, 16, lp=8)
 
 
+@pytest.mark.parametrize("nq,nv,L,d,lp,chunk_v", SHAPES + [
+    (70, 50, 20, 384, 24, 8),        # bf16 D = 384: three 256-byte ring steps a row block
+    (129, 33, 20, 256, 24, 16),      # D = 256 (unrolled path); 24-row videos cross the
+                                     # 64-row ring steps; a query past the 128-query tile
+])
+def test_b2_b3_bf16_tensor_cores(dev, nq, nv, L, d, lp, chunk_v):
+    """B2 and B3 in bf16 (the tensor-core instance) within F32_ATOL of
+    their plain versions, pads -inf, block maxima the max of the kernel's
+    own scores; one launch each."""
+    qv, qs, fv, fs = _caches(dev, nq, nv, L, d, lp, chunk_v, torch.bfloat16, seed=d + lp)
+    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    out = vs.video_scores_flat(qv, qs, fv, fs, nv, lp=lp)
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=chunk_v)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    ref = vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp)
+    assert out.shape == ref.shape == (nq, nv)
+    assert (out - ref).abs().max().item() <= F32_ATOL
+    ps, _ = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv, lp, chunk_v)
+    nv_pad = fv.shape[0] // lp
+    chunk = math.gcd(nv_pad, chunk_v)
+    assert torch.equal(scores[:, :nv], out)
+    assert bool((scores[:, nv:] == -math.inf).all())
+    assert (scores[:, :nv] - ps[:, :nv]).abs().max().item() <= F32_ATOL
+    assert torch.equal(bmax, scores.view(nq, -1, chunk).amax(dim=2))
+
+
+def test_b2_bf16_rejects_rows_past_the_tile(dev):
+    wide = _caches(dev, 4, 4, 3, vs.BF16_MAX_D + 8, 8, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match=str(vs.BF16_MAX_D)):
+        vs.video_scores_flat(*wide, 4, lp=8)
+    assert vs.video_scores_flat(*(t.float() for t in wide), 4, lp=8).shape == (4, 4)
+
+
 def _table(dev, n, w, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(-128, 128, (n, 8, w), generator=g, device=dev, dtype=torch.int8), g
@@ -288,6 +327,57 @@ def test_b5_span_sim_bit_equal(dev, nq, nv, L, k, lp, chunk_v):
     out = vs.span_sim_cat_i8(q8, qs[:, None], f8, fs, lp=lp)
     ref = vs.span_sim_int8_xla(q8, qs[:, None], f8, fs, lp=lp)
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+def _span_sim_case(dev, nq, nv, L, k, lp, chunk_v, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feat2 = torch.randn(nv, L, k, generator=g, device=dev) * 3.0
+    f8, fs = vs.build_flat_feat2_i8(feat2, lp=lp, chunk_v=chunk_v)
+    q8, qs = vs.quantize_rows_i8(torch.randn(nq, k, generator=g, device=dev))
+    return q8, qs[:, None].contiguous(), f8, fs
+
+
+def _span_equal(q8, qs, f8, fs, lp):
+    n0 = vs.LAUNCHES["span_sim_cat_i8"]
+    out = vs.span_sim_cat_i8(q8, qs, f8, fs, lp=lp)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["span_sim_cat_i8"] == n0 + 1
+    ref = vs.span_sim_int8_xla(q8, qs, f8, fs, lp=lp)
+    assert out.shape == ref.shape == (q8.shape[0], f8.shape[0] // lp, lp)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    return out
+
+
+@pytest.mark.parametrize("lp", [4, 24, 104, 128])
+@pytest.mark.parametrize("nq", [1, 63, 64, 65, 127, 129])
+def test_b5_off_the_tiles(dev, nq, lp):
+    """Query counts around the 64-query warp groups and the 128-query
+    tile; 37 videos of lp rows: 148 rows (not a multiple of 8: 8-byte
+    stores), 888, 3,848 and 4,736 (whole 128-row tiles); K = 144, one
+    128-byte chunk and a 16-byte tail."""
+    L = max(1, lp - 3)
+    q8, qs, f8, fs = _span_sim_case(dev, nq, 37, L, 144, lp, 1, seed=nq * 1000 + lp)
+    out = _span_equal(q8, qs, f8, fs, lp)
+    assert not out[:, :, L:].any()
+
+
+@pytest.mark.parametrize("k", [16, 48, 80, 512, 528, 1040])
+def test_b5_k_axis_and_extremes(dev, k):
+    """K from one 16-byte piece to past one chunk, 512 (the model's, the
+    query tile resident), 528 and 1,040 (the query chunks streamed through
+    the ring); then every byte +-127: dots up to K * 127^2, past 2^24 at
+    K = 1,040, where the f32 conversion rounds."""
+    nq, lp = 130, 24
+    q8, qs, f8, fs = _span_sim_case(dev, nq, 13, 20, k, lp, 4, seed=k)
+    _span_equal(q8, qs, f8, fs, lp)
+    g = torch.Generator(device=dev).manual_seed(k + 1)
+    sign = lambda *s: torch.where(torch.rand(*s, generator=g, device=dev) < 0.5, 127, -127)
+    q8 = sign(*q8.shape).to(torch.int8)
+    f8 = sign(*f8.shape).to(torch.int8)
+    q8[0] = 127
+    f8[:lp] = -127                                  # query 0 x video 0: -K * 127^2
+    out = _span_equal(q8, qs, f8, fs, lp)
+    assert out[0, 0, 0].item() < 0
 
 
 def test_b5_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -1,0 +1,79 @@
+// Tensor-core ceiling probe for Hopper (sm_90a): back-to-back mma.sync
+// products from registers on every SM, s8 m16n8k32 (s32 sums) or bf16
+// m16n8k16 (f32 sums), with no memory traffic. It ports no TPU kernel and
+// no engine path runs it: chip_smoke.py (phase 2) times it, so that the
+// kernels built on mma.sync (B1, B2 / B3-bf16, B5) can be stated as a share
+// of what that instruction reaches on this card as well as of the data
+// sheet's peak (which only wgmma reaches).
+//
+// Each warp keeps kChains independent accumulators, so a product's latency
+// hides behind the next chains' issue; operands are seeded from the thread
+// index, and the sums are written out, so nothing folds away.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+// -fPIC (tvretrieval_tpu_torch/ops/_build.py). C interface, loaded with
+// ctypes; the entry point returns cudaGetLastError() after the launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "s8_mma.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kChains = 8;
+
+template <bool Bf16>
+__global__ void __launch_bounds__(kThreads) mma_probe_kernel(int iters, float* __restrict__ out) {
+  using Acc = typename std::conditional<Bf16, float, int>::type;
+  const uint32_t seed = (blockIdx.x * kThreads + threadIdx.x) * 2654435761u;
+  uint32_t a[4];
+  // bf16 pairs of magnitude ~2^-8 (exponent 119) or bytes of any value
+  const uint32_t mask = Bf16 ? 0x807f807fu : 0xffffffffu;
+  const uint32_t base = Bf16 ? 0x3b803b80u : 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = ((seed >> i) & mask) | base;
+  const uint32_t b0 = ((seed >> 5) & mask) | base, b1 = ((seed >> 7) & mask) | base;
+  Acc c[kChains][4];
+#pragma unroll
+  for (int j = 0; j < kChains; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = Acc(0);
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) {
+      if constexpr (Bf16)
+        s8mma::mma_bf16(c[j], a, b0, b1);
+      else
+        s8mma::mma(c[j], a, b0, b1);
+    }
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kChains; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum += static_cast<float>(c[j][e]);
+  out[blockIdx.x * kThreads + threadIdx.x] = sum;
+}
+
+}  // namespace
+
+extern "C" {
+
+// kind 0: s8 m16n8k32, 1: bf16 m16n8k16. `blocks` blocks of 256 threads,
+// each warp issuing iters x 8 products; out: blocks x 256 floats. Returns
+// cudaGetLastError() after the launch.
+int tvr_mma_probe(int kind, int blocks, int iters, void* out, void* stream) {
+  if (blocks <= 0 || iters <= 0 || (kind != 0 && kind != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 0)
+    mma_probe_kernel<false><<<blocks, kThreads, 0, s>>>(iters, static_cast<float*>(out));
+  else
+    mma_probe_kernel<true><<<blocks, kThreads, 0, s>>>(iters, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,8 +1,8 @@
-// s8 x s8 -> s32 tensor-core tiles for Hopper (sm_90a) through mma.sync:
-// asynchronous 16-byte copies into XOR-swizzled shared-memory tiles,
-// ldmatrix fragment loads and the m16n8k32 product. Shared by the int8
-// video-score kernel (csrc/video_score.cu, B1 / B3-int8); the int8 span
-// sweep (B5) is to use it next.
+// Tensor-core tiles for Hopper (sm_90a) through mma.sync: asynchronous
+// 16-byte copies into XOR-swizzled shared-memory tiles, ldmatrix fragment
+// loads, and the s8 x s8 -> s32 m16n8k32 and bf16 x bf16 -> f32 m16n8k16
+// products. Shared by the video-score kernels (csrc/video_score.cu, B1 /
+// B2 / B3 in int8 and bf16) and the int8 span sweep (csrc/span_sim.cu, B5).
 //
 // Tile layout. A tile holds rows of int8 with K contiguous, `row_bytes` a
 // multiple of 128 (8 chunks of 16 bytes). Chunk c of row r sits at chunk
@@ -19,6 +19,12 @@
 // An ldmatrix 8x8 (b16) matrix gives lane l the 4 bytes at row l / 4,
 // bytes 4 (l % 4) of a 16-byte chunk, which is exactly one of those
 // registers: ldmatrix.x4 fills a whole A fragment, or two B fragments.
+//
+// mma.m16n8k16.row.col.f32.bf16.bf16.f32 has the same fragments in bytes:
+// a k-step is 16 bf16 = 32 bytes, a0 = A[g][2t..2t+1] = bytes 4t..4t+3 of
+// row g, a2 = bytes 16+4t.., b0 / b1 = row g, bytes 4t.. / 16+4t.., and C
+// holds f32 at the same (row, column) places. So the tiles, the swizzle
+// and the fragment addresses below serve both products unchanged.
 #pragma once
 
 #include <stdint.h>
@@ -77,6 +83,16 @@ __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4], uint32_
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b over one k-step of 16 bf16, f32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -19,38 +19,65 @@
 // MACs at the full TVR corpus) whose (Nq, Nv_pad * lp) product is reduced
 // by a segmented max. The TPU kernel exists to keep that product out of
 // device memory, and so do these: only the (Nq, Nv) scores (and B3's block
-// maxima) are written, so the bound is arithmetic.
+// maxima) are written, so the bound is arithmetic (1.17 ms int8, 2.35 ms
+// bf16, 34.7 ms f32 at the data sheet's peaks).
 //
-// int8 (B1, B3-int8): the s8 tensor cores, mma.sync m16n8k32 (tile code in
-// s8_mma.cuh). A block owns 128 queries x 16 videos and 8 warps: four
-// query groups of 32 (two m16 fragments) x two columns of 32 flat rows
-// (four n8 fragments). Both streams' query tiles stay resident in shared
-// memory; the block's 16 x lp flat rows stream through a two-stage
+// int8 and bf16 (B1, B2, B3): the tensor cores through mma.sync, s8
+// m16n8k32 with s32 sums or bf16 m16n8k16 with f32 sums (tile code in
+// s8_mma.cuh: a k-step is 32 bytes and the fragments have the same byte
+// layout in both, so one kernel template, video_score_mma_kernel, serves
+// them). A block owns 128 queries x 16 videos and 8 warps: four query
+// groups of 32 (two m16 fragments) x two columns of 32 flat rows (four n8
+// fragments). The block's 16 x lp flat rows stream through a two-stage
 // cp.async ring, 64 rows a step, stream by stream, into XOR-swizzled tiles
-// read with ldmatrix. At D = 256 that is 112 KiB, so two blocks share an
-// SM and one's barrier, copies and epilogue run under the other's
-// products; the k loop is unrolled there, the next k-step's fragments
-// loading while this one's products run. Because lp % 8 == 0, an n8
-// fragment is 8 rows of one video, so after a step's K loop each thread
-// folds its fragments' columns into a running max per (query, video) in
-// registers (a three-way max); when the warp's video changes it takes the
-// max over the quad (shuffles) and folds it into a per-(stream, query,
-// video) max in shared memory (atomicMax: one video's fragments are spread
-// over the warp columns). The grid runs the query tiles of one video tile
-// side by side, so they share its rows through L2 and device memory is
-// read about once. The K axis is padded to 32 bytes with zeros in shared
-// memory; D is at most 384 bytes (160 KiB at that width).
+// read with ldmatrix. Because lp % 8 == 0, an n8 fragment is 8 rows of one
+// video, so after a row block's K loop each thread folds its fragments'
+// columns into a running max per (query, video) in registers (a three-way
+// max); when the warp's video changes it takes the max over the quad
+// (shuffles) and folds it into a per-(stream, query, video) max in shared
+// memory (atomics: one video's fragments are spread over the warp
+// columns). The grid runs the query tiles of one video tile side by side,
+// so they share its rows through L2 and device memory is read about once.
+// The K axis is padded to 32 bytes with zeros in shared memory.
+// Shared memory a block, at D = 256 (the model's width):
+//   int8: both streams' query tiles resident   2 x 128 x 256 B = 64 KiB
+//         ring, 2 stages x 64 rows x the row   2 x 64 x 256 B  = 32 KiB
+//   bf16: one stream's query tile resident     128 x 512 B     = 64 KiB
+//         (the second loads over it when the first stream's steps are done)
+//         ring, 2 stages x 64 rows x 256 B     (a row block takes two
+//         steps, one for each half of the 512-byte row)            = 32 KiB
+//   both: per-(stream, query, video) maxima    2 x 128 x 16 x 4 B = 16 KiB
+// = 112 KiB, so two blocks share an SM and one's barrier, copies and
+// epilogue run under the other's products; the k loop is unrolled at that
+// width, the next k-step's fragments loading while this one's products run.
+// Int8 rows are at most 384 bytes (160 KiB), bf16 rows at most 1,024
+// (D = 512, 176 KiB; D = 384, the widest in use, 144 KiB: one block an SM).
 //
-// bf16 / f32 (B2, B3): plain FMA over shared-memory tiles: a block owns 32
-// videos x 64 queries, every thread one video (its lane) x 8 queries,
-// walking the video's rows 8 at a time with the dots in registers. A
-// tensor-core version changes their summation order and waits for a
-// tolerance argument.
+// f32 (B2, B3): plain FMA over shared-memory tiles: a block owns 32 videos
+// x 64 queries, every thread one video (its lane) x 8 queries, walking the
+// video's rows 8 at a time with the dots in registers. The tensor cores
+// take no f32 input at this precision (TF32 keeps 10 mantissa bits).
 //
 // Exactness. Integer accumulation and max are exact, and the int8 rescale
 // is the same single f32 multiply by f32(0.5 / 16129) that JAX does, so B1
-// and B3-int8 are bit-equal to their plain versions. The bf16 / f32 kinds
-// sum in another order than a library GEMM (f32 rounding slack).
+// and B3-int8 are bit-equal to their plain versions. The bf16 kind's
+// tolerance argument:
+//  1. a bf16 x bf16 product is exact in f32 (8 + 8 significant bits), and
+//     the plain version upcasts to f32 and multiplies there with TF32 off
+//     (tvretrieval_tpu_torch/__init__.py), so both sides sum the same D
+//     exact products in f32 and differ only in the order of the sums, as
+//     the f32 FMA kernel and its plain version do;
+//  2. the engine L2-normalizes queries and caches, so sum |q_i f_i| <=
+//     |q| |f| ~ 1, and any order's rounding error is at most (D - 1) 2^-24
+//     ~ 1.5e-5 at D = 256 in the worst case and ~ sqrt(D) 2^-24 ~ 1e-6 in
+//     practice; a max over rows and the halving combine add nothing to it;
+//  3. the TPU kernel itself sums on the MXU in f32
+//     (preferred_element_type=jnp.float32), so the tensor cores are closer
+//     to the reference's own arithmetic than FMA is;
+//  4. nothing sums in reduced precision: no split-K, no bf16 partial sums.
+// So B2 / B3-bf16 are held to 1e-5 of their plain versions, the bound the
+// FMA kernel was held to (tests/test_torch_mma_order.py models the
+// tensor-core order on the CPU).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (tvretrieval_tpu_torch/ops/_build.py). C interface, loaded with
@@ -73,9 +100,9 @@ constexpr int kRows = 8;                // rows per video per step (lp % 8 == 0)
 constexpr int kWords = 32;              // 4-byte words of the feature axis per stage
 constexpr int kVideoStride = kRows * kWords + 1;  // odd: the 32 lanes hit 32 banks
 
-// Element traits of the FMA kernel. A shared-memory word packs 2 bf16 or
-// 1 f32 of the feature axis; `step` folds one word of every (row, query)
-// pair into the accumulators.
+// Element traits of the FMA kernel (f32 only: bf16 runs on the tensor
+// cores). A shared-memory word holds one f32 of the feature axis; `step`
+// folds one word of every (row, query) pair into the accumulators.
 struct Float32 {
   using Acc = float;
   __device__ static Acc zero() { return 0.0f; }
@@ -92,34 +119,11 @@ struct Float32 {
   __device__ static float combine(Acc v, Acc s) { return (v + s) / 2.0f; }
 };
 
-struct BFloat16 : Float32 {
-  // a word holds feature k in its low half and k + 1 in its high half; a
-  // bf16 widens to f32 by a 16-bit shift, and bf16 x bf16 is exact in f32
-  __device__ static void step(const uint32_t (&f)[kRows], const uint32_t (&q)[kQPerThread],
-                              Acc (&acc)[kRows][kQPerThread]) {
-    float flo[kRows], fhi[kRows], qlo[kQPerThread], qhi[kQPerThread];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      flo[r] = __uint_as_float(f[r] << 16);
-      fhi[r] = __uint_as_float(f[r] & 0xffff0000u);
-    }
-#pragma unroll
-    for (int j = 0; j < kQPerThread; ++j) {
-      qlo[j] = __uint_as_float(q[j] << 16);
-      qhi[j] = __uint_as_float(q[j] & 0xffff0000u);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int j = 0; j < kQPerThread; ++j)
-        acc[r][j] = fmaf(fhi[r], qhi[j], fmaf(flo[r], qlo[j], acc[r][j]));
-  }
-};
-
-// float max through integer atomics: non-negative floats order like
-// signed ints, negative floats order reversed as unsigned ints
+// float max through integer atomics: floats with the sign bit clear order
+// like signed ints, floats with it set (-0.0 included) order reversed as
+// unsigned ints
 __device__ void atomic_max_float(float* addr, float value) {
-  if (value >= 0.0f)
+  if (__float_as_int(value) >= 0)
     atomicMax(reinterpret_cast<int*>(addr), __float_as_int(value));
   else
     atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(value));
@@ -247,15 +251,13 @@ void launch(const void* qv, const void* qs, const void* fv, const void* fs, int 
       static_cast<float*>(bmax), chunk_v);
 }
 
-// ------------------------------------------------ int8: s8 tensor cores
-constexpr int kI8Threads = 256;         // 8 warps: 4 query groups x 2 row columns
-constexpr int kI8Queries = 128;         // queries per block: the A tile
-constexpr int kI8Videos = 16;           // videos per block
-constexpr int kI8Rows = 64;             // flat rows a ring step: 8 n8 fragments
-constexpr int kI8Stages = 2;            // ring depth
-constexpr int kI8MaxRowBytes = 384;     // the longest feature row (D) the tiles hold
-constexpr int kI8BestBytes = 2 * kI8Queries * kI8Videos * 4;
-constexpr int kI8MaxSmem = 227 * 1024;
+// ------------------------------------- int8 and bf16: the tensor cores
+constexpr int kMmaThreads = 256;        // 8 warps: 4 query groups x 2 row columns
+constexpr int kMmaQueries = 128;        // queries per block: the A tile
+constexpr int kMmaVideos = 16;          // videos per block
+constexpr int kMmaRows = 64;            // flat rows a ring step: 8 n8 fragments
+constexpr int kMmaStages = 2;           // ring depth
+constexpr int kMaxSmem = 227 * 1024;
 
 // JAX: (mv + ms).astype(f32) * (0.5 / (127.0 * 127.0)), the constant
 // rounded once from double to f32
@@ -263,92 +265,150 @@ __device__ __forceinline__ float i8_score(int v, int s) {
   return static_cast<float>(v + s) * static_cast<float>(0.5 / 16129.0);
 }
 
-__host__ __device__ constexpr int i8_row_bytes(int nk) { return (2 * nk + 7) / 8 * 128; }
-__host__ __device__ constexpr int i8_smem(int nk) {
-  return (2 * kI8Queries + kI8Stages * kI8Rows) * i8_row_bytes(nk) + kI8BestBytes;
+// The two products. A k-step is 32 bytes of the feature axis in both; a
+// ring step holds the 64 rows' bytes of up to kChunkSteps k-steps.
+// BothResident: both streams' query tiles stay in shared memory; otherwise
+// one at a time, the second loaded when the first stream's steps are done.
+struct S8Mma {                          // B1, B3-int8: s32 dots, integer max
+  using Acc = int;
+  static constexpr bool kBothResident = true;
+  static constexpr int kChunkSteps = 12;          // 384 bytes: the whole row
+  static constexpr int kMaxRowBytes = 384;
+  __device__ static Acc lowest() { return INT_MIN; }
+  __device__ static void mma(Acc (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    s8mma::mma(c, a, b0, b1);
+  }
+  __device__ static Acc max3(Acc a, Acc b, Acc c) { return __vimax3_s32(a, b, c); }
+  __device__ static Acc max(Acc a, Acc b) { return ::max(a, b); }
+  __device__ static void atomic_max(Acc* p, Acc v) { atomicMax(p, v); }
+  __device__ static float score(Acc v, Acc s) { return i8_score(v, s); }
+};
+
+struct Bf16Mma {                        // B2, B3-bf16: f32 sums of exact products
+  using Acc = float;
+  static constexpr bool kBothResident = false;
+  static constexpr int kChunkSteps = 8;           // 256 bytes of a 512-byte row
+  static constexpr int kMaxRowBytes = 1024;
+  __device__ static Acc lowest() { return -INFINITY; }
+  __device__ static void mma(Acc (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    s8mma::mma_bf16(c, a, b0, b1);
+  }
+  __device__ static Acc max3(Acc a, Acc b, Acc c) { return fmaxf(a, fmaxf(b, c)); }
+  __device__ static Acc max(Acc a, Acc b) { return fmaxf(a, b); }
+  __device__ static void atomic_max(Acc* p, Acc v) { atomic_max_float(p, v); }
+  __device__ static float score(Acc v, Acc s) { return (v + s) / 2.0f; }
+};
+
+// tile rows: whole swizzle periods of 128 bytes
+__host__ __device__ constexpr int mma_row_bytes(int nk) { return (2 * nk + 7) / 8 * 128; }
+template <class M>
+__host__ __device__ constexpr int mma_chunk_steps(int nk) {
+  return nk < M::kChunkSteps ? nk : M::kChunkSteps;
+}
+template <class M>
+__host__ __device__ constexpr int mma_smem(int nk) {
+  return (M::kBothResident ? 2 : 1) * kMmaQueries * mma_row_bytes(nk)
+         + kMmaStages * kMmaRows * mma_row_bytes(mma_chunk_steps<M>(nk))
+         + 2 * kMmaQueries * kMmaVideos * 4;
 }
 
-// q: (nq, d) int8 rows; f: (nv_pad * lp, d) int8 rows; d a multiple of 16.
-// out, bmax, chunk_v as for video_score_kernel. NK: k-steps of 32 bytes,
-// ceil(d / 32), fixed at compile time (NK = 0: read from d).
-template <int NK>
-__global__ void __launch_bounds__(kI8Threads, 2)
-video_score_i8_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ qs,
-                      const int8_t* __restrict__ fv, const int8_t* __restrict__ fs,
-                      int nq, int nv_pad, int lp, int d, int n_videos,
-                      float* __restrict__ out, int out_cols,
-                      float* __restrict__ bmax, int chunk_v) {
+// q: (nq, d) rows of int8 or bf16, d bytes a row (a multiple of 16); f:
+// (nv_pad * lp, d). out, bmax, chunk_v as for video_score_kernel. KS: the
+// k-steps (32 bytes) of a ring step, fixed at compile time when every
+// step holds KS of them (KS = 0: read from d).
+template <class M, int KS>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+video_score_mma_kernel(const unsigned char* __restrict__ qv, const unsigned char* __restrict__ qs,
+                       const unsigned char* __restrict__ fv, const unsigned char* __restrict__ fs,
+                       int nq, int nv_pad, int lp, int d, int n_videos,
+                       float* __restrict__ out, int out_cols,
+                       float* __restrict__ bmax, int chunk_v) {
   using namespace s8mma;
+  using Acc = typename M::Acc;
   constexpr int MF = 2;                           // m16 fragments a warp: 32 queries
-  constexpr int FRAGS = kI8Rows / 8;              // n8 fragments a ring step
+  constexpr int FRAGS = kMmaRows / 8;             // n8 fragments a ring step
+  constexpr int kQTiles = M::kBothResident ? 2 : 1;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int nk = NK ? NK : (d + 31) / 32;
-  const int row_bytes = i8_row_bytes(nk);         // tile rows: whole swizzle periods
-  const int n_load = 2 * nk;                      // 16-byte chunks copied per row
-  const int n_valid = d / 16;                     // chunks of real features; zeros after
-  unsigned char* q_tile = smem;                                // [stream][128][row_bytes]
-  unsigned char* f_ring = smem + 2 * kI8Queries * row_bytes;   // [stage][64][row_bytes]
-  // [stream][query][video]: the integer max of each video's dots
-  int* best = reinterpret_cast<int*>(f_ring + kI8Stages * kI8Rows * row_bytes);
+  // the int8 rows fit one ring step whole: no K chunks to count
+  constexpr bool kOneChunk = M::kChunkSteps * 32 >= M::kMaxRowBytes;
+  const int nk = (d + 31) / 32;                   // k-steps of the row
+  const int ks = KS ? KS : mma_chunk_steps<M>(nk);   // k-steps of a ring step
+  const int nkc = kOneChunk ? 1 : (nk + ks - 1) / ks;   // ring steps a row block takes
+  const int q_rb = mma_row_bytes(nk);             // query tile rows: the whole row
+  const int f_rb = mma_row_bytes(ks);             // ring tile rows: one K chunk
+  const int n_valid = d / 16;                     // 16-byte pieces of real features
+  unsigned char* q_tile = smem;                                   // [tile][128][q_rb]
+  unsigned char* f_ring = smem + kQTiles * kMmaQueries * q_rb;    // [stage][64][f_rb]
+  // [stream][query][video]: the max of each video's dots
+  Acc* best = reinterpret_cast<Acc*>(f_ring + kMmaStages * kMmaRows * f_rb);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;        // query group, row column
-  const int q0 = blockIdx.x * kI8Queries;
-  const int v0 = blockIdx.y * kI8Videos;
+  const int q0 = blockIdx.x * kMmaQueries;
+  const int v0 = blockIdx.y * kMmaVideos;
   const int fpv = lp / 8;                         // n8 fragments per video
-  const int n_steps = 16 * fpv / FRAGS;           // 16 * fpv fragments
+  const int n_blocks = 16 * fpv / FRAGS;          // row blocks of 64 a stream
+  const int n_steps = n_blocks * nkc;             // ring steps a stream
   const int n_total = 2 * n_steps;                // both streams
   const size_t n_rows = static_cast<size_t>(nv_pad) * lp;
   const size_t row0 = static_cast<size_t>(v0) * lp;
 
-  for (int i = tid; i < 2 * kI8Queries * kI8Videos; i += kI8Threads) best[i] = INT_MIN;
+  for (int i = tid; i < 2 * kMmaQueries * kMmaVideos; i += kMmaThreads) best[i] = M::lowest();
 
-  // both streams' query tiles; rows past nq and the K tail are zeros
-  for (int i = tid; i < 2 * kI8Queries * n_load; i += kI8Threads) {
-    const int s = i / (kI8Queries * n_load), rem = i - s * kI8Queries * n_load;
-    const int r = rem / n_load, c = rem - r * n_load;
-    const int8_t* q = s ? qs : qv;
-    const bool ok = q0 + r < nq && c < n_valid;
-    cp_async16(smem_addr(q_tile + s * kI8Queries * row_bytes) + swizzle(r, c, row_bytes),
-               ok ? q + static_cast<size_t>(q0 + r) * d + c * 16 : q, ok ? 16 : 0);
-  }
-  // step t: stream t / n_steps, the block's rows (t % n_steps) * 64 .. + 63
+  // query tiles; rows past nq and pieces past d are zeros
+  auto load_queries = [&](int s0, int n_s) {
+    const int n_load = 2 * nk;                    // pieces a row
+    for (int i = tid; i < n_s * kMmaQueries * n_load; i += kMmaThreads) {
+      const int s = i / (kMmaQueries * n_load), rem = i - s * kMmaQueries * n_load;
+      const int r = rem / n_load, c = rem - r * n_load;
+      const unsigned char* q = (s0 + s) ? qs : qv;
+      const bool ok = q0 + r < nq && c < n_valid;
+      cp_async16(smem_addr(q_tile + s * kMmaQueries * q_rb) + swizzle(r, c, q_rb),
+                 ok ? q + static_cast<size_t>(q0 + r) * d + c * 16 : q, ok ? 16 : 0);
+    }
+  };
+  load_queries(0, kQTiles);
+  // step t: stream t / n_steps; of its steps, row block (t % n_steps) / nkc
+  // (the block's rows * 64 .. + 63), K chunk (t % n_steps) % nkc
   auto load_step = [&](int t) {
-    const int s = t / n_steps, ch = t - s * n_steps;
-    const int8_t* f = s ? fs : fv;
-    const uint32_t dst = smem_addr(f_ring + (t % kI8Stages) * kI8Rows * row_bytes);
-    const size_t base = row0 + static_cast<size_t>(ch) * kI8Rows;
-    if constexpr (NK > 0 && kI8Threads % (2 * NK) == 0) {
-      // a thread's chunk is the same in every row it copies, and its rows
-      // are kI8Threads / n_load apart: no division in the loop
-      constexpr int kLoad = 2 * NK, kRowStep = kI8Threads / kLoad;
-      static_assert(kRowStep % 8 == 0 && kI8Rows % kRowStep == 0, "rows a thread copies");
+    const int s = t / n_steps, st = t - s * n_steps;
+    const int ch = kOneChunk ? st : st / nkc, kc = st - ch * nkc;
+    const unsigned char* f = s ? fs : fv;
+    const uint32_t dst = smem_addr(f_ring + (t % kMmaStages) * kMmaRows * f_rb);
+    const size_t base = row0 + static_cast<size_t>(ch) * kMmaRows;
+    const int c0 = kc * 2 * ks;                   // the chunk's first piece
+    if constexpr (KS > 0 && kMmaThreads % (2 * KS) == 0) {
+      // a thread's piece is the same in every row it copies, and its rows
+      // are kMmaThreads / (2 KS) apart: no division in the loop
+      constexpr int kLoad = 2 * KS, kRowStep = kMmaThreads / kLoad;
+      static_assert(kRowStep % 8 == 0 && kMmaRows % kRowStep == 0, "rows a thread copies");
       const int r0 = tid / kLoad, c = tid % kLoad;
-      const uint32_t d0 = dst + swizzle(r0, c, row_bytes);    // the same swizzle every row
-      const int8_t* src = f + (base + r0) * d + c * 16;
+      const uint32_t d0 = dst + swizzle(r0, c, f_rb);         // the same swizzle every row
+      const unsigned char* src = f + (base + r0) * d + (c0 + c) * 16;
 #pragma unroll
-      for (int j = 0; j < kI8Rows / kRowStep; ++j) {
-        const bool ok = base + r0 + j * kRowStep < n_rows && c < n_valid;
-        cp_async16(d0 + j * kRowStep * row_bytes,
+      for (int j = 0; j < kMmaRows / kRowStep; ++j) {
+        const bool ok = base + r0 + j * kRowStep < n_rows && c0 + c < n_valid;
+        cp_async16(d0 + j * kRowStep * f_rb,
                    ok ? src + static_cast<size_t>(j) * kRowStep * d : f, ok ? 16 : 0);
       }
     } else {
-      for (int i = tid; i < kI8Rows * n_load; i += kI8Threads) {
+      const int n_load = 2 * min(ks, nk - kc * ks);
+      for (int i = tid; i < kMmaRows * n_load; i += kMmaThreads) {
         const int r = i / n_load, c = i - r * n_load;
-        const bool ok = base + r < n_rows && c < n_valid;
-        cp_async16(dst + swizzle(r, c, row_bytes), ok ? f + (base + r) * d + c * 16 : f,
+        const bool ok = base + r < n_rows && c0 + c < n_valid;
+        cp_async16(dst + swizzle(r, c, f_rb), ok ? f + (base + r) * d + (c0 + c) * 16 : f,
                    ok ? 16 : 0);
       }
     }
   };
 #pragma unroll
-  for (int t = 0; t < kI8Stages - 1; ++t) {      // the first group carries the queries
+  for (int t = 0; t < kMmaStages - 1; ++t) {     // the first group carries the queries
     if (t < n_total) load_step(t);
     cp_async_commit();
   }
 
   const int g = lane >> 2, t4 = lane & 3;
-  int run[MF][2];                                 // running max: m16 fragment, row g / g + 8
+  Acc run[MF][2];                                 // running max: m16 fragment, row g / g + 8
   int cur = -1;                                   // the video `run` belongs to
   // the max over the quad, folded into best[stream][query][video]
   auto flush = [&](int s, int vl) {
@@ -356,43 +416,53 @@ video_score_i8_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ 
     for (int mi = 0; mi < MF; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        int v = run[mi][h];
-        v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
-        v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        Acc v = run[mi][h];
+        v = M::max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = M::max(v, __shfl_xor_sync(0xffffffffu, v, 2));
         run[mi][h] = v;
       }
 #pragma unroll
     for (int e = 0; e < 2 * MF; ++e)
       if ((e & 3) == t4) {                        // the quad's lanes share the writes
         const int q = wm * (MF * 16) + (e >> 1) * 16 + g + 8 * (e & 1);
-        atomicMax(&best[(s * kI8Queries + q) * kI8Videos + vl], run[e >> 1][e & 1]);
+        M::atomic_max(&best[(s * kMmaQueries + q) * kMmaVideos + vl], run[e >> 1][e & 1]);
       }
   };
 
   uint32_t a[2][MF][4], b[2][4][2];
-  int acc[MF][4][4];
+  Acc acc[MF][4][4];
   for (int t = 0; t < n_total; ++t) {
-    cp_async_wait<kI8Stages - 2>();               // step t has landed, for this thread
+    cp_async_wait<kMmaStages - 2>();              // step t has landed, for this thread
     __syncthreads();                              // ... for all; step t - 1 is done
-    if (t + kI8Stages - 1 < n_total) load_step(t + kI8Stages - 1);
+    if (t + kMmaStages - 1 < n_total) load_step(t + kMmaStages - 1);
     cp_async_commit();
-    const int s = t / n_steps, ch = t - s * n_steps;
-    const uint32_t qa = smem_addr(q_tile + s * kI8Queries * row_bytes);
-    const uint32_t fb = smem_addr(f_ring + (t % kI8Stages) * kI8Rows * row_bytes);
+    const int s = t / n_steps, st = t - s * n_steps;
+    const int ch = kOneChunk ? st : st / nkc, kc = st - ch * nkc;
+    // with KS a multiple of 4, chunk kc starts at byte kc * KS * 32 of every
+    // query row whatever the row's swizzle (which permutes 16-byte pieces
+    // inside 128 bytes): fold it into the tile's base
+    constexpr bool kFold = KS > 0 && KS % 4 == 0;
+    const uint32_t qa = smem_addr(q_tile + (M::kBothResident ? s : 0) * kMmaQueries * q_rb)
+                        + (kFold ? kc * KS * 32 : 0);
+    const int kq = kFold ? 0 : kc * ks;           // the query tile's k-step of kk = 0
+    const uint32_t fb = smem_addr(f_ring + (t % kMmaStages) * kMmaRows * f_rb);
+    if (kc == 0) {
 #pragma unroll
-    for (int mi = 0; mi < MF; ++mi)
+      for (int mi = 0; mi < MF; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = Acc(0);
+    }
+    // k-step kk of this chunk: the query tile's k-step kc * ks + kk
     auto load_frags = [&](int kk, int buf) {
 #pragma unroll
       for (int mi = 0; mi < MF; ++mi)
-        ldmatrix_x4(a[buf][mi], a_frag_addr(qa, wm * (MF * 16) + mi * 16, kk, lane, row_bytes));
+        ldmatrix_x4(a[buf][mi], a_frag_addr(qa, wm * (MF * 16) + mi * 16, kq + kk, lane, q_rb));
 #pragma unroll
       for (int np = 0; np < 2; ++np) {
         uint32_t r[4];
-        ldmatrix_x4(r, b_frag_pair_addr(fb, wn * 32 + np * 16, kk, lane, row_bytes));
+        ldmatrix_x4(r, b_frag_pair_addr(fb, wn * 32 + np * 16, kk, lane, f_rb));
         b[buf][2 * np][0] = r[0];
         b[buf][2 * np][1] = r[1];
         b[buf][2 * np + 1][0] = r[2];
@@ -403,52 +473,63 @@ video_score_i8_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ 
 #pragma unroll
       for (int mi = 0; mi < MF; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], a[buf][mi], b[buf][ni][0], b[buf][ni][1]);
+        for (int ni = 0; ni < 4; ++ni)
+          M::mma(acc[mi][ni], a[buf][mi], b[buf][ni][0], b[buf][ni][1]);
     };
-    if constexpr (NK > 0) {
+    if constexpr (KS > 0) {
       // fragments of k-step kk + 1 load while k-step kk multiplies
       load_frags(0, 0);
 #pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        if (kk + 1 < NK) load_frags(kk + 1, (kk + 1) & 1);
+      for (int kk = 0; kk < KS; ++kk) {
+        if (kk + 1 < KS) load_frags(kk + 1, (kk + 1) & 1);
         mma_all(kk & 1);
       }
     } else {
+      const int n_kk = min(ks, nk - kc * ks);
 #pragma unroll 1
-      for (int kk = 0; kk < nk; ++kk) {
+      for (int kk = 0; kk < n_kk; ++kk) {
         load_frags(kk, 0);
         mma_all(0);
       }
     }
-    // fragment ni is 8 rows of video (f0 + ni) / fpv, the same for the
-    // whole warp (one division a step while videos are 4 fragments or more)
-    const int f0 = ch * FRAGS + wn * 4, v_first = f0 / fpv, r0 = f0 - v_first * fpv;
+    if (kc == nkc - 1) {
+      // fragment ni is 8 rows of video (f0 + ni) / fpv, the same for the
+      // whole warp (one division a step while videos are 4 fragments or more)
+      const int f0 = ch * FRAGS + wn * 4, v_first = f0 / fpv, r0 = f0 - v_first * fpv;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int vl = r0 + ni < fpv ? v_first : (f0 + ni) / fpv;
-      if (vl != cur) {
-        if (cur >= 0) flush(s, cur);
-        cur = vl;
+      for (int ni = 0; ni < 4; ++ni) {
+        const int vl = r0 + ni < fpv ? v_first : (f0 + ni) / fpv;
+        if (vl != cur) {
+          if (cur >= 0) flush(s, cur);
+          cur = vl;
 #pragma unroll
-        for (int mi = 0; mi < MF; ++mi) run[mi][0] = run[mi][1] = INT_MIN;
-      }
+          for (int mi = 0; mi < MF; ++mi) run[mi][0] = run[mi][1] = M::lowest();
+        }
 #pragma unroll
-      for (int mi = 0; mi < MF; ++mi) {
-        run[mi][0] = __vimax3_s32(run[mi][0], acc[mi][ni][0], acc[mi][ni][1]);
-        run[mi][1] = __vimax3_s32(run[mi][1], acc[mi][ni][2], acc[mi][ni][3]);
+        for (int mi = 0; mi < MF; ++mi) {
+          run[mi][0] = M::max3(run[mi][0], acc[mi][ni][0], acc[mi][ni][1]);
+          run[mi][1] = M::max3(run[mi][1], acc[mi][ni][2], acc[mi][ni][3]);
+        }
       }
     }
-    if (ch == n_steps - 1) {                      // the stream's last step
+    if (st == n_steps - 1) {                      // the stream's last step
       flush(s, cur);
       cur = -1;
+      if (!M::kBothResident && s == 0) {
+        // every warp is done with the first stream's queries: load the
+        // second's over them; step t + 1 waits for this group too
+        __syncthreads();
+        load_queries(1, 1);
+        cp_async_commit();
+      }
     }
   }
   __syncthreads();
 
-  // scores: B1 writes videos < n_videos; B3 all of nv_pad, pads at -inf
-  for (int p = tid; p < kI8Queries * kI8Videos; p += kI8Threads) {
-    const int q = p / kI8Videos, vl = p % kI8Videos, qq = q0 + q, v = v0 + vl;
-    float score = i8_score(best[q * kI8Videos + vl], best[(kI8Queries + q) * kI8Videos + vl]);
+  // scores: B1 / B2 write videos < n_videos; B3 all of nv_pad, pads at -inf
+  for (int p = tid; p < kMmaQueries * kMmaVideos; p += kMmaThreads) {
+    const int q = p / kMmaVideos, vl = p % kMmaVideos, qq = q0 + q, v = v0 + vl;
+    float score = M::score(best[q * kMmaVideos + vl], best[(kMmaQueries + q) * kMmaVideos + vl]);
     if (bmax == nullptr) {
       if (qq < nq && v < n_videos) out[static_cast<size_t>(qq) * out_cols + v] = score;
     } else {
@@ -456,13 +537,13 @@ video_score_i8_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ 
       if (qq < nq && v < nv_pad) out[static_cast<size_t>(qq) * out_cols + v] = score;
     }
   }
-  if (bmax == nullptr || tid >= kI8Queries || q0 + tid >= nq) return;
+  if (bmax == nullptr || tid >= kMmaQueries || q0 + tid >= nq) return;
   // B3: a thread per query folds the block's videos into their chunk_v blocks
   const int qq = q0 + tid, nb = nv_pad / chunk_v;
   float* brow = bmax + static_cast<size_t>(qq) * nb;
   int seg = v0 / chunk_v;
   float m = -INFINITY;
-  for (int vl = 0; vl < kI8Videos && v0 + vl < nv_pad; ++vl) {
+  for (int vl = 0; vl < kMmaVideos && v0 + vl < nv_pad; ++vl) {
     const int v = v0 + vl;
     if (v / chunk_v != seg) {
       atomic_max_float(brow + seg, m);
@@ -470,57 +551,67 @@ video_score_i8_kernel(const int8_t* __restrict__ qv, const int8_t* __restrict__ 
       m = -INFINITY;
     }
     const float score = v >= n_videos ? -INFINITY
-        : i8_score(best[tid * kI8Videos + vl], best[(kI8Queries + tid) * kI8Videos + vl]);
+        : M::score(best[tid * kMmaVideos + vl], best[(kMmaQueries + tid) * kMmaVideos + vl]);
     m = fmaxf(m, score);
   }
   atomic_max_float(brow + seg, m);
 }
 
-template <int NK>
-int launch_i8_as(const void* qv, const void* qs, const void* fv, const void* fs, int nq,
-                 int nv_pad, int lp, int d, int n_videos, void* out, int out_cols,
-                 void* bmax, int chunk_v, cudaStream_t stream) {
-  const auto kernel = video_score_i8_kernel<NK>;
-  const int bytes = i8_smem((d + 31) / 32);
+template <class M, int KS>
+int launch_mma_as(const void* qv, const void* qs, const void* fv, const void* fs, int nq,
+                  int nv_pad, int lp, int d, int n_videos, void* out, int out_cols,
+                  void* bmax, int chunk_v, cudaStream_t stream) {
+  const auto kernel = video_score_mma_kernel<M, KS>;
+  const int bytes = mma_smem<M>((d + 31) / 32);
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // queries fastest: the 8 query tiles of one video tile (Nq = 1,000) run
   // side by side and share its feature rows through L2
-  const dim3 grid((nq + kI8Queries - 1) / kI8Queries, (nv_pad + kI8Videos - 1) / kI8Videos);
-  kernel<<<grid, kI8Threads, bytes, stream>>>(
-      static_cast<const int8_t*>(qv), static_cast<const int8_t*>(qs),
-      static_cast<const int8_t*>(fv), static_cast<const int8_t*>(fs), nq, nv_pad, lp, d,
-      n_videos, static_cast<float*>(out), out_cols, static_cast<float*>(bmax), chunk_v);
+  const dim3 grid((nq + kMmaQueries - 1) / kMmaQueries, (nv_pad + kMmaVideos - 1) / kMmaVideos);
+  kernel<<<grid, kMmaThreads, bytes, stream>>>(
+      static_cast<const unsigned char*>(qv), static_cast<const unsigned char*>(qs),
+      static_cast<const unsigned char*>(fv), static_cast<const unsigned char*>(fs), nq, nv_pad,
+      lp, d, n_videos, static_cast<float*>(out), out_cols, static_cast<float*>(bmax), chunk_v);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_i8(const void* qv, const void* qs, const void* fv, const void* fs, int nq,
-              int nv_pad, int lp, int d, int n_videos, void* out, int out_cols, void* bmax,
-              int chunk_v, cudaStream_t stream) {
-  if (d <= 0 || d % 16 || d > kI8MaxRowBytes || lp % 8 ||
-      (nv_pad + kI8Videos - 1) / kI8Videos > 65535)
+// d: a feature row in bytes (a multiple of 16)
+template <class M>
+int launch_mma(const void* qv, const void* qs, const void* fv, const void* fs, int nq,
+               int nv_pad, int lp, int d, int n_videos, void* out, int out_cols, void* bmax,
+               int chunk_v, cudaStream_t stream) {
+  if (d <= 0 || d % 16 || d > M::kMaxRowBytes || lp % 8 ||
+      (nv_pad + kMmaVideos - 1) / kMmaVideos > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  static_assert(2 * (i8_smem(8) + 1024) <= 228 * 1024, "D = 256: two blocks an SM");
-  static_assert(i8_smem(kI8MaxRowBytes / 32) <= kI8MaxSmem, "D = 384 does not fit");
-  // D = 256 (the model's width) with the k loop unrolled and the next
-  // k-step's fragments loading under this one's products; other widths read
-  // it at run time
-  if (d > 224 && d <= 256)
-    return launch_i8_as<8>(qv, qs, fv, fs, nq, nv_pad, lp, d, n_videos, out, out_cols, bmax,
-                           chunk_v, stream);
-  return launch_i8_as<0>(qv, qs, fv, fs, nq, nv_pad, lp, d, n_videos, out, out_cols, bmax,
-                         chunk_v, stream);
+  static_assert(mma_smem<M>(M::kMaxRowBytes / 32) <= kMaxSmem, "the widest row does not fit");
+  // the model's width, D = 256 (256 int8 bytes, one ring step a row block;
+  // 512 bf16 bytes, two), with the k loop unrolled and the next k-step's
+  // fragments loading under this one's products; other widths read it at
+  // run time
+  constexpr int kModelSteps = 256 / 32 * (M::kBothResident ? 1 : 2);
+  if ((d + 31) / 32 == kModelSteps)
+    return launch_mma_as<M, 8>(qv, qs, fv, fs, nq, nv_pad, lp, d, n_videos, out, out_cols, bmax,
+                               chunk_v, stream);
+  return launch_mma_as<M, 0>(qv, qs, fv, fs, nq, nv_pad, lp, d, n_videos, out, out_cols, bmax,
+                             chunk_v, stream);
 }
+
+// D = 256: two blocks an SM (112 KiB each, with the 1 KiB each reserves)
+static_assert(2 * (mma_smem<S8Mma>(8) + 1024) <= 228 * 1024, "int8 D = 256: two blocks an SM");
+static_assert(2 * (mma_smem<Bf16Mma>(16) + 1024) <= 228 * 1024, "bf16 D = 256: two blocks an SM");
+// D = 384 bf16 (768-byte rows; the widest feature axis in use) fits one
+// block an SM: 96 + 32 + 16 KiB
+static_assert(mma_smem<Bf16Mma>(24) <= kMaxSmem, "bf16 D = 384 does not fit");
 
 }  // namespace
 
 extern "C" {
 
-// kind: 0 int8 (tensor cores; d_words <= 96), 1 bf16, 2 f32 (FMA).
-// d_words: the feature axis in 4-byte words (a multiple of 4). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
-// the kernel does not take.
+// kind: 0 int8 (s8 tensor cores; d_words <= 96), 1 bf16 (bf16 tensor cores;
+// d_words <= 256), 2 f32 (FMA). d_words: the feature axis in 4-byte words
+// (a multiple of 4). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
 int tvr_video_scores(int kind, const void* qv, const void* qs, const void* fv,
                      const void* fs, int nq, int nv_pad, int lp, int d_words,
                      int n_videos, void* out, int out_cols, void* bmax, int chunk_v,
@@ -528,20 +619,18 @@ int tvr_video_scores(int kind, const void* qv, const void* qs, const void* fv,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0:
-      return launch_i8(qv, qs, fv, fs, nq, nv_pad, lp, 4 * d_words, n_videos, out, out_cols,
-                       bmax, chunk_v, s);
+      return launch_mma<S8Mma>(qv, qs, fv, fs, nq, nv_pad, lp, 4 * d_words, n_videos, out,
+                               out_cols, bmax, chunk_v, s);
     case 1:
-      launch<BFloat16>(qv, qs, fv, fs, nq, nv_pad, lp, d_words, n_videos, out, out_cols,
-                       bmax, chunk_v, s);
-      break;
+      return launch_mma<Bf16Mma>(qv, qs, fv, fs, nq, nv_pad, lp, 4 * d_words, n_videos, out,
+                                 out_cols, bmax, chunk_v, s);
     case 2:
       launch<Float32>(qv, qs, fv, fs, nq, nv_pad, lp, d_words, n_videos, out, out_cols,
                       bmax, chunk_v, s);
-      break;
+      return static_cast<int>(cudaGetLastError());
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -24,11 +24,11 @@ launches the kernel or raises. ``LAUNCHES`` counts kernel launches per
 wrapper (plain runs are not counted).
 
 What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
-* lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000), int8 on the s8
-tensor cores (``mma.sync``), bf16 / f32 through FMA; the (Nq, Nv_pad * lp)
-dot matrix never reaches device memory. B5 does
-Nv_pad * 128 x 2D x Nq MACs through dp4a and writes the rescaled
-similarity as bf16; its s32 dots never reach device memory. See the
+* lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000), int8 and bf16 on
+the tensor cores (``mma.sync``), f32 through FMA; the (Nq, Nv_pad * lp)
+dot matrix never reaches device memory. B5 does Nv_pad * 128 x 2D x Nq
+MACs on the s8 tensor cores and writes the rescaled similarity as bf16
+(bound by those bytes); its s32 dots never reach device memory. See the
 sources for the tiling.
 """
 from __future__ import annotations
@@ -50,9 +50,11 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 # kernel needs lp % 128 == 0), kept so that cache bytes are equal
 SPAN_LP = 128
 
-# the longest int8 feature row B1 / B3-int8 take: both streams' query tiles
-# stay in the block's shared memory (csrc/video_score.cu::kI8MaxRowBytes)
+# the longest int8 / bf16 feature rows the tensor-core kernels take: query
+# tiles stay in the block's shared memory (csrc/video_score.cu::S8Mma /
+# Bf16Mma::kMaxRowBytes)
 I8_MAX_D = 384
+BF16_MAX_D = 512
 
 LAUNCHES: Dict[str, int] = {"video_scores_flat_i8": 0, "video_scores_flat": 0,
                             "video_scores_flat_bmax": 0, "span_sim_cat_i8": 0,
@@ -228,6 +230,9 @@ def _launch(name: str, qvt, qst, fv_flat, fs_flat, n_videos: int, lp: int,
     if fv_flat.dtype == torch.int8 and d > I8_MAX_D:
         raise ValueError(f"{name}: D={d} int8 features; the tensor-core kernel holds "
                          f"rows of at most {I8_MAX_D} bytes")
+    if fv_flat.dtype == torch.bfloat16 and d > BF16_MAX_D:
+        raise ValueError(f"{name}: D={d} bf16 features; the tensor-core kernel holds "
+                         f"rows of at most {BF16_MAX_D} features")
     if not (fv_flat.is_contiguous() and fs_flat.is_contiguous()):
         raise ValueError(f"{name}: feature caches must be contiguous")
     # the kernel reads (Nq, D) query rows
@@ -280,8 +285,10 @@ def video_scores_flat(qvt, qst, fv_flat, fs_flat, n_videos: int,
                       lp: int = 104) -> torch.Tensor:
     """B2: q2c scores over bf16 / f32 flat caches with f32 accumulation,
     (Nq, n_videos) f32. qvt / qst: (D, Nq) normalized queries cast to the
-    cache dtype. Equal to the einsum path up to f32 summation order.
-    Replaces pallas_score.video_scores_pallas_flat.
+    cache dtype. Equal to the einsum path up to f32 summation order: bf16
+    on the tensor cores (exact products, f32 sums; D at most
+    ``BF16_MAX_D``), f32 through FMA. Replaces
+    pallas_score.video_scores_pallas_flat.
     """
     if fv_flat.device.type == "cpu":
         return video_scores_flat_plain(qvt, qst, fv_flat, fs_flat, n_videos, lp)
