@@ -7,16 +7,20 @@ Run from the repository root on a machine with one CUDA card. Phases:
 1. the device, and its name and power limit from nvidia-smi;
 2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc, one
    compiler per source, side by side; the SASS must hold IMMA (s8 tensor
-   core) instructions in the int8 video-score kernel and in B5, HMMA (bf16)
-   in the bf16 video-score kernel and none in the f32 one, and no IDP
-   (dp4a); then the mma.sync ceiling: s8 and bf16 products from registers
-   on every SM (csrc/mma_probe.cu), in TOPS beside the data sheet's peaks;
+   core) instructions in the int8 video-score kernel and in B5, HMMA
+   without .TF32 in the bf16 instances of the video-score and masked-score
+   kernels, HMMA all of the .TF32 form in their f32 (3xTF32) instances, no
+   instance of those two libraries without tensor-core instructions, and no
+   IDP (dp4a); then the mma.sync ceiling: s8, bf16 and tf32 products from
+   registers on every SM (csrc/mma_probe.cu), in TOPS beside the data
+   sheet's peaks;
 3. each kernel against its plain PyTorch version at the full-corpus
    shapes (21,818 videos, 1,000 queries): the video scores (lp=104, D=256)
-   B1 and B3-int8 bit-equal, B2 and B3 in bf16 and f32 within f32 summation
-   slack, block maxima exact; the int8 span sweep B5 (2,793,472 flat rows,
-   K=512) bit-equal over all its outputs, pads exactly zero (B1, B2-bf16 and
-   B5 as a share of the peak and of the probed ceiling); the sorting
+   B1 and B3-int8 bit-equal, B2 and B3 in bf16 and f32 (caches drawn in
+   f32) within f32 summation slack, block maxima exact; the int8 span sweep
+   B5 (2,793,472 flat rows, K=512) bit-equal over all its outputs, pads
+   exactly zero (B1, B2, B5 as a share of the peak and of the probed
+   ceiling, f32 counted as three TF32 products); the sorting
    top-k B6 at the engine's five row shapes equal in values and indices on
    rows with planted ties;
 4. end to end through the port's entry points (``encode_corpus``,
@@ -27,9 +31,11 @@ Run from the repository root on a machine with one CUDA card. Phases:
    selection); the VCMR / SVMR / VR metrics of the card run;
 5. full-corpus throughput of ``_score_query_batch``, timed with CUDA
    events, in the exact flagship modes (B1 must launch once per batch), in
-   the all-int8 psort modes (B1 once, B5 once, B6 five times per batch) and
-   in bf16 parity, the flagship's modes with the bf16 video scores over the
-   bf16 flat feat1 cache (B2 once per batch, no other kernel);
+   the all-int8 psort modes (B1 once, B5 once, B6 five times per batch), in
+   bf16 parity, the flagship's modes with the bf16 video scores over the
+   bf16 flat feat1 cache (B2 once per batch, no other kernel), and in f32
+   parity, the same over the engine's default f32 caches (feat1 drawn in
+   f32, feat2 f32; B2-f32 once per batch, no other kernel);
 6. the byte-row gather B4 against ``index_select`` on the full TVR byte
    tables (21,818 rows of 308,224 and of 77,824 bytes, 128 indices with
    duplicates): equal, no copy of the table, timed in turns;
@@ -41,8 +47,9 @@ Run from the repository root on a machine with one CUDA card. Phases:
 8. the four study kernels, which no engine mode runs, against their plain
    versions at the same corpus scale (1,000 queries, 21,818 videos of 100
    clips, D=256, 100 + 1 selected rows, W=14, top_n=200): the masked video
-   scores B9 and the one-stream fused scores B10 in bf16 and f32 within f32
-   summation slack, planted fully masked videos exactly -1e10; the fused
+   scores B9 and the one-stream fused scores B10 in bf16 and f32 (drawn in
+   f32) within f32 summation slack, planted fully masked videos exactly
+   -1e10 (B9 / B10 as a share of the peak and of the probed ceiling); the fused
    gather + similarity B7 in bf16 and f32 within 1e-5 of the largest
    similarity; the fused banded top-N B8 equal in all four outputs on
    near-uniform, peaked and tied probabilities;
@@ -59,8 +66,8 @@ Run from the repository root on a machine with one CUDA card. Phases:
 11. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
-package directory) runs that commit's phases 3 and 5 in a process of its
-own before and after this run, on the same card, its lines prefixed
+package directory) runs that commit's phases 3, 5 and 8 in a process of
+its own before and after this run, on the same card, its lines prefixed
 ``[parent 1]`` / ``[parent 2]``.
 
 Exits non-zero, without that last line, when no CUDA device is present,
@@ -105,9 +112,13 @@ TRAIN_EPOCHS = 3
 TRAIN_LR = 1e-3     # 72 steps must show a falling loss; 1e-4 (the default) is for 100 epochs
 LOSS_ATOL = 2e-4    # card vs CPU loss: f32 summation order through the encoders
 # published dense peaks of one H100 SXM (NVIDIA data sheet): device memory
-# bytes/s, and operations/s by input type (f32 outside the tensor cores)
+# bytes/s, and operations/s by input type (f32 outside the tensor cores;
+# "tf32" the tensor cores' TF32 rate, which the f32 kernels' three TF32
+# products a multiply-add are counted against)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.int8: 1979e12, torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.int8: 1979e12, torch.bfloat16: 989e12, torch.float32: 67e12,
+            "tf32": 494.7e12}
+TF32X3 = 3          # TF32 products per f32 multiply-add in the 3xTF32 kernels
 
 
 def log(phase: str, msg: str) -> None:
@@ -149,50 +160,71 @@ def bound(n_bytes: float, n_ops: float, dtype=None) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def tc_ops(n_ops: float, dtype):
+    """Operations of a product on the tensor cores and their peak's key: f32
+    multiply-adds as the three TF32 products of the cheapest f32-accurate
+    route on this card."""
+    return (TF32X3 * n_ops, "tf32") if dtype == torch.float32 else (n_ops, dtype)
+
+
 def video_score_bound(q, feat, n_out: int) -> dict:
     """B1-B3 at their inputs: two query matrices and two flat caches read
     once, ``n_out`` f32 written; one multiply-add per (query, row, feature)
-    and stream."""
+    and stream (three TF32 products in f32)."""
     n_bytes = 2 * (q.numel() + feat.numel()) * q.element_size() + 4 * n_out
-    n_ops = 2 * 2 * q.shape[1] * feat.shape[0] * feat.shape[1]
-    return bound(n_bytes, n_ops, feat.dtype)
+    return bound(n_bytes, *tc_ops(2 * 2 * q.shape[1] * feat.shape[0] * feat.shape[1],
+                                  feat.dtype))
 
 
 def check_tensor_cores(_build) -> str:
-    """Phase 2: the kernels run on the tensor cores. In the SASS of
-    video_score each int8 instance holds IMMA and each bf16 instance HMMA,
-    the f32 (FMA) instance no HMMA (no TF32 by another door); each instance
-    of span_sim holds IMMA; neither library holds IDP (dp4a)."""
+    """Phase 2: the kernels run on the tensor cores. In the SASS, each int8
+    instance of video_score and each instance of span_sim holds IMMA; each
+    bf16 instance of video_score and masked_score holds HMMA and none of
+    the .TF32 form; each f32 instance of those two holds HMMA, every one of
+    the .TF32 form (the 3xTF32 products, TF32 by no other door); no
+    instance of video_score or masked_score is without tensor-core
+    instructions (no FMA kernel is left); no library holds IDP (dp4a)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    counts, idp = {}, 0
-    for lib, kernels in (("video_score", (("int8", "S8Mma", "IMMA"), ("bf16", "Bf16Mma", "HMMA"),
-                                          ("f32", "video_score_kernel", "HMMA"))),
-                         ("span_sim", (("span_sim", "span_sim_kernel", "IMMA"),))):
+    kinds = {"video_score": (("int8", "S8Mma"), ("bf16", "Bf16Mma"), ("f32", "Tf32x3Mma")),
+             "masked_score": (("bf16", "MaskedBf16"), ("f32", "MaskedTf32x3")),
+             "span_sim": (("int8", "span_sim_kernel"),)}
+    bad, lines, idp = [], [], 0
+    for lib, want in kinds.items():
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
         idp += sass.count("IDP")
-        functions = sass.split("Function : ")[1:]
-        for what, key, op in kernels:
-            counts[what] = (op, [f.count(op) for f in functions if key in f.split("\n", 1)[0]])
-    summary = "; ".join(f"{what}: {op} per instance {n}" for what, (op, n) in counts.items())
-    f32 = counts.pop("f32")[1]
-    if idp or not f32 or any(f32) or not all(n and all(n) for _, n in counts.values()):
-        raise AssertionError(f"SASS: {summary}; {idp} IDP")
-    return f"SASS: {summary}; {idp} IDP in video_score and span_sim"
+        functions = [(f.split("\n", 1)[0], f) for f in sass.split("Function : ")[1:]]
+        for name, body in functions:
+            if not any(key in name for _, key in want):
+                bad.append(f"{lib}: {name[:60]} is none of its kinds")
+        for what, key in want:
+            found = [body for name, body in functions if key in name]
+            counts = [(body.count("IMMA"), body.count("HMMA"), body.count("HMMA.1688.F32.TF32"))
+                      for body in found]
+            lines.append(f"{lib} {what}: (IMMA, HMMA, HMMA .TF32) per instance {counts}")
+            ok = {"int8": lambda i, h, t: i > 0 and h == 0,
+                  "bf16": lambda i, h, t: h > 0 and t == 0 and i == 0,
+                  "f32": lambda i, h, t: t > 0 and t == h and i == 0}[what]
+            if not counts or not all(ok(*c) for c in counts):
+                bad.append(lines[-1])
+    if idp or bad:
+        raise AssertionError(f"SASS: {'; '.join(bad)}; {idp} IDP")
+    return f"SASS: {'; '.join(lines)}; {idp} IDP"
 
 
 def probe_mma(dev, _build) -> dict:
-    """Phase 2: the mma.sync ceiling on this card: back-to-back s8 m16n8k32
-    and bf16 m16n8k16 products from registers on every SM
+    """Phase 2: the mma.sync ceiling on this card: back-to-back s8 m16n8k32,
+    bf16 m16n8k16 and tf32 m16n8k8 products from registers on every SM
     (csrc/mma_probe.cu), at 2 and 4 blocks of 8 warps an SM, the faster
-    kept. Returns operations/s by input type."""
+    kept. Returns operations/s by input type ("tf32" for the last)."""
     lib = _build.load("mma_probe")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     iters, chains, warps = 4096, 8, 8          # csrc/mma_probe.cu: kChains, kThreads / 32
     out = torch.empty(4 * n_sm * 256, device=dev)
     ceiling = {}
     for kind, dtype, ops, name in ((0, torch.int8, 16 * 8 * 32 * 2, "s8 m16n8k32"),
-                                   (1, torch.bfloat16, 16 * 8 * 16 * 2, "bf16 m16n8k16")):
+                                   (1, torch.bfloat16, 16 * 8 * 16 * 2, "bf16 m16n8k16"),
+                                   (2, "tf32", 16 * 8 * 8 * 2, "tf32 m16n8k8")):
         rates = []
         for per_sm in (2, 4):
             blocks = per_sm * n_sm
@@ -209,18 +241,19 @@ def probe_mma(dev, _build) -> dict:
         log("build", f"mma.sync probe, {name}: {ceiling[dtype] / 1e12:.1f} TOPS "
             f"({' / '.join(f'{r / 1e12:.1f}' for r in rates)} at 2 / 4 blocks an SM, "
             f"{n_sm} SMs) = {100 * ceiling[dtype] / PEAK_OPS[dtype]:.1f}% of the data "
-            f"sheet's {PEAK_OPS[dtype] / 1e12:.0f}")
+            f"sheet's {PEAK_OPS[dtype] / 1e12:.1f}")
     return ceiling
 
 
 def rate_str(n_ops: float, ms: float, dtype, ceiling) -> str:
     """Operations/s of a kernel as a share of the data sheet's peak and of
-    the probed mma.sync ceiling."""
+    the probed mma.sync ceiling (f32: TF32 operations, three a multiply-add)."""
+    n_ops, dtype = tc_ops(n_ops, dtype)
     rate = n_ops / ms * 1e3
     probed = f", {100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync ceiling" \
         if ceiling else ""
     return (f"{rate / 1e12:.1f} TOPS = {100 * rate / PEAK_OPS[dtype]:.1f}% of the "
-            f"{PEAK_OPS[dtype] / 1e12:.0f} peak{probed}")
+            f"{PEAK_OPS[dtype] / 1e12:.1f} peak{probed}")
 
 
 def bound_str(b: dict) -> str:
@@ -301,9 +334,11 @@ def phase_kernels(dev, vs, ceiling=None):
         bnd = video_score_bound(args[0], args[2], N_QUERIES * nv)
         if name == "bf16":
             rec["B2"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
-        tc = f" ({rate_str(n_ops, ms, torch.bfloat16, ceiling)})" if name == "bf16" else ""
+        else:
+            rec["B2"]["f32"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bnd)
         log("kernels", f"B2 video_scores_flat ({name}): max |d| {err:.3e} <= {B2_ATOL}, "
-            f"top-100 identical outside near-ties; {ms:.3f} ms{tc} vs plain {pms:.3f} ms; "
+            f"top-100 identical outside near-ties; {ms:.3f} ms "
+            f"({rate_str(n_ops, ms, args[2].dtype, ceiling)}) vs plain {pms:.3f} ms; "
             f"{bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate")
     rec["B2"]["max_abs_err"] = b2_err
 
@@ -332,6 +367,8 @@ def phase_kernels(dev, vs, ceiling=None):
         bnd = video_score_bound(args[0], args[2], ks.numel() + kb.numel())
         if name == "int8":
             rec["B3"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
+        else:
+            rec["B3"][name] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bnd)
         log("kernels", f"B3 video_scores_flat_bmax ({name}): max |d| {err:.3e}"
             f"{' (bit-equal)' if exact else ''}, bmax exact, pads -inf; "
             f"{ms:.3f} ms vs plain {pms:.3f} ms; {bound_str(bnd)}, "
@@ -603,6 +640,10 @@ def phase_end_to_end(dev):
             f"{span_err:.3e} (rtol {np.max(rtol):.1e}), span mismatches outside "
             f"near-ties {bad_s}{note}")
         if not ok or bad_v or bad_s:
+            q, r = np.unravel_index(np.argmax(np.abs(got_s - ref_s)), got_s.shape)
+            log("e2e", f"{name}: worst top-V entry query {q} rank {r}: card video "
+                f"{gpu['VR'][0][q, r]} score {gpu['VR'][2][q, r]!r}, CPU video "
+                f"{cpu['VR'][0][q, r]} score {cpu['VR'][2][q, r]!r}")
             raise AssertionError(f"end-to-end run {name}: the card disagrees with the CPU")
         if metrics is None:
             metrics = eval_retrieval_arrays(
@@ -613,11 +654,13 @@ def phase_end_to_end(dev):
 
 def phase_throughput(dev, kernel_rec, profile_dir):
     """Phase 5: _score_query_batch at the full corpus (the bench.py cache,
-    synthesized on the card) in two configurations: the exact flagship
-    modes over bf16 feat2, and the all-int8 psort modes over the int8 flat
-    feat2 cache, and (bf16 parity) the flagship's modes with the bf16 video
-    scores B2 over the bf16 flat feat1 cache in place of B1. Returns the
-    kernel launches summed over the three."""
+    synthesized on the card) in four configurations: the exact flagship
+    modes over bf16 feat2, the all-int8 psort modes over the int8 flat feat2
+    cache, (bf16 parity) the flagship's modes with the bf16 video scores B2
+    over the bf16 flat feat1 cache in place of B1, and (f32 parity) the same
+    over the engine's default f32 caches: the f32 flat feat1 (drawn in f32)
+    scored by B2-f32, feat2 f32 as encode_corpus leaves it. Returns the
+    kernel launches summed over the four."""
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt_ops
@@ -641,6 +684,10 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         [torch.randn((nv, N_CLIPS, HIDDEN), generator=gen, device=dev).to(torch.bfloat16)
          for _ in range(2)], dim=-1)
     q_feat = torch.randn((nq, 30, 768), generator=gen, device=dev)
+    # the f32 flat caches (f32 parity), drawn in f32 after everything else
+    feat1_f32 = [vs.build_flat_feat1(unit((nv, N_CLIPS, HIDDEN), gen, dev), mask,
+                                     chunk_v=CHUNK_V) for _ in range(2)]
+    feat1_of = {torch.int8: feat1_i8, torch.bfloat16: feat1_bf, torch.float32: feat1_f32}
     q_mask = torch.ones((nq, 30), device=dev)
     gt = torch.zeros((nq,), dtype=torch.long, device=dev)
     n_runs = WARMUP_RUNS + TIMED_RUNS
@@ -665,6 +712,12 @@ def phase_throughput(dev, kernel_rec, profile_dir):
                          span_sim_pad_l=128, video_chunk_v=CHUNK_V),
          {"video_scores_flat_i8": 0, "video_scores_flat": n_runs, "span_sim_cat_i8": 0,
           "topk_transposed": 0}),
+        ("f32 parity",
+         RetrievalConfig(cache_dtype_str="float32", span_score_mode="simsweep_cat_bf16",
+                         video_score_mode="pallas", span_topk_mode="grouped_shift",
+                         span_sim_pad_l=128, video_chunk_v=CHUNK_V),
+         {"video_scores_flat_i8": 0, "video_scores_flat": n_runs, "span_sim_cat_i8": 0,
+          "topk_transposed": 0}),
     ]
     total = {}
     for name, rcfg, want in configs:
@@ -672,19 +725,23 @@ def phase_throughput(dev, kernel_rec, profile_dir):
             feat2_cat, feat2_scale = vs.build_flat_feat2_i8(feat2_raw, chunk_v=CHUNK_V)
             feat2_bytes = feat2_cat.numel() + 4 * feat2_scale.numel()
         else:
-            feat2_cat, feat2_scale = _maybe_pad_clip_axis(feat2_raw, rcfg), None
-            feat2_bytes = 2 * feat2_cat.numel()
-        feat1 = feat1_bf if rcfg.video_score_mode == "pallas" else feat1_i8
+            # at the cache dtype, as encode_corpus leaves it
+            feat2_cat = _maybe_pad_clip_axis(feat2_raw.to(rcfg.cache_dtype), rcfg)
+            feat2_scale = None
+            feat2_bytes = feat2_cat.numel() * feat2_cat.element_size()
+        feat1 = feat1_of[torch.int8 if rcfg.video_score_mode == "pallas_int8"
+                         else rcfg.cache_dtype]
         feat1_bytes = sum(f.numel() * f.element_size() for f in feat1)
         run = lambda: _score_query_batch(model, rcfg, q_feat, q_mask, feat1[0], None, feat1[1],
                                          None, mask, gt, True, feat2_cat=feat2_cat,
                                          feat2_cat_scale=feat2_scale)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        # the seeded random feat2 and the other type's feat1 stay on the card
+        # the seeded random feat2 and the other types' feat1 stay on the card
         # beside this configuration's caches; a deployment holds its own alone
         aside = feat2_raw.numel() * 2 + sum(
-            f.numel() * f.element_size() for f in (feat1_i8 if feat1 is feat1_bf else feat1_bf))
+            f.numel() * f.element_size() for fs in feat1_of.values() if fs is not feat1
+            for f in fs)
         held = (torch.cuda.memory_allocated(dev) - aside) / 2**30
         torch.cuda.reset_peak_memory_stats(dev)
         for ops in (vs, gt_ops, tsort, fsc, ttopk):
@@ -733,7 +790,8 @@ def phase_throughput(dev, kernel_rec, profile_dir):
             total[k] = total.get(k, 0) + v
         del feat2_cat, feat2_scale, out, run
     log("throughput", f"B1 at this shape {kernel_rec['B1']['ms']:.3f} ms, B2-bf16 "
-        f"{kernel_rec['B2']['ms']:.3f} ms, B5 {kernel_rec['B5']['ms']:.3f} ms, B6's five "
+        f"{kernel_rec['B2']['ms']:.3f} ms, B2-f32 {kernel_rec['B2']['f32']['ms']:.3f} ms, B5 "
+        f"{kernel_rec['B5']['ms']:.3f} ms, B6's five "
         f"launches {kernel_rec['B6']['ms']:.3f} ms (phase 3); launches over the "
         f"{len(configs)} configurations {total}")
     return total
@@ -972,9 +1030,11 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     return launches
 
 
-def phase_study_kernels(dev, vs):
+def phase_study_kernels(dev, vs, ceiling=None):
     """Phase 8: B7-B10 against their plain versions at corpus scale.
-    Returns their records for the kernels line (B9, B10 and B7 in bf16)."""
+    Returns their records for the kernels line (B9, B10 and B7 in bf16; B9
+    and B10 in f32 under "f32"). ``ceiling``: the probed mma.sync rates
+    (phase 2), for B9 / B10 as a share of them."""
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt
     from tvretrieval_tpu_torch.ops import topk as ttopk
@@ -1025,13 +1085,18 @@ def phase_study_kernels(dev, vs):
         same_top100(p, k, f"B9-{tag}")
         del k, p
         ms, pms = alternate_ms(plain, kernel, reps=3)
+        n_ops = 2 * 2 * nq * nv * L * d
         bnd = bound(2 * (qv.numel() + fv.numel()) * qv.element_size() + 4 * mask.numel()
-                    + 4 * nq * nv, 2 * 2 * nq * nv * L * d, dtype)
+                    + 4 * nq * nv, *tc_ops(n_ops, dtype))
         if dtype == torch.bfloat16:
             rec["B9"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, **bnd)
+        else:
+            rec["B9"]["f32"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bnd)
         log("study", f"B9 video_scores_masked ({tag}): max |d| {err:.3e} <= {B2_ATOL}, "
             f"{len(dead)} fully masked videos exactly -1e10, top-100 identical outside "
-            f"near-ties; {ms:.3f} ms vs plain (video_scores_xla) {pms:.3f} ms; {bound_str(bnd)}")
+            f"near-ties; {ms:.3f} ms ({rate_str(n_ops, ms, dtype, ceiling)}) vs plain "
+            f"(video_scores_xla) {pms:.3f} ms; {bound_str(bnd)}, "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate")
 
         # B10: one stream, clip-major copy made once, exp fused and not
         fv_t = fv.transpose(0, 1).contiguous()
@@ -1056,15 +1121,22 @@ def phase_study_kernels(dev, vs):
                                      f"exactly {planted}")
             del k, p
             ms, pms = alternate_ms(plain, kernel, reps=3)
+            n_ops = 2 * nq * nv * L * d
             bnd = bound((qv.numel() + fv.numel()) * qv.element_size() + 4 * mask.numel()
-                        + 4 * nq * nv, 2 * nq * nv * L * d, dtype)
-            if dtype == torch.bfloat16 and alpha is not None:
-                rec["B10"] = dict(ms=ms, plain_ms=pms, library_ms=None, **bnd)
-            elif dtype == torch.bfloat16:
-                rec["B10"]["max_abs_err"] = err      # the absolute error is that of alpha=None
+                        + 4 * nq * nv, *tc_ops(n_ops, dtype))
+            if alpha is not None:
+                # the absolute error is that of alpha=None, filled in below
+                r10 = dict(ms=ms, plain_ms=pms, **bnd)
+                if dtype == torch.bfloat16:
+                    rec["B10"] = dict(library_ms=None, **r10)
+                else:
+                    rec["B10"]["f32"] = r10
+            else:
+                (rec["B10"] if dtype == torch.bfloat16 else rec["B10"]["f32"])["max_abs_err"] = err
             log("study", f"B10 fused_video_scores_clip_major ({tag}, alpha={alpha}): {what} "
-                f"{err:.3e} <= {tol}, masked videos exactly {planted}; {ms:.3f} ms vs plain "
-                f"(blocked f32 product + max) {pms:.3f} ms; {bound_str(bnd)}")
+                f"{err:.3e} <= {tol}, masked videos exactly {planted}; {ms:.3f} ms "
+                f"({rate_str(n_ops, ms, dtype, ceiling)}) vs plain (blocked f32 product + max) "
+                f"{pms:.3f} ms; {bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate")
         del fv, fv_t, qv, qs
     del f32, q32, mask, mask_t
     torch.cuda.empty_cache()
@@ -1197,7 +1269,7 @@ def phase_study_path(dev):
     return launches
 
 
-# phases 3 and 5 of another commit's chip_smoke.py, run from its checkout
+# phases 3, 5 and 8 of another commit's chip_smoke.py, run from its checkout
 PARENT_PHASES = """
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -1215,13 +1287,15 @@ torch.cuda.empty_cache()
 rec["B6"] = cs.phase_topk_sort(dev, tsort)
 torch.cuda.empty_cache()
 cs.phase_throughput(dev, rec, "")
+torch.cuda.empty_cache()
+cs.phase_study_kernels(dev, vs)
 """
 
 
 def run_parent(parent_dir: str, label: str) -> None:
-    """Phases 3 and 5 of the chip_smoke.py in ``parent_dir`` (a git archive
-    of another commit), in a process of its own on this card; its lines
-    are printed with ``label``."""
+    """Phases 3, 5 and 8 of the chip_smoke.py in ``parent_dir`` (a git
+    archive of another commit), in a process of its own on this card; its
+    lines are printed with ``label``."""
     if not os.path.isfile(os.path.join(parent_dir, "chip_smoke.py")):
         raise AssertionError(f"--parent {parent_dir}: no chip_smoke.py there")
     t0 = time.perf_counter()
@@ -1231,7 +1305,7 @@ def run_parent(parent_dir: str, label: str) -> None:
         print(f"[{label}] {line}", flush=True)
     if proc.returncode:
         raise AssertionError(f"{label} exited {proc.returncode}: {proc.stderr[-3000:]}")
-    log(label, f"phases 3 and 5 of {parent_dir} took {time.perf_counter() - t0:.1f} s")
+    log(label, f"phases 3, 5 and 8 of {parent_dir} took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1240,7 +1314,7 @@ def main() -> int:
                     "throughput batch to this directory, and print the profile of it "
                     "and of one training epoch")
     ap.add_argument("--parent", default="", help="a checkout of another commit (git "
-                    "archive): run its phases 3 and 5 before and after this run's, on "
+                    "archive): run its phases 3, 5 and 8 before and after this run's, on "
                     "the same card")
     args = ap.parse_args()
 
@@ -1303,7 +1377,7 @@ def main() -> int:
     launches["gather_byte_rows"] = phase_train(dev, gt, rec["B4"], args.profile)
     torch.cuda.empty_cache()
 
-    rec.update(phase_study_kernels(dev, vs))
+    rec.update(phase_study_kernels(dev, vs, ceiling))
     torch.cuda.empty_cache()
     launches.update(phase_study_path(dev))
 
@@ -1330,10 +1404,13 @@ def main() -> int:
              ("B10", "fused_video_scores_clip_major", ms_src,
               "tvretrieval_tpu/ops/pallas_kernels.py:67")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # B2, B3, B9, B10: the bf16 kind (B3: int8) in the keys, the other
+    # kinds' readings beside them
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[name], "launches_throughput": launches_tp[name],
-         **{k: rec[b][k] for k in keys}}
+         **{k: rec[b][k] for k in keys},
+         **{kind: rec[b][kind] for kind in ("bf16", "f32") if kind in rec[b]}}
         for b, name, src, where in table]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

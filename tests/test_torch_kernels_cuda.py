@@ -46,6 +46,10 @@ from tvretrieval_tpu_torch.ops import topk as ttopk
 from tvretrieval_tpu_torch.ops import video_score as vs
 
 F32_ATOL = 1e-5     # f32 summation order of unit-vector dots
+# test_b9_masked_scores_close's video 1 where a whole clip is its max: the
+# tensor cores' order (3xTF32 in f32) against the plain version read at most
+# 3.6e-7 (f32) and 7.5e-8 (bf16) on an H100 at MASKED_SHAPES
+WHOLE_CLIP_ATOL = 1e-6
 
 pytestmark = pytest.mark.cuda
 
@@ -221,6 +225,73 @@ def test_b2_bf16_rejects_rows_past_the_tile(dev):
     with pytest.raises(ValueError, match=str(vs.BF16_MAX_D)):
         vs.video_scores_flat(*wide, 4, lp=8)
     assert vs.video_scores_flat(*(t.float() for t in wide), 4, lp=8).shape == (4, 4)
+
+
+def _flat_tf32_exact(dev, nq, nv_pad, lp, d, seed):
+    """Flat f32 caches and queries of small integers x 2^-4 (|x| <= 1/2):
+    exact in TF32, so the split's low halves are zero, and every partial
+    sum is a multiple of 2^-8 below 2^10, exact in f32 in any order."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    draw = lambda *s: torch.randint(-8, 9, s, generator=g, device=dev).float() / 16
+    return draw(d, nq), draw(d, nq), draw(nv_pad * lp, d), draw(nv_pad * lp, d)
+
+
+@pytest.mark.parametrize("nq,nv,nv_pad,lp,d", [
+    (5, 7, 8, 8, 8), (70, 37, 40, 16, 64), (130, 48, 48, 104, 256), (65, 20, 24, 24, 384),
+    (129, 20, 24, 16, 256)])
+def test_b2_b3_f32_fragment_layout_bit_equal(dev, nq, nv, nv_pad, lp, d):
+    """The fragment-layout claim of csrc/s8_mma.cuh for the TF32 product:
+    on values exact in TF32 the kernel's sums are exact, so B2 and B3-f32
+    equal their plain versions bit for bit, which a wrong pairing of A and
+    B elements (or rows and queries) would not."""
+    qv, qs, fv, fs = _flat_tf32_exact(dev, nq, nv_pad, lp, d, seed=nq + d)
+    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    out = vs.video_scores_flat(qv, qs, fv, fs, nv, lp=lp)
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=8)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp))
+    ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv, lp, 8)
+    assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+
+
+@pytest.mark.parametrize("nq,nv,L,d,lp,chunk_v", SHAPES + [
+    (70, 50, 20, 384, 24, 8),        # f32 D = 384: the 64-query tile, twelve 128-byte ring
+                                     # steps a row block
+    (65, 33, 20, 320, 24, 16),       # D = 320 (unrolled, 64-query tile); one query past it;
+                                     # 24-row videos cross the 128-row ring steps
+    (129, 33, 20, 256, 24, 16),      # D = 256 (unrolled, 128-query tile); one query past it
+    (127, 17, 9, 256, 104, 16),      # one query short of the tile; a video past 16
+    (3, 5, 4, 640, 8, 4),            # the widest f32 row the kernel takes
+])
+def test_b2_b3_f32_tensor_cores(dev, nq, nv, L, d, lp, chunk_v):
+    """B2 and B3 in f32 (3xTF32 on the tensor cores) within F32_ATOL of
+    their plain versions on unit rows of full 24-bit mantissas, pads -inf,
+    block maxima the max of the kernel's own scores; one launch each."""
+    qv, qs, fv, fs = _caches(dev, nq, nv, L, d, lp, chunk_v, torch.float32, seed=d + lp + nq)
+    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    out = vs.video_scores_flat(qv, qs, fv, fs, nv, lp=lp)
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=chunk_v)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    ref = vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp)
+    assert out.shape == ref.shape == (nq, nv)
+    assert (out - ref).abs().max().item() <= F32_ATOL
+    nv_pad = fv.shape[0] // lp
+    chunk = math.gcd(nv_pad, chunk_v)
+    assert torch.equal(scores[:, :nv], out)
+    assert bool((scores[:, nv:] == -math.inf).all())
+    assert torch.equal(bmax, scores.view(nq, -1, chunk).amax(dim=2))
+
+
+def test_b2_f32_rejects_rows_past_the_tile(dev):
+    wide = _caches(dev, 4, 4, 3, vs.F32_MAX_D + 16, 8, 4, torch.float32)
+    n0 = vs.LAUNCHES["video_scores_flat"]
+    with pytest.raises(ValueError, match=str(vs.F32_MAX_D)):
+        vs.video_scores_flat(*wide, 4, lp=8)
+    assert vs.LAUNCHES["video_scores_flat"] == n0
 
 
 def _table(dev, n, w, seed=0):
@@ -542,10 +613,16 @@ def test_b9_masked_scores_close(dev, dtype, nq, nv, L, d):
     assert out.shape == ref.shape == (nq, nv) and out.dtype == torch.float32
     assert bool((out[:, nv // 2] == -1e10).all())
     live = torch.arange(nv, device=dev) != nv // 2
-    # -1e10 * 0.75 terms of the fractional mask round at 2^10: compare the rest tightly
+    # the -1e10 * 0.75 term of video 1's fractional clip rounds at 2^10, so
+    # where that clip is video 1's only one its score is held to 1e-6
+    # relative; where a whole clip follows, that clip is the max, a plain
+    # dot, held to WHOLE_CLIP_ATOL
     if nv > 2:
         live[1] = False
-        assert torch.allclose(out[:, 1], ref[:, 1], rtol=1e-6)
+        if bool(mask[1, 1:].any()):
+            assert (out[:, 1] - ref[:, 1]).abs().max().item() <= WHOLE_CLIP_ATOL
+        else:
+            assert torch.allclose(out[:, 1], ref[:, 1], rtol=1e-6, atol=0)
     assert (out[:, live] - ref[:, live]).abs().max().item() <= F32_ATOL if live.any() else True
 
 
@@ -570,6 +647,89 @@ def test_b10_fused_scores_close(dev, dtype, alpha, nq, nv, L, d):
         assert torch.allclose(out, ref, rtol=3e-4, atol=0)
 
 
+def _masked_mixed(dev, nq, nv, L, d, dtype, seed):
+    """Unit rows, prefix masks with fractional values among the valid
+    clips, video 0 fully masked and (nv > 2) video 1 fractional at every
+    clip. Returns the case and, per video, whether some clip has m = 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    unit = lambda *s: torch.nn.functional.normalize(
+        torch.randn(*s, generator=g, device=dev), dim=-1).to(dtype)
+    lengths = torch.randint(1, L + 1, (nv,), generator=g, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).float()
+    frac = torch.rand((nv, L), generator=g, device=dev)
+    mask = torch.where(frac < 0.2, mask * frac * 5, mask)
+    mask[0] = 0.0
+    if nv > 2:
+        mask[1] = 0.5
+    return unit(nq, d), unit(nq, d), unit(nv, L, d), unit(nv, L, d), mask, (mask == 1).any(1)
+
+
+def _check_masked(out, ref, mask, full, tol=F32_ATOL, masked=-1e10):
+    """Exactly ``masked`` at fully masked videos; within ``tol`` where a
+    clip is whole; the -1e10 * (1 - m) terms of videos with only
+    fractional clips round at ~2^10, so those to 1e-6 relative."""
+    dead = ~(mask > 0).any(1)
+    assert bool((out[:, dead] == masked).all())
+    if full.any():
+        assert (out[:, full] - ref[:, full]).abs().max().item() <= tol
+    part = ~full & ~dead
+    if part.any():
+        assert torch.allclose(out[:, part], ref[:, part], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("d", [72, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [1, 7, 8, 100, 129])
+def test_b9_b10_tensor_cores_clip_counts(dev, L, dtype, d):
+    """B9 (video-major caches, two streams) and B10 (clip-major, one
+    stream, exp fused and not) on the tensor cores: clip counts on and off
+    8, 67 videos (off the 64-video tile), 65 queries (off the 64- and
+    128-query tiles), D with a k-step tail (72) and the unrolled width
+    (256), fractional and all-zero masks; one launch each."""
+    nq, nv = 65, 67
+    qv, qs, fv, fs, mask, full = _masked_mixed(dev, nq, nv, L, d, dtype, seed=L + d)
+    n9 = vs.LAUNCHES["video_scores_masked"]
+    out = vs.video_scores_masked(qv, qs, fv, fs, mask)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_masked"] == n9 + 1
+    assert out.shape == (nq, nv) and out.dtype == torch.float32
+    _check_masked(out, vs.video_scores_xla(qv, qs, fv, fs, mask), mask, full)
+    fv_t, mask_t = fv.transpose(0, 1).contiguous(), mask.T[:, None, :].contiguous()
+    for alpha in (None, 20.0):
+        n10 = fsc.LAUNCHES["fused_video_scores_clip_major"]
+        out = fsc.fused_video_scores_clip_major(qv, fv_t, mask_t, alpha)
+        torch.cuda.synchronize()
+        assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
+        ref = fsc.fused_video_scores_xla(qv, fv, mask, alpha)
+        if alpha is None:
+            _check_masked(out, ref, mask, full)
+        else:
+            # exp(20 s) turns the 1e-5 slack of s into 2e-4 relative
+            assert bool((out[:, ~(mask > 0).any(1)] == 0).all())
+            assert torch.allclose(out, ref, rtol=3e-4, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b9_b10_tf32_exact_values_bit_equal(dev, dtype):
+    """On values exact in TF32 (and bf16) with a 0/1 mask the masked
+    kernels' sums are exact: B9 and B10 equal their plain versions bit for
+    bit, both layouts."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    nq, nv, L, d = 70, 67, 9, 64
+    draw = lambda *s: (torch.randint(-8, 9, s, generator=g, device=dev).float() / 16).to(dtype)
+    qv, qs, fv, fs = draw(nq, d), draw(nq, d), draw(nv, L, d), draw(nv, L, d)
+    mask = (torch.rand((nv, L), generator=g, device=dev) < 0.7).float()
+    mask[3] = 0.0
+    n9, n10 = vs.LAUNCHES["video_scores_masked"], fsc.LAUNCHES["fused_video_scores_clip_major"]
+    assert torch.equal(vs.video_scores_masked(qv, qs, fv, fs, mask),
+                       vs.video_scores_xla(qv, qs, fv, fs, mask))
+    out = fsc.fused_video_scores(qv, fv, mask)
+    assert torch.equal(out, fsc.fused_video_scores_xla(qv, fv, mask))
+    assert bool((out[:, 3] == -1e10).all())
+    assert vs.LAUNCHES["video_scores_masked"] == n9 + 1
+    assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
+
+
 def test_b9_b10_wrappers_reject_what_the_kernel_does_not_take(dev):
     qv, qs, fv, fs, mask = _masked_case(dev, 4, 6, 5, 16, torch.float32, 0)
     with pytest.raises(TypeError):
@@ -587,6 +747,9 @@ def test_b9_b10_wrappers_reject_what_the_kernel_does_not_take(dev):
         vs.video_scores_masked(q6, s6, f6, g6, m6)
     with pytest.raises(ValueError, match=r"\(L, 1, Nv\)"):
         fsc.fused_video_scores_clip_major(qv, fv.transpose(0, 1).contiguous(), mask.T.contiguous())
+    wide = _masked_case(dev, 4, 6, 5, vs.MASKED_MAX_D + 8, torch.float32, 0)
+    with pytest.raises(ValueError, match=str(vs.MASKED_MAX_D)):
+        vs.video_scores_masked(*wide)
 
 
 # ------------------------------------------------------------------ B7

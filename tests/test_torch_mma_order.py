@@ -1,5 +1,6 @@
-"""The tolerance argument of the bf16 tensor-core video scores (B2 / B3-bf16,
-csrc/video_score.cu) on the CPU.
+"""The tolerance arguments of the tensor-core video scores on the CPU: B2 /
+B3 in bf16 and in f32 (csrc/video_score.cu; the f32 kind's 3xTF32 split,
+csrc/s8_mma.cuh, is shared by the masked scores B9 / B10).
 
 The kernel multiplies bf16 by bf16 on the tensor cores (mma.sync m16n8k16)
 and sums in f32: each k16 step forms an f32 partial sum of its 16 exact
@@ -15,6 +16,18 @@ rows whose partial sums cancel), the model's video scores are held to:
   any f32 summation order, which the plain version meets too;
 - the JAX package's ``video_scores_pallas_flat`` in interpret mode at the
   smallest shape that crosses its video tile.
+
+The f32 kind splits each operand x into hi = rna_tf32(x) and lo =
+rna_tf32(x - hi) (``rna_tf32``: 11 significant bits, ties away from zero,
+cvt.rna.tf32.f32) and forms hi.hi + hi.lo + lo.hi with three TF32 m16n8k8
+products a k-step of 8, the small ones first, in one f32 accumulator.
+``tf32x3_dots`` models that; on unit-norm rows drawn in f32 (full 24-bit
+mantissas: values upcast from bf16 are exact in TF32 and would hide a lost
+split) its scores are held to the plain version within the same 1e-5 and
+top-k, to the exact dot within the worst case of its summation plus the
+split's 3 2^-22 sum |q_i f_i|, and to the JAX kernel in interpret mode;
+and, the negative control, one TF32 product alone (hi.hi) exceeds 1e-5 on
+the same inputs, so the bound catches a lost split.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +41,7 @@ from tvretrieval_tpu_torch.testing import rank_mismatches
 
 ATOL = 1e-5                 # chip_smoke.py::B2_ATOL, test_torch_kernels_cuda.py::F32_ATOL
 K_STEP = 16                 # bf16 values of one m16n8k16 k-step
+K_STEP_TF32 = 8             # f32 values of one m16n8k8 k-step
 
 
 def tc_order_dots(q: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -61,14 +75,18 @@ def _adversarial(rng, n, d):
     """Unit-norm bf16 rows against which the queries' products cancel:
     half are +-c in alternating sign (equal magnitudes), half carry a few
     large components of alternating sign over a small random remainder."""
+    return torch.from_numpy(_adversarial_f32(rng, n, d)).to(torch.bfloat16)
+
+
+def _adversarial_f32(rng, n, d):
+    """The rows of ``_adversarial``, drawn and normalized in f32."""
     rows = np.empty((n, d), np.float32)
     sign = np.where(np.arange(d) % 2, -1.0, 1.0)
     rows[: n // 2] = sign / np.sqrt(d)
     rest = rng.normal(size=(n - n // 2, d)).astype(np.float32) * 0.01
     rest[:, :8] = sign[:8] * 0.35
     rows[n // 2:] = rest
-    rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
-    return torch.from_numpy(rows).to(torch.bfloat16)
+    return rows / np.linalg.norm(rows, axis=-1, keepdims=True)
 
 
 def _case(d, seed, nq=24, nv=40, lp=8, adversarial=False):
@@ -120,5 +138,129 @@ def test_tensor_core_order_against_the_pallas_kernel():
     pal = np.asarray(jp.video_scores_pallas_flat(j(qvt), j(qst), j(fv), j(fs), nv, lp=lp,
                                                  chunk_v=8, interpret=True))
     model = tc_order_scores(qvt, qst, fv, fs, nv, lp).numpy()
+    assert pal.shape == model.shape == (4, nv)
+    np.testing.assert_allclose(model, pal, rtol=0, atol=ATOL)
+
+
+# ------------------------------------------------------------ f32: 3xTF32
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 (held in f32): round to 11 significant bits, ties away
+    from zero (half a TF32 ulp added to the magnitude bits, the low 13 bits
+    cleared), as cvt.rna.tf32.f32 does for finite x."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    hi = rna_tf32(x)
+    return hi, rna_tf32(x - hi)
+
+
+def tf32x3_dots(q: torch.Tensor, f: torch.Tensor, terms=("lo_hi", "hi_lo", "hi_hi")):
+    """(Nq, D) x (R, D) f32 -> (Nq, R) f32 dots in the kernel's order: per
+    k-step of 8, an f32 sum of each product's 8 exact TF32 x TF32 terms in
+    order (lo.hi, then hi.lo, then hi.hi), each added to the accumulator.
+    ``terms=("hi_hi",)`` is one TF32 product alone."""
+    (qh, ql), (fh, fl) = split_tf32(q), split_tf32(f)
+    pairs = {"lo_hi": (ql, fh), "hi_lo": (qh, fl), "hi_hi": (qh, fh)}
+    acc = torch.zeros((q.shape[0], f.shape[0]), dtype=torch.float32)
+    for k0 in range(0, q.shape[1], K_STEP_TF32):
+        for t in terms:
+            a, b = pairs[t]
+            prods = a[:, None, k0:k0 + K_STEP_TF32] * b[None, :, k0:k0 + K_STEP_TF32]
+            part = prods[..., 0]
+            for i in range(1, prods.shape[-1]):
+                part = part + prods[..., i]
+            acc = acc + part
+    return acc
+
+
+def tf32x3_scores(qvt, qst, fv, fs, n_videos: int, lp: int, terms=("lo_hi", "hi_lo", "hi_hi")):
+    mv, ms = (tf32x3_dots(q.T, f, terms).view(q.shape[1], -1, lp).amax(dim=2)
+              for q, f in ((qvt, fv), (qst, fs)))
+    return ((mv + ms) / 2)[:, :n_videos]
+
+
+def _unit_f32(rng, *shape):
+    x = rng.normal(size=shape).astype(np.float32)
+    return torch.from_numpy(x / np.linalg.norm(x, axis=-1, keepdims=True))
+
+
+def _case_f32(d, seed, nq=24, nv=40, lp=8, adversarial=False):
+    """The bf16 cases' shapes and adversarial rows, drawn and normalized in
+    f32: no value is exact in TF32 by construction."""
+    rng = np.random.default_rng(seed)
+    q = [_unit_f32(rng, nq, d) for _ in range(2)]
+    if adversarial:
+        q[0][: nq // 2] = float(1.0 / np.sqrt(d))
+        f = [torch.from_numpy(_adversarial_f32(rng, nv * lp, d)) for _ in range(2)]
+    else:
+        f = [_unit_f32(rng, nv * lp, d) for _ in range(2)]
+    return q[0].T, q[1].T, f[0], f[1], nv, lp
+
+
+def test_rna_tf32_rounds_to_11_bits_ties_away():
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -11 + 2 ** -23, 1 + 2 ** -12,
+                      1 + 3 * 2 ** -11, 3.0e-8, 0.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -10, 1.0, 1 + 2 ** -9,
+                         float(np.float32(3.0e-8)), 0.0], dtype=torch.float32)
+    got = rna_tf32(x)
+    assert torch.equal(got[:-2], want[:-2])
+    assert got[-1] == 0.0 and abs(got[-2] - want[-2]) <= 2 ** -11 * want[-2]
+    x = _unit_f32(np.random.default_rng(0), 4096, 1)[:, 0] * 3.7
+    hi, lo = split_tf32(x)
+    for t in (hi, lo):
+        assert not bool((t.view(torch.int32) & 0x1FFF).any())     # TF32: low 13 bits zero
+    assert bool(((x - hi).abs() <= 2.0 ** -11 * x.abs()).all())
+    assert torch.equal((x - hi).double(), x.double() - hi.double())  # the subtraction is exact
+    assert bool(((x.double() - hi.double() - lo.double()).abs() <= 2.0 ** -22 * x.abs()).all())
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("d", [16, 256])
+def test_tf32x3_order_within_the_bound(d, adversarial):
+    qvt, qst, fv, fs, nv, lp = _case_f32(d, seed=d + adversarial + 100, adversarial=adversarial)
+    model = tf32x3_scores(qvt, qst, fv, fs, nv, lp)
+    plain = vs.video_scores_flat_plain(qvt, qst, fv, fs, nv, lp)
+    assert model.shape == plain.shape == (qvt.shape[1], nv)
+    assert (model - plain).abs().max().item() <= ATOL
+    pv, pi = topk_stable(plain, 10)
+    _, mi = topk_stable(model, 10)
+    assert rank_mismatches(pi.numpy(), pv.numpy(), mi.numpy(), atol=2 * ATOL) == 0
+
+
+@pytest.mark.parametrize("d", [16, 256])
+def test_one_tf32_product_breaks_the_bound(d):
+    """The negative control: hi.hi alone on the same f32 inputs is off by
+    more than the 1e-5 the kernel is held to, so that check would catch a
+    kernel that lost the split."""
+    qvt, qst, fv, fs, nv, lp = _case_f32(d, seed=d + 100)
+    plain = vs.video_scores_flat_plain(qvt, qst, fv, fs, nv, lp)
+    one = tf32x3_scores(qvt, qst, fv, fs, nv, lp, terms=("hi_hi",))
+    assert (one - plain).abs().max().item() > ATOL
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("d", [16, 256])
+def test_tf32x3_within_the_worst_case(d, adversarial):
+    """Each dot of the model against the exact sum: within the worst case of
+    summing its 3D terms in f32, (3D - 1) 2^-24 sum |q_i f_i| to first
+    order, plus the split's 3 2^-22 sum |q_i f_i|."""
+    qvt, _, fv, _, _, _ = _case_f32(d, seed=10 * d + adversarial, adversarial=adversarial)
+    q, f = qvt.T, fv
+    exact = q.double() @ f.double().T
+    mass = q.double().abs() @ f.double().abs().T
+    bound = ((3 * d - 1) * 2.0 ** -24 * 1.01 + 3 * 2.0 ** -22) * mass
+    assert bool(((tf32x3_dots(q, f).double() - exact).abs() <= bound).all())
+
+
+def test_tf32x3_against_the_pallas_kernel():
+    """The smallest shape crossing the TPU kernel's video tile, in f32: 24
+    videos in tiles of 8, D = 16 (two k-steps of 8), lp = 8."""
+    qvt, qst, fv, fs, nv, lp = _case_f32(16, seed=3, nq=4, nv=24, lp=8)
+    j = lambda t: jnp.asarray(t.numpy())
+    pal = np.asarray(jp.video_scores_pallas_flat(j(qvt), j(qst), j(fv), j(fs), nv, lp=lp,
+                                                 chunk_v=8, interpret=True))
+    model = tf32x3_scores(qvt, qst, fv, fs, nv, lp).numpy()
     assert pal.shape == model.shape == (4, nv)
     np.testing.assert_allclose(model, pal, rtol=0, atol=ATOL)

@@ -1,10 +1,10 @@
 // Tensor-core ceiling probe for Hopper (sm_90a): back-to-back mma.sync
-// products from registers on every SM, s8 m16n8k32 (s32 sums) or bf16
-// m16n8k16 (f32 sums), with no memory traffic. It ports no TPU kernel and
-// no engine path runs it: chip_smoke.py (phase 2) times it, so that the
-// kernels built on mma.sync (B1, B2 / B3-bf16, B5) can be stated as a share
-// of what that instruction reaches on this card as well as of the data
-// sheet's peak (which only wgmma reaches).
+// products from registers on every SM, s8 m16n8k32 (s32 sums), bf16
+// m16n8k16 or tf32 m16n8k8 (f32 sums), with no memory traffic. It ports no
+// TPU kernel and no engine path runs it: chip_smoke.py (phase 2) times it,
+// so that the kernels built on mma.sync (B1, B2 / B3, B5, B9 / B10) can be
+// stated as a share of what that instruction reaches on this card as well
+// as of the data sheet's peak (which only wgmma reaches).
 //
 // Each warp keeps kChains independent accumulators, so a product's latency
 // hides behind the next chains' issue; operands are seeded from the thread
@@ -26,14 +26,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChains = 8;
 
-template <bool Bf16>
+// Kind 0: s8, 1: bf16, 2: tf32.
+template <int Kind>
 __global__ void __launch_bounds__(kThreads) mma_probe_kernel(int iters, float* __restrict__ out) {
-  using Acc = typename std::conditional<Bf16, float, int>::type;
+  using Acc = typename std::conditional<Kind != 0, float, int>::type;
   const uint32_t seed = (blockIdx.x * kThreads + threadIdx.x) * 2654435761u;
   uint32_t a[4];
-  // bf16 pairs of magnitude ~2^-8 (exponent 119) or bytes of any value
-  const uint32_t mask = Bf16 ? 0x807f807fu : 0xffffffffu;
-  const uint32_t base = Bf16 ? 0x3b803b80u : 0u;
+  // bf16 pairs of magnitude ~2^-8 (exponent 119), tf32 of magnitude ~2^-8
+  // (exponent 119, the low 13 bits clear), or bytes of any value
+  const uint32_t mask = Kind == 1 ? 0x807f807fu : Kind == 2 ? 0x807fe000u : 0xffffffffu;
+  const uint32_t base = Kind == 1 ? 0x3b803b80u : Kind == 2 ? 0x3b800000u : 0u;
 #pragma unroll
   for (int i = 0; i < 4; ++i) a[i] = ((seed >> i) & mask) | base;
   const uint32_t b0 = ((seed >> 5) & mask) | base, b1 = ((seed >> 7) & mask) | base;
@@ -45,7 +47,9 @@ __global__ void __launch_bounds__(kThreads) mma_probe_kernel(int iters, float* _
   for (int it = 0; it < iters; ++it)
 #pragma unroll
     for (int j = 0; j < kChains; ++j) {
-      if constexpr (Bf16)
+      if constexpr (Kind == 2)
+        s8mma::mma_tf32(c[j], a, b0, b1);
+      else if constexpr (Kind == 1)
         s8mma::mma_bf16(c[j], a, b0, b1);
       else
         s8mma::mma(c[j], a, b0, b1);
@@ -62,17 +66,20 @@ __global__ void __launch_bounds__(kThreads) mma_probe_kernel(int iters, float* _
 
 extern "C" {
 
-// kind 0: s8 m16n8k32, 1: bf16 m16n8k16. `blocks` blocks of 256 threads,
-// each warp issuing iters x 8 products; out: blocks x 256 floats. Returns
-// cudaGetLastError() after the launch.
+// kind 0: s8 m16n8k32, 1: bf16 m16n8k16, 2: tf32 m16n8k8. `blocks` blocks
+// of 256 threads, each warp issuing iters x 8 products; out: blocks x 256
+// floats. Returns cudaGetLastError() after the launch.
 int tvr_mma_probe(int kind, int blocks, int iters, void* out, void* stream) {
-  if (blocks <= 0 || iters <= 0 || (kind != 0 && kind != 1))
+  if (blocks <= 0 || iters <= 0 || kind < 0 || kind > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
   if (kind == 0)
-    mma_probe_kernel<false><<<blocks, kThreads, 0, s>>>(iters, static_cast<float*>(out));
+    mma_probe_kernel<0><<<blocks, kThreads, 0, s>>>(iters, o);
+  else if (kind == 1)
+    mma_probe_kernel<1><<<blocks, kThreads, 0, s>>>(iters, o);
   else
-    mma_probe_kernel<true><<<blocks, kThreads, 0, s>>>(iters, static_cast<float*>(out));
+    mma_probe_kernel<2><<<blocks, kThreads, 0, s>>>(iters, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,7 +19,8 @@ alternative to the einsum video-score stage, run beside it by
 ``profiling.engine_modes``.
 
 The bound on the H100 is arithmetic (Nv * L x D x M multiply-adds, half of
-the two-stream stage's); see the source for the tiling.
+the two-stream stage's), on the tensor cores (bf16 products, or f32 as
+three TF32 products); see the source for the tiling.
 """
 from __future__ import annotations
 

@@ -24,9 +24,11 @@ launches the kernel or raises. ``LAUNCHES`` counts kernel launches per
 wrapper (plain runs are not counted).
 
 What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
-* lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000), int8 and bf16 on
-the tensor cores (``mma.sync``), f32 through FMA; the (Nq, Nv_pad * lp)
-dot matrix never reaches device memory. B5 does Nv_pad * 128 x 2D x Nq
+* lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000) on the tensor
+cores (``mma.sync``): int8 and bf16 products as they are, f32 as three
+TF32 products (a 3xTF32 split that keeps f32 accuracy); the (Nq, Nv_pad *
+lp) dot matrix never reaches device memory. B9 does the same on the
+unflattened caches, the mask applied per clip. B5 does Nv_pad * 128 x 2D x Nq
 MACs on the s8 tensor cores and writes the rescaled similarity as bf16
 (bound by those bytes); its s32 dots never reach device memory. See the
 sources for the tiling.
@@ -50,11 +52,13 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 # kernel needs lp % 128 == 0), kept so that cache bytes are equal
 SPAN_LP = 128
 
-# the longest int8 / bf16 feature rows the tensor-core kernels take: query
-# tiles stay in the block's shared memory (csrc/video_score.cu::S8Mma /
-# Bf16Mma::kMaxRowBytes)
+# the longest feature rows the tensor-core kernels take: query tiles stay
+# in the block's shared memory (csrc/video_score.cu::S8Mma / Bf16Mma /
+# Tf32x3MmaWide::kMaxRowBytes; csrc/masked_score.cu::kMaxD)
 I8_MAX_D = 384
 BF16_MAX_D = 512
+F32_MAX_D = 640
+MASKED_MAX_D = 768
 
 LAUNCHES: Dict[str, int] = {"video_scores_flat_i8": 0, "video_scores_flat": 0,
                             "video_scores_flat_bmax": 0, "span_sim_cat_i8": 0,
@@ -233,6 +237,9 @@ def _launch(name: str, qvt, qst, fv_flat, fs_flat, n_videos: int, lp: int,
     if fv_flat.dtype == torch.bfloat16 and d > BF16_MAX_D:
         raise ValueError(f"{name}: D={d} bf16 features; the tensor-core kernel holds "
                          f"rows of at most {BF16_MAX_D} features")
+    if fv_flat.dtype == torch.float32 and d > F32_MAX_D:
+        raise ValueError(f"{name}: D={d} f32 features; the tensor-core kernel holds "
+                         f"rows of at most {F32_MAX_D} features")
     if not (fv_flat.is_contiguous() and fs_flat.is_contiguous()):
         raise ValueError(f"{name}: feature caches must be contiguous")
     # the kernel reads (Nq, D) query rows
@@ -285,10 +292,11 @@ def video_scores_flat(qvt, qst, fv_flat, fs_flat, n_videos: int,
                       lp: int = 104) -> torch.Tensor:
     """B2: q2c scores over bf16 / f32 flat caches with f32 accumulation,
     (Nq, n_videos) f32. qvt / qst: (D, Nq) normalized queries cast to the
-    cache dtype. Equal to the einsum path up to f32 summation order: bf16
-    on the tensor cores (exact products, f32 sums; D at most
-    ``BF16_MAX_D``), f32 through FMA. Replaces
-    pallas_score.video_scores_pallas_flat.
+    cache dtype. Equal to the einsum path up to f32 summation order, on
+    the tensor cores: bf16 as exact products with f32 sums (D at most
+    ``BF16_MAX_D``), f32 as three TF32 products with f32 sums (D at most
+    ``F32_MAX_D``), both within 1e-5 of the plain version for unit-norm
+    rows. Replaces pallas_score.video_scores_pallas_flat.
     """
     if fv_flat.device.type == "cpu":
         return video_scores_flat_plain(qvt, qst, fv_flat, fs_flat, n_videos, lp)
@@ -463,6 +471,9 @@ def launch_masked_scores(name: str, queries, feats, mask, nv: int, n_clips: int,
     if row_bytes % 16:
         raise ValueError(f"{name}: a feature row is {row_bytes} bytes; the kernel loads "
                          "16-byte vectors, so D * itemsize must be a multiple of 16")
+    if d > MASKED_MAX_D:
+        raise ValueError(f"{name}: D={d}; the tensor-core kernel holds rows of at most "
+                         f"{MASKED_MAX_D} features")
     if not all(f.is_contiguous() for f in feats):
         raise ValueError(f"{name}: feature caches must be contiguous")
     if nq == 0 or nv == 0 or n_clips == 0:
@@ -494,8 +505,10 @@ def video_scores_masked(qv, qs, feat1_v, feat1_s, mask) -> torch.Tensor:
     clip validity. Per stream the max over clips of ``s * m + (1 - m) *
     -1e10`` with f32-accumulated dots, the two maxima averaged: what
     ``video_scores_xla`` (its plain version, the engine's "einsum" stage)
-    computes, up to f32 summation order. A fully masked video scores
-    exactly -1e10. The (Nq, Nv, L) similarity never reaches device memory.
+    computes, up to f32 summation order (the dots on the tensor cores: bf16
+    products, or f32 as three TF32 products; D at most ``MASKED_MAX_D``).
+    A fully masked video scores exactly -1e10. The (Nq, Nv, L) similarity
+    never reaches device memory.
     (The TPU wrapper's chunk_v only tiles its grid, so it has no
     counterpart here.) Replaces pallas_score.video_scores_pallas."""
     if feat1_v.device.type == "cpu":
