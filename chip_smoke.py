@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile DIR] [--parent DIR]
+    python3 chip_smoke.py [--profile DIR] [--parent DIR] [--int8-repeats N]
 
 Run from the repository root on a machine with one CUDA card. Phases:
 
@@ -28,7 +28,8 @@ Run from the repository root on a machine with one CUDA card. Phases:
    synthetic corpus, on the card with the kernels and on the CPU with the
    plain versions, compared, in the bf16 / f32 modes, the int8 span modes
    and the psort selections (which must equal the card's own exact
-   selection); the VCMR / SVMR / VR metrics of the card run;
+   selection); the int8 runs' top-V scores on the int8 grid on both
+   devices first; the VCMR / SVMR / VR metrics of the card run;
 5. full-corpus throughput of ``_score_query_batch``, timed with CUDA
    events, in the exact flagship modes (B1 must launch once per batch), in
    the all-int8 psort modes (B1 once, B5 once, B6 five times per batch), in
@@ -52,7 +53,8 @@ Run from the repository root on a machine with one CUDA card. Phases:
    -1e10 (B9 / B10 as a share of the peak and of the probed ceiling); the fused
    gather + similarity B7 in bf16 and f32 within 1e-5 of the largest
    similarity; the fused banded top-N B8 equal in all four outputs on
-   near-uniform, peaked and tied probabilities;
+   near-uniform, peaked, tied and all-equal probabilities, with the share
+   of rows its row threshold leaves and the elements reaching it;
 9. the stage-study path through its entry point
    (``profiling.engine_modes.run``) at full width: the flagship combination
    and its psort variant (equal span candidates), then, with the counts
@@ -68,7 +70,10 @@ Run from the repository root on a machine with one CUDA card. Phases:
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
 package directory) runs that commit's phases 3, 5 and 8 in a process of
 its own before and after this run, on the same card, its lines prefixed
-``[parent 1]`` / ``[parent 2]``.
+``[parent 1]`` / ``[parent 2]``, and times that commit's B8 (built from
+its source) beside this one's in phase 8. ``--int8-repeats N`` runs the
+card side of phase 4's int8 runs N times, each held to the grid and to the
+first.
 
 Exits non-zero, without that last line, when no CUDA device is present,
 when the package is missing, or when any check fails.
@@ -481,10 +486,36 @@ def cache_to(cache, dev):
         if isinstance(getattr(cache, f.name), torch.Tensor)})
 
 
-def phase_end_to_end(dev):
+I8_STEP = 0.5 / 127 ** 2    # int8 q2c scores are integer multiples of it
+
+
+def off_grid(name, alpha, outs):
+    """The int8 runs' top-V scores lie on the int8 grid on every device:
+    log(s) / alpha is a multiple of I8_STEP (the exp / log round trip costs
+    ~3e-9 of the 3.1e-5 step). ``outs``: device name -> retrieve arrays.
+    Raises, naming the first entry off the grid on each device."""
+    bad = []
+    for where, out in outs.items():
+        n = np.log(out["VR"][2].astype(np.float64)) / alpha / I8_STEP
+        off = np.abs(n - np.rint(n))
+        if not off.max() <= 1e-2:
+            q, r = np.unravel_index(np.argmax(off), off.shape)
+            raw = ", ".join(f"{w} video {o['VR'][0][q, r]} score {o['VR'][2][q, r]!r}"
+                            for w, o in outs.items())
+            bad.append(f"{where}: query {q} rank {r} is {off[q, r]:.3f} of a step off the "
+                       f"int8 grid ({raw})")
+    for line in bad:
+        log("e2e", f"{name}: {line}")
+    if bad:
+        raise AssertionError(f"end-to-end run {name}: a top-V int8 score is off the grid")
+
+
+def phase_end_to_end(dev, card_repeats=1):
     """Phase 4: encode_corpus + retrieve on the card (kernels) and on the
     CPU (plain versions) with the same seeded weights; returns the card
-    run's metrics."""
+    run's metrics. The int8 runs' scores must lie on the int8 grid on both
+    devices; ``card_repeats`` > 1 runs each int8 run's card side that many
+    times, each on the grid and equal to the first in every array."""
     from tvretrieval_tpu_torch.data.datasets import ExampleBuilder
     from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
     from tvretrieval_tpu_torch.evaluation.metrics import eval_retrieval_arrays
@@ -611,6 +642,22 @@ def phase_end_to_end(dev):
         note += note_parity
         cpu = retrieve(model_cpu, builder, cache_cpu, rows, world.corpus, rcfg,
                        return_arrays=True)
+        if rcfg.video_score_mode == "pallas_int8":
+            off_grid(name, rcfg.q2c_alpha, {"card": gpu, "CPU": cpu})
+            for rep in range(1, card_repeats):
+                again = retrieve(model_gpu, builder,
+                                 encode_corpus(model_gpu, builder, world.corpus, rcfg), rows,
+                                 world.corpus, rcfg, return_arrays=True)
+                off_grid(f"{name} (card repeat {rep})", rcfg.q2c_alpha,
+                         {"card": again, "CPU": cpu})
+                differ = [task for task in gpu
+                          if not all(np.array_equal(a, b) for a, b in zip(gpu[task], again[task]))]
+                if differ:
+                    raise AssertionError(f"{name} card repeat {rep}: {differ} differ from "
+                                         "the first card run")
+            if card_repeats > 1:
+                log("e2e", f"{name}: {card_repeats} card runs, each on the int8 grid and "
+                    "equal to the first in every array")
         for task, (vid, spans, scores) in gpu.items():
             if not (np.isfinite(scores).all() and np.isfinite(spans).all()):
                 raise AssertionError(f"{name} {task}: non-finite output")
@@ -1030,15 +1077,16 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     return launches
 
 
-def phase_study_kernels(dev, vs, ceiling=None):
+def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
     """Phase 8: B7-B10 against their plain versions at corpus scale.
     Returns their records for the kernels line (B9, B10 and B7 in bf16; B9
     and B10 in f32 under "f32"). ``ceiling``: the probed mma.sync rates
-    (phase 2), for B9 / B10 as a share of them."""
+    (phase 2), for B9 / B10 as a share of them. ``parent_b8``: another
+    commit's B8 (``load_parent_b8``), timed beside this one's."""
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt
     from tvretrieval_tpu_torch.ops import topk as ttopk
-    from tvretrieval_tpu_torch.ops.span import banded_topk_spans, topk_stable
+    from tvretrieval_tpu_torch.ops.span import _banded_joint, banded_topk_spans, topk_stable
     from tvretrieval_tpu_torch.profiling.engine_modes import in_query_blocks
     from tvretrieval_tpu_torch.testing import rank_mismatches
 
@@ -1174,8 +1222,9 @@ def phase_study_kernels(dev, vs, ceiling=None):
         del vf2, sf2
     torch.cuda.empty_cache()
 
-    # ---- B8: near-uniform, peaked and tied probabilities
+    # ---- B8: near-uniform, peaked, tied and all-equal probabilities
     V, min_l, max_l, top_n = 100, 2, 16, 200
+    W = max_l - min_l
     logits = [torch.randn((nq, V, L), generator=gen, device=dev) * 0.3 for _ in range(2)]
     cos = torch.rand((nq, V), generator=gen, device=dev) * 0.2 + 0.3
     vsc = torch.exp(20.0 * torch.sort(cos, dim=1, descending=True).values)
@@ -1186,13 +1235,18 @@ def phase_study_kernels(dev, vs, ceiling=None):
         p = torch.round(torch.softmax(x, -1) * 800) / 800
         p[..., 70:] = 0.0
         tied.append(p)
-    cases = (("near-uniform", [torch.softmax(x, -1) for x in logits]),
-             ("peaked", [torch.softmax(x * 20.0, -1) for x in logits]),
-             ("tied", tied))
-    for name, (st, ed) in cases:
+    # uniform probabilities (softmax of zero logits) and one video score:
+    # every in-band joint element holds one value, so every row ties at the
+    # row threshold (out-of-band ends stay 0.0)
+    flat = torch.softmax(torch.zeros((nq, V, L), device=dev), -1)
+    cases = (("near-uniform", [torch.softmax(x, -1) for x in logits], vsc),
+             ("peaked", [torch.softmax(x * 20.0, -1) for x in logits], vsc),
+             ("tied", tied, vsc),
+             ("all-equal", [flat, flat], torch.full_like(vsc, float(vsc[0, 0]))))
+    for name, (st, ed), vsc_c in cases:
         plain = lambda: in_query_blocks(lambda sl: banded_topk_spans(
-            st[sl], ed[sl], vsc[sl], min_l, max_l, top_n), nq, 125)
-        kernel = lambda: ttopk.banded_topk_spans_fused(st, ed, vsc, min_l, max_l, top_n,
+            st[sl], ed[sl], vsc_c[sl], min_l, max_l, top_n), nq, 125)
+        kernel = lambda: ttopk.banded_topk_spans_fused(st, ed, vsc_c, min_l, max_l, top_n,
                                                        return_sorted=True)
         k, p = kernel(), plain()
         torch.cuda.synchronize()
@@ -1201,16 +1255,74 @@ def phase_study_kernels(dev, vs, ceiling=None):
                 raise AssertionError(f"B8 ({name}): {out_name} differs from the plain version")
         share = k[4].float().mean().item() / V
         n_ties = int((k[3][:, 1:] == k[3][:, :-1]).sum())
+        # what the row threshold (the top_n-th row best) leaves: rows whose
+        # best reaches it, and elements that do
+        rows_past = survivors = 0
+        for sl in (slice(i, i + 125) for i in range(0, nq, 125)):
+            joint = _banded_joint(st[sl], ed[sl], vsc_c[sl], min_l, max_l)
+            best = joint.amax(-1).reshape(joint.shape[0], -1)
+            cut = torch.topk(best, top_n, dim=1).values[:, -1:]
+            rows_past += int((best >= cut).sum())
+            survivors += int((joint.reshape(joint.shape[0], -1) >= cut).sum())
+            del joint, best
+        rows_past, survivors = rows_past / nq, survivors / nq
         del k, p
         ms, pms = alternate_ms(plain, kernel, reps=4, blocker=blocker)
-        bnd = bound(4 * (2 * st.numel() + vsc.numel()) + 16 * nq * top_n, 0)
+        note = ""
+        if parent_b8 is not None:
+            pk = parent_b8(st, ed, vsc_c, min_l, max_l, top_n)
+            ref = banded_topk_spans(st[:125], ed[:125], vsc_c[:125], min_l, max_l, top_n)
+            if not all(torch.equal(a, b[:125]) for a, b in zip(ref, pk)):
+                raise AssertionError(f"B8 ({name}): the parent's kernel differs from the plain "
+                                     "version")
+            par_ms = cuda_ms(lambda: parent_b8(st, ed, vsc_c, min_l, max_l, top_n), reps=4,
+                             blocker=blocker)
+            ms2 = cuda_ms(kernel, reps=4, blocker=blocker)
+            note = f"; parent's kernel {par_ms:.4f} ms beside this one's {ms2:.4f} (in turns)"
+        bnd = bound(4 * (2 * st.numel() + vsc_c.numel()) + 16 * nq * top_n, 0)
         if name == "near-uniform":
             rec["B8"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None, **bnd)
-        log("study", f"B8 banded_topk_spans_fused ({name}): Nq={nq} V={V} L={L} W={max_l - min_l} "
+        log("study", f"B8 banded_topk_spans_fused ({name}): Nq={nq} V={V} L={L} W={W} "
             f"top_n={top_n}: all four outputs equal ({n_ties} adjacent equal scores among the "
-            f"selected); {100 * share:.1f}% of the videos reached the sort; {ms:.3f} ms vs plain "
-            f"(joint + stable torch.sort, 125 queries at a time) {pms:.3f} ms; {bound_str(bnd)}")
+            f"selected); rows past the row threshold {rows_past:.1f} of {V * L} "
+            f"({100 * rows_past / (V * L):.2f}%), elements reaching it {survivors:.1f} of "
+            f"{V * L * W}, videos holding a selected row {100 * share:.1f}%; {ms:.4f} ms vs "
+            f"plain (joint + stable torch.sort, 125 queries at a time) {pms:.3f} ms; "
+            f"{bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate{note}")
     return rec
+
+
+def load_parent_b8(parent_dir: str):
+    """The B8 entry point of the commit in ``parent_dir``, built from its
+    csrc/banded_topk.cu (the same C signature), as a function of this
+    wrapper's arguments returning the four outputs."""
+    import ctypes
+
+    from tvretrieval_tpu_torch.ops import _build
+
+    src = os.path.join(parent_dir, "tvretrieval_tpu_torch", "csrc", "banded_topk.cu")
+    lib_dir = os.path.join(parent_dir, "tvretrieval_tpu_torch", "_build")
+    os.makedirs(lib_dir, exist_ok=True)
+    lib_path = os.path.join(lib_dir, "libbanded_topk_parent.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(lib_path).tvr_banded_topk
+    fn.argtypes = _build.SOURCES["banded_topk"][1]["tvr_banded_topk"]
+    fn.restype = ctypes.c_int
+
+    def call(st, ed, vs, min_l, max_l, top_n):
+        nq, v, L = st.shape
+        outs = [torch.empty((nq, top_n), dtype=t, device=st.device)
+                for t in (torch.int32, torch.int32, torch.int32, torch.float32)]
+        videos = torch.empty((nq,), dtype=torch.int32, device=st.device)
+        err = fn(st.data_ptr(), ed.data_ptr(), vs.data_ptr(), nq, v, L, min_l, max_l, top_n,
+                 *(o.data_ptr() for o in outs), videos.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's B8 failed with CUDA error {err}")
+        return outs
+
+    return call
 
 
 def phase_study_path(dev):
@@ -1316,6 +1428,9 @@ def main() -> int:
     ap.add_argument("--parent", default="", help="a checkout of another commit (git "
                     "archive): run its phases 3, 5 and 8 before and after this run's, on "
                     "the same card")
+    ap.add_argument("--int8-repeats", type=int, default=1, help="run the card side of "
+                    "phase 4's int8 runs this many times, each on the int8 grid and equal "
+                    "to the first")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1358,7 +1473,7 @@ def main() -> int:
 
     vs.reset_launch_counts()
     tsort.reset_launch_counts()
-    metrics = phase_end_to_end(dev)
+    metrics = phase_end_to_end(dev, args.int8_repeats)
     # the study kernel of ops.video_score (B9) has its own path, phase 9
     launches = {k: n for k, n in {**vs.LAUNCHES, **tsort.LAUNCHES}.items()
                 if k != "video_scores_masked"}
@@ -1377,7 +1492,8 @@ def main() -> int:
     launches["gather_byte_rows"] = phase_train(dev, gt, rec["B4"], args.profile)
     torch.cuda.empty_cache()
 
-    rec.update(phase_study_kernels(dev, vs, ceiling))
+    rec.update(phase_study_kernels(dev, vs, ceiling,
+                                   load_parent_b8(args.parent) if args.parent else None))
     torch.cuda.empty_cache()
     launches.update(phase_study_path(dev))
 

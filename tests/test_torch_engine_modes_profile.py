@@ -142,7 +142,8 @@ def test_stage_study_lines(records):
     assert study[0]["max_abs_err"] <= 1e-6 and study[3]["max_rel_err"] <= 1e-6
     assert study[1]["max_err"] <= 1e-5 and study[2]["max_err"] <= 1e-6
     assert study[4]["equal"] and study[5]["equal"]
-    assert study[4]["sorted_share"] == study[5]["sorted_share"] == 1.0
+    assert study[4]["videos_share"] == study[5]["videos_share"] == 1.0
+    assert study[4]["grouped_shift_ms"] > 0 and study[5]["grouped_shift_ms"] > 0
 
 
 def test_stage_study_plants_masked_videos(setup, records):

@@ -25,7 +25,10 @@ exp fused and not. Gathered similarity (B7, csrc/gathered_sim.cu): one
 selected row, clip counts off the 8 warps, one to eight 16-byte pieces a
 lane, indices outside the corpus. Banded top-N (B8, csrc/banded_topk.cu):
 one query, one video, L = 128 with W = 16 and top_n = 256, top_n above the
-span count, rows full of ties and masked tails.
+span count, rows full of ties and masked tails, an all-equal joint (the
+top_n lowest flat indices), negative values and 0.0 / -0.0, V = L = W = 1,
+top_n = 1 and 256, 131 and 4,000 queries, rows past one chunk (V = 2,000),
+unsorted video scores.
 
 Every test carries the ``cuda`` marker and skips (its ``dev`` fixture)
 without a CUDA card. Imports no JAX, so on a machine with the card it runs
@@ -170,6 +173,25 @@ def test_b1_b3_int8_extremes(dev):
     scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=16)
     ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv, lp, 16)
     assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+
+
+def test_b1_b3_b6_at_the_end_to_end_int8_shapes(dev):
+    """B1, B3-int8 and the psort video top-V (B6) at the end-to-end phase's
+    shapes (100 queries, 320 videos: off the 128-query tile), 20 times over,
+    every run bit-equal to the plain version (integer maxima, one f32
+    rescale)."""
+    nq, nv, lp, d = 100, 320, 104, 256
+    qv, qs, fv, fs = _flat_i8(dev, nq, nv, lp, d, seed=4)
+    ref = vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp)
+    ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv, lp, 16)
+    pv, pi = tspan.topk_stable_blocked(ref, 100)
+    for _ in range(20):
+        out = vs.video_scores_flat_i8(qv, qs, fv, fs, nv, lp=lp)
+        scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=16)
+        kv, ki = tspan.topk_stable_blocked_psort(out, 100)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref) and torch.equal(scores, ps) and torch.equal(bmax, pb)
+        assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take(dev):
@@ -854,3 +876,53 @@ def test_b8_unsorted_video_scores_and_limits(dev):
         ttopk.banded_topk_spans_fused(st, ed, vsc, 2, 16, 257)
     with pytest.raises(ValueError, match="one CUDA device"):
         ttopk.banded_topk_spans_fused(st, ed, vsc.cpu(), 2, 16, 50)
+
+
+def _b8_case(dev, kind, nq, v, L, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    st, ed = (torch.rand(nq, v, L, generator=g, device=dev) for _ in range(2))
+    vsc = torch.exp(4.0 * torch.rand(nq, v, generator=g, device=dev))
+    if kind == "all_equal":
+        st = torch.zeros_like(st)                       # every joint element 0.0
+    elif kind == "negative":
+        st = st - 0.5
+        vsc = vsc * torch.where(torch.rand(nq, v, generator=g, device=dev) < 0.3, -1.0, 1.0)
+    elif kind == "signed_zeros":
+        # few positive values: the selection reaches zeros of both signs
+        st = torch.round(st * 2) / 2 - 0.5
+        ed = torch.where(torch.rand(nq, v, L, generator=g, device=dev) < 0.9, -0.0, ed)
+        vsc = vsc * torch.where(torch.rand(nq, v, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    return st, ed, vsc          # video scores unsorted
+
+
+@pytest.mark.parametrize("kind,nq,v,L,min_l,max_l,top_n", [
+    ("all_equal", 3, 100, 100, 2, 16, 200),
+    ("all_equal", 2, 30, 128, 2, 18, 256),
+    ("negative", 3, 40, 60, 1, 9, 150),
+    ("signed_zeros", 3, 20, 50, 1, 7, 256),
+    ("uniform", 5, 1, 1, 0, 1, 1),                  # V = L = W = 1
+    ("uniform", 2, 1, 1, 0, 1, 256),
+    ("uniform", 1, 100, 100, 2, 16, 1),             # Nq = 1, top_n = 1
+    ("uniform", 131, 100, 100, 2, 16, 256),
+    ("uniform", 4000, 50, 100, 2, 16, 200),         # more than a wave of blocks
+    ("uniform", 2, 2000, 128, 2, 18, 256),          # 16 chunks of rows
+    ("all_equal", 2, 2000, 128, 2, 18, 200),
+    ("negative", 2, 300, 100, 2, 16, 100),          # two chunks
+])
+def test_b8_banded_topk_edges_equal_plain(dev, kind, nq, v, L, min_l, max_l, top_n):
+    st, ed, vsc = _b8_case(dev, kind, nq, v, L, nq + v + L)
+    n0 = ttopk.LAUNCHES["banded_topk_spans_fused"]
+    got = ttopk.banded_topk_spans_fused(st, ed, vsc, min_l, max_l, top_n, return_sorted=True)
+    torch.cuda.synchronize()
+    assert ttopk.LAUNCHES["banded_topk_spans_fused"] == n0 + 1
+    for i in range(0, nq, 500):                     # the plain version materializes the joint
+        ref = tspan.banded_topk_spans(st[i:i + 500], ed[i:i + 500], vsc[i:i + 500], min_l,
+                                      max_l, top_n)
+        for name, r, k in zip(("vid", "st", "ed", "scores"), ref, got):
+            assert torch.equal(k[i:i + 500], r), name
+    assert bool(((got[4] >= 1) & (got[4] <= v)).all())
+    if kind == "all_equal":                         # the top_n lowest flat indices
+        W = max_l - min_l
+        flat = (got[0] * L + got[1]) * W + got[2] - got[1] - min_l
+        assert torch.equal(flat, torch.arange(top_n, device=dev, dtype=flat.dtype)
+                           .expand(nq, -1))

@@ -16,23 +16,16 @@
 // spends 66-78 shared-memory passes on elements that are thrown away. So
 // one block of 256 threads selects first and sorts only what it keeps:
 //   1. load the row once (16-byte loads where the row allows) into shared
-//      memory as u32 keys that order like the values: -0.0 becomes +0.0,
-//      then non-negatives get the sign bit set and negatives are inverted
-//      (real -inf is the lowest non-NaN key);
-//   2. radix-select the k-th largest key T from the top: up to four 8-bit
-//      passes, each a 256-bin histogram of the keys that still match the
-//      chosen prefix. Each warp counts into its own sub-histogram, and
-//      lanes holding the same digit add once (__match_any_sync), so rows
-//      full of ties do not serialise on one bin. A pass whose chosen bin
-//      holds exactly the keys still needed ends the search early;
-//   3. compact exactly k survivors: every key above T (under the prefix
-//      mask reached) and the first k - count(> T) keys equal to T in index
-//      order, by one block prefix sum over per-thread counts of contiguous
-//      stretches of the row;
+//      memory as u32 order keys (select.cuh::order_key);
+//   2. radix-select the k-th largest key from the top
+//      (select.cuh::radix_select: 8-bit passes, per-warp histograms with
+//      __match_any_sync, early stop);
+//   3. compact exactly k survivors, ties at the cut in index order
+//      (select.cuh::compact: one block prefix sum);
 //   4. sort the survivors as 64-bit (key, ~index) composites, descending:
-//      for k <= 256 a bitonic network with one composite a thread,
-//      __shfl_xor_sync below stride 32 and shared memory above; for larger
-//      k a bitonic network in shared memory over next_pow2(k).
+//      for k <= 256 with one composite a thread (select.cuh::sort_desc),
+//      for larger k a bitonic network in shared memory over next_pow2(k).
+// Steps 2-4 are shared with the banded top-N B8 through select.cuh.
 // Rows of up to 16,384 elements fit (64 KiB of keys, plus up to 128 KiB of
 // survivors; above 48 KiB the entry point opts in to the large carve-out);
 // the wrapper splits longer rows into chunks and launches twice.
@@ -47,54 +40,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "select.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 256;
+using namespace tvr_select;
+
 constexpr int kMaxRow = 16384;
 constexpr int kRegSort = kThreads;      // k up to this: one survivor a thread
 // survivors of the largest k, the warps' histograms, the keys of the longest row
 constexpr int kMaxSmem = kMaxRow * 8 + kWarps * kBins * 4 + kMaxRow * 4;
-
-__device__ __forceinline__ uint32_t order_key(float v) {
-  uint32_t u = __float_as_uint(v);
-  if (u == 0x80000000u) u = 0u;           // -0.0 ties with +0.0
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// (key, index) -> one u64 that orders as (key descending, index ascending)
-// under a descending sort; 0 (a NaN key at index 2^32 - 1) pads the network
-__device__ __forceinline__ uint64_t composite(uint32_t key, int i) {
-  return (static_cast<uint64_t>(key) << 32) | static_cast<uint32_t>(~i);
-}
-
-// inclusive prefix sum over the block's threads in thread order; `total`
-// gets the block's sum. Ends with a barrier, so `warp_tot` can be reused.
-__device__ uint32_t block_scan(uint32_t v, uint32_t* warp_tot, uint32_t& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const uint32_t o = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += o;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < kWarps ? warp_tot[lane] : 0u;
-#pragma unroll
-    for (int off = 1; off < kWarps; off <<= 1) {
-      const uint32_t o = __shfl_up_sync(0xffffffffu, w, off);
-      if (lane >= off) w += o;
-    }
-    if (lane < kWarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const uint32_t base = warp ? warp_tot[warp - 1] : 0u;
-  total = warp_tot[kWarps - 1];
-  __syncthreads();
-  return v + base;
-}
 
 // x: (nq, n); out_v / out_i: (nq, k); s_sort: the survivor buffer's length
 // (kRegSort for k <= kRegSort, else next_pow2(k)).
@@ -106,9 +61,9 @@ topk_select_kernel(const float* __restrict__ x, int n, int k, int s_sort,
   uint32_t* hist = reinterpret_cast<uint32_t*>(surv + s_sort);
   uint32_t* keys = hist + kWarps * kBins;
   __shared__ uint32_t warp_tot[kWarps];
-  __shared__ uint32_t s_digit, s_need, s_done;
+  __shared__ uint32_t sel[3];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const float* row = x + static_cast<size_t>(blockIdx.x) * n;
 
   // 1. keys
@@ -123,68 +78,11 @@ topk_select_kernel(const float* __restrict__ x, int n, int k, int s_sort,
     for (int i = tid; i < n; i += kThreads) keys[i] = order_key(row[i]);
   }
 
-  // 2. radix select: after the loop, the kept keys are those with
-  // (key & mask) > prefix, and the first `need` with (key & mask) == prefix
-  uint32_t prefix = 0u, mask = 0u, need = static_cast<uint32_t>(k);
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < kWarps * kBins; i += kThreads) hist[i] = 0u;
-    __syncthreads();
-    uint32_t* wh = hist + warp * kBins;
-    for (int base = 0; base < n; base += kThreads) {
-      const int i = base + tid;
-      uint32_t d = kBins;                 // no bin: out of the row or off the prefix
-      if (i < n) {
-        const uint32_t key = keys[i];
-        if ((key & mask) == prefix) d = (key >> shift) & 255u;
-      }
-      const uint32_t peers = __match_any_sync(0xffffffffu, d);
-      if (d < kBins && lane == __ffs(peers) - 1) atomicAdd(&wh[d], __popc(peers));
-    }
-    __syncthreads();
-    const uint32_t b = kBins - 1 - tid;   // thread 0 holds the top bin
-    uint32_t c = 0u;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) c += hist[w * kBins + b];
-    uint32_t total;
-    const uint32_t at_least = block_scan(c, warp_tot, total);   // keys with digit >= b
-    const uint32_t above = at_least - c;
-    if (above < need && need <= at_least) {
-      s_digit = b;
-      s_need = need - above;
-      s_done = c == need - above;
-    }
-    __syncthreads();
-    prefix |= s_digit << shift;
-    mask |= 255u << shift;
-    need = s_need;
-    if (s_done) break;                    // the whole bin is kept
-  }
-
-  // 3. compaction: each thread counts a contiguous stretch of the row
-  const int per = (n + kThreads - 1) / kThreads;
-  const int lo = min(n, tid * per), hi = min(n, lo + per);
-  uint32_t gt = 0u, eq = 0u;
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t m = keys[i] & mask;
-    gt += m > prefix;
-    eq += m == prefix;
-  }
-  const uint32_t packed = (gt << 16) | eq;   // each below 2^15: no carry
-  uint32_t total;
-  const uint32_t before = block_scan(packed, warp_tot, total) - packed;
-  const uint32_t n_gt = total >> 16;          // k - need
-  uint32_t g = before >> 16, e = before & 0xffffu;
-  for (int i = k + tid; i < s_sort; i += kThreads) surv[i] = 0ull;
-  for (int i = lo; i < hi; ++i) {
-    const uint32_t key = keys[i], m = key & mask;
-    if (m > prefix) {
-      surv[g++] = composite(key, i);
-    } else if (m == prefix) {
-      if (e < need) surv[n_gt + e] = composite(key, i);
-      ++e;
-    }
-  }
-  __syncthreads();
+  // 2. radix select; 3. compaction of exactly k survivors
+  uint32_t prefix, mask, need;
+  radix_select<false>(keys, n, static_cast<uint32_t>(k), 0u, hist, warp_tot, sel, prefix,
+                      mask, need);
+  compact(keys, n, k, 0u, prefix, mask, need, surv, s_sort, warp_tot);
 
   float* ov = out_v + static_cast<size_t>(blockIdx.x) * k;
   int* oi = out_i + static_cast<size_t>(blockIdx.x) * k;
@@ -193,24 +91,9 @@ topk_select_kernel(const float* __restrict__ x, int n, int k, int s_sort,
   if (k <= kRegSort) {
     int span = 1;                         // next_pow2(k)
     while (span < k) span <<= 1;
-    uint64_t c = surv[tid];
-    for (int size = 2; size <= span; size <<= 1) {
-      for (int j = size >> 1; j > 0; j >>= 1) {
-        uint64_t o;
-        if (j >= 32) {
-          __syncthreads();
-          surv[tid] = c;
-          __syncthreads();
-          o = surv[tid ^ j];
-        } else {
-          o = __shfl_xor_sync(0xffffffffu, c, j);
-        }
-        const bool keep_max = ((tid & size) == 0) == ((tid & j) == 0);
-        c = keep_max ? (c > o ? c : o) : (c < o ? c : o);
-      }
-    }
+    const uint64_t c = sort_desc(surv[tid], span, surv);
     if (tid < k) {
-      const int i = static_cast<int>(~static_cast<uint32_t>(c));
+      const int i = position(c);
       ov[tid] = row[i];
       oi[tid] = min(i, n - 1);
     }
@@ -232,7 +115,7 @@ topk_select_kernel(const float* __restrict__ x, int n, int k, int s_sort,
     }
   }
   for (int p = tid; p < k; p += kThreads) {
-    const int i = static_cast<int>(~static_cast<uint32_t>(surv[p]));
+    const int i = position(surv[p]);
     ov[p] = row[i];
     oi[p] = min(i, n - 1);
   }

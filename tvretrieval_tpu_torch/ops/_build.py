@@ -52,7 +52,7 @@ SOURCES: Dict[str, tuple] = {
     "gathered_sim": (_PKG / "csrc" / "gathered_sim.cu", {
         "tvr_gathered_similarity": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P]}),
     # tvr_banded_topk(st, ed, vs, nq, V, L, min_l, max_l, top_n, out_vid, out_st, out_ed,
-    #                 out_score, sorted, stream)
+    #                 out_score, videos, stream)
     "banded_topk": (_PKG / "csrc" / "banded_topk.cu", {
         "tvr_banded_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]}),
     # tvr_mma_probe(kind, blocks, iters, out, stream): the mma.sync ceiling

@@ -3,10 +3,12 @@
 ``banded_topk_spans_fused`` (B8, csrc/banded_topk.cu) replaces
 tvretrieval_tpu/ops/pallas_topk.py::banded_topk_spans_pallas: a drop-in for
 ``ops.span.banded_topk_spans`` (its plain version) that never materializes
-the (Nq, V, L, W) joint ``st * ed * video_score``. Per query a thread block
-walks the videos, keeps the running top 256 sorted in shared memory, and
-sorts only those elements of a video's band that beat the buffer's
-``top_n``-th entry; a video with no such element is skipped. All four
+the (Nq, V, L, W) joint ``st * ed * video_score``. Per query a thread
+block takes one key a (video, start) row, its best joint value (exact from
+the band's largest and smallest end probability, since f32 multiplication
+is monotone), selects the ``top_n`` rows by it, which hold the answer, and
+then the ``top_n`` elements of those rows; both selections are the sorting
+kernel's radix select and register sort (``csrc/select.cuh``). All four
 outputs are equal to the plain version's, ties included: the order is
 (value descending, flat index ``v * L * W + st * W + w`` ascending).
 
@@ -30,7 +32,7 @@ from tvretrieval_tpu_torch.ops.span import banded_topk_spans
 
 LAUNCHES: Dict[str, int] = {"banded_topk_spans_fused": 0}
 
-MAX_W, MAX_L, MAX_TOP_N = 16, 128, 256     # csrc/banded_topk.cu: kMaxW, kMaxL, kBuf
+MAX_W, MAX_L, MAX_TOP_N = 16, 128, 256     # csrc/banded_topk.cu: kMaxW, kMaxL, kMaxTop
 
 
 def reset_launch_counts() -> None:
@@ -43,14 +45,13 @@ def banded_topk_spans_fused(st_probs: torch.Tensor, ed_probs: torch.Tensor,
                             return_sorted: bool = False):
     """B8: exact top-``top_n`` spans over (videos x starts x band ends).
 
-    st_probs / ed_probs: (Nq, V, L) f32; video_scores: (Nq, V) f32, rows
-    ordered by descending video score (the engine's top-V order), which
-    matters for speed only: later videos are then skipped more often.
-    Returns (video_local_idx, st_idx, ed_idx int32, scores f32), each
-    (Nq, top_n), equal to ``banded_topk_spans``. With ``return_sorted`` a
-    fifth (Nq,) int32 tensor counts the videos of each query whose
-    candidates were sorted and merged (all ``V`` on the CPU, where the
-    plain version sorts the whole joint). Replaces
+    st_probs / ed_probs: (Nq, V, L) f32; video_scores: (Nq, V) f32, in
+    any order. Returns (video_local_idx, st_idx, ed_idx int32, scores f32),
+    each (Nq, top_n), equal to ``banded_topk_spans``. With ``return_sorted``
+    a fifth (Nq,) int32 tensor counts the videos of each query that
+    contributed at least one element past the threshold: those holding one
+    of its ``top_n`` selected rows (all ``V`` on the CPU, where the plain
+    version sorts the whole joint). Replaces
     pallas_topk.banded_topk_spans_pallas."""
     name = "banded_topk_spans_fused"
     if (st_probs.dim() != 3 or ed_probs.shape != st_probs.shape
@@ -65,6 +66,8 @@ def banded_topk_spans_fused(st_probs: torch.Tensor, ed_probs: torch.Tensor,
     if min_l < 0 or W < 1 or top_n < 1 or nq < 1 or v < 1 or L < 1:
         raise ValueError(f"{name}: min_l={min_l}, max_l={max_l}, top_n={top_n} and the "
                          f"shape {tuple(st_probs.shape)} must be positive (min_l >= 0)")
+    if v * L * W >= 2 ** 30:
+        raise ValueError(f"{name}: V * L * W = {v * L * W} must stay below 2^30")
     dev = st_probs.device
     if dev.type == "cpu":
         out = banded_topk_spans(st_probs.float(), ed_probs.float(), video_scores.float(),
@@ -74,12 +77,10 @@ def banded_topk_spans_fused(st_probs: torch.Tensor, ed_probs: torch.Tensor,
     if dev.type != "cuda" or any(t.device != dev for t in ts):
         raise ValueError(f"{name}: all operands must be on one CUDA device, got "
                          f"{[str(t.device) for t in ts]}")
-    if v * L * W >= 2 ** 30:
-        raise ValueError(f"{name}: V * L * W = {v * L * W} must stay below 2^30")
     from tvretrieval_tpu_torch.ops import _build
 
     st, ed, vs = (t.float().contiguous() for t in ts)
-    vid, st_idx, ed_idx, n_sorted = (
+    vid, st_idx, ed_idx, videos = (
         torch.empty(shape, dtype=torch.int32, device=dev)
         for shape in ((nq, top_n), (nq, top_n), (nq, top_n), (nq,)))
     scores = torch.empty((nq, top_n), dtype=torch.float32, device=dev)
@@ -88,9 +89,9 @@ def banded_topk_spans_fused(st_probs: torch.Tensor, ed_probs: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(st.data_ptr(), ed.data_ptr(), vs.data_ptr(), nq, v, L, min_l, max_l, top_n,
                  vid.data_ptr(), st_idx.data_ptr(), ed_idx.data_ptr(), scores.data_ptr(),
-                 n_sorted.data_ptr(), stream)
+                 videos.data_ptr(), stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
     out = (vid, st_idx, ed_idx, scores)
-    return (*out, n_sorted) if return_sorted else out
+    return (*out, videos) if return_sorted else out

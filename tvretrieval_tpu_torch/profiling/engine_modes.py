@@ -40,7 +40,9 @@ agreement:
                                         | and the two products
   * banded_topk_spans_fused (B8)        | span top-k banded_topk_spans, on
                                         | the batch's own probabilities and
-                                        | on peaked ones (logits x 20)
+                                        | on peaked ones (logits x 20);
+                                        | the engine's grouped_shift stage
+                                        | timed beside them
 
 With --device cpu everything runs the kernels' plain versions (a smoke
 run: its times are the host's).
@@ -62,7 +64,8 @@ from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
 from tvretrieval_tpu_torch.ops import fused_score, gather, topk
 from tvretrieval_tpu_torch.ops import video_score as vs
 from tvretrieval_tpu_torch.ops.masking import mask_logits
-from tvretrieval_tpu_torch.ops.span import banded_topk_spans, topk_stable_blocked
+from tvretrieval_tpu_torch.ops.span import (
+    banded_topk_spans, banded_topk_spans_grouped_shift, topk_stable_blocked)
 from tvretrieval_tpu_torch.retrieval.engine import (
     RetrievalConfig, _normalize, _score_query_batch, check_supported)
 
@@ -263,7 +266,8 @@ def stage_study(model: XML, rcfg: RetrievalConfig, data: Dict[str, torch.Tensor]
            timed(kernel), timed(stage), f"max |d| / max |sim| {err:.3e}", max_rel_err=err)
     gather.check_indices(dev)
 
-    # B8 beside the span top-k, on the batch's probabilities and on peaked ones
+    # B8 beside the span top-k, on the batch's probabilities and on peaked
+    # ones; beside it too the engine's own span top-N stage (grouped_shift)
     mask_g = mask[gather_idx]
     st_logits, ed_logits = (mask_logits(x, mask_g) for x in model._merged_span_conv(sim))
     for case, factor in (("own", 1.0), ("peaked", PEAK_FACTOR)):
@@ -275,13 +279,18 @@ def stage_study(model: XML, rcfg: RetrievalConfig, data: Dict[str, torch.Tensor]
             st_p[s], ed_p[s], topv_scores[s], *args), nq, block_q)
         kernel = lambda: topk.banded_topk_spans_fused(st_p, ed_p, topv_scores, *args,
                                                       return_sorted=True)
+        engine = lambda: banded_topk_spans_grouped_shift(st_p, ed_p, topv_scores, *args)
         ref, got = stage(), kernel()
         equal = all(torch.equal(a, b) for a, b in zip(ref, got[:4]))
+        engine_equal = all(torch.equal(a, b) for a, b in zip(ref, engine()))
         share = got[4].float().mean().item() / V
+        engine_ms = timed(engine)
         report("banded_topk_spans_fused", "banded_topk_spans", case, timed(kernel),
                timed(stage), ("all four outputs equal" if equal else "MISMATCH")
-               + f"; {100 * share:.1f}% of the videos reached the sort",
-               equal=equal, sorted_share=share)
+               + f"; {100 * share:.1f}% of the videos hold a selected row; the engine's "
+               f"grouped_shift {engine_ms:.3f} ms"
+               + ("" if engine_equal else ", MISMATCH"),
+               equal=equal and engine_equal, videos_share=share, grouped_shift_ms=engine_ms)
     return records
 
 
