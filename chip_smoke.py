@@ -22,16 +22,27 @@ Run from the repository root on a machine with one CUDA card. Phases:
    exactly zero (B1, B2, B5 as a share of the peak and of the probed
    ceiling, f32 counted as three TF32 products); the sorting
    top-k B6 at the engine's five row shapes equal in values and indices on
-   rows with planted ties;
+   rows with planted ties; the approximate top-k B11 at the engine's three
+   sites (video top-V 21,818, span group select 10,000, final span select
+   2,800) at recall 0.90 and 0.99 and, on the video site, 1.0 (more bins
+   than one pass holds), equal in values and indices on normal rows,
+   int8-grid rows with ties planted at the cut, rows of one value and rows
+   with -inf pads, with its measured mean recall beside the formula's;
 4. end to end through the port's entry points (``encode_corpus``,
    ``retrieve``): the full-width XML with seeded random weights on a
    synthetic corpus, on the card with the kernels and on the CPU with the
-   plain versions, compared, in the bf16 / f32 modes, the int8 span modes
-   and the psort selections (which must equal the card's own exact
-   selection); the int8 runs' top-V scores on the int8 grid on both
+   plain versions, compared, in the bf16 / f32 modes, the int8 span modes,
+   the psort selections (which must equal the card's own exact
+   selection) and both approximate selections at recall 0.90 (B11 against
+   its plain version); the int8 runs' top-V scores on the int8 grid on both
    devices first; the VCMR / SVMR / VR metrics of the card run;
 5. full-corpus throughput of ``_score_query_batch``, timed with CUDA
    events, in the exact flagship modes (B1 must launch once per batch), in
+   bench.py's shipped configuration (the flagship's with both approximate
+   selections at recall 0.90: B1 once, B11 three times per batch; each
+   site's mean recall on the batch's own rows at least 0.90; q/s and the
+   device's busy share beside the flagship's, and the share of the
+   flagship's top-200 moments it returns), in
    the all-int8 psort modes (B1 once, B5 once, B6 five times per batch), in
    bf16 parity, the flagship's modes with the bf16 video scores over the
    bf16 flat feat1 cache (B2 once per batch, no other kernel), and in f32
@@ -63,7 +74,7 @@ Run from the repository root on a machine with one CUDA card. Phases:
    planted, the fully masked one exactly -1e10 in kernel and stage), and
    in the second B7-B10 must each launch;
 10. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3,
-   B5 and B6, over phase 7 for B4 and over phase 9 for B7-B10,
+   B5, B6 and B11, over phase 7 for B4 and over phase 9 for B7-B10,
    ``launches_throughput`` over phase 5);
 11. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -106,6 +117,11 @@ CHUNK_V = 16
 # top_n=200: video block maxima, video pool, group block maxima, group
 # pool, final span pool
 SORT_SHAPES = ((1364, 100), (1600, 100), (1250, 200), (1600, 200), (2800, 200))
+# the approximate top-k's sites at Nv=21,818, V=100, L=100, W=14, top_n=200:
+# video top-V, span group select (V * L), final span select (top_n * W)
+APPROX_SITES = (("video top-V", 21818, 100), ("span group select", 10000, 200),
+                ("final span select", 2800, 200))
+SHIPPED_RECALL = 0.90       # bench.py's topk_approx_recall
 B2_ATOL = 1e-5      # f32 summation-order slack of 256-term unit-vector dots
 TIMED_RUNS, WARMUP_RUNS = 10, 2
 # TVR's resident float8 byte tables: 100 clips x 3074 (video) / 770 (sub)
@@ -480,6 +496,93 @@ def phase_topk_sort(dev, tsort):
     return rec
 
 
+def approx_rows(kind, n, k, gen, dev):
+    """Phase 3's B11 inputs, (N_QUERIES, n): random normal; q2c on the int8
+    grid with k // 2 values above a level that 3k elements share, so that
+    the cut falls among planted ties; one value; normal rows whose last
+    third, and whose whole first row, are -inf pads."""
+    nq = N_QUERIES
+    if kind == "normal":
+        return torch.randn((nq, n), generator=gen, device=dev)
+    if kind == "int8 grid":
+        x = torch.randint(0, 1500, (nq, n), generator=gen, device=dev).float()
+        pos = torch.rand((nq, n), generator=gen, device=dev).argsort(dim=1)
+        x.scatter_(1, pos[:, :k // 2],
+                   torch.randint(1700, 2000, (nq, k // 2), generator=gen, device=dev).float())
+        x.scatter_(1, pos[:, k // 2:k // 2 + 3 * k], 1600.0)
+        return x * I8_STEP
+    if kind == "one value":
+        return torch.full((nq, n), 0.375, device=dev)
+    x = torch.randn((nq, n), generator=gen, device=dev)
+    x[:, n - n // 3:] = -math.inf
+    x[0] = -math.inf
+    return x
+
+
+def phase_approx_topk(dev, apx):
+    """Phase 3, B11: the approximate top-k at the engine's three sites
+    against its plain version, values (their bits) and indices, on the four
+    kinds of ``approx_rows``, at recall 0.90 and 0.99 and, on the video
+    site, 1.0 (21,818 bins: more than one pass holds). On the normal rows
+    at recall 0.90 (the shipped one): times, queued behind a ~20 ms
+    product, against the plain version and the exact ``torch.topk``, and
+    the mean tie-aware recall beside ((M-1)/M)^(k-1). Times, plain and
+    torch.topk are summed over the three sites: one batch's three launches."""
+    from tvretrieval_tpu_torch.testing import tie_aware_recall
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    big = torch.randn((8192, 8192), generator=gen, device=dev)
+    blocker = lambda: torch.mm(big, big)
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bound_by="bytes", library_call="torch.topk (the exact top-k)", per_site={})
+    for site, n, k in APPROX_SITES:
+        for recall in (0.90, 0.99) + ((1.0,) if n == N_VIDEOS_FULL else ()):
+            m = apx.bins(n, k, recall)
+            for kind in ("normal", "int8 grid", "one value", "pads"):
+                x = approx_rows(kind, n, k, gen, dev)
+                kv, ki = apx.approx_max_k(x, k, recall)
+                torch.cuda.synchronize()
+                pv, pi = apx.approx_max_k_plain(x, k, recall)
+                if kv.shape != (N_QUERIES, k) or ki.dtype != torch.int32 or not (
+                        torch.equal(ki, pi) and torch.equal(kv.view(torch.int32),
+                                                            pv.view(torch.int32))):
+                    raise AssertionError(f"B11 {site} (n={n}, k={k}, recall {recall}, M={m}, "
+                                         f"{kind} rows) differs from its plain version")
+                if kind == "int8 grid":
+                    ties = int((x == kv[:, -1:]).sum(1).min())
+                    if ties <= 1:
+                        raise AssertionError(f"B11 {site}: no ties planted at the cut")
+            x = approx_rows("normal", n, k, gen, dev)
+            kv, _ = apx.approx_max_k(x, k, recall)
+            got = tie_aware_recall(torch.topk(x, k).values.cpu().numpy(), kv.cpu().numpy())
+            predicted = ((m - 1) / m) ** (k - 1)
+            note = (f"B11 approx_max_k, {site} ({N_QUERIES}, {n}) k={k} recall {recall}: M={m} "
+                    f"bins; values and indices equal on the four kinds of rows (at least {ties} "
+                    f"int8-grid elements at the cut); mean recall on normal rows {got:.4f} "
+                    + ("(M = n: exact)" if m == n else f"(formula {predicted:.4f})"))
+            if recall != SHIPPED_RECALL:
+                log("kernels", note)
+                continue
+            ms, pms = alternate_ms(lambda: apx.approx_max_k_plain(x, k, recall),
+                                   lambda: apx.approx_max_k(x, k, recall), reps=32,
+                                   blocker=blocker)
+            lms = cuda_ms(lambda: torch.topk(x, k, dim=-1), reps=32, blocker=blocker)
+            bnd = bound(4 * x.numel() + 8 * kv.numel(), 0)
+            log("kernels", f"{note}; {ms * 1e3:.1f} us vs plain {pms * 1e3:.1f} us vs torch.topk "
+                f"(exact) {lms * 1e3:.1f} us; bound {bnd['bound_ms'] * 1e3:.2f} us by bytes, "
+                f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate")
+            rec["per_site"][site] = dict(n=n, k=k, bins=m, ms=ms, plain_ms=pms, library_ms=lms,
+                                         bound_ms=bnd["bound_ms"], recall=got,
+                                         recall_formula=predicted)
+            for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                             ("bound_ms", bnd["bound_ms"])):
+                rec[key] += val
+    log("kernels", f"B11, a shipped batch's three launches: {rec['ms'] * 1e3:.1f} us vs plain "
+        f"{rec['plain_ms'] * 1e3:.1f} us vs torch.topk {rec['library_ms'] * 1e3:.1f} us; bound "
+        f"{rec['bound_ms'] * 1e3:.2f} us, {100 * rec['bound_ms'] / rec['ms']:.1f}% of its rate")
+    return rec
+
+
 def cache_to(cache, dev):
     return dataclasses.replace(cache, **{
         f.name: getattr(cache, f.name).to(dev) for f in dataclasses.fields(cache)
@@ -571,7 +674,12 @@ def phase_end_to_end(dev, card_repeats=1):
     #   to its neighbour (one step of 127 in one of 512 components) and, in
     #   the flat mode, the bf16 store: the bf16 tolerance;
     # - the psort selections: a parity mode, exactly equal to the card's own
-    #   "f32" run on the same cache, and held to the CPU like it.
+    #   "f32" run on the same cache, and held to the CPU like it;
+    # - the approximate selections at recall 0.90 (B11 on the card, its
+    #   plain version on the CPU: one function): the video top-V of 320
+    #   videos is exact (M = N), the group select over 100 x 100 starts is
+    #   cut into 2,560 bins. On f32 caches, whose 3e-5 slack seldom swaps
+    #   the winner of a bin, held to the CPU like the "f32" run.
     base = dict(span_sim_pad_l=128, span_topk_mode="grouped_shift", query_bsz=100)
     psort = dict(span_topk_mode="grouped_shift_psort", video_topk_psort=True, query_bsz=100)
     runs = [
@@ -601,6 +709,12 @@ def phase_end_to_end(dev, card_repeats=1):
         ("f32_psort", RetrievalConfig(video_score_mode="pallas", cache_dtype_str="float32",
                                       span_score_mode="simsweep_cat", span_sim_pad_l=128,
                                       **psort),
+         1e-6, 3e-5, False),
+        ("f32_approx", RetrievalConfig(video_score_mode="pallas", cache_dtype_str="float32",
+                                       span_score_mode="simsweep_cat", span_sim_pad_l=128,
+                                       span_topk_mode="grouped_shift_approx",
+                                       video_topk_approx=True,
+                                       topk_approx_recall=SHIPPED_RECALL, query_bsz=100),
          1e-6, 3e-5, False),
     ]
     parity = {"f32_psort": "f32"}        # run -> the exact run it must equal on the card
@@ -699,16 +813,54 @@ def phase_end_to_end(dev, card_repeats=1):
     return metrics
 
 
+def device_time_ms(prof) -> float:
+    """The device's own time in a torch.profiler run: kernels and copies,
+    not the operators that launched them nor annotation spans."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+
+
+def record_approx(apx, run):
+    """``run()`` once with every approx_max_k call's rows, k, recall and
+    output recorded: [(x, k, recall, (values, indices))]."""
+    calls, original = [], apx.approx_max_k
+
+    def recording(x, k, recall=0.95):
+        out = original(x, k, recall)
+        calls.append((x, k, recall, out))
+        return out
+
+    apx.approx_max_k = recording
+    try:
+        run()
+    finally:
+        apx.approx_max_k = original
+    return calls
+
+
+def moments(out):
+    """(Nq, top_n) int64 keys of the VCMR moments (global video, st, ed)."""
+    vid = torch.gather(out["topv_idx"].long(), 1, out["vcmr_vid_local"].long())
+    return (vid * 1000 + out["vcmr_st"].long()) * 1000 + out["vcmr_ed"].long()
+
+
 def phase_throughput(dev, kernel_rec, profile_dir):
     """Phase 5: _score_query_batch at the full corpus (the bench.py cache,
-    synthesized on the card) in four configurations: the exact flagship
-    modes over bf16 feat2, the all-int8 psort modes over the int8 flat feat2
-    cache, (bf16 parity) the flagship's modes with the bf16 video scores B2
-    over the bf16 flat feat1 cache in place of B1, and (f32 parity) the same
-    over the engine's default f32 caches: the f32 flat feat1 (drawn in f32)
-    scored by B2-f32, feat2 f32 as encode_corpus leaves it. Returns the
-    kernel launches summed over the four."""
+    synthesized on the card) in five configurations: the exact flagship
+    modes over bf16 feat2; bench.py's shipped configuration, the flagship's
+    with both approximate selections at recall 0.90 (each site's mean
+    tie-aware recall on one batch's own rows against the exact top-k of the
+    same rows must reach 0.90; the share of the flagship's top-200 moments
+    it returns is reported; both beside their device's busy share); the
+    all-int8 psort modes over the int8 flat feat2 cache, (bf16 parity) the
+    flagship's modes with the bf16 video scores B2 over the bf16 flat feat1
+    cache in place of B1, and (f32 parity) the same over the engine's
+    default f32 caches: the f32 flat feat1 (drawn in f32) scored by B2-f32,
+    feat2 f32 as encode_corpus leaves it. Returns the kernel launches summed
+    over the five."""
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt_ops
     from tvretrieval_tpu_torch.ops import sort as tsort
@@ -716,6 +868,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     from tvretrieval_tpu_torch.ops import video_score as vs
     from tvretrieval_tpu_torch.retrieval.engine import (
         RetrievalConfig, _maybe_pad_clip_axis, _score_query_batch)
+    from tvretrieval_tpu_torch.testing import tie_aware_recall
 
     nv, nq = N_VIDEOS_FULL, N_QUERIES
     cfg = XMLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768,
@@ -740,13 +893,22 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     n_runs = WARMUP_RUNS + TIMED_RUNS
     no_launch = {"video_scores_flat": 0, "video_scores_flat_bmax": 0, "gather_byte_rows": 0,
                  "video_scores_masked": 0, "gathered_similarity": 0,
-                 "fused_video_scores_clip_major": 0, "banded_topk_spans_fused": 0}
+                 "fused_video_scores_clip_major": 0, "banded_topk_spans_fused": 0,
+                 "approx_max_k": 0}
     configs = [
         ("bf16 flagship",
          RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_bf16",
                          video_score_mode="pallas_int8", span_topk_mode="grouped_shift",
                          span_sim_pad_l=128, video_chunk_v=CHUNK_V),
          {"video_scores_flat_i8": n_runs, "span_sim_cat_i8": 0, "topk_transposed": 0}),
+        # bench.py:104-117's defaults
+        ("shipped",
+         RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_bf16",
+                         video_score_mode="pallas_int8", span_topk_mode="grouped_shift_approx",
+                         video_topk_approx=True, topk_approx_recall=SHIPPED_RECALL,
+                         span_sim_pad_l=128, video_chunk_v=CHUNK_V),
+         {"video_scores_flat_i8": n_runs, "approx_max_k": 3 * n_runs, "span_sim_cat_i8": 0,
+          "topk_transposed": 0}),
         ("all-int8 psort",
          RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_int8_flat",
                          video_score_mode="pallas_int8", span_topk_mode="grouped_shift_psort",
@@ -766,7 +928,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
          {"video_scores_flat_i8": 0, "video_scores_flat": n_runs, "span_sim_cat_i8": 0,
           "topk_transposed": 0}),
     ]
-    total = {}
+    total, kept = {}, {}
     for name, rcfg, want in configs:
         if rcfg.span_score_mode == "simsweep_cat_int8_flat":
             feat2_cat, feat2_scale = vs.build_flat_feat2_i8(feat2_raw, chunk_v=CHUNK_V)
@@ -791,7 +953,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
             for f in fs)
         held = (torch.cuda.memory_allocated(dev) - aside) / 2**30
         torch.cuda.reset_peak_memory_stats(dev)
-        for ops in (vs, gt_ops, tsort, fsc, ttopk):
+        for ops in (vs, gt_ops, tsort, fsc, ttopk, apx):
             ops.reset_launch_counts()
         for _ in range(WARMUP_RUNS):
             out = run()
@@ -804,7 +966,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         end.synchronize()
         ms = start.elapsed_time(end) / TIMED_RUNS
         launches = {**vs.LAUNCHES, **gt_ops.LAUNCHES, **tsort.LAUNCHES, **fsc.LAUNCHES,
-                    **ttopk.LAUNCHES}
+                    **ttopk.LAUNCHES, **apx.LAUNCHES}
         if launches != {**no_launch, **want}:
             raise AssertionError(f"throughput run ({name}): kernel launches {launches}, "
                                  f"expected {({**no_launch, **want})}")
@@ -823,6 +985,41 @@ def phase_throughput(dev, kernel_rec, profile_dir):
             f"{feat2_bytes / 1e9:.3f} GB; peak memory "
             f"{peak:.2f} GiB ({held:.2f} GiB held before the first batch); launches per "
             f"batch {({k: v // n_runs for k, v in launches.items() if v})}")
+        if name in ("bf16 flagship", "shipped"):
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            busy = device_time_ms(prof)
+            kept[name] = dict(ms=ms, qps=nq * 1000.0 / ms, device_ms=busy, busy=busy / ms,
+                              moments=moments(out))
+            log("throughput", f"{name}: {busy:.3f} ms of device time in a batch (profiled) = "
+                f"{100 * busy / ms:.1f}% busy of the {ms:.2f} ms measured without the profiler")
+        if name == "shipped":
+            recalls = []
+            for site, (x, k, recall, (vals, _)) in zip(
+                    [s for s, _, _ in APPROX_SITES], record_approx(apx, run)):
+                m = apx.bins(x.shape[1], k, recall)
+                got = tie_aware_recall(torch.topk(x, k).values.cpu().numpy(),
+                                       vals.cpu().numpy())
+                recalls.append(got)
+                log("throughput", f"shipped, {site}: rows ({x.shape[0]}, {x.shape[1]}), k={k}, "
+                    f"M={m} bins at recall {recall}: mean tie-aware recall against the exact "
+                    f"top-k of the same rows {got:.4f} "
+                    + ("(M = n: exact)" if m == x.shape[1]
+                       else f"(formula {((m - 1) / m) ** (k - 1):.4f})"))
+            flag, ship = kept["bf16 flagship"]["moments"], kept["shipped"]["moments"]
+            share = np.mean([len(set(a.tolist()) & set(b.tolist())) / flag.shape[1]
+                             for a, b in zip(flag.cpu().numpy(), ship.cpu().numpy())])
+            kept["shipped"].update(recalls=recalls, flagship_moments_share=float(share))
+            log("throughput", f"shipped vs bf16 flagship: {kept['shipped']['qps']:.1f} vs "
+                f"{kept['bf16 flagship']['qps']:.1f} q/s, busy "
+                f"{100 * kept['shipped']['busy']:.1f}% vs {100 * kept['bf16 flagship']['busy']:.1f}%; "
+                f"the shipped batch returns {100 * share:.2f}% of the flagship's top-"
+                f"{flag.shape[1]} moments (video, st, ed)")
+            if len(recalls) != 3 or not min(recalls) >= SHIPPED_RECALL:
+                raise AssertionError(f"shipped: the approximate sites' mean recalls {recalls} "
+                                     f"do not all reach {SHIPPED_RECALL}")
         if profile_dir:
             from torch.profiler import ProfilerActivity, profile
             os.makedirs(profile_dir, exist_ok=True)
@@ -839,8 +1036,9 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     log("throughput", f"B1 at this shape {kernel_rec['B1']['ms']:.3f} ms, B2-bf16 "
         f"{kernel_rec['B2']['ms']:.3f} ms, B2-f32 {kernel_rec['B2']['f32']['ms']:.3f} ms, B5 "
         f"{kernel_rec['B5']['ms']:.3f} ms, B6's five "
-        f"launches {kernel_rec['B6']['ms']:.3f} ms (phase 3); launches over the "
-        f"{len(configs)} configurations {total}")
+        f"launches {kernel_rec['B6']['ms']:.3f} ms"
+        + (f", B11's three {kernel_rec['B11']['ms']:.3f} ms" if "B11" in kernel_rec else "")
+        + f" (phase 3); launches over the {len(configs)} configurations {total}")
     return total
 
 
@@ -1439,6 +1637,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tvretrieval_tpu_torch.ops import _build
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
     from tvretrieval_tpu_torch.ops import gather as gt
     from tvretrieval_tpu_torch.ops import sort as tsort
     from tvretrieval_tpu_torch.ops import video_score as vs
@@ -1470,12 +1669,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec["B6"] = phase_topk_sort(dev, tsort)
     torch.cuda.empty_cache()
+    rec["B11"] = phase_approx_topk(dev, apx)
+    torch.cuda.empty_cache()
 
-    vs.reset_launch_counts()
-    tsort.reset_launch_counts()
+    for ops in (vs, tsort, apx):
+        ops.reset_launch_counts()
     metrics = phase_end_to_end(dev, args.int8_repeats)
     # the study kernel of ops.video_score (B9) has its own path, phase 9
-    launches = {k: n for k, n in {**vs.LAUNCHES, **tsort.LAUNCHES}.items()
+    launches = {k: n for k, n in {**vs.LAUNCHES, **tsort.LAUNCHES, **apx.LAUNCHES}.items()
                 if k != "video_scores_masked"}
     log("e2e", f"kernel launches on the main path: {launches}")
     if not all(launches.values()):
@@ -1504,10 +1705,10 @@ def main() -> int:
            if m.split(".")[0] in ("jax", "flax", "optax", "tvretrieval_tpu")]
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
-    vs_src, gt_src, ss_src, ts_src, ms_src, gs_src, bt_src = (
+    vs_src, gt_src, ss_src, ts_src, ms_src, gs_src, bt_src, ax_src = (
         f"tvretrieval_tpu_torch/csrc/{n}.cu" for n in (
             "video_score", "gather", "span_sim", "topk_sort", "masked_score", "gathered_sim",
-            "banded_topk"))
+            "banded_topk", "approx_topk"))
     table = [("B1", "video_scores_flat_i8", vs_src, "tvretrieval_tpu/ops/pallas_score.py:363"),
              ("B2", "video_scores_flat", vs_src, "tvretrieval_tpu/ops/pallas_score.py:133"),
              ("B3", "video_scores_flat_bmax", vs_src, "tvretrieval_tpu/ops/pallas_score.py:290"),
@@ -1518,7 +1719,9 @@ def main() -> int:
              ("B8", "banded_topk_spans_fused", bt_src, "tvretrieval_tpu/ops/pallas_topk.py:197"),
              ("B9", "video_scores_masked", ms_src, "tvretrieval_tpu/ops/pallas_score.py:67"),
              ("B10", "fused_video_scores_clip_major", ms_src,
-              "tvretrieval_tpu/ops/pallas_kernels.py:67")]
+              "tvretrieval_tpu/ops/pallas_kernels.py:67"),
+             # the TPU's hardware approximate top-k, which no Pallas kernel holds
+             ("B11", "approx_max_k", ax_src, "tvretrieval_tpu/retrieval/engine.py:597")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B2, B3, B9, B10: the bf16 kind (B3: int8) in the keys, the other
     # kinds' readings beside them
@@ -1526,7 +1729,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[name], "launches_throughput": launches_tp[name],
          **{k: rec[b][k] for k in keys},
-         **{kind: rec[b][kind] for kind in ("bf16", "f32") if kind in rec[b]}}
+         **{kind: rec[b][kind] for kind in ("bf16", "f32", "library_call", "per_site")
+            if kind in rec[b]}}
         for b, name, src, where in table]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

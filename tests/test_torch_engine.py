@@ -264,19 +264,15 @@ def test_arrays_to_submission_matches_jax(setup):
     ("video_topk_approx", True, "A11"), ("video_topk_psort", True, "A11"),
 ])
 def test_unported_modes_raise(setup, field, value, item):
-    """``item`` is the ROADMAP item each mode was queued under. The
-    approximate selections still raise, naming it; the others have been
-    ported since and encode and retrieve (tests/test_torch_engine_modes.py
-    holds them against the JAX engine)."""
+    """``item`` is the ROADMAP item each mode was queued under. Every one
+    has been ported since and encodes and retrieves
+    (tests/test_torch_engine_modes.py and tests/test_torch_approx_topk.py
+    hold them against the JAX engine)."""
     world, builder, _, _, tm = setup
     common = dict(COMMON, span_score_mode="simsweep_cat")
     if field == "span_score_mode":
         common["span_sim_pad_l"] = 0        # the pad composes with simsweep_cat only
     cfg = dataclasses.replace(te.RetrievalConfig(**common), **{field: value})
-    if value == "grouped_shift_approx" or field == "video_topk_approx":
-        with pytest.raises(NotImplementedError, match=item):
-            te.encode_corpus(tm, builder, world.corpus, cfg)
-        return
     te.check_supported(cfg)
     cache = te.encode_corpus(tm, builder, world.corpus, cfg)
     out = te.retrieve(tm, builder, cache, world.annotations[:5], world.corpus, cfg,

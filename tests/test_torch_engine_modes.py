@@ -270,12 +270,20 @@ def test_encode_corpus_batch_cache(setup):
 @pytest.mark.parametrize("field,value", [("span_topk_mode", "grouped_shift_approx"),
                                          ("video_topk_approx", True)])
 def test_approximate_modes_still_raise(setup, field, value):
+    """They raised NotImplementedError (ROADMAP A11) until the approximate
+    top-k was ported; now they encode and retrieve, and at this world's
+    shapes (every row no longer than its bins) equal the exact modes
+    (tests/test_torch_approx_topk.py holds them against the JAX engine)."""
     world, builder, _, _, tm = setup
-    cfg = dataclasses.replace(te.RetrievalConfig(**COMMON), **{field: value})
-    with pytest.raises(NotImplementedError, match="A11"):
-        te.encode_corpus(tm, builder, world.corpus, cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
-        te.check_supported(cfg)
+    cfg = dataclasses.replace(te.RetrievalConfig(**COMMON, span_score_mode="simsweep_cat"),
+                              **{field: value})
+    te.check_supported(cfg)
+    _, out = _torch_run(setup, **{k: getattr(cfg, k) for k in (
+        "span_score_mode", "span_topk_mode", "video_topk_approx")})
+    _, ref = _torch_run(setup, span_score_mode="simsweep_cat",
+                        span_topk_mode="grouped_shift" if field == "span_topk_mode"
+                        else "grouped", video_topk_pre_exp=field == "video_topk_approx")
+    _assert_equal_arrays(ref, out)
 
 
 def test_unknown_mode_names_are_value_errors():
@@ -294,7 +302,8 @@ TINY = ["--synthetic", "--synthetic_videos", "16", "--synthetic_queries", "48",
 def test_clis_run_the_new_modes(tmp_path):
     """train_xml evaluates with the all-int8 psort configuration, and
     inference_xml overrides the modes of a saved run: the parity modes give
-    the trainer's metrics again, the approximate flags still raise."""
+    the trainer's metrics again, and so do the approximate flags at this
+    world's size, where every row is no longer than its bins."""
     flags = ["--video_score_mode", "pallas_int8", "--span_score_mode",
              "simsweep_cat_int8_flat", "--span_topk_mode", "grouped_shift_psort",
              "--video_topk_psort", "1", "--eval_cache_dtype", "bfloat16"]
@@ -311,6 +320,6 @@ def test_clis_run_the_new_modes(tmp_path):
                                            "--eval_id", "simsweep"])
     assert other["metrics"]["VR"] == res["final_metrics"]["VR"]
     for approx in (["--video_topk_approx", "1"], ["--span_topk_mode", "grouped_shift_approx"]):
-        with pytest.raises(NotImplementedError, match="A11"):
-            inference_xml.start_inference(["--model_dir", res["results_dir"], "--device", "cpu"]
-                                          + approx)
+        out = inference_xml.start_inference(["--model_dir", res["results_dir"], "--device", "cpu",
+                                             "--eval_id", approx[-1]] + approx)
+        assert out["metrics"]["VR"] == res["final_metrics"]["VR"]

@@ -11,7 +11,8 @@ combination equal to the JAX engine's wherever the JAX scores are not
 near-ties, scores within the f32 tolerances of tests/test_torch_engine.py;
 combinations that share their stages equal to the reference combination
 bit for bit; the six stage-study lines present, with the agreement each
-reports, B9 and B10 on planted masked videos; the approximate flags raising; no card and no ``--device cpu``
+reports, B9 and B10 on planted masked videos; the approximate flags
+running (equal to the exact combinations at this size); no card and no ``--device cpu``
 exiting 1 with one line.
 """
 import dataclasses
@@ -205,12 +206,17 @@ def test_default_combos_are_the_jax_files():
                                    "gather/einsum/grouped_shift_approx",
                                    "simsweep/pallas/grouped_shift/rt0.95"])
 def test_approximate_flags_raise(combo):
-    args = engine_modes.build_arg_parser().parse_args(ARGS + ["--modes", combo])
-    with pytest.raises(NotImplementedError, match="A11"):
-        engine_modes.run(args)
-    base = engine_modes.RetrievalConfig()
-    with pytest.raises(NotImplementedError, match="A11"):
-        engine_modes.combo_config(base, combo)
+    """They raised NotImplementedError (ROADMAP A11) until the approximate
+    top-k was ported; now they run, and at 24 videos (every row no longer
+    than its bins) equal the exact combination they follow."""
+    exact = combo.replace("_approx", "").replace("/vapprox", "/preexp")
+    exact = "/".join(f for f in exact.split("/") if not f.startswith("rt"))
+    args = engine_modes.build_arg_parser().parse_args(ARGS + ["--modes", exact, combo])
+    records = [r for r in engine_modes.run(args) if r["kind"] == "combo"]
+    assert [r["exact"] for r in records] == ["ref", "bit-exact vs " + exact]
+    cfg = engine_modes.combo_config(engine_modes.RetrievalConfig(), combo)
+    assert cfg.video_topk_approx == ("vapprox" in combo)
+    assert cfg.topk_approx_recall == (0.95 if "rt0.95" in combo else 0.99)
 
 
 def test_combo_grammar():

@@ -28,7 +28,12 @@ one query, one video, L = 128 with W = 16 and top_n = 256, top_n above the
 span count, rows full of ties and masked tails, an all-equal joint (the
 top_n lowest flat indices), negative values and 0.0 / -0.0, V = L = W = 1,
 top_n = 1 and 256, 131 and 4,000 queries, rows past one chunk (V = 2,000),
-unsorted video scores.
+unsorted video scores. Approximate top-k (B11, csrc/approx_topk.cu): the
+engine's three sites at recall 0.9 and 0.99, M above one pass's 16,384 bins
+(recall 1.0 at 21,818 and a bucketed 100,096), M = n (exact, equal to B6),
+k = 1, k = M = 256, k above 256 (the shared-memory sort), rows of ties on the
+int8 score grid, one repeated value, 0.0 / -0.0 and -inf pads, a strided
+and a bf16 input.
 
 Every test carries the ``cuda`` marker and skips (its ``dev`` fixture)
 without a CUDA card. Imports no JAX, so on a machine with the card it runs
@@ -41,6 +46,7 @@ import math
 import pytest
 import torch
 
+from tvretrieval_tpu_torch.ops import approx_topk as apx
 from tvretrieval_tpu_torch.ops import fused_score as fsc
 from tvretrieval_tpu_torch.ops import gather as gt
 from tvretrieval_tpu_torch.ops import sort as tsort
@@ -926,3 +932,62 @@ def test_b8_banded_topk_edges_equal_plain(dev, kind, nq, v, L, min_l, max_l, top
         flat = (got[0] * L + got[1]) * W + got[2] - got[1] - min_l
         assert torch.equal(flat, torch.arange(top_n, device=dev, dtype=flat.dtype)
                            .expand(nq, -1))
+
+
+def _b11_same(x, k, recall):
+    n0 = apx.LAUNCHES["approx_max_k"]
+    kv, ki = apx.approx_max_k(x, k, recall)
+    torch.cuda.synchronize()
+    assert apx.LAUNCHES["approx_max_k"] == n0 + 1
+    pv, pi = apx.approx_max_k_plain(x, k, recall)
+    assert kv.dtype == torch.float32 and ki.dtype == torch.int32 and kv.shape == (x.shape[0], k)
+    assert torch.equal(ki, pi) and torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+    return kv, ki
+
+
+def _b11_rows(dev, kind, nq, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "normal":
+        return torch.randn((nq, n), generator=g, device=dev)
+    if kind == "int8_grid":
+        # q2c on the int8 grid (0.5 / 127^2): ties everywhere, and at the cut
+        return torch.randint(0, 2000, (nq, n), generator=g, device=dev).float() * (0.5 / 127 ** 2)
+    if kind == "equal":
+        return torch.full((nq, n), 0.375, device=dev)
+    # "pads": signed zeros and -inf tails
+    x = torch.round(torch.randn((nq, n), generator=g, device=dev) * 2)
+    x[x == 0] = -0.0
+    x[torch.rand((nq, n), generator=g, device=dev) < 0.2] = 0.0
+    x[:, n // 2:] = -math.inf
+    x[0] = -math.inf
+    return x
+
+
+@pytest.mark.parametrize("kind", ["normal", "int8_grid", "equal", "pads"])
+@pytest.mark.parametrize("n,k,recall", [
+    (21818, 100, 0.9), (10000, 200, 0.9), (2800, 200, 0.9), (21818, 100, 0.99),
+    (10000, 200, 0.99), (21818, 100, 1.0), (200000, 100, 0.999), (129, 1, 0.9),
+    (5000, 1, 0.9), (5000, 256, 0.1), (10000, 300, 0.99), (40000, 1024, 0.999)])
+def test_b11_approx_topk_equals_plain(dev, kind, n, k, recall):
+    nq = 3 if n * k > 2e7 else 37
+    _b11_same(_b11_rows(dev, kind, nq, n, n + k), k, recall)
+
+
+@pytest.mark.parametrize("n,k", [(100, 7), (2800, 200), (21818, 100)])
+def test_b11_where_bins_are_elements_equals_b6(dev, n, k):
+    recall = 1.0 if n == 21818 else 0.9
+    assert apx.bins(n, k, recall) == n
+    x = _b11_rows(dev, "int8_grid", 20, n, 3)
+    kv, ki = _b11_same(x, k, recall)
+    bv, bi = tsort.topk_transposed(x, k)
+    assert torch.equal(ki, bi) and torch.equal(kv, bv)
+
+
+def test_b11_rows_of_one_value_keep_the_first_k_bins_and_inputs_are_widened(dev):
+    kv, ki = _b11_same(torch.full((4, 21818), 0.5, device=dev), 100, 0.9)
+    assert torch.equal(ki, torch.arange(100, device=dev, dtype=torch.int32).expand(4, 100))
+    x = _b11_rows(dev, "normal", 8, 2 * 10000, 1)
+    _b11_same(x[:, ::2], 200, 0.9)                    # strided: the wrapper compacts it
+    _b11_same(x[:, :10000].to(torch.bfloat16), 200, 0.9)
+    with pytest.raises(ValueError, match=str(apx.MAX_K)):
+        apx.approx_max_k(x, apx.MAX_K + 1, 0.999)

@@ -309,9 +309,10 @@ def test_start_inference_reads_the_run_back(tmp_path):
     with pytest.raises(NotImplementedError, match="A10"):
         inference_xml.start_inference(["--model_dir", res["results_dir"],
                                        "--streaming", "flat"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        inference_xml.start_inference(["--model_dir", res["results_dir"],
-                                       "--video_topk_approx", "1", "--device", "cpu"])
+    approx = inference_xml.start_inference(["--model_dir", res["results_dir"],
+                                            "--video_topk_approx", "1", "--eval_id", "approx",
+                                            "--device", "cpu"])
+    assert approx["metrics"]["VR"] == res["final_metrics"]["VR"]      # every row <= its bins
     psort = inference_xml.start_inference(["--model_dir", res["results_dir"],
                                            "--video_topk_psort", "1", "--eval_id", "psort",
                                            "--device", "cpu"])
@@ -345,9 +346,9 @@ def test_start_training_needs_a_card_or_device_cpu(tmp_path, capsys):
     (["--n_devices", "4"], "A10"),
 ])
 def test_unported_flags_raise_before_any_data(tmp_path, monkeypatch, flags, item):
-    """``item`` is the ROADMAP item each flag was queued under. The int8
-    and psort engine modes and ``simsweep`` have been ported since: their
-    flags pass the check and the CLI goes on to build its data."""
+    """``item`` is the ROADMAP item each flag was queued under. The int8,
+    psort and approximate engine modes and ``simsweep`` have been ported
+    since: their flags pass the check and the CLI goes on to build its data."""
     class DataWasBuilt(Exception):
         pass
 
@@ -355,8 +356,9 @@ def test_unported_flags_raise_before_any_data(tmp_path, monkeypatch, flags, item
         raise DataWasBuilt
 
     monkeypatch.setattr(train_xml, "setup_world", setup_world)
-    ported = flags[-1] in ("simsweep_cat_int8", "simsweep", "grouped_shift_psort") \
-        or flags[0] == "--video_topk_psort"
+    ported = flags[-1] in ("simsweep_cat_int8", "simsweep", "grouped_shift_psort",
+                           "grouped_shift_approx") \
+        or flags[0] in ("--video_topk_psort", "--video_topk_approx")
     with pytest.raises(DataWasBuilt if ported else NotImplementedError,
                        match=None if ported else item):
         train_xml.start_training(TINY + ["--device", "cpu", "--results_root", str(tmp_path)]

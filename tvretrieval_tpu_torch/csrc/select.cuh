@@ -1,5 +1,6 @@
 // Select-then-sort steps for Hopper (sm_90a), shared by the sorting top-k
-// B6 (topk_sort.cu) and the banded top-N B8 (banded_topk.cu). One block of
+// B6 (topk_sort.cu), the banded top-N B8 (banded_topk.cu) and the
+// approximate top-k B11 (approx_topk.cu). One block of
 // kThreads = 256 threads (one histogram bin a thread) works on u32 order
 // keys in shared memory:
 //   order_key      -0.0 becomes +0.0, then non-negatives get the sign bit
@@ -18,7 +19,8 @@
 //                  stretches;
 //   sort_desc      a bitonic network over one 64-bit (key, ~position)
 //                  composite a thread: __shfl_xor_sync below stride 32,
-//                  shared memory above.
+//                  shared memory above; sort_desc_smem the same network
+//                  over more composites than threads, in shared memory.
 // A floor key `least` leaves every key below it out of the selection: a
 // caller that knows at least k keys reach it passes it (B8), the others 0.
 // Keys, counts and moves only: exact, ties in position order.
@@ -186,6 +188,27 @@ __device__ __forceinline__ uint64_t sort_desc(uint64_t c, int span, uint64_t* bu
     }
   }
   return c;
+}
+
+// Bitonic sort, descending, of the `s` composites of v (a power of two),
+// each thread taking pairs; ends with a barrier. The caller puts a barrier
+// between the writes of v and this call.
+__device__ __forceinline__ void sort_desc_smem(uint64_t* v, int s) {
+  const int half = s >> 1;
+  for (int size = 2; size <= s; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < half; t += kThreads) {
+        const int l = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const int h = l | j;
+        const uint64_t a = v[l], b = v[h];
+        if ((l & size) == 0 ? a < b : a > b) {
+          v[l] = b;
+          v[h] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
 }
 
 }  // namespace tvr_select

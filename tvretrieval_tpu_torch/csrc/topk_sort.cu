@@ -24,7 +24,8 @@
 //      (select.cuh::compact: one block prefix sum);
 //   4. sort the survivors as 64-bit (key, ~index) composites, descending:
 //      for k <= 256 with one composite a thread (select.cuh::sort_desc),
-//      for larger k a bitonic network in shared memory over next_pow2(k).
+//      for larger k a bitonic network in shared memory over next_pow2(k)
+//      (select.cuh::sort_desc_smem).
 // Steps 2-4 are shared with the banded top-N B8 through select.cuh.
 // Rows of up to 16,384 elements fit (64 KiB of keys, plus up to 128 KiB of
 // survivors; above 48 KiB the entry point opts in to the large carve-out);
@@ -99,21 +100,7 @@ topk_select_kernel(const float* __restrict__ x, int n, int k, int s_sort,
     }
     return;
   }
-  const int half = s_sort >> 1;
-  for (int size = 2; size <= s_sort; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < half; t += kThreads) {
-        const int l = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int h = l | j;
-        const uint64_t a = surv[l], b = surv[h];
-        if ((l & size) == 0 ? a < b : a > b) {
-          surv[l] = b;
-          surv[h] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  sort_desc_smem(surv, s_sort);
   for (int p = tid; p < k; p += kThreads) {
     const int i = position(surv[p]);
     ov[p] = row[i];

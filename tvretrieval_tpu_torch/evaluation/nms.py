@@ -7,8 +7,9 @@ inference.py:189-265`` (filter_vcmr_by_nms / post_processing_{vcmr,svmr}_nms).
 The reference suppresses with an O(n^2) Python pop-loop; we keep the same
 keep-order semantics but run the pairwise IoU suppression vectorized in
 numpy per kept element (still worst-case O(n^2) but array-at-a-time).
-The port's own copy of the JAX package's ``evaluation/nms.py``, without its
-optional native C++ path.
+The port's own copy of the JAX package's ``evaluation/nms.py``; its native
+path is the port's copy of the C++ source (csrc/temporal_nms.cpp, built by
+native/loader.py with the host compiler).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ def temporal_nms(
     predictions: Sequence[Sequence[float]],
     nms_threshold: float,
     max_after_nms: int = 100,
+    use_native: bool = True,
 ) -> List[List[float]]:
     """Suppress overlapping spans, keeping highest-score representatives.
 
@@ -37,6 +39,14 @@ def temporal_nms(
     """
     if len(predictions) <= 1:
         return [list(p) for p in predictions]
+
+    if use_native:
+        from tvretrieval_tpu_torch.native.loader import native_available, temporal_nms_native
+        if native_available():
+            kept = temporal_nms_native(
+                np.asarray(predictions, dtype=np.float32)[:, :3],
+                nms_threshold, max_after_nms)
+            return [[float(a), float(b), float(c)] for a, b, c in kept]
 
     arr = np.asarray(predictions, dtype=np.float64)  # (n, 3)
     order = np.argsort(-arr[:, 2], kind="stable")

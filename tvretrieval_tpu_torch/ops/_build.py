@@ -55,6 +55,9 @@ SOURCES: Dict[str, tuple] = {
     #                 out_score, videos, stream)
     "banded_topk": (_PKG / "csrc" / "banded_topk.cu", {
         "tvr_banded_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]}),
+    # tvr_approx_topk(x, nq, n, m, k, out_v, out_i, stream)
+    "approx_topk": (_PKG / "csrc" / "approx_topk.cu", {
+        "tvr_approx_topk": [_P, _I, _I, _I, _I, _P, _P, _P]}),
     # tvr_mma_probe(kind, blocks, iters, out, stream): the mma.sync ceiling
     # (chip_smoke.py phase 2; no engine path runs it)
     "mma_probe": (_PKG / "csrc" / "mma_probe.cu", {

@@ -5,7 +5,8 @@ then index ascending. ``torch.topk`` leaves the order of ties unspecified,
 so the primitive here is ``topk_stable``: a stable descending sort, which
 keeps equal values in ascending index order. The ``_psort`` functions
 select through the sorting kernel instead (ops.sort.topk_transposed, B6),
-with equal results.
+with equal results. ``banded_topk_spans_grouped_shift_approx`` selects
+through the approximate top-k (ops.approx_topk.approx_max_k, B11).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tvretrieval_tpu_torch.ops import approx_topk
 from tvretrieval_tpu_torch.ops.sort import topk_transposed
 
 
@@ -105,8 +107,7 @@ def _decode(flat: torch.Tensor, L: int, W: int, min_l: int):
 def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tensor,
                                     video_scores: torch.Tensor, min_l: int,
                                     max_l: int, top_n: int,
-                                    keep_mask: torch.Tensor | None = None,
-                                    psort: bool = False):
+                                    keep_mask: torch.Tensor | None = None):
     """Exact hierarchical top-N spans over (videos x starts x band ends)
     (span.py:289-471), equal bit for bit to a flat stable top-N over
     ``st[m] * ed[n] * video_score`` under the min/max length band.
@@ -124,10 +125,35 @@ def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tens
 
     keep_mask: optional (Nq, V) {0, 1}; spans of non-kept videos become
     exactly -1, below any real span (>= 0), in selection and in the pool.
-    psort: run the two selections (groups, final pool) through the sorting
-    kernel, as ``banded_topk_spans_grouped_shift_psort`` does.
     Returns (video_local_idx, st_idx, ed_idx, scores), each (Nq, top_n).
     """
+    return _grouped_shift(st_probs, ed_probs, video_scores, min_l, max_l, top_n, keep_mask,
+                          lambda x, k: topk_stable_blocked(x, k, block=8), topk_stable)
+
+
+def banded_topk_spans_grouped_shift_approx(st_probs: torch.Tensor, ed_probs: torch.Tensor,
+                                           video_scores: torch.Tensor, min_l: int,
+                                           max_l: int, top_n: int,
+                                           keep_mask: torch.Tensor | None = None,
+                                           recall: float = 0.99):
+    """Engine span top-k mode "grouped_shift_approx" (span.py:548-620):
+    ``banded_topk_spans_grouped_shift`` with the group selection over V * L
+    and the final selection over the G * W pool made by the approximate
+    top-k (ops.approx_topk.approx_max_k, B11) at the recall target
+    ``recall``. Not a parity mode: a span whose group, or which itself,
+    shares a bin with a better one is lost. Where a row has no more
+    elements than the tiling (or recall is 1.0) the selection is exact and
+    the outputs equal the exact modes'."""
+    select = lambda x, k: approx_topk.approx_max_k(x, k, recall)
+    return _grouped_shift(st_probs, ed_probs, video_scores, min_l, max_l, top_n, keep_mask,
+                          select, select)
+
+
+def _grouped_shift(st_probs, ed_probs, video_scores, min_l: int, max_l: int, top_n: int,
+                   keep_mask, select_groups, select_pool):
+    """The grouped-shift span top-N with its two selections given:
+    ``select_groups(gmax rows, k)`` and ``select_pool(pool rows, k)``,
+    each returning (values, indices)."""
     nq, v, L = st_probs.shape
     W = max_l - min_l
     dev = st_probs.device
@@ -140,8 +166,7 @@ def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tens
         gmax = gmax * keep_mask[:, :, None] - (1.0 - keep_mask)[:, :, None]
 
     k_groups = min(top_n, v * L)
-    blocked = topk_stable_blocked_psort if psort else topk_stable_blocked
-    _, gidx = blocked(gmax.reshape(nq, v * L), k_groups, block=8)
+    _, gidx = select_groups(gmax.reshape(nq, v * L), k_groups)
     gidx = torch.sort(gidx.long(), dim=1).values                        # (Nq, G)
     g_vid = gidx // L
     g_st = gidx % L
@@ -160,7 +185,7 @@ def banded_topk_spans_grouped_shift(st_probs: torch.Tensor, ed_probs: torch.Tens
 
     pool = vals.reshape(nq, -1)
     k = min(top_n, pool.shape[1])
-    scores, pos = (topk_transposed if psort else topk_stable)(pool, k)
+    scores, pos = select_pool(pool, k)
     flat = torch.gather(canon.reshape(nq, -1), 1, pos.long())
     if k < top_n:
         scores = F.pad(scores, (0, top_n - k))
@@ -178,8 +203,9 @@ def banded_topk_spans_grouped_shift_psort(st_probs: torch.Tensor, ed_probs: torc
     selection (one launch) run by the sorting kernel B6. A parity mode:
     the kernel keeps the stable tie order, so the outputs are equal bit for
     bit to the other exact modes'."""
-    return banded_topk_spans_grouped_shift(st_probs, ed_probs, video_scores, min_l,
-                                           max_l, top_n, keep_mask=keep_mask, psort=True)
+    return _grouped_shift(st_probs, ed_probs, video_scores, min_l, max_l, top_n, keep_mask,
+                          lambda x, k: topk_stable_blocked_psort(x, k, block=8),
+                          topk_transposed)
 
 
 def banded_topk_spans_grouped_shift8(st_probs: torch.Tensor, ed_probs: torch.Tensor,

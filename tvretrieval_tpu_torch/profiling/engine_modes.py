@@ -21,9 +21,12 @@ rtol 1e-6) and a difference prints MISMATCH.
   simsweep_cat_bf16/pallas_int8/grouped_shift/pad128 (the flagship).
 Flags: "preexp" (video top-k on pre-exp scores), "fused" (kernel-emitted
 block-max video top-k), "vpsort" (video top-k through the sorting kernel),
-"pad128" (span_sim_pad_l=128). "vapprox", "rt<r>" and the span top-k mode
-"grouped_shift_approx" are not ported and raise NotImplementedError
-(ROADMAP A11).
+"vapprox" (video top-k by the approximate top-k), "rt<r>" (the recall
+target of every approximate selection, e.g. rt0.9; default 0.99), "pad128"
+(span_sim_pad_l=128). bench.py's shipped configuration is
+  simsweep_cat_bf16/pallas_int8/grouped_shift_approx/vapprox/rt0.9/pad128
+(the approximate selections are not parity modes: against an exact first
+combination they print MISMATCH).
 
 The stage study follows the combinations, on the same caches and the same
 query batch: each of the four kernels that no engine mode runs, beside the
@@ -95,8 +98,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def combo_config(base: RetrievalConfig, combo: str) -> RetrievalConfig:
-    """The RetrievalConfig of one ``span/video[/span_topk[/flags]]`` entry;
-    raises NotImplementedError for the approximate selections."""
+    """The RetrievalConfig of one ``span/video[/span_topk[/flags]]`` entry."""
     parts = combo.split("/")
     if len(parts) < 2:
         raise ValueError(f"--modes entry {combo!r} is not span/video[/span_topk[/flags]]")
@@ -106,16 +108,14 @@ def combo_config(base: RetrievalConfig, combo: str) -> RetrievalConfig:
                and not f.startswith("rt")}
     if unknown:
         raise ValueError(f"--modes entry {combo!r}: unknown flags {sorted(unknown)}")
-    if any(f.startswith("rt") for f in flags):
-        raise NotImplementedError(
-            f"--modes entry {combo!r}: rt<r> sets the recall of the approximate "
-            "selections, which are ROADMAP A11")
+    recall = next((float(f[2:]) for f in flags if f.startswith("rt")),
+                  base.topk_approx_recall)
     rcfg = dataclasses.replace(
         base, span_score_mode=parts[0], video_score_mode=parts[1],
         span_topk_mode=parts[2] if len(parts) > 2 else "grouped",
         video_topk_pre_exp="preexp" in flags, video_topk_fused="fused" in flags,
         video_topk_approx="vapprox" in flags, video_topk_psort="vpsort" in flags,
-        span_sim_pad_l=128 if "pad128" in flags else 0)
+        topk_approx_recall=recall, span_sim_pad_l=128 if "pad128" in flags else 0)
     check_supported(rcfg)
     return rcfg
 

@@ -9,7 +9,9 @@ The corpus is encoded once (``encode_corpus``); each query batch then runs
    (ops.video_score) under ``video_score_mode`` "pallas" / "pallas_int8",
    or the einsum path under "einsum";
 3. ``exp(alpha * q2c)`` and an exact stable top-V (through the sorting
-   kernel, ops.sort, under ``video_topk_psort``);
+   kernel, ops.sort, under ``video_topk_psort``), or under
+   ``video_topk_approx`` the approximate top-k of the pre-exp scores
+   (ops.approx_topk, B11) and ``exp`` of the V selected;
 4. span logits of the top-V (+ GT) videos: one corpus-wide similarity
    sweep and a row gather of the similarities, over the concatenated feat2
    cache (``XML.merged_st_ed_scores_simgather_cat``), its int8 forms
@@ -18,15 +20,17 @@ The corpus is encoded once (``encode_corpus``); each query batch then runs
    streams ("simsweep"); or under span mode "gather" the feature rows
    themselves (``XML.merged_st_ed_scores_gathered``); then ConvSE and
    softmax;
-5. the exact banded span top-N (through the sorting kernel under
-   "grouped_shift_psort") and the SVMR row (ops.span).
+5. the banded span top-N (through the sorting kernel under
+   "grouped_shift_psort", through the approximate top-k under
+   "grouped_shift_approx") and the SVMR row (ops.span).
 
 ``encode_corpus_resident`` encodes from the device-resident corpus
 (data.device_corpus) instead of host-built batches. ``retrieve`` turns the
 results into the submission the evaluator (evaluation.metrics) scores. Mode names are the JAX package's so
 configurations carry over; "pallas" here means the CUDA kernel. The
-approximate selection modes are not ported and raise
-``NotImplementedError`` naming their ROADMAP item.
+approximate selections compute, on the CPU as on the card, the binned
+top-k that ``lax.approx_max_k`` runs on a TPU (ops/approx_topk.py); the
+JAX package is exact on the CPU only because XLA sorts there.
 """
 from __future__ import annotations
 
@@ -43,11 +47,13 @@ from tvretrieval_tpu_torch.data.device_corpus import (
     assemble_queries,
 )
 from tvretrieval_tpu_torch.models.xml import XML
+from tvretrieval_tpu_torch.ops import approx_topk
 from tvretrieval_tpu_torch.ops.span import (
     banded_top_spans_from_probs,
     banded_topk_spans_grouped,
     banded_topk_spans_grouped_shift,
     banded_topk_spans_grouped_shift8,
+    banded_topk_spans_grouped_shift_approx,
     banded_topk_spans_grouped_shift_psort,
     topk_from_block_max,
     topk_stable_blocked,
@@ -99,13 +105,18 @@ class RetrievalConfig:
     video_chunk_v: int = 16
     # "grouped", "grouped_shift", "grouped_shift8", "grouped_shift_psort"
     # (selections by the B6 sorting kernel): equal bit for bit.
-    # "grouped_shift_approx" is not ported (ROADMAP A11)
+    # "grouped_shift_approx": the two selections by the approximate top-k
+    # (B11) at topk_approx_recall; not a parity mode
     span_topk_mode: str = "grouped"
-    # approximate video top-V: not ported (ROADMAP A11)
+    # video top-V by the approximate top-k (B11) on the pre-exp scores, exp
+    # on the V selected only; not a parity mode (the external selection
+    # takes precedence, then this one, then the fused one)
     video_topk_approx: bool = False
-    # video top-V through the B6 sorting kernel: a parity mode (the fused
-    # and external selections take precedence; composes with pre_exp)
+    # video top-V through the B6 sorting kernel: a parity mode (the
+    # external, approximate and fused selections take precedence; composes
+    # with pre_exp)
     video_topk_psort: bool = False
+    # recall target of every approximate selection
     topk_approx_recall: float = 0.99
     # TPU interpret switch; kept so configurations carry over, unused here
     pallas_interpret: bool = False
@@ -130,21 +141,18 @@ SPAN_SCORE_MODES = ("gather", "simsweep", "simsweep_cat", "simsweep_cat_bf16",
 SPAN_TOPK = {"grouped": banded_topk_spans_grouped,
              "grouped_shift": banded_topk_spans_grouped_shift,
              "grouped_shift8": banded_topk_spans_grouped_shift8,
-             "grouped_shift_psort": banded_topk_spans_grouped_shift_psort}
+             "grouped_shift_psort": banded_topk_spans_grouped_shift_psort,
+             # bound to cfg.topk_approx_recall in _score_query_batch
+             "grouped_shift_approx": banded_topk_spans_grouped_shift_approx}
 
 
 def check_supported(cfg: RetrievalConfig) -> None:
-    """Raise NotImplementedError for the engine modes the port does not run
-    (the approximate selections), ValueError for a mode name nobody has."""
+    """Raise ValueError for a mode name nobody has."""
     if cfg.video_score_mode not in ("einsum", "pallas", "pallas_int8"):
         raise ValueError(f"video_score_mode={cfg.video_score_mode!r}")
     if cfg.span_score_mode not in SPAN_SCORE_MODES:
         raise ValueError(f"span_score_mode={cfg.span_score_mode!r}; one of "
                          f"{SPAN_SCORE_MODES}")
-    if cfg.span_topk_mode == "grouped_shift_approx" or cfg.video_topk_approx:
-        raise NotImplementedError(
-            "grouped_shift_approx / video_topk_approx: approximate selection is "
-            "ROADMAP A11 (it needs a top-k of its own, held to a recall)")
     if cfg.span_topk_mode not in SPAN_TOPK:
         raise ValueError(f"span_topk_mode={cfg.span_topk_mode!r}; one of "
                          f"{tuple(SPAN_TOPK)}")
@@ -374,6 +382,10 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
         # (reference inference.py:346-355)
         topv_idx = external_idx
         topv_scores = torch.exp(alpha * external_scores)
+    elif cfg.video_topk_approx:
+        # the approximate top-k on the pre-exp scores, exp on the V selected
+        topv_q2c, topv_idx = approx_topk.approx_max_k(q2c.to(f32), V, cfg.topk_approx_recall)
+        topv_scores = torch.exp(alpha * topv_q2c)
     elif fused_bmax is not None:
         # kernel-emitted block maxima; pre-exp ranking (exp is monotone)
         topv_q2c, topv_idx = topk_from_block_max(
@@ -410,7 +422,10 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
     st_probs = torch.softmax(st_logits.to(f32), dim=-1)
     ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
 
-    vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = SPAN_TOPK[cfg.span_topk_mode](
+    span_topk = SPAN_TOPK[cfg.span_topk_mode]
+    if cfg.span_topk_mode == "grouped_shift_approx":
+        span_topk = functools.partial(span_topk, recall=cfg.topk_approx_recall)
+    vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = span_topk(
         st_probs[:, :V], ed_probs[:, :V], topv_scores, cfg.min_pred_l,
         cfg.max_pred_l, cfg.max_before_nms)
     out = dict(topv_scores=topv_scores, topv_idx=topv_idx.to(torch.int32),

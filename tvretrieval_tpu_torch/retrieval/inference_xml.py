@@ -75,7 +75,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="1: fused video-score -> top-k (block maxima emitted "
                         "by the flat kernel; pre-exp semantics)")
     p.add_argument("--video_topk_approx", type=int, default=None,
-                   help="1: approximate video top-V (not ported: ROADMAP A11)")
+                   help="1: video top-V by the approximate top-k on the pre-exp "
+                        "scores, at --topk_approx_recall (not a parity mode)")
     p.add_argument("--video_topk_psort", type=int, default=None,
                    help="1: video top-V through the sorting kernel (a parity "
                         "mode, equal to the default selection)")

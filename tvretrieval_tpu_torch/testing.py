@@ -40,3 +40,15 @@ def within(ref, got, atol=0.0, rtol=0.0) -> bool:
     ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
     return bool(np.all(np.abs(got - ref)
                        <= _per_row(atol, ref.ndim) + _per_row(rtol, ref.ndim) * np.abs(ref)))
+
+
+def tie_aware_recall(exact_values, values) -> float:
+    """Mean over rows of the share of an exact top-k that a selection of k
+    elements holds, by value: each selected value above the exact k-th
+    value counts, and values equal to it count up to the number the exact
+    selection takes at it. ``exact_values``, ``values``: (rows, k)."""
+    e, v = np.asarray(exact_values, np.float64), np.asarray(values, np.float64)
+    kth = e.min(axis=1, keepdims=True)
+    at_kth = (e == kth).sum(axis=1)
+    hits = (v > kth).sum(axis=1) + np.minimum((v == kth).sum(axis=1), at_kth)
+    return float((hits / e.shape[1]).mean())

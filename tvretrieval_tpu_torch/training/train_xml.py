@@ -194,13 +194,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                             "grouped_shift_approx", "grouped_shift_psort"],
                    help="VCMR span top-k expansion (grouped, grouped_shift, "
                         "grouped_shift8 and grouped_shift_psort are bit-equal; "
-                        "grouped_shift_approx is not ported: ROADMAP A11)")
+                        "grouped_shift_approx selects by the approximate top-k "
+                        "at --topk_approx_recall)")
     p.add_argument("--video_topk_fused", type=int, default=0,
                    help="1: the flat video-score kernel emits block maxima "
                         "and video top-k runs fused (pre-exp semantics; "
                         "video_score_mode pallas/pallas_int8 only)")
     p.add_argument("--video_topk_approx", type=int, default=0,
-                   help="1: approximate video top-V (not ported: ROADMAP A11)")
+                   help="1: video top-V by the approximate top-k on the pre-exp "
+                        "scores, at --topk_approx_recall (not a parity mode)")
     p.add_argument("--video_topk_psort", type=int, default=0,
                    help="1: video top-V through the sorting kernel (a parity "
                         "mode, equal to the default selection)")
@@ -293,7 +295,7 @@ def check_args_supported(args) -> None:
         raise NotImplementedError(
             f"--n_devices {args.n_devices}: data-parallel training is ROADMAP A10")
     _check_supported(model_config(args, None))              # model variants: A8
-    check_supported(retrieval_config(args, 1))              # approximate modes: A11
+    check_supported(retrieval_config(args, 1))              # mode names
 
 
 def setup_world(args):
