@@ -27,7 +27,8 @@ Run from the repository root on a machine with one CUDA card. Phases:
    2,800) at recall 0.90 and 0.99 and, on the video site, 1.0 (more bins
    than one pass holds), equal in values and indices on normal rows,
    int8-grid rows with ties planted at the cut, rows of one value and rows
-   with -inf pads, with its measured mean recall beside the formula's;
+   with -inf pads, with its measured mean recall beside the formula's, and
+   timed at recall 0.90 on the normal and the int8-grid rows;
 4. end to end through the port's entry points (``encode_corpus``,
    ``retrieve``): the full-width XML with seeded random weights on a
    synthetic corpus, on the card with the kernels and on the CPU with the
@@ -81,10 +82,10 @@ Run from the repository root on a machine with one CUDA card. Phases:
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
 package directory) runs that commit's phases 3, 5 and 8 in a process of
 its own before and after this run, on the same card, its lines prefixed
-``[parent 1]`` / ``[parent 2]``, and times that commit's B8 (built from
-its source) beside this one's in phase 8. ``--int8-repeats N`` runs the
-card side of phase 4's int8 runs N times, each held to the grid and to the
-first.
+``[parent 1]`` / ``[parent 2]``, and times that commit's B11 and B8
+(built from its sources) beside this one's in phases 3 and 8.
+``--int8-repeats N`` runs the card side of phase 4's int8 runs N times,
+each held to the grid and to the first.
 
 Exits non-zero, without that last line, when no CUDA device is present,
 when the package is missing, or when any check fails.
@@ -519,22 +520,36 @@ def approx_rows(kind, n, k, gen, dev):
     return x
 
 
-def phase_approx_topk(dev, apx):
+def phase_approx_topk(dev, apx, others=None):
     """Phase 3, B11: the approximate top-k at the engine's three sites
     against its plain version, values (their bits) and indices, on the four
     kinds of ``approx_rows``, at recall 0.90 and 0.99 and, on the video
-    site, 1.0 (21,818 bins: more than one pass holds). On the normal rows
-    at recall 0.90 (the shipped one): times, queued behind a ~20 ms
-    product, against the plain version and the exact ``torch.topk``, and
-    the mean tie-aware recall beside ((M-1)/M)^(k-1). Times, plain and
-    torch.topk are summed over the three sites: one batch's three launches."""
+    site, 1.0 (21,818 bins: more than one pass holds). At recall 0.90 (the
+    shipped one), on the normal and on the int8-grid rows: times, queued
+    behind a ~20 ms product, against the plain version and the exact
+    ``torch.topk``, and on the normal rows the mean tie-aware recall beside
+    ((M-1)/M)^(k-1). ``others``: label -> another build of B11 (such as
+    ``load_b11``'s), held to the plain version on the timed rows and
+    timed in turns with this one; where M = n (the final select), B6 too,
+    whose function B11 then is. The record's times are the normal rows',
+    summed over the three sites (one batch's three launches); ``per_site``
+    holds each site's readings by row kind."""
+    from tvretrieval_tpu_torch.ops import sort as tsort
     from tvretrieval_tpu_torch.testing import tie_aware_recall
 
+    others = others or {}
     gen = torch.Generator(device=dev).manual_seed(11)
     big = torch.randn((8192, 8192), generator=gen, device=dev)
     blocker = lambda: torch.mm(big, big)
     rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               bound_by="bytes", library_call="torch.topk (the exact top-k)", per_site={})
+               bound_by="bytes", library_call="torch.topk (the exact top-k)", per_site={},
+               **{f"{label}_ms": 0.0 for label in others})
+
+    def same(got, ref):
+        return got[0].shape == ref[0].shape and got[1].dtype == torch.int32 and \
+            torch.equal(got[1], ref[1]) and \
+            torch.equal(got[0].view(torch.int32), ref[0].view(torch.int32))
+
     for site, n, k in APPROX_SITES:
         for recall in (0.90, 0.99) + ((1.0,) if n == N_VIDEOS_FULL else ()):
             m = apx.bins(n, k, recall)
@@ -542,10 +557,8 @@ def phase_approx_topk(dev, apx):
                 x = approx_rows(kind, n, k, gen, dev)
                 kv, ki = apx.approx_max_k(x, k, recall)
                 torch.cuda.synchronize()
-                pv, pi = apx.approx_max_k_plain(x, k, recall)
-                if kv.shape != (N_QUERIES, k) or ki.dtype != torch.int32 or not (
-                        torch.equal(ki, pi) and torch.equal(kv.view(torch.int32),
-                                                            pv.view(torch.int32))):
+                if kv.shape != (N_QUERIES, k) or not same((kv, ki),
+                                                          apx.approx_max_k_plain(x, k, recall)):
                     raise AssertionError(f"B11 {site} (n={n}, k={k}, recall {recall}, M={m}, "
                                          f"{kind} rows) differs from its plain version")
                 if kind == "int8 grid":
@@ -560,26 +573,44 @@ def phase_approx_topk(dev, apx):
                     f"bins; values and indices equal on the four kinds of rows (at least {ties} "
                     f"int8-grid elements at the cut); mean recall on normal rows {got:.4f} "
                     + ("(M = n: exact)" if m == n else f"(formula {predicted:.4f})"))
+            log("kernels", note)
             if recall != SHIPPED_RECALL:
-                log("kernels", note)
                 continue
-            ms, pms = alternate_ms(lambda: apx.approx_max_k_plain(x, k, recall),
-                                   lambda: apx.approx_max_k(x, k, recall), reps=32,
-                                   blocker=blocker)
-            lms = cuda_ms(lambda: torch.topk(x, k, dim=-1), reps=32, blocker=blocker)
-            bnd = bound(4 * x.numel() + 8 * kv.numel(), 0)
-            log("kernels", f"{note}; {ms * 1e3:.1f} us vs plain {pms * 1e3:.1f} us vs torch.topk "
-                f"(exact) {lms * 1e3:.1f} us; bound {bnd['bound_ms'] * 1e3:.2f} us by bytes, "
-                f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate")
-            rec["per_site"][site] = dict(n=n, k=k, bins=m, ms=ms, plain_ms=pms, library_ms=lms,
-                                         bound_ms=bnd["bound_ms"], recall=got,
-                                         recall_formula=predicted)
-            for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                             ("bound_ms", bnd["bound_ms"])):
-                rec[key] += val
-    log("kernels", f"B11, a shipped batch's three launches: {rec['ms'] * 1e3:.1f} us vs plain "
-        f"{rec['plain_ms'] * 1e3:.1f} us vs torch.topk {rec['library_ms'] * 1e3:.1f} us; bound "
-        f"{rec['bound_ms'] * 1e3:.2f} us, {100 * rec['bound_ms'] / rec['ms']:.1f}% of its rate")
+            per = rec["per_site"][site] = dict(n=n, k=k, bins=m, recall=got,
+                                               recall_formula=predicted)
+            for kind in ("normal", "int8 grid"):
+                x = x if kind == "normal" else approx_rows(kind, n, k, gen, dev)
+                kernel = lambda: apx.approx_max_k(x, k, recall)
+                ms, pms = alternate_ms(lambda: apx.approx_max_k_plain(x, k, recall), kernel,
+                                       reps=32, blocker=blocker)
+                lms = cuda_ms(lambda: torch.topk(x, k, dim=-1), reps=32, blocker=blocker)
+                bnd = bound(4 * x.numel() + 8 * N_QUERIES * k, 0)
+                r = per[kind] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                                     bound_ms=bnd["bound_ms"],
+                                     share_of_bound=bnd["bound_ms"] / ms)
+                beside = ""
+                b6 = {"B6": lambda x, k, recall: tsort.topk_transposed(x, k)} if m == n else {}
+                for label, other in {**others, **b6}.items():
+                    if not same(other(x, k, recall), apx.approx_max_k_plain(x, k, recall)):
+                        raise AssertionError(f"B11 {site} ({kind} rows): the {label}'s kernel "
+                                             "differs from the plain version")
+                    this_ms, r[f"{label}_ms"] = alternate_ms(
+                        lambda: other(x, k, recall), kernel, reps=32, blocker=blocker)
+                    beside += (f"; {label}'s kernel {r[f'{label}_ms'] * 1e3:.1f} us beside this "
+                               f"one's {this_ms * 1e3:.1f} (in turns)")
+                log("kernels", f"B11 {site} at recall {recall}, {kind} rows: {ms * 1e3:.1f} us "
+                    f"vs plain {pms * 1e3:.1f} us vs torch.topk (exact) {lms * 1e3:.1f} us; "
+                    f"bound {bnd['bound_ms'] * 1e3:.2f} us by bytes, "
+                    f"{100 * r['share_of_bound']:.1f}% of its rate{beside}")
+                if kind == "normal":
+                    for key, val in r.items():
+                        if key in rec:
+                            rec[key] += val
+    log("kernels", f"B11, a shipped batch's three launches (normal rows): "
+        f"{rec['ms'] * 1e3:.1f} us vs plain {rec['plain_ms'] * 1e3:.1f} us vs torch.topk "
+        f"{rec['library_ms'] * 1e3:.1f} us; bound {rec['bound_ms'] * 1e3:.2f} us, "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of its rate"
+        + "".join(f"; {label}'s kernel {rec[f'{label}_ms'] * 1e3:.1f} us" for label in others))
     return rec
 
 
@@ -1490,23 +1521,34 @@ def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
     return rec
 
 
-def load_parent_b8(parent_dir: str):
-    """The B8 entry point of the commit in ``parent_dir``, built from its
-    csrc/banded_topk.cu (the same C signature), as a function of this
-    wrapper's arguments returning the four outputs."""
+def checkout_entry(checkout: str, name: str):
+    """The entry point of library ``name`` of the commit in ``checkout`` (a
+    git archive), built from its csrc source (the same C signature as this
+    commit's) with this build's flags into that checkout's _build directory."""
     import ctypes
 
     from tvretrieval_tpu_torch.ops import _build
 
-    src = os.path.join(parent_dir, "tvretrieval_tpu_torch", "csrc", "banded_topk.cu")
-    lib_dir = os.path.join(parent_dir, "tvretrieval_tpu_torch", "_build")
+    src = os.path.join(checkout, "tvretrieval_tpu_torch", "csrc", f"{name}.cu")
+    lib_dir = os.path.join(checkout, "tvretrieval_tpu_torch", "_build")
     os.makedirs(lib_dir, exist_ok=True)
-    lib_path = os.path.join(lib_dir, "libbanded_topk_parent.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src], check=True,
-                   capture_output=True)
-    fn = ctypes.CDLL(lib_path).tvr_banded_topk
-    fn.argtypes = _build.SOURCES["banded_topk"][1]["tvr_banded_topk"]
+    lib_path = os.path.join(lib_dir, f"lib{name}_parent.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src],
+                          check=True, capture_output=True, text=True)
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            log("build", f"{name} of {checkout}: {line.strip()}")
+    (entry, argtypes), = _build.SOURCES[name][1].items()
+    fn = getattr(ctypes.CDLL(lib_path), entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    return fn
+
+
+def load_parent_b8(parent_dir: str):
+    """The B8 of the commit in ``parent_dir`` as a function of this
+    wrapper's arguments returning the four outputs."""
+    fn = checkout_entry(parent_dir, "banded_topk")
 
     def call(st, ed, vs, min_l, max_l, top_n):
         nq, v, L = st.shape
@@ -1519,6 +1561,27 @@ def load_parent_b8(parent_dir: str):
         if err:
             raise RuntimeError(f"the parent's B8 failed with CUDA error {err}")
         return outs
+
+    return call
+
+
+def load_b11(checkout: str):
+    """The B11 of the commit in ``checkout`` as a function of
+    ``approx_max_k``'s arguments (contiguous f32 rows) returning (values,
+    indices)."""
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
+
+    fn = checkout_entry(checkout, "approx_topk")
+
+    def call(x, k, recall):
+        nq, n = x.shape
+        vals = torch.empty((nq, k), dtype=torch.float32, device=x.device)
+        idx = torch.empty((nq, k), dtype=torch.int32, device=x.device)
+        err = fn(x.data_ptr(), nq, n, apx.bins(n, k, recall), k, vals.data_ptr(),
+                 idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the B11 of {checkout} failed with CUDA error {err}")
+        return vals, idx
 
     return call
 
@@ -1669,7 +1732,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rec["B6"] = phase_topk_sort(dev, tsort)
     torch.cuda.empty_cache()
-    rec["B11"] = phase_approx_topk(dev, apx)
+    rec["B11"] = phase_approx_topk(
+        dev, apx, {"parent": load_b11(args.parent)} if args.parent else None)
     torch.cuda.empty_cache()
 
     for ops in (vs, tsort, apx):

@@ -30,10 +30,14 @@ top_n lowest flat indices), negative values and 0.0 / -0.0, V = L = W = 1,
 top_n = 1 and 256, 131 and 4,000 queries, rows past one chunk (V = 2,000),
 unsorted video scores. Approximate top-k (B11, csrc/approx_topk.cu): the
 engine's three sites at recall 0.9 and 0.99, M above one pass's 16,384 bins
-(recall 1.0 at 21,818 and a bucketed 100,096), M = n (exact, equal to B6),
-k = 1, k = M = 256, k above 256 (the shared-memory sort), rows of ties on the
-int8 score grid, one repeated value, 0.0 / -0.0 and -inf pads, a strided
-and a bf16 input.
+(recall 1.0 at 21,818 and a bucketed 100,096), M = n (exact, equal to B6 in
+value bits and indices, odd n among them), k = 1, k = M = 256, k above 256
+(the shared-memory sort), rows of ties on the int8 score grid, one repeated
+value, 0.0 / -0.0 and -inf pads, a strided and a bf16 input; the bin pass
+on odd n (one bin a thread, 4-byte loads) beside the paired one, on rows
+that start 4 bytes past an 8-byte boundary (a compacted x[:, 1:] and a
+contiguous view one element in), on bins of 2 and 3-4 elements carried
+across chunks, and on bins of more than 65,536 elements (32-bit steps).
 
 Every test carries the ``cuda`` marker and skips (its ``dev`` fixture)
 without a CUDA card. Imports no JAX, so on a machine with the card it runs
@@ -981,6 +985,46 @@ def test_b11_where_bins_are_elements_equals_b6(dev, n, k):
     kv, ki = _b11_same(x, k, recall)
     bv, bi = tsort.topk_transposed(x, k)
     assert torch.equal(ki, bi) and torch.equal(kv, bv)
+
+
+@pytest.mark.parametrize("kind", ["normal", "int8_grid", "equal", "pads"])
+@pytest.mark.parametrize("n,k,recall,view", [
+    (21817, 100, 0.9, "rows"),          # odd n: one bin a thread, 4-byte loads
+    (10001, 200, 0.9, "rows"),
+    (21817, 100, 0.9, "from_col_1"),    # x[:, 1:] of an even width, compacted: odd n
+    (21818, 100, 0.9, "offset"),        # rows 4 bytes past an 8-byte boundary, even n
+    (10000, 200, 0.9, "offset"),
+    (2800, 200, 0.9, "offset"),
+    (21818, 100, 1.0, "rows"),          # 21,818 bins: carried across two chunks
+    (200000, 100, 0.999, "rows"),       # 100,096 bins of two elements: seven chunks
+    (200000, 100, 0.999, "offset"),
+    (50000, 100, 0.99, "rows"),         # 12,544 bins of 3-4 elements
+    (10000, 300, 0.99, "rows"),         # k > 256: the shared-memory sort
+    (60000, 1024, 0.999, "rows"),
+    (5000, 256, 0.1, "offset"),         # M = k: every bin kept, no select
+    (8500000, 1, 0.9, "rows")])         # 128 bins of 66,407 elements: 32-bit steps
+def test_b11_paired_scalar_and_chunked_bin_paths_equal_plain(dev, kind, n, k, recall, view):
+    nq = 3 if n * k > 2e7 or n > 1e6 else 19
+    if view == "from_col_1":
+        x = _b11_rows(dev, kind, nq, n + 1, n)[:, 1:]
+        assert not x.is_contiguous()
+    elif view == "offset":
+        x = _b11_rows(dev, kind, 1, nq * n + 1, n).view(-1)[1:].view(nq, n)
+        assert x.is_contiguous() and x.data_ptr() % 8 == 4
+    else:
+        x = _b11_rows(dev, kind, nq, n, n + k)
+    _b11_same(x, k, recall)
+
+
+@pytest.mark.parametrize("kind", ["normal", "int8_grid", "equal", "pads"])
+@pytest.mark.parametrize("n,k,recall", [(2799, 200, 0.9), (2800, 200, 0.9), (1364, 100, 1.0),
+                                        (10000, 200, 0.99), (10000, 300, 0.99), (128, 128, 0.9)])
+def test_b11_where_m_is_n_equals_b6_on_every_kind(dev, kind, n, k, recall):
+    assert apx.bins(n, k, recall) == n
+    x = _b11_rows(dev, kind, 11, n, n + k)
+    kv, ki = _b11_same(x, k, recall)
+    bv, bi = tsort.topk_transposed(x, k)
+    assert torch.equal(ki, bi) and torch.equal(kv.view(torch.int32), bv.view(torch.int32))
 
 
 def test_b11_rows_of_one_value_keep_the_first_k_bins_and_inputs_are_widened(dev):

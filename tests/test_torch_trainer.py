@@ -290,6 +290,43 @@ def test_start_training_learns_on_cpu(tmp_path, monkeypatch):
     assert res2["final_metrics"]["VR"]["r5"] > 0
 
 
+def test_eval_context_batches_are_kept_on_disk(tmp_path, monkeypatch):
+    """--prebuild_cache_dir keeps the host-built eval context batches in
+    eval_ctx_batches.pkl, as the JAX train_xml does: the first run writes it
+    after its first evaluation, a second run reads it and builds no context
+    batch in its evaluations, and both runs evaluate alike."""
+    cache_dir = tmp_path / "cache"
+    built = {"eval": 0}
+    build = ExampleBuilder.build_context_batch
+    fast = train_xml.evaluate_retrieval_fast
+    in_eval = []
+
+    def counting_build(self, *a, **kw):
+        built["eval"] += bool(in_eval)
+        return build(self, *a, **kw)
+
+    def counting_fast(*a, **kw):
+        in_eval.append(1)
+        try:
+            return fast(*a, **kw)
+        finally:
+            in_eval.pop()
+
+    monkeypatch.setattr(ExampleBuilder, "build_context_batch", counting_build)
+    monkeypatch.setattr(train_xml, "evaluate_retrieval_fast", counting_fast)
+    argv = TINY + ["--device", "cpu", "--n_epoch", "2", "--eval_untrained",
+                   "--prebuild_cache_dir", str(cache_dir), "--results_root", str(tmp_path)]
+    logs = []
+    for run in ("first", "second"):
+        built["eval"] = 0
+        res = train_xml.start_training(argv + ["--exp_id", run])
+        logs.append(open(os.path.join(res["results_dir"], "eval.log.txt")).read())
+        assert (cache_dir / "eval_ctx_batches.pkl").exists()
+        # 16 videos in context batches of 8: built once, then reused
+        assert built["eval"] == (2 if run == "first" else 0), (run, built)
+    assert logs[0] == logs[1] and logs[0].count("[epoch") == 3
+
+
 def test_start_inference_reads_the_run_back(tmp_path):
     """The standalone inference CLI on a run directory of the trainer:
     same weights (one epoch, so the checkpoint is the final model), so the

@@ -10,17 +10,23 @@
 //                  8-bit passes from the top, each a 256-bin histogram of
 //                  the keys that still match the chosen prefix. Each warp
 //                  counts into its own sub-histogram, and lanes holding the
-//                  same digit add once (__match_any_sync), so that rows full
-//                  of ties do not serialise on one bin. A pass whose chosen
-//                  bin holds exactly the keys still needed ends the search;
+//                  same digit add once (count_digit: __match_any_sync), so
+//                  that rows full of ties do not serialise on one bin (B11
+//                  adds lane by lane: on the H100 that is the faster of the
+//                  two there). A pass whose chosen bin holds exactly the
+//                  keys still needed ends the search. A caller that counted
+//                  the top digits while it wrote the keys (B11) skips the
+//                  first count;
 //   compact        exactly k survivors: every key above the prefix and the
 //                  first `need` keys equal to it in position order, by one
 //                  block prefix sum over per-thread counts of contiguous
 //                  stretches;
 //   sort_desc      a bitonic network over one 64-bit (key, ~position)
 //                  composite a thread: __shfl_xor_sync below stride 32,
-//                  shared memory above; sort_desc_smem the same network
-//                  over more composites than threads, in shared memory.
+//                  shared memory above; sort_desc_span the same network
+//                  unrolled for a span fixed at compile time, on the warps
+//                  that hold it; sort_desc_smem over more composites than
+//                  threads, in shared memory.
 // A floor key `least` leaves every key below it out of the selection: a
 // caller that knows at least k keys reach it passes it (B8), the others 0.
 // Keys, counts and moves only: exact, ties in position order.
@@ -80,38 +86,71 @@ __device__ uint32_t block_scan(uint32_t v, uint32_t* warp_tot, uint32_t& total) 
   return v + base;
 }
 
+// One digit a lane into its warp's sub-histogram `wh` (kBins words); d =
+// kBins counts nothing. kAggregate: lanes holding the same digit add once
+// (__match_any_sync; every lane of the warp calls it), else each lane adds
+// its own (the shared-memory atomics serialise equal digits of a warp).
+template <bool kAggregate = true>
+__device__ __forceinline__ void count_digit(uint32_t* wh, uint32_t d) {
+  if (!kAggregate) {
+    if (d < kBins) atomicAdd(&wh[d], 1u);
+    return;
+  }
+  const uint32_t peers = __match_any_sync(0xffffffffu, d);
+  if (d < kBins && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&wh[d], __popc(peers));
+}
+
 // The k-th largest of keys[0, n) at or above `least` (at least k of them
 // reach it), as (prefix, mask, need): the k best are the keys with (key &
 // mask) > prefix, and the first `need` with (key & mask) == prefix and key
 // >= least. `hist`: kWarps * kBins words; `sel`: 3 words. kSkipIdle: a warp
 // whose lanes hold no counted key skips the histogram update (worth it when
-// the floor leaves most keys out).
-template <bool kSkipIdle>
+// the floor leaves most keys out). kFirstCounted: `hist` already holds the
+// top digits (key >> 24) of keys[0, n), counted with count_digit into the
+// warps' sub-histograms, and a barrier has passed since. kAggregate: as in
+// count_digit; without it the keys are read 16 bytes at a time (`keys`
+// 16-byte aligned) and kSkipIdle does not apply.
+template <bool kSkipIdle, bool kFirstCounted = false, bool kAggregate = true>
 __device__ __forceinline__ void radix_select(const uint32_t* keys, int n, uint32_t k,
                                              uint32_t least, uint32_t* hist,
                                              uint32_t* warp_tot, uint32_t* sel,
                                              uint32_t& prefix, uint32_t& mask,
                                              uint32_t& need) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
   prefix = 0u;
   mask = 0u;
   need = k;
   for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < kWarps * kBins; i += kThreads) hist[i] = 0u;
-    __syncthreads();
-    uint32_t* wh = hist + warp * kBins;
-    for (int base = 0; base < n; base += kThreads) {
-      const int i = base + tid;
-      uint32_t d = kBins;                 // no bin: out of the row, off the prefix, below the floor
-      if (i < n) {
-        const uint32_t key = keys[i];
-        if ((key & mask) == prefix && key >= least) d = (key >> shift) & 255u;
+    if (!kFirstCounted || shift != 24) {
+      for (int i = tid; i < kWarps * kBins; i += kThreads) hist[i] = 0u;
+      __syncthreads();
+      uint32_t* wh = hist + warp * kBins;
+      if (kAggregate) {
+        for (int base = 0; base < n; base += kThreads) {
+          const int i = base + tid;
+          uint32_t d = kBins;             // no bin: out of the row, off the prefix, below the floor
+          if (i < n) {
+            const uint32_t key = keys[i];
+            if ((key & mask) == prefix && key >= least) d = (key >> shift) & 255u;
+          }
+          if (kSkipIdle && !__any_sync(0xffffffffu, d < kBins)) continue;
+          count_digit(wh, d);
+        }
+      } else {                            // four keys a 16-byte read, each lane adding its own
+        auto count = [&](uint32_t key) {
+          if ((key & mask) == prefix && key >= least) atomicAdd(&wh[(key >> shift) & 255u], 1u);
+        };
+        for (int q = tid; q < (n >> 2); q += kThreads) {
+          const uint4 v = reinterpret_cast<const uint4*>(keys)[q];
+          count(v.x);
+          count(v.y);
+          count(v.z);
+          count(v.w);
+        }
+        for (int i = (n & ~3) + tid; i < n; i += kThreads) count(keys[i]);
       }
-      if (kSkipIdle && !__any_sync(0xffffffffu, d < kBins)) continue;
-      const uint32_t peers = __match_any_sync(0xffffffffu, d);
-      if (d < kBins && lane == __ffs(peers) - 1) atomicAdd(&wh[d], __popc(peers));
+      __syncthreads();
     }
-    __syncthreads();
     const uint32_t b = kBins - 1 - tid;   // thread 0 holds the top bin
     uint32_t c = 0u;
 #pragma unroll
@@ -179,6 +218,34 @@ __device__ __forceinline__ uint64_t sort_desc(uint64_t c, int span, uint64_t* bu
         __syncthreads();
         buf[tid] = c;
         __syncthreads();
+        o = buf[tid ^ j];
+      } else {
+        o = __shfl_xor_sync(0xffffffffu, c, j);
+      }
+      const bool keep_max = ((tid & size) == 0) == ((tid & j) == 0);
+      c = keep_max ? (c > o ? c : o) : (c < o ? c : o);
+    }
+  }
+  return c;
+}
+
+// sort_desc over a span known at compile time (32 to kThreads), the network
+// unrolled, called by the first kSpan threads only: the strides of 32 and
+// above meet at named barrier 1 of kSpan threads, and the other warps take
+// no part.
+template <int kSpan>
+__device__ __forceinline__ uint64_t sort_desc_span(uint64_t c, uint64_t* buf) {
+  static_assert(kSpan >= 32 && kSpan <= kThreads && (kSpan & (kSpan - 1)) == 0, "span");
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int size = 2; size <= kSpan; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      uint64_t o;
+      if (j >= 32) {
+        asm volatile("bar.sync 1, %0;" ::"r"(kSpan) : "memory");
+        buf[tid] = c;
+        asm volatile("bar.sync 1, %0;" ::"r"(kSpan) : "memory");
         o = buf[tid ^ j];
       } else {
         o = __shfl_xor_sync(0xffffffffu, c, j);

@@ -117,7 +117,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "and host copy time)")
     p.add_argument("--prebuild_cache_dir", type=str, default=None,
                    help="directory pickling the prebuilt example arrays "
-                        "across runs")
+                        "and the eval context batches across runs")
     p.add_argument("--device_data", action="store_true",
                    help="device-resident corpus training (data/device_corpus.py)"
                         ": context features live on the device (quantized), "
@@ -491,14 +491,31 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
     save = lambda epoch: save_checkpoint(ckpt_dir, model.state_dict(),
                                          trainer.optimizer.state_dict(), model_cfg, epoch)
     eval_kw = dict(tasks=settings.eval_tasks, device_data=device_data)
-    # host-built context batches, reused by every epoch's corpus encoding
-    fast_kw = dict(eval_kw, ctx_batch_cache=[])
+    # host-built context batches, reused by every epoch's corpus encoding and,
+    # under --prebuild_cache_dir, by later runs (eval_ctx_batches.pkl)
+    ctx_batch_cache: list = []
+    ctx_cache_path = (os.path.join(args.prebuild_cache_dir, "eval_ctx_batches.pkl")
+                      if args.prebuild_cache_dir else None)
+    if ctx_cache_path and os.path.exists(ctx_cache_path):
+        logger.info("loading eval context-batch cache from %s", ctx_cache_path)
+        with open(ctx_cache_path, "rb") as f:
+            ctx_batch_cache = pickle.load(f)
+
+    def save_ctx_cache():
+        """Write the batches after the first evaluation that built them."""
+        if ctx_cache_path and ctx_batch_cache and not os.path.exists(ctx_cache_path):
+            os.makedirs(args.prebuild_cache_dir, exist_ok=True)
+            dump_pickle_throttled(ctx_batch_cache, ctx_cache_path)
+            logger.info("cached eval context batches to %s", ctx_cache_path)
+
+    fast_kw = dict(eval_kw, ctx_batch_cache=ctx_batch_cache)
     metrics_logger = MetricsLogger(results_dir)
     with open(os.path.join(results_dir, "train.log.txt"), "a") as train_log, \
             open(os.path.join(results_dir, "eval.log.txt"), "a") as eval_log:
         if args.eval_untrained and eval_rows:
             metrics, _ = evaluate_retrieval_fast(model, builder, corpus, eval_rows,
                                                  args, **fast_kw)
+            save_ctx_cache()
             eval_log.write(f"[epoch -1] {json.dumps(metrics)}\n")
             eval_log.flush()
             logger.info("untrained eval: %s", json.dumps(
@@ -533,6 +550,7 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
             else:
                 metrics, eval_arrays = evaluate_retrieval_fast(
                     model, builder, corpus, eval_rows, args, **fast_kw)
+                save_ctx_cache()    # the first epoch fills it without --eval_untrained
             eval_log.write(f"[epoch {epoch}] {json.dumps(metrics)}\n")
             eval_log.flush()
             if eval_losses:
