@@ -74,10 +74,23 @@ Run from the repository root on a machine with one CUDA card. Phases:
    each call (B9 / B10 on a mask with one fully and one partly masked video
    planted, the fully masked one exactly -1e10 in kernel and stage), and
    in the second B7-B10 must each launch;
-10. a ``kernels`` JSON line (``launches`` counted over phase 4 for B1-B3,
-   B5, B6 and B11, over phase 7 for B4 and over phase 9 for B7-B10,
-   ``launches_throughput`` over phase 5);
-11. the last line: ``{"ok": true, "device": {...}}``.
+10. the XML variants (LSTM, GRU and CNN encoders, video- and
+   subtitle-only, "w/o merge", "w/o cross-att", ``cat_linear``, stacked
+   ConvSE, ``no_modular``, bf16 compute) at the flagship's widths with
+   seeded weights: (a) each through ``encode_corpus`` + ``retrieve`` on
+   phase 4's corpus, card against CPU (phase 4's f32 bounds, wider ones
+   stated for the recurrent encoders and bf16), the merged-head variants in
+   the f32 kernel modes (B2), the others on the JAX engine's second branch
+   (B6 under psort); (b) the "w/o merge" XML through
+   ``_score_query_batch`` at 21,818 videos x 1,000 queries, exact, psort
+   (B6; equal to the exact run) and approx at recall 0.90 (B11; each
+   site's recall), q/s and peak memory; (c) the bf16 and the LSTM XML
+   trained on phase 7's resident world: first-batch loss card against
+   CPU, a falling loss, ms a step beside phase 7's;
+11. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
+   B1-B3, B5, B6 and B11, over phases 7 and 10 for B4 and over phase 9 for
+   B7-B10, ``launches_throughput`` over phase 5);
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
 package directory) runs that commit's phases 3, 5 and 8 in a process of
@@ -649,7 +662,8 @@ def phase_end_to_end(dev, card_repeats=1):
     CPU (plain versions) with the same seeded weights; returns the card
     run's metrics. The int8 runs' scores must lie on the int8 grid on both
     devices; ``card_repeats`` > 1 runs each int8 run's card side that many
-    times, each on the grid and equal to the first in every array."""
+    times, each on the grid and equal to the first in every array. Also
+    returns (world, builder) for phase 10."""
     from tvretrieval_tpu_torch.data.datasets import ExampleBuilder
     from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
     from tvretrieval_tpu_torch.evaluation.metrics import eval_retrieval_arrays
@@ -841,7 +855,7 @@ def phase_end_to_end(dev, card_repeats=1):
             metrics = eval_retrieval_arrays(
                 rows, world.corpus.video2idx, vcmr=gpu["VCMR"][:2],
                 svmr=gpu["SVMR"][:2], vr=gpu["VR"][0])
-    return metrics
+    return metrics, (world, builder)
 
 
 def device_time_ms(prof) -> float:
@@ -1140,7 +1154,8 @@ def phase_gather(dev, gt):
 
 def phase_train(dev, gt, gather_rec, profile_dir):
     """Phase 7: XMLTrainer on the GPU-resident float8 corpus at full width.
-    Returns B4's launch count over the train and eval-loss epochs."""
+    Returns B4's launch count over the train and eval-loss epochs, and the
+    resident world and the f32 step time for phase 10."""
     from tvretrieval_tpu_torch.data.datasets import ExampleBuilder
     from tvretrieval_tpu_torch.data.device_corpus import assemble_batch, build_device_data
     from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
@@ -1303,7 +1318,8 @@ def phase_train(dev, gt, gather_rec, profile_dir):
             f"measured without the profiler ({wall_ms:.2f} ms per step under it)")
         print(events.table(sort_by="self_cuda_time_total", row_limit=30,
                            max_name_column_width=70), flush=True)
-    return launches
+    return launches, dict(builder=builder, dd=dd, train_rows=train_rows, step_ms=step_ms,
+                          settings=settings)
 
 
 def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
@@ -1519,6 +1535,324 @@ def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
             f"plain (joint + stable torch.sort, 125 queries at a time) {pms:.3f} ms; "
             f"{bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate{note}")
     return rec
+
+
+# ---------------------------------------------------------------- phase 10
+# the XML variants at the flagship's widths (bench.py:62-65): the JAX
+# package's encoder choices and ablations, and bf16 compute
+VARIANTS = {
+    "lstm": dict(encoder_type="lstm"),
+    "gru": dict(encoder_type="gru"),
+    "cnn": dict(encoder_type="cnn"),
+    "video": dict(ctx_mode="video", cross_att=False, merge_two_stream=False),
+    "sub": dict(ctx_mode="sub", cross_att=False, merge_two_stream=False),
+    "no_merge": dict(merge_two_stream=False),
+    "no_cross_att": dict(cross_att=False),
+    "cat_linear": dict(span_predictor_type="cat_linear", merge_two_stream=False),
+    "stack_conv": dict(stack_conv_predictor_conv_kernel_sizes=(3, 5)),
+    "no_modular": dict(no_modular=True),
+    "bf16": dict(dtype_str="bfloat16"),
+}
+# card against CPU on phase 4's corpus, (q2c atol, span rtol): phase 4's
+# f32 bounds (1e-6, 3e-5) where the path has the flagship's kinds of ops;
+# wider, with the reason:
+# - LSTM / GRU: cuDNN sums each recurrent product in its own order, and an
+#   error made at one step is carried through the next 99: 10x phase 4's;
+# - bf16 compute: a rounding that the card's summation order moves across
+#   a bf16 boundary changes the values downstream by about one bf16 step
+#   (2^-8 relative): a unit-vector cosine by up to 2^-8, a span logit by a
+#   step of itself, its probability by about as much.
+VARIANT_TOL = {"lstm": (1e-5, 3e-4), "gru": (1e-5, 3e-4), "bf16": (2.0 ** -8, 0.1)}
+# first-batch loss, card against CPU, on phase 7's world: f32 as phase 7;
+# bf16 one bf16 step of the loss (a flipped rounding moves a logit by a
+# step; the mean over 128 rows does not add such moves up)
+BF16_LOSS_RTOL = 2.0 ** -8
+VARIANT_STEPS = 16                 # optimizer steps of each trained variant
+NO_MERGE_QUERY_BSZ = 100           # the "w/o merge" branch holds (Nq, Nv, L) probabilities
+
+
+def variant_cfg(name):
+    from tvretrieval_tpu_torch.models.xml import XMLConfig
+    return XMLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768,
+                     hidden_size=HIDDEN, n_heads=4, max_ctx_l=N_CLIPS, max_desc_l=30,
+                     **VARIANTS[name])
+
+
+def variant_modes(name):
+    """A variant's engine modes: with the merged head, phase 4's f32 kernel
+    modes (B2-f32 video scores, the f32 concatenated sweep); without it,
+    the JAX engine's second branch with an exact span top-k mode (B6 under
+    psort). The approximate selection is not held to the CPU here: the
+    second branch's one-stream probabilities of random weights are flat,
+    so f32 slack swaps bin winners (50 of 600 moments differed on an
+    H100); 10b measures its recall instead."""
+    from tvretrieval_tpu_torch.retrieval.engine import RetrievalConfig
+    if variant_cfg(name).merged_spans:
+        return RetrievalConfig(video_score_mode="pallas", cache_dtype_str="float32",
+                               span_score_mode="simsweep_cat", span_sim_pad_l=128,
+                               span_topk_mode="grouped_shift", query_bsz=100)
+    topk = {"video": "grouped_shift_psort", "sub": "grouped",
+            "no_merge": "grouped_shift", "cat_linear": "grouped_shift_psort"}[name]
+    return RetrievalConfig(span_topk_mode=topk, query_bsz=100)
+
+
+def phase_variants_e2e(dev, e2e_world):
+    """Phase 10a: each variant with seeded weights through encode_corpus +
+    retrieve on the card and on the CPU (phase 4's corpus), compared as
+    phase 4 compares them; every variant is reported before a failure
+    raises."""
+    from tvretrieval_tpu_torch.models.xml import XML
+    from tvretrieval_tpu_torch.retrieval.engine import encode_corpus, retrieve
+    from tvretrieval_tpu_torch.testing import rank_mismatches, within
+
+    world, builder = e2e_world
+    rows = world.annotations
+    clip = world.clip_length
+    span_key = lambda v, s: ((v.astype(np.int64) * 1000 + np.rint(s[..., 0] / clip)) * 1000
+                             + np.rint(s[..., 1] / clip))
+    def run(model, rcfg):
+        with torch.no_grad():
+            out = retrieve(model, builder, encode_corpus(model, builder, world.corpus, rcfg),
+                           rows, world.corpus, rcfg, return_arrays=True)
+        return out, time.perf_counter()
+
+    failed = []
+    # the CPU side of a variant runs on a second host thread while the card
+    # side runs on this one
+    with ThreadPoolExecutor(1) as pool:
+        for name in VARIANTS:
+            t0 = time.perf_counter()
+            rcfg = variant_modes(name)
+            model_cpu = XML(variant_cfg(name)).init_weights(
+                torch.Generator().manual_seed(0)).eval()
+            model_gpu = copy.deepcopy(model_cpu).to(dev)
+            cpu_job = pool.submit(run, model_cpu, rcfg)
+            gpu, _ = run(model_gpu, rcfg)
+            torch.cuda.synchronize()
+            t_gpu = time.perf_counter() - t0
+            cpu, t_cpu = cpu_job.result()
+            q2c_tol, span_rtol = VARIANT_TOL.get(name, (1e-6, 3e-5))
+            for task, (vid, spans, scores) in gpu.items():
+                if not (np.isfinite(scores).all() and np.isfinite(spans).all()):
+                    raise AssertionError(f"variant {name} {task}: non-finite output")
+                if vid.shape != cpu[task][0].shape:
+                    raise AssertionError(f"variant {name} {task}: shape {vid.shape}")
+            ref_s = np.log(cpu["VR"][2].astype(np.float64)) / rcfg.q2c_alpha
+            got_s = np.log(gpu["VR"][2].astype(np.float64)) / rcfg.q2c_alpha
+            ok = within(ref_s, got_s, atol=q2c_tol)
+            bad_v = rank_mismatches(cpu["VR"][0], ref_s, gpu["VR"][0], atol=2 * q2c_tol)
+            rtol = span_rtol + np.expm1(rcfg.q2c_alpha * q2c_tol)
+            bad_s, span_err = 0, 0.0
+            for task in ("VCMR", "SVMR"):
+                vid, spans, scores = gpu[task]
+                rvid, rspans, rscores = cpu[task]
+                span_err = max(span_err, float(np.max(np.abs(scores - rscores)
+                                                      / np.maximum(np.abs(rscores), 1e-30))))
+                ok = ok and within(rscores, scores, rtol=rtol)
+                bad_s += rank_mismatches(span_key(rvid, rspans), rscores, span_key(vid, spans),
+                                         rtol=2 * rtol)
+            log("variants", f"{name} ({rcfg.video_score_mode} + {rcfg.span_topk_mode}): card "
+                f"{t_gpu:.2f} s, CPU {t_cpu - t0:.2f} s (side by side); top-V q2c max |d| "
+                f"{np.abs(got_s - ref_s).max():.3e} (tol {q2c_tol:.1e}), ranking mismatches "
+                f"outside near-ties {bad_v}; span scores max rel |d| {span_err:.3e} (rtol "
+                f"{rtol:.1e}), span mismatches outside near-ties {bad_s}")
+            if not ok or bad_v or bad_s:
+                failed.append(name)
+    if failed:
+        raise AssertionError(f"variants {failed}: the card disagrees with the CPU")
+
+
+def phase_variants_corpus(dev, profile_dir=""):
+    """Phase 10b: the "w/o merge" XML through _score_query_batch at the full
+    corpus (21,818 videos x 1,000 queries) on the JAX engine's second
+    branch: the exact span top-k, grouped_shift_psort (B6; equal to the
+    exact run in every output) and grouped_shift_approx at recall 0.90
+    (B11; each site's mean tie-aware recall on its own rows). q/s by CUDA
+    events over the 1,000 queries in batches of NO_MERGE_QUERY_BSZ, after
+    one warm-up batch; peak memory. ``profile_dir``: also a torch.profiler
+    table and trace of one batch of the exact run."""
+    from tvretrieval_tpu_torch.models.xml import XML
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
+    from tvretrieval_tpu_torch.ops import sort as tsort
+    from tvretrieval_tpu_torch.retrieval.engine import RetrievalConfig, _score_query_batch
+    from tvretrieval_tpu_torch.testing import tie_aware_recall
+
+    nv, nq, bsz = N_VIDEOS_FULL, N_QUERIES, NO_MERGE_QUERY_BSZ
+    model = XML(variant_cfg("no_merge")).init_weights(
+        torch.Generator().manual_seed(0)).eval().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    mask = torch.ones((nv, N_CLIPS), device=dev)
+    # the cache encode_corpus leaves for this configuration: both streams'
+    # feat1 (unit rows) and feat2, f32, unflattened
+    vf1, sf1 = (unit((nv, N_CLIPS, HIDDEN), gen, dev) for _ in range(2))
+    vf2, sf2 = (torch.randn((nv, N_CLIPS, HIDDEN), generator=gen, device=dev) for _ in range(2))
+    q_feat = torch.randn((nq, 30, 768), generator=gen, device=dev)
+    q_mask = torch.ones((nq, 30), device=dev)
+    gt = torch.randint(0, nv, (nq,), generator=gen, device=dev)
+    cache_gb = 4 * (vf1.numel() + sf1.numel() + vf2.numel() + sf2.numel()) / 1e9
+    batches = [slice(i, i + bsz) for i in range(0, nq, bsz)]
+    out = {}
+    for topk in ("grouped_shift", "grouped_shift_psort", "grouped_shift_approx"):
+        rcfg = RetrievalConfig(span_topk_mode=topk, topk_approx_recall=SHIPPED_RECALL,
+                               query_bsz=bsz)
+        run = lambda b: _score_query_batch(model, rcfg, q_feat[b], q_mask[b], vf1, vf2, sf1,
+                                           sf2, mask, gt[b], True)
+        run(batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        before = {**tsort.LAUNCHES, **apx.LAUNCHES}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = [run(b) for b in batches]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        launches = {k: v - before[k] for k, v in {**tsort.LAUNCHES, **apx.LAUNCHES}.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out[topk] = {k: torch.cat([r[k] for r in res]) for k in res[0]}
+        for k, v in out[topk].items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"w/o merge ({topk}): non-finite {k}")
+        want = {"grouped_shift": {"topk_transposed": 0, "approx_max_k": 0},
+                "grouped_shift_psort": {"approx_max_k": 0},
+                "grouped_shift_approx": {"topk_transposed": 0}}[topk]
+        used = "topk_transposed" if topk.endswith("psort") else "approx_max_k"
+        if any(launches[k] != n for k, n in want.items()) or (
+                topk != "grouped_shift" and not launches[used] > 0):
+            raise AssertionError(f"w/o merge ({topk}): kernel launches {launches}")
+        if profile_dir and topk == "grouped_shift":
+            from torch.profiler import ProfilerActivity, profile
+            os.makedirs(profile_dir, exist_ok=True)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(batches[0])
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(os.path.join(profile_dir, "score_query_batch_no_merge.json"))
+            log("variants", f"w/o merge: {device_time_ms(prof):.3f} ms of device time in one "
+                f"batch of {bsz} (profiled)")
+            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+                                            max_name_column_width=60), flush=True)
+        log("variants", f"w/o merge, {topk}: Nq={nq} x Nv={nv} in {len(batches)} batches of "
+            f"{bsz}: {ms:.1f} ms = {nq * 1000.0 / ms:.1f} q/s; f32 cache {cache_gb:.2f} GB; "
+            f"peak memory {peak:.2f} GiB ({held:.2f} GiB held before); launches "
+            f"{({k: v for k, v in launches.items() if v})}")
+        if topk == "grouped_shift_approx":
+            recalls = []
+            calls = record_approx(apx, lambda: run(batches[0]))
+            for (x, k, recall, (vals, _)), site in zip(calls, ("span group select",
+                                                               "final span select")):
+                got = tie_aware_recall(torch.topk(x, k).values.cpu().numpy(),
+                                       vals.cpu().numpy())
+                recalls.append(got)
+                m = apx.bins(x.shape[1], k, recall)
+                log("variants", f"w/o merge, approx, {site}: rows ({x.shape[0]}, "
+                    f"{x.shape[1]}), k={k}, M={m} bins: mean tie-aware recall {got:.4f}")
+            if len(calls) != 2 or not min(recalls) >= SHIPPED_RECALL:
+                raise AssertionError(f"w/o merge approx: recalls {recalls} of {len(calls)} "
+                                     f"sites, target {SHIPPED_RECALL}")
+    for k, v in out["grouped_shift"].items():
+        if not torch.equal(v, out["grouped_shift_psort"][k]):
+            raise AssertionError(f"w/o merge: the psort run's {k} differs from the exact run")
+    log("variants", "w/o merge: the psort run equals the exact run in every output")
+    del vf1, sf1, vf2, sf2
+
+
+def phase_variants_train(dev, env):
+    """Phase 10c: the bf16 and the LSTM XML trained on phase 7's resident
+    float8 world: the first batch's loss on the card against the CPU, two
+    epochs of VARIANT_STEPS optimizer steps (finite, falling loss; B4 twice
+    a step), ms a step in the second beside phase 7's f32 step."""
+    from tvretrieval_tpu_torch.data.device_corpus import assemble_batch
+    from tvretrieval_tpu_torch.models.xml import XML
+    from tvretrieval_tpu_torch.ops import gather as gt
+    from tvretrieval_tpu_torch.training.xml_trainer import LOSS_KEYS, XMLTrainer
+
+    dd, builder, rows = env["dd"], env["builder"], env["train_rows"]
+    # phase 7's settings (its learning-rate schedule over 3 epochs), each
+    # epoch cut to VARIANT_STEPS steps
+    settings = dataclasses.replace(env["settings"], debug_max_steps=VARIANT_STEPS)
+    for name in ("bf16", "lstm"):
+        trainer = XMLTrainer(variant_cfg(name), settings, builder, rows, device_data=dd,
+                             device=dev)
+        order = np.arange(len(rows))
+        np.random.default_rng(settings.seed).shuffle(order)
+        chunk = dd.train_queries.chunk(order[:TRAIN_BSZ])
+        rank_gen = torch.Generator().manual_seed(3)
+        ranks = tuple(torch.randint(1, TRAIN_BSZ, (TRAIN_BSZ,), generator=rank_gen)
+                      for _ in range(2))
+        model_cpu = XML(variant_cfg(name)).eval()
+        model_cpu.load_state_dict(trainer.model.state_dict())
+        ctx_cpu = dd.ctx_table.device_arrays("cpu")
+        losses = {}
+        for where, model, ctx, device in (("card", trainer.model.eval(), dd.ctx_device, dev),
+                                          ("cpu", model_cpu, ctx_cpu, "cpu")):
+            on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            with torch.no_grad():
+                batch = assemble_batch(ctx, *map(on, chunk), max_desc_l=30,
+                                       **dd.assemble_kwargs)
+                _, loss_dict = model(**batch, lw_st_ed=settings.lw_st_ed,
+                                     neg_sample_upper=TRAIN_BSZ,
+                                     neg_ranks=tuple(r.to(device) for r in ranks))
+            losses[where] = {k: float(v) for k, v in loss_dict.items()}
+        del ctx_cpu, model_cpu
+        err = max(abs(losses["card"][k] - losses["cpu"][k]) for k in LOSS_KEYS)
+        tol = (BF16_LOSS_RTOL * max(abs(losses["cpu"][k]) for k in LOSS_KEYS)
+               if name == "bf16" else LOSS_ATOL)
+        if not err <= tol:
+            raise AssertionError(f"{name}: first-batch loss card {losses['card']} vs CPU "
+                                 f"{losses['cpu']}: {err} > {tol}")
+        b4_before = gt.LAUNCHES["gather_byte_rows"]
+        trainer.train_epoch(0)                  # the first epoch warms up; the second is timed
+        step_losses = [ld["loss_overall"] for ld in trainer.last_step_losses]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = trainer.train_epoch(1)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / out["steps"]
+        step_losses += [ld["loss_overall"] for ld in trainer.last_step_losses]
+        first, last = float(np.mean(step_losses[:4])), float(np.mean(step_losses[-4:]))
+        if not (np.isfinite(step_losses).all() and last < first):
+            raise AssertionError(f"{name}: losses {step_losses}")
+        b4 = gt.LAUNCHES["gather_byte_rows"] - b4_before
+        if b4 != 4 * VARIANT_STEPS:
+            raise AssertionError(f"{name}: B4 launched {b4} times in {2 * VARIANT_STEPS} steps")
+        log("variants", f"train {name}: first batch card vs CPU max |d| {err:.3e} (bound "
+            f"{tol:.1e}); {len(step_losses)} steps of batch {TRAIN_BSZ}: {step_ms:.2f} ms a step "
+            f"in the second epoch vs phase 7's f32 {env['step_ms']:.2f} ms; mean loss of the "
+            f"first / last 4 steps "
+            f"{first:.4f} -> {last:.4f}")
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def phase_variants(dev, e2e_world, train_env, profile_dir=""):
+    """Phase 10: the XML variants; returns the kernel launches it made
+    (counts set to 0 before it, read after it)."""
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
+    from tvretrieval_tpu_torch.ops import gather as gt
+    from tvretrieval_tpu_torch.ops import sort as tsort
+    from tvretrieval_tpu_torch.ops import video_score as vs
+
+    counters = (vs, gt, tsort, apx)
+    for ops in counters:
+        ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    phase_variants_e2e(dev, e2e_world)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    phase_variants_corpus(dev, profile_dir)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    phase_variants_train(dev, train_env)
+    launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+    log("variants", f"phase 10 took {time.perf_counter() - t0:.1f} s (10a {t1 - t0:.1f} s, "
+        f"10b {t2 - t1:.1f} s, 10c {time.perf_counter() - t2:.1f} s); kernel launches "
+        f"{({k: v for k, v in launches.items() if v})}")
+    for k in ("video_scores_flat", "topk_transposed", "approx_max_k", "gather_byte_rows"):
+        if not launches[k]:
+            raise AssertionError(f"phase 10 did not launch {k}: {launches}")
+    return launches
 
 
 def checkout_entry(checkout: str, name: str):
@@ -1738,7 +2072,7 @@ def main() -> int:
 
     for ops in (vs, tsort, apx):
         ops.reset_launch_counts()
-    metrics = phase_end_to_end(dev, args.int8_repeats)
+    metrics, e2e_world = phase_end_to_end(dev, args.int8_repeats)
     # the study kernel of ops.video_score (B9) has its own path, phase 9
     launches = {k: n for k, n in {**vs.LAUNCHES, **tsort.LAUNCHES, **apx.LAUNCHES}.items()
                 if k != "video_scores_masked"}
@@ -1754,13 +2088,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rec["B4"] = phase_gather(dev, gt)
-    launches["gather_byte_rows"] = phase_train(dev, gt, rec["B4"], args.profile)
+    launches["gather_byte_rows"], train_env = phase_train(dev, gt, rec["B4"], args.profile)
     torch.cuda.empty_cache()
 
     rec.update(phase_study_kernels(dev, vs, ceiling,
                                    load_parent_b8(args.parent) if args.parent else None))
     torch.cuda.empty_cache()
     launches.update(phase_study_path(dev))
+    torch.cuda.empty_cache()
+    for name, n in phase_variants(dev, e2e_world, train_env, args.profile).items():
+        launches[name] = launches.get(name, 0) + n
+    del e2e_world, train_env
 
     if args.parent:
         torch.cuda.empty_cache()

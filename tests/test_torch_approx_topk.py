@@ -363,7 +363,7 @@ def test_engine_at_a_bucketed_shape(setup, monkeypatch):
         got = tie_aware_recall(-np.sort(-x, axis=1)[:, :k], v.numpy())
         assert 0.5 <= got < 1.0, got                # approximate, and above its target
     # the video site selected on the pre-exp scores of the engine's own video scores
-    q2c = video_scores_xla(*(te._normalize(q) for q in tm.encode_query(qf, qm)), vf1, sf1, mask)
+    q2c = video_scores_xla(*(te.l2_normalize(q) for q in tm.encode_query(qf, qm)), vf1, sf1, mask)
     assert torch.equal(calls[0][0], q2c.float())
     np.testing.assert_array_equal(out["topv_idx"].numpy(), calls[0][3][1].numpy())
     torch.testing.assert_close(out["topv_scores"], torch.exp(ALPHA * calls[0][3][0]),

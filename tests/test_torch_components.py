@@ -215,8 +215,36 @@ def test_xml_span_scores_match_flax(xml_pair):
     ("stack_conv_predictor_conv_kernel_sizes", (3, 5)), ("ctx_mode", "video"),
     ("dtype_str", "bfloat16")])
 def test_unsupported_xml_config_raises(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        XML(XMLConfig(**{**KW, field: value}))
+    """Each of these values was refused until the variants were ported
+    (ROADMAP A8); each now builds, takes the converted flax tree with
+    ``strict=True`` and trains (tests/test_torch_xml_variants.py and
+    tests/test_torch_xml_bf16.py hold them against the JAX model). What
+    the port still refuses is what the JAX model refuses: an unknown
+    encoder or span head, and cross-attention with one stream."""
+    cfg = {**KW, field: value}
+    if field == "ctx_mode":
+        with pytest.raises(ValueError, match="cross_att requires both streams"):
+            XML(XMLConfig(**cfg))
+        cfg.update(cross_att=False, merge_two_stream=False)   # as train_xml sets them
+    rng = np.random.default_rng(1)
+    B = 3
+    batch = dict(
+        query_feat=rng.normal(size=(B, 10, 16)).astype(np.float32),
+        query_mask=_mask(rng, B, 10),
+        video_feat=rng.normal(size=(B, 12, 18)).astype(np.float32),
+        video_mask=_mask(rng, B, 12),
+        sub_feat=rng.normal(size=(B, 12, 14)).astype(np.float32),
+        st_ed_indices=np.zeros((B, 2), np.int32))
+    batch["sub_mask"] = batch["video_mask"]
+    model = XML(XMLConfig(**cfg)).init_weights(torch.Generator().manual_seed(0))
+    loss, parts = model(**{k: torch.from_numpy(v) for k, v in batch.items()})
+    assert torch.isfinite(loss) and loss.dtype == torch.float32
+    loss.backward()
+    grads = [p.grad for p in model.parameters() if p.requires_grad]
+    assert grads and all(g is not None and torch.isfinite(g).all() for g in grads)
+    for bad in (dict(encoder_type="rnn"), dict(span_predictor_type="linear")):
+        with pytest.raises(NotImplementedError):
+            XML(XMLConfig(**{**cfg, **bad}))
 
 
 def test_converter_rejects_unknown_leaf():

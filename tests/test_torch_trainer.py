@@ -154,9 +154,11 @@ def test_trainer_options():
     with pytest.raises(NotImplementedError, match="A10"):
         XMLTrainer(_model_cfg(builder), TrainSettings(bsz=8), builder, w.annotations,
                    device="cpu", n_devices=4)
-    with pytest.raises(NotImplementedError, match="A8"):
-        XMLTrainer(_model_cfg(builder, dtype_str="bfloat16"), TrainSettings(bsz=8), builder,
-                   w.annotations, device="cpu")
+    # bf16 compute was refused until A8; it now trains with float32 master weights
+    bf16 = XMLTrainer(_model_cfg(builder, dtype_str="bfloat16"), TrainSettings(bsz=8),
+                      builder, w.annotations, device="cpu")
+    assert bf16.model.cfg.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.model.parameters())
     tr = XMLTrainer(_model_cfg(builder), TrainSettings(bsz=8, n_epoch=1, grad_clip=0.01,
                                                        train_span_start_epoch=1),
                     builder, w.annotations, device="cpu")
@@ -383,9 +385,11 @@ def test_start_training_needs_a_card_or_device_cpu(tmp_path, capsys):
     (["--n_devices", "4"], "A10"),
 ])
 def test_unported_flags_raise_before_any_data(tmp_path, monkeypatch, flags, item):
-    """``item`` is the ROADMAP item each flag was queued under. The int8,
-    psort and approximate engine modes and ``simsweep`` have been ported
-    since: their flags pass the check and the CLI goes on to build its data."""
+    """``item`` is the ROADMAP item each flag was queued under. The model
+    variants (A8), the int8, psort and approximate engine modes and
+    ``simsweep`` have been ported since: their flags pass the check and the
+    CLI goes on to build its data. Only data-parallel training (A10) is
+    still refused."""
     class DataWasBuilt(Exception):
         pass
 
@@ -393,9 +397,7 @@ def test_unported_flags_raise_before_any_data(tmp_path, monkeypatch, flags, item
         raise DataWasBuilt
 
     monkeypatch.setattr(train_xml, "setup_world", setup_world)
-    ported = flags[-1] in ("simsweep_cat_int8", "simsweep", "grouped_shift_psort",
-                           "grouped_shift_approx") \
-        or flags[0] in ("--video_topk_psort", "--video_topk_approx")
+    ported = item != "A10"
     with pytest.raises(DataWasBuilt if ported else NotImplementedError,
                        match=None if ported else item):
         train_xml.start_training(TINY + ["--device", "cpu", "--results_root", str(tmp_path)]

@@ -20,13 +20,17 @@ mode runs: fused gather + similarity (``csrc/gathered_sim.cu``,
 ``ops.gather``), fused banded top-N (``csrc/banded_topk.cu``, ``ops.topk``),
 masked video scores and one-stream clip-major scores
 (``csrc/masked_score.cu``, ``ops.video_score``, ``ops.fused_score``). Every
-Pallas kernel of the JAX package now has its CUDA counterpart.
+Pallas kernel of the JAX package now has its CUDA counterpart, and every
+XML configuration of the JAX package runs here: the LSTM / GRU
+(``models.rnn``) and CNN encoders, one-stream models, the ablations, both
+span heads, and bf16 compute.
 
 Precision: the reference holds float32 matmuls at full precision. PyTorch
 already defaults matmuls to full float32 on the card, but lets cuDNN
 convolutions run in TF32 and cuBLAS reduce bf16 products in bf16; both are
 switched off here so the ConvSE conv and the bf16 similarity sweep keep
-f32 accumulation (set once, on import, process-wide).
+f32 accumulation (set once, on import, process-wide). cuDNN's recurrent
+networks stay on, in float32 (TF32 off).
 """
 import torch
 

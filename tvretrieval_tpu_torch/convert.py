@@ -6,7 +6,14 @@ and leaves map by name:
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
 - Conv ``kernel`` (k, in, out) -> ``weight`` (out, in, k);
-- LayerNorm ``scale`` -> ``weight``; ``bias`` and ``pos_embed`` unchanged.
+- LayerNorm ``scale`` -> ``weight``; ``bias`` and ``pos_embed`` unchanged;
+- a recurrent cell (flax 0.12 ``OptimizedLSTMCell`` / ``GRUCell``: one
+  Dense per gate) -> the ``nn.LSTM`` / ``nn.GRU`` tensors of
+  ``models.rnn``, gates stacked in torch's order. LSTM: ``weight_ih`` =
+  [ii; if; ig; io]^T, ``weight_hh`` = [hi; hf; hg; ho]^T, ``bias_hh`` the
+  h-biases, ``bias_ih`` zero (flax has no input bias). GRU, in [r; z; n]
+  order: ``bias_ih`` = [ir; iz; in], ``bias_hh`` = [0; 0; hn] (flax has no
+  hr / hz bias).
 
 The port names its submodules after the flax ones, so the result loads
 with ``model.load_state_dict(sd, strict=True)``.
@@ -19,6 +26,34 @@ import numpy as np
 import torch
 
 
+LSTM_GATES = ("i", "f", "g", "o")
+GRU_GATES = ("r", "z", "n")
+
+
+def _cell_tensors(cell: Mapping) -> Dict[str, np.ndarray]:
+    """A flax LSTM / GRU cell's gate Dense params -> torch's ``*_l0``
+    tensors (see the module docstring)."""
+    gates = LSTM_GATES if "ii" in cell else GRU_GATES
+    get = lambda name, leaf: np.array(cell[name][leaf], dtype=np.float32)
+    w_ih = np.concatenate([get("i" + g, "kernel").T for g in gates])
+    w_hh = np.concatenate([get("h" + g, "kernel").T for g in gates])
+    h = w_hh.shape[1]
+    if gates == LSTM_GATES:
+        b_ih = np.zeros(4 * h, np.float32)
+        b_hh = np.concatenate([get("h" + g, "bias") for g in gates])
+    else:
+        b_ih = np.concatenate([get("i" + g, "bias") for g in gates])
+        b_hh = np.concatenate([np.zeros(2 * h, np.float32), get("hn", "bias")])
+    return {"weight_ih_l0": w_ih, "weight_hh_l0": w_hh, "bias_ih_l0": b_ih,
+            "bias_hh_l0": b_hh}
+
+
+def _is_cell(tree: Mapping) -> bool:
+    names = set(tree)
+    return names in ({"i" + g for g in LSTM_GATES} | {"h" + g for g in LSTM_GATES},
+                     {"i" + g for g in GRU_GATES} | {"h" + g for g in GRU_GATES})
+
+
 def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """``params``: the flax ``variables["params"]`` tree, as nested mappings
     of array-likes (``jax.device_get`` of the tree; each leaf is copied
@@ -28,6 +63,10 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     def visit(tree: Mapping, prefix: str) -> None:
         for name, value in tree.items():
             path = f"{prefix}.{name}" if prefix else name
+            if isinstance(value, Mapping) and _is_cell(value):
+                for key, a in _cell_tensors(value).items():
+                    out[f"{path}.{key}"] = torch.from_numpy(np.ascontiguousarray(a))
+                continue
             if isinstance(value, Mapping):
                 visit(value, path)
                 continue

@@ -1,18 +1,22 @@
 """XML (Cross-modal Moment Localization) in PyTorch.
 
-Port of tvretrieval_tpu/models/xml.py for the flagship configuration
-(``bench.py``: video_sub, transformer encoders, cross-attention, one merged
-ConvSE conv pair): dual video/subtitle context encoders with
-cross-attention (reference model_xml.py:344-375), the modular query
-encoder (:399-423), video-level cosine scores (:436-453), the merged
-ConvSE span logits (:455-502) in their per-pair, gathered-rows, two-stream
-sweep, concatenated-sweep and int8-sweep forms, and the training forward
-with its span
-cross-entropy and in-batch ranking losses (:212-251, :588-637).
+Port of tvretrieval_tpu/models/xml.py: the video and subtitle context
+encoders (transformer, CNN, LSTM or GRU layers; reference
+model_xml.py:84-93) with or without the cross-attention between the
+streams (:344-375), the modular query encoder or its max-pooled
+``no_modular`` ablation (:399-423), video-level cosine scores (:436-453),
+the span heads (the merged single or stacked ConvSE of :455-502 in its
+per-pair, gathered-rows, two-stream sweep, concatenated-sweep and
+int8-sweep forms, and the per-stream conv or ``cat_linear`` heads of
+:512-551), ``get_pred_from_raw_query``, ``visualization_data``, and the
+training forward with its span cross-entropy and in-batch ranking losses
+(:212-251, :588-637). Every ``XMLConfig`` the JAX package builds builds
+here, single-stream ``ctx_mode`` included.
 
-Dropout follows ``model.train()`` / ``model.eval()``. Every other
-``XMLConfig`` value raises ``NotImplementedError`` at construction
-(ROADMAP A8 ports the variants).
+Compute dtype: ``dtype_str="bfloat16"`` runs every block at bf16 with
+float32 parameters, with the casts where the flax model has them (see
+models.components): the einsums accumulate float32 and are cast after, and
+the losses are float32. Dropout follows ``model.train()`` / ``model.eval()``.
 """
 from __future__ import annotations
 
@@ -26,12 +30,29 @@ from tvretrieval_tpu_torch.models.components import (
     BertAttention,
     BertSelfAttention,
     Conv1dSame,
+    ConvEncoder,
+    Dense,
+    LayerNorm,
     LinearLayer,
     TrainablePositionalEncoding,
     init_like_flax,
 )
+from tvretrieval_tpu_torch.models.rnn import RNNEncoder
 from tvretrieval_tpu_torch.ops.masking import mask_logits
 from tvretrieval_tpu_torch.ops.video_score import quantize_rows_i8, span_sim_cat_i8
+
+
+class RNNEncoderLayer(nn.Module):
+    """Bidirectional RNN with the (x, mask) interface of the attention
+    encoder layers; ``hidden_size`` is split across the two directions
+    (JAX xml.py:44-57)."""
+
+    def __init__(self, hidden_size: int, rnn_type: str, dtype: torch.dtype):
+        super().__init__()
+        self.rnn = RNNEncoder(hidden_size, hidden_size // 2, rnn_type, True, dtype)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        return self.rnn(x, mask.sum(dim=-1))[0]
 
 
 @dataclass(frozen=True)
@@ -76,25 +97,31 @@ class XMLConfig:
     def n_streams(self) -> int:
         return int(self.use_video) + int(self.use_sub)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype_str == "bfloat16" else torch.float32
 
-def _check_supported(c: XMLConfig) -> None:
-    unsupported = {
-        "ctx_mode": c.ctx_mode != "video_sub",
-        "merge_two_stream": not c.merge_two_stream,
-        "cross_att": not c.cross_att,
-        "span_predictor_type": c.span_predictor_type != "conv",
-        "stack_conv_predictor_conv_kernel_sizes":
-            c.stack_conv_predictor_conv_kernel_sizes is not None,
-        "encoder_type": c.encoder_type != "transformer",
-        "no_modular": c.no_modular,
-        "dtype_str": c.dtype_str != "float32",
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"XMLConfig {', '.join(f'{k}={getattr(c, k)!r}' for k in bad)}: the "
-            "port covers the flagship video_sub / transformer / cross-att / "
-            "merged-conv configuration only (variants: ROADMAP A8)")
+    @property
+    def merged_spans(self) -> bool:
+        """The merged two-stream ConvSE span head; otherwise each stream
+        has its own head and their logits are averaged. The JAX model
+        takes the merged branch for ``cat_linear`` too and fails there (it
+        builds no merged head for it); the port gives ``cat_linear`` its
+        per-stream heads, which the JAX model does build."""
+        return (self.merge_two_stream and self.use_video and self.use_sub
+                and self.span_predictor_type == "conv")
+
+
+def l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """``x / (||x|| + 1e-12)`` over the last axis, as the JAX package
+    writes it with ``jnp.linalg.norm``. At a dtype narrower than float32
+    the norm keeps jnp's roundings: the squares at ``x``'s dtype, their sum
+    accumulated in float32 and rounded back, then the square root."""
+    if x.dtype == torch.float32:
+        norm = torch.linalg.norm(x, dim=-1, keepdim=True)
+    else:
+        norm = (x * x).sum(dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype).sqrt()
+    return x / (norm + 1e-12)
 
 
 def cosine_video_scores(query_vec: torch.Tensor, context_feat1: torch.Tensor,
@@ -103,38 +130,94 @@ def cosine_video_scores(query_vec: torch.Tensor, context_feat1: torch.Tensor,
 
     query_vec (M, D), context_feat1 (N, L, D), context_mask (N, L) ->
     (M, N) scores (reference get_video_level_scores, model_xml.py:436-453).
+    Each side is normalized at its own dtype; the products accumulate f32.
     """
-    q = query_vec / (torch.linalg.norm(query_vec, dim=-1, keepdim=True) + 1e-12)
-    f = context_feat1 / (torch.linalg.norm(context_feat1, dim=-1, keepdim=True) + 1e-12)
-    scores = torch.einsum("md,nld->mln", q.float(), f.float())
-    scores = mask_logits(scores, context_mask.T[None])
-    return scores.amax(dim=1)
+    q, f = l2_normalize(query_vec), l2_normalize(context_feat1)
+    scores = mask_logits(_rows_dot(q, f), context_mask[None])      # (M, N, L)
+    return scores.amax(dim=-1)
+
+
+def _rows_dot(q: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+    """(M, D) x (N, L, D) -> (M, N, L) float32 dots, as one matrix product
+    over the (N * L, D) rows: ``torch.einsum`` would copy a corpus-sized
+    operand into its own layout first."""
+    n, L, d = feat.shape
+    return (q.float() @ feat.float().reshape(n * L, d).T).view(q.shape[0], n, L)
 
 
 class XML(nn.Module):
     def __init__(self, cfg: XMLConfig):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = c = cfg
-        h = c.hidden_size
+        if c.encoder_type not in ("transformer", "cnn", "lstm", "gru"):
+            raise NotImplementedError(f"encoder_type {c.encoder_type}")
+        if c.span_predictor_type not in ("conv", "cat_linear"):
+            raise NotImplementedError(c.span_predictor_type)
+        if c.cross_att and not (c.use_video and c.use_sub):
+            raise ValueError("cross_att requires both streams")
+        h, dt = c.hidden_size, c.dtype
         cad = c.drop if c.cross_att_drop is None else c.cross_att_drop
-        encoder = lambda: BertAttention(h, c.n_heads, c.drop, c.drop)
-        self.query_pos_embed = TrainablePositionalEncoding(c.max_desc_l, h, c.input_drop)
-        self.ctx_pos_embed = TrainablePositionalEncoding(c.max_ctx_l, h, c.input_drop)
-        self.query_input_proj = LinearLayer(c.query_input_size, h, True, c.input_drop, True)
-        self.query_encoder = encoder()
-        for stream, in_dim in (("video", c.visual_input_size),
-                               ("sub", c.sub_input_size)):
-            setattr(self, f"{stream}_input_proj",
-                    LinearLayer(in_dim, h, True, c.input_drop, True))
-            setattr(self, f"{stream}_encoder1", encoder())
-            setattr(self, f"{stream}_encoder2", encoder())
-            setattr(self, f"{stream}_cross_att", BertSelfAttention(h, c.n_heads, cad))
-            setattr(self, f"{stream}_cross_ln", nn.LayerNorm(h, eps=1e-5))
-            setattr(self, f"{stream}_query_linear", nn.Linear(h, h))
-        self.modular_vector_mapping = nn.Linear(h, c.n_streams, bias=False)
-        self.merged_st_predictor = Conv1dSame(c.conv_kernel_size)
-        self.merged_ed_predictor = Conv1dSame(c.conv_kernel_size)
+        # a module the JAX model never calls has no flax parameters, so the
+        # port does not build it: the positional embeddings of RNN encoders
+        # without add_pe_rnn, the modular mapping under no_modular, and any
+        # span head the model does not use
+        if self._uses_pos_embed:
+            self.query_pos_embed = TrainablePositionalEncoding(c.max_desc_l, h,
+                                                               c.input_drop, dt)
+            self.ctx_pos_embed = TrainablePositionalEncoding(c.max_ctx_l, h, c.input_drop, dt)
+        self.query_input_proj = LinearLayer(c.query_input_size, h, True, c.input_drop, True, dt)
+        self.query_encoder = self._make_encoder()
+        streams = (("video", c.visual_input_size, c.use_video),
+                   ("sub", c.sub_input_size, c.use_sub))
+        for stream, in_dim, used in streams:
+            if not used:
+                continue
+            add = lambda name, module: setattr(self, f"{stream}_{name}", module)
+            add("input_proj", LinearLayer(in_dim, h, True, c.input_drop, True, dt))
+            add("encoder1", self._make_encoder())
+            add("encoder2", self._make_encoder())
+            if c.cross_att:
+                add("cross_att", BertSelfAttention(h, c.n_heads, cad, dt))
+                add("cross_ln", LayerNorm(h, dt))
+            elif c.encoder_type == "transformer":
+                add("encoder3", self._make_encoder())
+            add("query_linear", Dense(h, h, dtype=dt))
+            if c.span_predictor_type == "conv" and not c.merged_spans:
+                add("st_predictor", Conv1dSame(c.conv_kernel_size, dt))
+                add("ed_predictor", Conv1dSame(c.conv_kernel_size, dt))
+            elif c.span_predictor_type == "cat_linear":
+                for name in ("st_q", "st_ctx", "ed_q", "ed_ctx"):
+                    add(name, Dense(h, 1, dtype=dt))
+        if not c.no_modular:
+            self.modular_vector_mapping = Dense(h, c.n_streams, bias=False, dtype=dt)
+        if c.merged_spans:
+            ks = c.stack_conv_predictor_conv_kernel_sizes
+            if ks is None:
+                self.merged_st_predictor = Conv1dSame(c.conv_kernel_size, dt)
+                self.merged_ed_predictor = Conv1dSame(c.conv_kernel_size, dt)
+            else:
+                # named as flax names a list attribute's members
+                for i, k in enumerate(ks):
+                    setattr(self, f"merged_st_predictors_{i}", Conv1dSame(k, dt))
+                    setattr(self, f"merged_ed_predictors_{i}", Conv1dSame(k, dt))
+                self.combine_st_conv = Dense(len(ks), 1, bias=False, dtype=dt)
+                self.combine_ed_conv = Dense(len(ks), 1, bias=False, dtype=dt)
+
+    @property
+    def _uses_pos_embed(self) -> bool:
+        """RNN encoders add the positional embedding only under add_pe_rnn
+        (reference model_xml.py:393-397)."""
+        c = self.cfg
+        return c.encoder_type in ("transformer", "cnn") or c.add_pe_rnn
+
+    def _make_encoder(self) -> nn.Module:
+        c = self.cfg
+        if c.encoder_type == "transformer":
+            return BertAttention(c.hidden_size, c.n_heads, c.drop, c.drop, c.dtype)
+        if c.encoder_type == "cnn":
+            # kernel 5, not the class default of 7 (JAX xml.py:199-200)
+            return ConvEncoder(c.hidden_size, kernel_size=5, dropout=c.drop, dtype=c.dtype)
+        return RNNEncoderLayer(c.hidden_size, c.encoder_type, c.dtype)
 
     def init_weights(self, generator: torch.Generator) -> "XML":
         """Seeded initialization with the JAX package's initializers."""
@@ -144,37 +227,71 @@ class XML(nn.Module):
     # ------------------------------------------------------------------ input
     def encode_input(self, feat, mask, proj, encoder, pos_embed):
         """project -> +pos-embed (LN+drop) -> 1 encoder layer
-        (reference model_xml.py:377-397)."""
-        return encoder(pos_embed(proj(feat)), mask)
+        (reference model_xml.py:377-397); ``pos_embed`` is the attribute's
+        name, and RNN encoders skip it unless add_pe_rnn is set."""
+        x = proj(feat)
+        if self._uses_pos_embed:
+            x = getattr(self, pos_embed)(x)
+        return encoder(x, mask)
 
     # ------------------------------------------------------------------ query
     def encode_query(self, query_feat, query_mask):
         encoded = self.encode_input(query_feat, query_mask, self.query_input_proj,
-                                    self.query_encoder, self.query_pos_embed)
+                                    self.query_encoder, "query_pos_embed")
         return self.get_modularized_queries(encoded, query_mask)
 
-    def get_modularized_queries(self, encoded_query, query_mask):
-        """Softmax attention pooling into one query vector per stream
-        (reference model_xml.py:399-423). Returns (video_query, sub_query)."""
-        att = self.modular_vector_mapping(encoded_query)          # (N, L, 2)
+    def _modular_attention(self, encoded_query, query_mask):
+        """(att (N, L, n_streams) f32, queries (N, n_streams, D) at the
+        encoded query's dtype): softmax attention pooling."""
+        att = self.modular_vector_mapping(encoded_query)
         att = torch.softmax(mask_logits(att, query_mask[:, :, None]), dim=1)
-        queries = torch.einsum("blm,bld->bmd", att, encoded_query)
-        return queries[:, 0], queries[:, 1]
+        if encoded_query.dtype is torch.float32:
+            return att, torch.einsum("blm,bld->bmd", att, encoded_query)
+        queries = torch.einsum("blm,bld->bmd", att, encoded_query.float())
+        return att, queries.to(encoded_query.dtype)
+
+    def get_modularized_queries(self, encoded_query, query_mask):
+        """One query vector per stream (reference model_xml.py:399-423):
+        (video_query, sub_query). Single-stream models return their one
+        vector twice; ``no_modular`` max-pools the tokens instead."""
+        if self.cfg.no_modular:
+            pooled = mask_logits(encoded_query, query_mask[:, :, None]).amax(dim=1)
+            return pooled, pooled
+        queries = self._modular_attention(encoded_query, query_mask)[1]
+        if self.cfg.n_streams == 2:
+            return queries[:, 0], queries[:, 1]
+        return queries[:, 0], queries[:, 0]
 
     # ---------------------------------------------------------------- context
     def encode_context(self, video_feat, video_mask, sub_feat, sub_mask):
-        """Returns (video_feat1, video_feat2, sub_feat1, sub_feat2); feat1 is
-        the retrieval stream, feat2 the localization stream
-        (reference model_xml.py:331-355)."""
-        ev = self.encode_input(video_feat, video_mask, self.video_input_proj,
-                               self.video_encoder1, self.ctx_pos_embed)
-        es = self.encode_input(sub_feat, sub_mask, self.sub_input_proj,
-                               self.sub_encoder1, self.ctx_pos_embed)
-        xv = self._cross_context(ev, video_mask, es, sub_mask, self.video_cross_att,
-                                 self.video_cross_ln, self.video_encoder2)
-        xs = self._cross_context(es, sub_mask, ev, video_mask, self.sub_cross_att,
-                                 self.sub_cross_ln, self.sub_encoder2)
-        return ev, xv, es, xs
+        """Returns (video_feat1, video_feat2, sub_feat1, sub_feat2), None for
+        a stream the model does not use; feat1 is the retrieval stream,
+        feat2 the localization stream (reference model_xml.py:331-355)."""
+        c = self.cfg
+        if c.cross_att:
+            ev = self.encode_input(video_feat, video_mask, self.video_input_proj,
+                                   self.video_encoder1, "ctx_pos_embed")
+            es = self.encode_input(sub_feat, sub_mask, self.sub_input_proj,
+                                   self.sub_encoder1, "ctx_pos_embed")
+            xv = self._cross_context(ev, video_mask, es, sub_mask, self.video_cross_att,
+                                     self.video_cross_ln, self.video_encoder2)
+            xs = self._cross_context(es, sub_mask, ev, video_mask, self.sub_cross_att,
+                                     self.sub_cross_ln, self.sub_encoder2)
+            return ev, xv, es, xs
+        out = []
+        for stream, feat, mask, used in (("video", video_feat, video_mask, c.use_video),
+                                         ("sub", sub_feat, sub_mask, c.use_sub)):
+            if not used:
+                out += [None, None]
+                continue
+            get = lambda name: getattr(self, f"{stream}_{name}")
+            f1 = self.encode_input(feat, mask, get("input_proj"), get("encoder1"),
+                                   "ctx_pos_embed")
+            f2 = get("encoder2")(f1, mask)
+            if c.encoder_type == "transformer":
+                f2 = get("encoder3")(f2, mask)
+            out += [f1, f2]
+        return tuple(out)
 
     def _cross_context(self, main, main_mask, side, side_mask, cross_att, norm,
                        self_att):
@@ -186,26 +303,35 @@ class XML(nn.Module):
 
     # ------------------------------------------------------------------ spans
     def _merged_span_conv(self, similarity):
-        """Merged-stream ConvSE (reference get_merged_st_ed_prob,
-        model_xml.py:469-480)."""
-        return self.merged_st_predictor(similarity), self.merged_ed_predictor(similarity)
+        """Single or stacked merged-stream ConvSE (reference
+        get_merged_st_ed_prob, model_xml.py:469-480): under stacked kernel
+        sizes each size's conv runs over the similarity rows and a bias-free
+        linear combines them (JAX xml.py:284-294). Every span path of the
+        merged head goes through here."""
+        ks = self.cfg.stack_conv_predictor_conv_kernel_sizes
+        if ks is None:
+            return self.merged_st_predictor(similarity), self.merged_ed_predictor(similarity)
+        out = []
+        for kind in ("st", "ed"):
+            stack = torch.stack([getattr(self, f"merged_{kind}_predictors_{i}")(similarity)
+                                 for i in range(len(ks))], dim=-1)
+            out.append(getattr(self, f"combine_{kind}_conv")(stack)[..., 0])
+        return tuple(out)
 
     def merged_st_ed_scores(self, video_query, video_feat2, sub_query, sub_feat2,
                             context_mask, cross: bool = False):
         """Merged-stream span logits (reference :455-502). cross=False:
         per-pair (B, L); cross=True: every query against every video,
-        (Nq, Nv, L)."""
-        vq = self.video_query_linear(video_query)
-        sq = self.sub_query_linear(sub_query)
-        if cross:
-            sim_v = torch.einsum("md,nld->mnl", vq, video_feat2.float())
-            sim_s = torch.einsum("md,nld->mnl", sq, sub_feat2.float())
-            mask = context_mask[None]
-        else:
-            sim_v = torch.einsum("bd,bld->bl", vq, video_feat2.float())
-            sim_s = torch.einsum("bd,bld->bl", sq, sub_feat2.float())
-            mask = context_mask
-        similarity = (sim_v + sim_s) / 2
+        (Nq, Nv, L). The similarity accumulates f32 and is cast to the
+        cache's dtype before the conv, as in the JAX model."""
+        if not self.cfg.merged_spans:
+            raise ValueError("merged_st_ed_scores needs the merged conv span head")
+        vq = self.video_query_linear(video_query).float()
+        sq = self.sub_query_linear(sub_query).float()
+        dot = _rows_dot if cross else lambda q, f: torch.einsum("bd,bld->bl", q, f.float())
+        sim_v, sim_s = dot(vq, video_feat2), dot(sq, sub_feat2)
+        mask = context_mask[None] if cross else context_mask
+        similarity = ((sim_v + sim_s) / 2).to(video_feat2.dtype)
         st, ed = self._merged_span_conv(similarity)
         return mask_logits(st, mask), mask_logits(ed, mask)
 
@@ -348,22 +474,93 @@ class XML(nn.Module):
         sim = span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp=f_scales.shape[1])
         return self._finish_span_logits(sim, context_mask, gather_idx)
 
+    def single_stream_st_ed_scores(self, query, feat2, mask, stream: str,
+                                   cross: bool = False):
+        """One stream's span logits (reference _get_st_ed_prob :512-551):
+        the stream's ConvSE pair over its similarity (cast to feat2's
+        dtype, as the JAX model casts it), or under ``cat_linear`` a query
+        term plus a clip term. cross=False: (B, L); cross=True: (Nq, Nv, L)."""
+        c = self.cfg
+        get = lambda name: getattr(self, f"{stream}_{name}")
+        q = get("query_linear")(query)
+        if c.span_predictor_type == "conv":
+            sim = (_rows_dot(q, feat2) if cross
+                   else torch.einsum("bd,bld->bl", q.float(), feat2.float())).to(feat2.dtype)
+            st, ed = get("st_predictor")(sim), get("ed_predictor")(sim)
+        else:
+            st_q, ed_q = get("st_q")(q), get("ed_q")(q)                  # (Nq, 1)
+            st_ctx, ed_ctx = get("st_ctx")(feat2)[..., 0], get("ed_ctx")(feat2)[..., 0]
+            if cross:
+                st, ed = st_q[:, :, None] + st_ctx[None], ed_q[:, :, None] + ed_ctx[None]
+            else:
+                st, ed = st_q + st_ctx, ed_q + ed_ctx
+        if cross:
+            mask = mask[None]
+        return mask_logits(st, mask), mask_logits(ed, mask)
+
     # ------------------------------------------------------------- prediction
     def get_pred_from_raw_query(self, query_feat, query_mask, video_feat1, video_feat2,
                                 video_mask, sub_feat1, sub_feat2, sub_mask,
                                 cross: bool = False):
-        """(q2ctx_scores, st_logits, ed_logits), the merged two-stream
-        branch (reference model_xml.py:553-586). cross=False: in-batch
-        pairs, q2ctx (N, N), spans (N, L); cross=True: all queries against
-        all videos, q2ctx (Nq, Nv), spans (Nq, Nv, L)."""
+        """(q2ctx_scores, st_logits, ed_logits) (reference
+        model_xml.py:553-586): the mean over the model's streams of the
+        video scores, and the merged span head or the mean of the
+        per-stream ones. cross=False: in-batch pairs, q2ctx (N, N), spans
+        (N, L); cross=True: all queries against all videos, q2ctx (Nq, Nv),
+        spans (Nq, Nv, L). A stream the model does not use may be None."""
         c = self.cfg
         video_query, sub_query = self.encode_query(query_feat, query_mask)
-        v_scores = cosine_video_scores(video_query, video_feat1, video_mask)
-        s_scores = cosine_video_scores(sub_query, sub_feat1, sub_mask)
+        v_scores = cosine_video_scores(video_query, video_feat1, video_mask) if c.use_video else 0
+        s_scores = cosine_video_scores(sub_query, sub_feat1, sub_mask) if c.use_sub else 0
         q2ctx = (v_scores + s_scores) / c.n_streams
-        st, ed = self.merged_st_ed_scores(video_query, video_feat2, sub_query,
-                                          sub_feat2, video_mask, cross)
-        return q2ctx, st, ed
+        if c.merged_spans:
+            st, ed = self.merged_st_ed_scores(video_query, video_feat2, sub_query,
+                                              sub_feat2, video_mask, cross)
+            return q2ctx, st, ed
+        vst, ved = (self.single_stream_st_ed_scores(video_query, video_feat2, video_mask,
+                                                    "video", cross)
+                    if c.use_video else (0, 0))
+        sst, sed = (self.single_stream_st_ed_scores(sub_query, sub_feat2, sub_mask, "sub",
+                                                    cross)
+                    if c.use_sub else (0, 0))
+        return q2ctx, (vst + sst) / c.n_streams, (ved + sed) / c.n_streams
+
+    # --------------------------------------------------------- visualization
+    @torch.no_grad()
+    def visualization_data(self, query_feat, query_mask, video_feat, video_mask,
+                           sub_feat, sub_mask) -> Dict[str, torch.Tensor]:
+        """Per-example introspection tensors (reference
+        get_visualization_data, model_xml.py:253-289): the modular attention
+        over the query tokens, the merged st / ed probabilities and the
+        per-stream span similarities; the host slices each by its true
+        length. Defined, as in the JAX model, for the merged conv head with
+        the modular query only. Runs as in eval mode (no dropout)."""
+        c = self.cfg
+        if not (c.merged_spans and not c.no_modular):
+            raise ValueError("visualization_data needs the merged conv span head and "
+                             "the modular query")
+        training = self.training
+        self.eval()
+        try:
+            vf1, vf2, sf1, sf2 = self.encode_context(video_feat, video_mask, sub_feat,
+                                                     sub_mask)
+            encoded = self.encode_input(query_feat, query_mask, self.query_input_proj,
+                                        self.query_encoder, "query_pos_embed")
+            att, queries = self._modular_attention(encoded, query_mask)
+            vql = self.video_query_linear(queries[:, 0]).float()
+            sql = self.sub_query_linear(queries[:, 1]).float()
+            sim_v = torch.einsum("bd,bld->bl", vql, vf2.float())
+            sim_s = torch.einsum("bd,bld->bl", sql, sf2.float())
+            similarity = ((sim_v + sim_s) / 2).to(vf2.dtype)
+            st_raw, ed_raw = self._merged_span_conv(similarity)
+            st, ed = mask_logits(st_raw, video_mask), mask_logits(ed_raw, video_mask)
+        finally:
+            self.train(training)
+        return dict(modular_att_scores=att,
+                    st_prob=torch.softmax(st.float(), dim=-1),
+                    ed_prob=torch.softmax(ed.float(), dim=-1),
+                    similarity_scores=similarity, video_similarity=sim_v,
+                    sub_similarity=sim_s)
 
     # --------------------------------------------------------------- training
     def forward(self, query_feat, query_mask, video_feat, video_mask, sub_feat,

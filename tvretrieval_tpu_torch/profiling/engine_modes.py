@@ -63,14 +63,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+from tvretrieval_tpu_torch.models.xml import XML, XMLConfig, l2_normalize
 from tvretrieval_tpu_torch.ops import fused_score, gather, topk
 from tvretrieval_tpu_torch.ops import video_score as vs
 from tvretrieval_tpu_torch.ops.masking import mask_logits
 from tvretrieval_tpu_torch.ops.span import (
     banded_topk_spans, banded_topk_spans_grouped_shift, topk_stable_blocked)
 from tvretrieval_tpu_torch.retrieval.engine import (
-    RetrievalConfig, _normalize, _score_query_batch, check_supported)
+    RetrievalConfig, _score_query_batch, check_supported)
 
 N_CLIPS = 100
 SEED = 0                 # weights, queries and caches are made from it
@@ -222,7 +222,7 @@ def stage_study(model: XML, rcfg: RetrievalConfig, data: Dict[str, torch.Tensor]
                             **extra))
 
     vq, sq = model.encode_query(data["qf"], data["qm"])
-    qv, qs = _normalize(vq).to(vf1.dtype), _normalize(sq).to(sf1.dtype)
+    qv, qs = l2_normalize(vq).to(vf1.dtype), l2_normalize(sq).to(sf1.dtype)
 
     # B9 beside the einsum video-score stage
     stage = lambda: vs.video_scores_xla(qv, qs, vf1, sf1, study_mask)

@@ -24,6 +24,16 @@ The corpus is encoded once (``encode_corpus``); each query batch then runs
    "grouped_shift_psort", through the approximate top-k under
    "grouped_shift_approx") and the SVMR row (ops.span).
 
+Configurations without the merged two-stream conv head (the XML variants:
+one stream, "w/o merge", ``cat_linear``) take the JAX engine's other
+branch (engine.py:658-676): ``XML.get_pred_from_raw_query(cross=True)``
+over every video, ``exp(alpha * q2c)``, an exact stable top-V and a gather
+of the top-V probability rows, then step 5. Its video and span score modes
+do not apply (the JAX package has no kernel there either); its span top-k
+mode does, so B6 and B11 run there under "grouped_shift_psort" and
+"grouped_shift_approx". It holds (Nq, Nv, L) logits and probabilities,
+so ``query_bsz`` bounds its memory.
+
 ``encode_corpus_resident`` encodes from the device-resident corpus
 (data.device_corpus) instead of host-built batches. ``retrieve`` turns the
 results into the submission the evaluator (evaluation.metrics) scores. Mode names are the JAX package's so
@@ -46,7 +56,7 @@ from tvretrieval_tpu_torch.data.device_corpus import (
     assemble_context_slice,
     assemble_queries,
 )
-from tvretrieval_tpu_torch.models.xml import XML
+from tvretrieval_tpu_torch.models.xml import XML, l2_normalize
 from tvretrieval_tpu_torch.ops import approx_topk
 from tvretrieval_tpu_torch.ops.span import (
     banded_top_spans_from_probs,
@@ -56,6 +66,7 @@ from tvretrieval_tpu_torch.ops.span import (
     banded_topk_spans_grouped_shift_approx,
     banded_topk_spans_grouped_shift_psort,
     topk_from_block_max,
+    topk_stable,
     topk_stable_blocked,
     topk_stable_blocked_psort,
 )
@@ -212,12 +223,6 @@ def _video_sel(cfg: RetrievalConfig):
     return topk_stable_blocked
 
 
-def _uses_fast_path(model: XML) -> bool:
-    c = model.cfg
-    return (c.merge_two_stream and c.use_video and c.use_sub
-            and c.span_predictor_type == "conv")
-
-
 @torch.no_grad()
 def encode_corpus(model: XML, builder: ExampleBuilder, corpus: CorpusIndex,
                   cfg: RetrievalConfig, batch_cache: Optional[list] = None) -> CorpusCache:
@@ -231,12 +236,9 @@ def encode_corpus(model: XML, builder: ExampleBuilder, corpus: CorpusIndex,
     so re-encoding the corpus every epoch skips the host's batch building."""
     check_supported(cfg)
     device = next(model.parameters()).device
-    dt = cfg.cache_dtype
     n = len(corpus)
     bsz = min(cfg.context_bsz, n)
-    chunks: Dict[str, list] = {"vf1": [], "vf2": [], "sf1": [], "sf2": [], "mask": []}
-    norm = lambda x: (x / (torch.linalg.norm(x.float(), dim=-1, keepdim=True)
-                           + 1e-12)).to(dt)
+    chunks: Dict[str, list] = {}
     on = lambda a: torch.from_numpy(a).to(device)
     reuse = bool(batch_cache)
     for bi, i in enumerate(range(0, n, bsz)):
@@ -250,35 +252,50 @@ def encode_corpus(model: XML, builder: ExampleBuilder, corpus: CorpusIndex,
                 batch.sub_feat = batch.sub_feat.astype(np.float16)
                 batch_cache.append(batch)
         vm, sm = on(batch.video_mask), on(batch.sub_mask)
-        vf1, vf2, sf1, sf2 = model.encode_context(on(batch.video_feat).float(), vm,
-                                                  on(batch.sub_feat).float(), sm)
-        chunks["vf1"].append(norm(vf1))
-        chunks["vf2"].append(vf2.to(dt))
-        chunks["sf1"].append(norm(sf1))
-        chunks["sf2"].append(sf2.to(dt))
-        chunks["mask"].append(vm)
-    cat = {k: torch.cat(v) for k, v in chunks.items()}
-    if cfg.cat_mode:
-        cat["feat2_cat"] = torch.cat([cat.pop("vf2"), cat.pop("sf2")], dim=-1)
-    return _finish_cache(model, cfg, corpus, cat)
+        parts = _cache_parts(model, cfg, vm, *model.encode_context(
+            on(batch.video_feat).float(), vm, on(batch.sub_feat).float(), sm))
+        for k, v in parts.items():
+            chunks.setdefault(k, []).append(v)
+    return _finish_cache(model, cfg, corpus, {k: torch.cat(v) for k, v in chunks.items()})
+
+
+def _cache_parts(model: XML, cfg: RetrievalConfig, mask, vf1, vf2, sf1, sf2
+                 ) -> Dict[str, torch.Tensor]:
+    """One encoded chunk's cache entries: feat1 L2-normalized (query-time
+    cosine scoring then normalizes only the queries), everything at the
+    cache dtype, a stream the model lacks left out, and on the fast path
+    under the cat span modes feat2_cat = [vf2 ; sf2] in place of the two
+    feat2 streams."""
+    dt = cfg.cache_dtype
+    norm = lambda x: (x / (torch.linalg.norm(x.float(), dim=-1, keepdim=True)
+                           + 1e-12)).to(dt)
+    parts = {"mask": mask}
+    for key, x, f in (("vf1", vf1, norm), ("sf1", sf1, norm),
+                      ("vf2", vf2, lambda x: x.to(dt)), ("sf2", sf2, lambda x: x.to(dt))):
+        if x is not None:
+            parts[key] = f(x)
+    if cfg.cat_mode and model.cfg.merged_spans:
+        parts["feat2_cat"] = torch.cat([parts.pop("vf2"), parts.pop("sf2")], dim=-1)
+    return parts
 
 
 def _finish_cache(model: XML, cfg: RetrievalConfig, corpus: CorpusIndex,
                   bufs: Dict[str, torch.Tensor]) -> CorpusCache:
-    """Whole-corpus buffers (vf1, sf1, mask and either vf2 + sf2 or
-    feat2_cat) -> CorpusCache: the clip-axis pad or the int8 layouts of
-    feat2_cat and the flat (int8) feat1 layout of the kernel video-score
-    modes. Buffers are popped as they are replaced, so a source frees once
-    its copy exists."""
+    """Whole-corpus buffers (mask, the model's streams of vf1 / sf1, and
+    either vf2 / sf2 or feat2_cat) -> CorpusCache: the clip-axis pad or the
+    int8 layouts of feat2_cat and, on the fast path, the flat (int8) feat1
+    layout of the kernel video-score modes. A stream the model lacks stays
+    None, as in the JAX engine. Buffers are popped as they are replaced, so
+    a source frees once its copy exists."""
     feat2_cat = _maybe_pad_clip_axis(bufs.pop("feat2_cat", None), cfg)
     feat2_cat_scale = None
-    if cfg.span_score_mode == "simsweep_cat_int8":
+    if feat2_cat is not None and cfg.span_score_mode == "simsweep_cat_int8":
         # per-(video, clip) rows; feat2 is not unit-norm, so scales are kept
         feat2_cat, feat2_cat_scale = quantize_rows_i8(feat2_cat)
-    elif cfg.span_score_mode == "simsweep_cat_int8_flat":
+    elif feat2_cat is not None and cfg.span_score_mode == "simsweep_cat_int8_flat":
         feat2_cat, feat2_cat_scale = build_flat_feat2_i8(feat2_cat)
-    vf1_all, sf1_all, mask_all = bufs.pop("vf1"), bufs.pop("sf1"), bufs["mask"]
-    if cfg.video_score_mode in ("pallas", "pallas_int8") and _uses_fast_path(model):
+    vf1_all, sf1_all, mask_all = bufs.pop("vf1", None), bufs.pop("sf1", None), bufs["mask"]
+    if cfg.video_score_mode in ("pallas", "pallas_int8") and model.cfg.merged_spans:
         vf1_all = build_flat_feat1(vf1_all, mask_all, chunk_v=cfg.video_chunk_v)
         sf1_all = build_flat_feat1(sf1_all, mask_all, chunk_v=cfg.video_chunk_v)
         if cfg.video_score_mode == "pallas_int8":
@@ -310,27 +327,16 @@ def encode_corpus_resident(model: XML, device_data, corpus: CorpusIndex,
     ctx = device_data.ctx_device
     nv = len(corpus)
     bsz = min(cfg.context_bsz, nv)
-    dt = cfg.cache_dtype
-    norm = lambda x: (x / (torch.linalg.norm(x.float(), dim=-1, keepdim=True)
-                           + 1e-12)).to(dt)
     bufs: Dict[str, torch.Tensor] = {}
     for start in list(range(0, nv - bsz, bsz)) + [nv - bsz]:
         vfeat, mask, sfeat, _ = assemble_context_slice(ctx, start, bsz, **akw)
-        vf1, vf2, sf1, sf2 = model.encode_context(vfeat, mask, sfeat, mask)
-        parts = {"vf1": norm(vf1), "sf1": norm(sf1), "mask": mask}
-        if cfg.cat_mode:
-            parts["feat2_cat"] = torch.cat([vf2.to(dt), sf2.to(dt)], dim=-1)
-        else:
-            parts.update(vf2=vf2.to(dt), sf2=sf2.to(dt))
+        parts = _cache_parts(model, cfg, mask,
+                             *model.encode_context(vfeat, mask, sfeat, mask))
         for k, v in parts.items():
             if k not in bufs:
                 bufs[k] = torch.zeros((nv,) + v.shape[1:], dtype=v.dtype, device=v.device)
             bufs[k][start:start + bsz] = v
     return _finish_cache(model, cfg, corpus, bufs)
-
-
-def _normalize(q: torch.Tensor) -> torch.Tensor:
-    return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12)
 
 
 @torch.no_grad()
@@ -339,102 +345,127 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
                        gt_meta_idx, do_svmr: bool, use_external_vr: bool = False,
                        external_idx=None, external_scores=None,
                        feat2_cat=None, feat2_cat_scale=None) -> Dict[str, torch.Tensor]:
-    """Score one query batch against the whole cached corpus (fast path:
-    merged two-stream ConvSE). Video scores cover every video; span
-    probabilities only the gathered top-V (+ GT) rows, exact-equivalent to
-    the reference's conv over every video because conv and softmax are
-    per row (inference.py:308-374). Returns device tensors keyed like the
-    JAX engine's output."""
+    """Score one query batch against the whole cached corpus. Fast path
+    (the merged two-stream conv head): video scores cover every video and
+    span probabilities only the gathered top-V (+ GT) rows, exact-equivalent
+    to the reference's conv over every video because conv and softmax are
+    per row (inference.py:308-374). Other configurations: span
+    probabilities for every video, then the top-V rows (JAX
+    engine.py:658-676). Returns device tensors keyed like the JAX engine's
+    output."""
     check_supported(cfg)
-    if not _uses_fast_path(model):
-        raise NotImplementedError(
-            "the get_pred_from_raw_query branch (non-merged configs) is ROADMAP A8")
     f32 = torch.float32
     nv, L = ctx_mask.shape
     V = min(cfg.max_vcmr_video, nv)
     alpha = cfg.q2c_alpha
 
-    vq, sq = model.encode_query(query_feat, query_mask)          # (Nq, D) x2
-    fused_bmax = None
-    if cfg.video_score_mode in ("pallas", "pallas_int8"):
-        lp = flat_lp(L)
-        if cfg.video_score_mode == "pallas_int8":
-            qvt, qst = (quantize_unit_i8(_normalize(q)).T for q in (vq, sq))
+    if model.cfg.merged_spans:
+        vq, sq = model.encode_query(query_feat, query_mask)          # (Nq, D) x2
+        fused_bmax = None
+        if cfg.video_score_mode in ("pallas", "pallas_int8"):
+            lp = flat_lp(L)
+            if cfg.video_score_mode == "pallas_int8":
+                qvt, qst = (quantize_unit_i8(l2_normalize(q)).T for q in (vq, sq))
+            else:
+                qvt = l2_normalize(vq).to(video_feat1.dtype).T
+                qst = l2_normalize(sq).to(sub_feat1.dtype).T
+            if cfg.video_topk_fused:
+                scores_pad, fused_bmax = video_scores_flat_bmax(
+                    qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp,
+                    chunk_v=cfg.video_chunk_v)
+                q2c = scores_pad[:, :nv]
+            else:
+                score = (video_scores_flat_i8 if cfg.video_score_mode == "pallas_int8"
+                         else video_scores_flat)
+                q2c = score(qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp)
         else:
-            qvt = _normalize(vq).to(video_feat1.dtype).T
-            qst = _normalize(sq).to(sub_feat1.dtype).T
-        if cfg.video_topk_fused:
-            scores_pad, fused_bmax = video_scores_flat_bmax(
-                qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp,
-                chunk_v=cfg.video_chunk_v)
-            q2c = scores_pad[:, :nv]
-        else:
-            score = (video_scores_flat_i8 if cfg.video_score_mode == "pallas_int8"
-                     else video_scores_flat)
-            q2c = score(qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp)
-    else:
-        q2c = video_scores_xla(_normalize(vq).to(video_feat1.dtype),
-                               _normalize(sq).to(sub_feat1.dtype),
-                               video_feat1, sub_feat1, ctx_mask)
+            q2c = video_scores_xla(l2_normalize(vq).to(video_feat1.dtype),
+                                   l2_normalize(sq).to(sub_feat1.dtype),
+                                   video_feat1, sub_feat1, ctx_mask)
 
-    if use_external_vr:
-        # an external VR result replaces the internal video ranking
-        # (reference inference.py:346-355)
-        topv_idx = external_idx
-        topv_scores = torch.exp(alpha * external_scores)
-    elif cfg.video_topk_approx:
-        # the approximate top-k on the pre-exp scores, exp on the V selected
-        topv_q2c, topv_idx = approx_topk.approx_max_k(q2c.to(f32), V, cfg.topk_approx_recall)
-        topv_scores = torch.exp(alpha * topv_q2c)
-    elif fused_bmax is not None:
-        # kernel-emitted block maxima; pre-exp ranking (exp is monotone)
-        topv_q2c, topv_idx = topk_from_block_max(
-            scores_pad, fused_bmax, V,
-            block=scores_pad.shape[1] // fused_bmax.shape[1])
-        topv_scores = torch.exp(alpha * topv_q2c)
-    elif cfg.video_topk_pre_exp:
-        topv_q2c, topv_idx = _video_sel(cfg)(q2c.to(f32), V)
-        topv_scores = torch.exp(alpha * topv_q2c)
+        if use_external_vr:
+            # an external VR result replaces the internal video ranking
+            # (reference inference.py:346-355)
+            topv_idx = external_idx
+            topv_scores = torch.exp(alpha * external_scores)
+        elif cfg.video_topk_approx:
+            # the approximate top-k on the pre-exp scores, exp on the V selected
+            topv_q2c, topv_idx = approx_topk.approx_max_k(q2c.to(f32), V, cfg.topk_approx_recall)
+            topv_scores = torch.exp(alpha * topv_q2c)
+        elif fused_bmax is not None:
+            # kernel-emitted block maxima; pre-exp ranking (exp is monotone)
+            topv_q2c, topv_idx = topk_from_block_max(
+                scores_pad, fused_bmax, V,
+                block=scores_pad.shape[1] // fused_bmax.shape[1])
+            topv_scores = torch.exp(alpha * topv_q2c)
+        elif cfg.video_topk_pre_exp:
+            topv_q2c, topv_idx = _video_sel(cfg)(q2c.to(f32), V)
+            topv_scores = torch.exp(alpha * topv_q2c)
+        else:
+            topv_scores, topv_idx = _video_sel(cfg)(torch.exp(alpha * q2c.to(f32)), V)
+        topv_idx = topv_idx.long()
+        gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
+                      if do_svmr else topv_idx)                      # (Nq, V[+1])
+        if cfg.span_score_mode == "simsweep_cat_int8":
+            st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat_i8(
+                vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
+        elif cfg.span_score_mode == "simsweep_cat_int8_flat":
+            st_logits, ed_logits = model.merged_st_ed_scores_pallas_cat_i8(
+                vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
+        elif cfg.cat_mode:
+            st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
+                vq, sq, feat2_cat, ctx_mask, gather_idx,
+                sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
+                           else None))
+        elif cfg.span_score_mode == "simsweep":
+            st_logits, ed_logits = model.merged_st_ed_scores_simgather(
+                vq, video_feat2, sq, sub_feat2, ctx_mask, gather_idx)
+        else:
+            # gathered rows stay at the cache dtype: (Nq, V[+1], L, D) per stream
+            st_logits, ed_logits = model.merged_st_ed_scores_gathered(
+                vq, video_feat2[gather_idx], sq, sub_feat2[gather_idx],
+                ctx_mask[gather_idx])
+        st_probs = torch.softmax(st_logits.to(f32), dim=-1)
+        ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
+        st_top, ed_top = st_probs[:, :V], ed_probs[:, :V]
+        if do_svmr:
+            st_gt, ed_gt = st_probs[:, V], ed_probs[:, V]          # the gathered GT row
     else:
-        topv_scores, topv_idx = _video_sel(cfg)(torch.exp(alpha * q2c.to(f32)), V)
-    topv_idx = topv_idx.long()
-    gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
-                  if do_svmr else topv_idx)                      # (Nq, V[+1])
-    if cfg.span_score_mode == "simsweep_cat_int8":
-        st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat_i8(
-            vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
-    elif cfg.span_score_mode == "simsweep_cat_int8_flat":
-        st_logits, ed_logits = model.merged_st_ed_scores_pallas_cat_i8(
-            vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
-    elif cfg.cat_mode:
-        st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
-            vq, sq, feat2_cat, ctx_mask, gather_idx,
-            sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
-                       else None))
-    elif cfg.span_score_mode == "simsweep":
-        st_logits, ed_logits = model.merged_st_ed_scores_simgather(
-            vq, video_feat2, sq, sub_feat2, ctx_mask, gather_idx)
-    else:
-        # gathered rows stay at the cache dtype: (Nq, V[+1], L, D) per stream
-        st_logits, ed_logits = model.merged_st_ed_scores_gathered(
-            vq, video_feat2[gather_idx], sq, sub_feat2[gather_idx],
-            ctx_mask[gather_idx])
-    st_probs = torch.softmax(st_logits.to(f32), dim=-1)
-    ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
+        up = lambda x: None if x is None else x.to(f32)
+        q2c, st_logits, ed_logits = model.get_pred_from_raw_query(
+            query_feat, query_mask, up(video_feat1), up(video_feat2), ctx_mask,
+            up(sub_feat1), up(sub_feat2), ctx_mask, cross=True)  # (Nq, Nv), (Nq, Nv, L)
+        st_probs = torch.softmax(st_logits.to(f32), dim=-1)
+        del st_logits
+        ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
+        del ed_logits
+        if use_external_vr:
+            topv_idx = external_idx
+            topv_scores = torch.exp(alpha * external_scores)
+        elif cfg.video_topk_pre_exp:
+            topv_q2c, topv_idx = topk_stable(q2c.to(f32), V)
+            topv_scores = torch.exp(alpha * topv_q2c)
+        else:
+            topv_scores, topv_idx = topk_stable(torch.exp(alpha * q2c.to(f32)), V)
+        topv_idx = topv_idx.long()
+        rows = torch.arange(topv_idx.shape[0], device=topv_idx.device)
+        st_top, ed_top = st_probs[rows[:, None], topv_idx], ed_probs[rows[:, None], topv_idx]
+        if do_svmr:
+            # the GT row of the full probabilities (JAX engine.py:718-723)
+            gt = gt_meta_idx.long()
+            st_gt, ed_gt = st_probs[rows, gt], ed_probs[rows, gt]
 
     span_topk = SPAN_TOPK[cfg.span_topk_mode]
     if cfg.span_topk_mode == "grouped_shift_approx":
         span_topk = functools.partial(span_topk, recall=cfg.topk_approx_recall)
     vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = span_topk(
-        st_probs[:, :V], ed_probs[:, :V], topv_scores, cfg.min_pred_l,
-        cfg.max_pred_l, cfg.max_before_nms)
+        st_top, ed_top, topv_scores, cfg.min_pred_l, cfg.max_pred_l, cfg.max_before_nms)
     out = dict(topv_scores=topv_scores, topv_idx=topv_idx.to(torch.int32),
                vcmr_vid_local=vcmr_vid_local, vcmr_st=vcmr_st, vcmr_ed=vcmr_ed,
                vcmr_scores=vcmr_scores)
     if do_svmr:
         svmr_st, svmr_ed, svmr_scores = banded_top_spans_from_probs(
-            st_probs[:, V], ed_probs[:, V], cfg.min_pred_l, cfg.max_pred_l,
-            cfg.max_before_nms)
+            st_gt, ed_gt, cfg.min_pred_l, cfg.max_pred_l, cfg.max_before_nms)
         out.update(svmr_st=svmr_st, svmr_ed=svmr_ed, svmr_scores=svmr_scores)
     return out
 

@@ -132,6 +132,9 @@ def start_inference(argv: Optional[List[str]] = None) -> dict:
     _, eval_rows, builder, corpus = setup_world(args)
     params, _, cfg_dict, epoch = load_checkpoint(os.path.join(cli.model_dir, "ckpt"),
                                                  map_location=args.device)
+    if cfg_dict.get("stack_conv_predictor_conv_kernel_sizes") is not None:   # a JSON list
+        cfg_dict["stack_conv_predictor_conv_kernel_sizes"] = tuple(
+            cfg_dict["stack_conv_predictor_conv_kernel_sizes"])
     model = XML(XMLConfig(**cfg_dict)).to(args.device)
     model.load_state_dict(params, strict=True)
     model.eval()

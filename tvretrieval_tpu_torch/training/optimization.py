@@ -51,13 +51,14 @@ def make_lr_multiplier(schedule: Optional[str] = "warmup_linear", warmup: float 
 
 def no_decay_mask(module: nn.Module) -> Dict[str, bool]:
     """Parameter name -> True where weight decay applies. Excludes biases
-    and LayerNorm weight / bias (the port's LayerNorms are named ``ln`` or
-    ``*_ln``, as the flax modules are), matching the reference's no_decay
-    list (train.py:152-156)."""
+    (a recurrent cell's ``bias_ih_l0`` / ``bias_hh_l0`` too, as flax's
+    gate biases are ``bias``) and LayerNorm weight / bias (the port's
+    LayerNorms are named ``ln`` or ``*_ln``, as the flax modules are),
+    matching the reference's no_decay list (train.py:152-156)."""
 
     def decay(name: str) -> bool:
         keys = name.split(".")
-        if keys[-1] == "bias":
+        if keys[-1] == "bias" or keys[-1].startswith("bias_"):
             return False
         return not any(k == "ln" or k.endswith("_ln") for k in keys)
 

@@ -14,9 +14,11 @@ It runs on the CUDA card unless ``--device cpu`` is given, and exits at
 once when there is no card. ``--device_data`` keeps the corpus features
 on the device (data/device_corpus.py). Real data: pass --train_path /
 --eval_path jsonl annotations, h5 feature paths and
---video_duration_idx_path like the reference scripts/train.sh. Flags whose
-feature is not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item before any data is built.
+--video_duration_idx_path like the reference scripts/train.sh. Every model
+flag of the JAX CLI is taken (the encoder types, single-stream ``--ctx_mode``,
+the ablations, the span heads, ``--compute_dtype bfloat16``); ``--n_devices``
+above 1 (data-parallel training, ROADMAP A10) raises ``NotImplementedError``
+before any data is built.
 """
 from __future__ import annotations
 
@@ -287,14 +289,12 @@ def model_config(args, builder: Optional[ExampleBuilder]) -> XMLConfig:
 
 
 def check_args_supported(args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for flags whose
-    feature the port does not have yet; called before any data is built."""
-    from tvretrieval_tpu_torch.models.xml import _check_supported
-
+    """Raise before any data is built: NotImplementedError, naming the
+    ROADMAP item, for a flag whose feature the port does not have yet, and
+    ValueError for an unknown engine mode."""
     if (args.n_devices or 1) > 1:
         raise NotImplementedError(
             f"--n_devices {args.n_devices}: data-parallel training is ROADMAP A10")
-    _check_supported(model_config(args, None))              # model variants: A8
     check_supported(retrieval_config(args, 1))              # mode names
 
 
