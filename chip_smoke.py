@@ -87,10 +87,28 @@ Run from the repository root on a machine with one CUDA card. Phases:
    site's recall), q/s and peak memory; (c) the bf16 and the LSTM XML
    trained on phase 7's resident world: first-batch loss card against
    CPU, a falling loss, ms a step beside phase 7's;
-11. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
+11. the streaming engine (``retrieval.streaming``) at the full corpus
+   (21,818 videos of 1-100 clips, one fully masked, f32, pulled from the
+   card into pinned host memory) in its three host modes, einsum, flat
+   (B2) and flat_int8 (B1): B1 / B2 on a streamed block, the first and the
+   last, zero-filled one, against their plain versions (B1 bit-equal, B2
+   within 1e-5); 200 queries equal to the resident engine on the card
+   (span mode "gather", the matching video mode; flat_int8 exact, the
+   others outside near-ties); 1,000 queries in batches of 50 with the
+   shipped span selection (B11 at recall 0.90), launches counted from 0
+   (B1 / B2 once a block, B11 twice a batch), q/s beside the resident
+   engine's, per block copy and score ms from events on the two streams,
+   the overlap share, the host-to-device rate against a pinned-copy probe,
+   phase 2's host gather and feat2 copy, peak device memory at 10,909 and
+   21,818 videos (equal within 5%, below the resident cache), and in
+   flat_int8 B11's recall at both span sites; then the flagship forward
+   entry point (``tvretrieval_tpu_torch.entry``) on the card against the
+   CPU, within 2e-4;
+12. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
    B1-B3, B5, B6 and B11, over phases 7 and 10 for B4 and over phase 9 for
-   B7-B10, ``launches_throughput`` over phase 5);
-12. the last line: ``{"ok": true, "device": {...}}``.
+   B7-B10, ``launches_throughput`` over phase 5, ``launches_streaming``
+   over phase 11's timed runs);
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
 package directory) runs that commit's phases 3, 5 and 8 in a process of
@@ -1855,6 +1873,386 @@ def phase_variants(dev, e2e_world, train_env, profile_dir=""):
     return launches
 
 
+# phase 11: the streaming engine at the full corpus (see phase_streaming)
+STREAM_BLOCK = 2048                # retrieve's streaming_block_videos default
+STREAM_BSZ = 50                    # RetrievalConfig.query_bsz's default
+STREAM_CHECK_QUERIES = 200         # held against the resident engine
+STREAM_HALF = N_VIDEOS_FULL // 2   # the second corpus size of the memory check
+STREAM_MASKED = 7                  # the fully masked video
+STREAM_Q2C_ATOL = 1e-6             # phase 4's f32 q2c bound: summation order alone
+STREAM_RTOL = 1e-5
+STREAM_MEMORY_RTOL = 0.05
+PROBE_BYTES = 100 * 2**20          # the pinned host-to-device copy probe: block-sized
+PROBE_COPIES = 30                  # the probe's rate is the best of this many copies
+
+
+def stream_cache(dev):
+    """Phase 11's encoded cache as encode_corpus leaves it in video mode
+    "einsum" and span mode "gather" (the layout the streaming path pulls to
+    host memory), synthesized on the card: 21,818 videos of 1-100 clips,
+    f32 unit feat1 rows and N(0, 1) feat2 rows, video STREAM_MASKED fully
+    masked with zero feat1 rows."""
+    from tvretrieval_tpu_torch.retrieval.engine import CorpusCache
+
+    nv = N_VIDEOS_FULL
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lengths = torch.randint(1, N_CLIPS + 1, (nv,), generator=gen, device=dev)
+    lengths[STREAM_MASKED] = 0
+    mask = (torch.arange(N_CLIPS, device=dev)[None] < lengths[:, None]).float()
+    vf1, sf1 = (unit((nv, N_CLIPS, HIDDEN), gen, dev) for _ in range(2))
+    vf1[STREAM_MASKED] = 0
+    sf1[STREAM_MASKED] = 0
+    vf2, sf2 = (torch.randn((nv, N_CLIPS, HIDDEN), generator=gen, device=dev) for _ in range(2))
+    metas = [{"vid_name": f"v{i}", "duration": 150.0} for i in range(nv)]
+    return CorpusCache(vf1, vf2, sf1, sf2, mask, nv, metas)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def compare_streaming(mode, so, ro, alpha):
+    """Phase 11's equality of the streaming engine (``so``) with the resident
+    engine (``ro``) over the same queries; returns a line for the log.
+    flat_int8: top-V indices, order and scores equal (integer video
+    scores); otherwise the top-V q2c within STREAM_Q2C_ATOL, the indices
+    equal outside near-ties, topv_scores within STREAM_RTOL. Both: VCMR
+    scores within STREAM_RTOL, the moments equal outside near-ties, SVMR
+    equal (outside near-ties, scores within 1e-6), the fully masked video
+    in no top-V."""
+    from tvretrieval_tpu_torch.testing import rank_mismatches, within
+
+    so, ro = ({k: v.cpu().numpy() for k, v in o.items()} for o in (so, ro))
+    q2c = lambda o: np.log(o["topv_scores"].astype(np.float64)) / alpha
+    if mode == "flat_int8":
+        ok = (np.array_equal(so["topv_idx"], ro["topv_idx"])
+              and np.array_equal(so["topv_scores"], ro["topv_scores"]))
+    else:
+        ok = (within(q2c(ro), q2c(so), atol=STREAM_Q2C_ATOL)
+              and rank_mismatches(ro["topv_idx"], q2c(ro), so["topv_idx"],
+                                  atol=2 * STREAM_Q2C_ATOL) == 0
+              and within(ro["topv_scores"], so["topv_scores"], rtol=STREAM_RTOL))
+    keys = lambda o, task: ((np.take_along_axis(o["topv_idx"], o["vcmr_vid_local"], 1)
+                             .astype(np.int64) if task == "vcmr" else 0) * 1000
+                            + o[f"{task}_st"].astype(np.int64)) * 1000 + o[f"{task}_ed"]
+    ok = ok and within(ro["vcmr_scores"], so["vcmr_scores"], rtol=STREAM_RTOL)
+    bad_v = rank_mismatches(keys(ro, "vcmr"), ro["vcmr_scores"], keys(so, "vcmr"),
+                            rtol=2 * STREAM_RTOL)
+    ok = ok and within(ro["svmr_scores"], so["svmr_scores"], rtol=1e-6)
+    bad_s = rank_mismatches(keys(ro, "svmr"), ro["svmr_scores"], keys(so, "svmr"), rtol=2e-6)
+    masked = STREAM_MASKED in so["topv_idx"] or STREAM_MASKED in ro["topv_idx"]
+    same = [k for k in ro if np.array_equal(ro[k], so[k])]
+    line = (f"top-V q2c max |d| {np.abs(q2c(so) - q2c(ro)).max():.3e}, top-V indices equal "
+            f"{np.array_equal(so['topv_idx'], ro['topv_idx'])}, VCMR scores max rel |d| "
+            f"{np.max(np.abs(so['vcmr_scores'] - ro['vcmr_scores']) / np.abs(ro['vcmr_scores'])):.3e}, "
+            f"moment mismatches outside near-ties VCMR {bad_v} / SVMR {bad_s}; bit-equal: "
+            f"{same}")
+    if not ok or bad_v or bad_s or masked:
+        raise AssertionError(f"streaming {mode} differs from the resident engine: {line}; "
+                             f"masked video in a top-V: {masked}")
+    return line
+
+
+def compare_shipped(mode, so, ro):
+    """Phase 11's equality of the timed runs (the shipped span selection,
+    B11 twice a batch), streaming (``so``) against resident (``ro``) over
+    the same queries; returns a line for the log. A query whose top-V
+    indices and scores are bit-equal in both gives B11 bit-equal rows at
+    both sites, so each of its outputs must be bit-equal. flat_int8 (integer
+    video scores) must have every query so; the other modes may have a few
+    with the top-V apart by summation order or the order of equal scores,
+    which the exact-span comparison holds instead."""
+    so, ro = ({k: v.cpu().numpy() for k, v in o.items()} for o in (so, ro))
+    same_v = ((so["topv_idx"] == ro["topv_idx"]).all(1)
+              & (so["topv_scores"] == ro["topv_scores"]).all(1))
+    differ = {k: int((~(so[k] == ro[k]).reshape(len(same_v), -1).all(1) & same_v).sum())
+              for k in ro}
+    line = (f"{int(same_v.sum())} of {len(same_v)} queries with bit-equal top-V; among them "
+            f"queries with an output not bit-equal: {differ}")
+    if (mode == "flat_int8" and not same_v.all()) or any(differ.values()):
+        raise AssertionError(f"streaming {mode}, shipped spans, differs from the resident "
+                             f"engine: {line}")
+    return line
+
+
+def phase_streaming(dev):
+    """Phase 11: the streaming engine (retrieval.streaming) at the full
+    corpus, in its three host modes. For each: the encoded cache (phase 11's
+    synthesized one, f32) pulled into pinned host memory; B1 (flat_int8) /
+    B2 (flat) on the first and the last, zero-filled streamed block against
+    their plain versions; 200 queries against the resident engine on the
+    card (span mode "gather", the matching video mode, exact spans); 1,000
+    queries in batches of 50 with the shipped span selection (B11 at
+    recall 0.90), counts set to 0 before and read after (B1 / B2 once a
+    block, B11 twice a batch), q/s beside the resident engine's, per block
+    copy and score ms from events on the two streams, the overlap share,
+    the host-to-device rate against a pinned-copy probe, phase 2's host
+    gather and feat2 copy, peak device memory at 10,909 and 21,818 videos
+    (equal within 5%, below the resident cache); the timed runs' first 200
+    queries streaming against resident (bit-equal where the top-V is); B11
+    at both span sites of a batch bit-equal to its plain version, and its
+    recall. Then the flagship forward entry point
+    (``tvretrieval_tpu_torch.entry``) on the card against the CPU. Returns
+    the kernel launches of the timed runs."""
+    from tvretrieval_tpu_torch.entry import entry
+    from tvretrieval_tpu_torch.models.xml import XML, XMLConfig, l2_normalize
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+    from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import sort as tsort
+    from tvretrieval_tpu_torch.ops import topk as ttopk
+    from tvretrieval_tpu_torch.ops import video_score as vs
+    from tvretrieval_tpu_torch.retrieval import streaming as st
+    from tvretrieval_tpu_torch.retrieval.engine import RetrievalConfig, _score_query_batch
+    from tvretrieval_tpu_torch.testing import tie_aware_recall
+
+    t_phase = time.perf_counter()
+    nv, bsz, block = N_VIDEOS_FULL, STREAM_BSZ, STREAM_BLOCK
+    n_blocks = -(-nv // block)
+    model = XML(XMLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768,
+                          hidden_size=HIDDEN, n_heads=4, max_ctx_l=N_CLIPS, max_desc_l=30)
+                ).init_weights(torch.Generator().manual_seed(0)).eval().to(dev)
+    cache = stream_cache(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q_feat = torch.randn((N_QUERIES, 30, 768), generator=gen, device=dev)
+    q_mask = torch.ones((N_QUERIES, 30), device=dev)
+    gt = torch.randint(0, nv, (N_QUERIES,), generator=gen, device=dev)
+    batches = [slice(i, i + bsz) for i in range(0, N_QUERIES, bsz)]
+    check = batches[:STREAM_CHECK_QUERIES // bsz]
+    # the rate a host-to-device copy from pinned memory reaches on this card:
+    # the best of PROBE_COPIES block-sized copies, each timed by events on a
+    # stream of its own, as the streamed blocks are
+    probe = torch.empty(PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    probe_dst = torch.empty(PROBE_BYTES, dtype=torch.uint8, device=dev)
+    probe_stream = torch.cuda.Stream(dev)
+    probe_ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                for _ in range(PROBE_COPIES)]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(probe_stream):
+        for a, b in probe_ev:
+            a.record()
+            probe_dst.copy_(probe, non_blocking=True)
+            b.record()
+    probe_stream.synchronize()
+    probe_all = [a.elapsed_time(b) for a, b in probe_ev]
+    probe_ms = min(probe_all)
+    probe_gbs = PROBE_BYTES / probe_ms / 1e6
+    del probe, probe_dst
+    log("streaming", f"pinned host-to-device probe: {PROBE_COPIES} copies of "
+        f"{PROBE_BYTES / 2**20:.0f} MiB on a stream of their own, best {probe_ms:.3f} ms = "
+        f"{probe_gbs:.2f} GB/s (mean {PROBE_BYTES / np.mean(probe_all) / 1e6:.2f} GB/s, "
+        f"worst {PROBE_BYTES / max(probe_all) / 1e6:.2f} GB/s)")
+    # the resident flat layout cannot hold a fully masked video: it gets one
+    # valid clip there, its zero feat1 rows score 0, far below every top-V of
+    # this corpus (held below: it is in no top-V)
+    flat_mask = cache.mask.clone()
+    flat_mask[STREAM_MASKED, 0] = 1
+    counters = (vs, gt_ops, tsort, fsc, ttopk, apx)
+    no_launch = {k: 0 for ops in counters for k in ops.LAUNCHES}
+    kernel = {"flat": "video_scores_flat", "flat_int8": "video_scores_flat_i8"}
+    total = dict(no_launch)
+    for mode in ("einsum", "flat", "flat_int8"):
+        t_mode = time.perf_counter()
+        flat, int8 = mode != "einsum", mode == "flat_int8"
+        base = dict(span_score_mode="gather", query_bsz=bsz, video_chunk_v=CHUNK_V,
+                    video_score_mode={"einsum": "einsum", "flat": "pallas",
+                                      "flat_int8": "pallas_int8"}[mode])
+        exact_cfg = RetrievalConfig(**base, span_topk_mode="grouped_shift")
+        ship_cfg = RetrievalConfig(**base, span_topk_mode="grouped_shift_approx",
+                                   topk_approx_recall=SHIPPED_RECALL)
+        if flat:
+            res_f1 = [vs.build_flat_feat1(f, flat_mask, chunk_v=CHUNK_V)
+                      for f in (cache.video_feat1, cache.sub_feat1)]
+            if int8:
+                res_f1 = [vs.quantize_unit_i8(f) for f in res_f1]
+        else:
+            res_f1 = [cache.video_feat1, cache.sub_feat1]
+        resident_gb = nbytes(*res_f1, cache.video_feat2, cache.sub_feat2, cache.mask) / 1e9
+        resident = lambda cfg, b: _score_query_batch(
+            model, cfg, q_feat[b], q_mask[b], res_f1[0], cache.video_feat2, res_f1[1],
+            cache.sub_feat2, cache.mask, gt[b], True)
+        t0 = time.perf_counter()
+        host = st.host_cache_from_device(cache, flat=flat, int8=int8)
+        host_s = time.perf_counter() - t0
+        host_parts = (host.video_feat1, host.sub_feat1, host.video_feat2, host.sub_feat2,
+                      host.mask, host.video_valid)
+        feat1_batch_bytes = nbytes(host.video_feat1, host.sub_feat1,
+                                   host.video_valid if flat else host.mask)
+        streamed = lambda cfg, b, h=host, **kw: st.streaming_score_query_batch(
+            model, cfg, q_feat[b], q_mask[b], h, gt_meta_idx=gt[b] % h.n_videos,
+            block_videos=block, **kw)
+
+        # one streamed block's kernel output against its plain version: the
+        # first block and the last, zero-filled one
+        block_err = None
+        if flat:
+            with torch.no_grad():
+                vq, sq = model.encode_query(q_feat[check[0]], q_mask[check[0]])
+            if int8:
+                qv, qs = (vs.quantize_unit_i8(l2_normalize(q)).T for q in (vq, sq))
+            else:
+                qv, qs = (l2_normalize(q).to(host.video_feat1.dtype).T for q in (vq, sq))
+            score = getattr(vs, kernel[mode])
+            errs = []
+            for off, (fv, fs, _) in st._device_blocks(host, block, dev, None):
+                if off in (0, (n_blocks - 1) * block):
+                    got = score(qv, qs, fv, fs, n_videos=block, lp=host.lp)
+                    want = vs.video_scores_flat_plain(qv, qs, fv, fs, block, host.lp)
+                    errs.append(float((got - want).abs().max()))
+            block_err = max(errs)
+            bound = 0.0 if int8 else B2_ATOL
+            log("streaming", f"{mode}: {kernel[mode]} on the first and the last (zero-filled) "
+                f"streamed block of {block} videos against its plain version: max |d| "
+                f"{errs} (bound {bound:.0e}: {'bit-equal' if int8 else 'f32 summation order'})")
+            if not block_err <= bound:
+                raise AssertionError(f"streaming {mode}: streamed-block kernel off its plain "
+                                     f"version by {errs}")
+
+        # equal to the resident engine on the card
+        pairs = [(streamed(exact_cfg, b), resident(exact_cfg, b)) for b in check]
+        cat = lambda outs: {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        line = compare_streaming(mode, cat([p[0] for p in pairs]), cat([p[1] for p in pairs]),
+                                 exact_cfg.q2c_alpha)
+        log("streaming", f"{mode} against the resident engine ({exact_cfg.video_score_mode} "
+            f"+ gather, grouped_shift), {STREAM_CHECK_QUERIES} queries: {line}")
+        del pairs
+
+        # the timed run: counts from 0, the shipped span selection
+        for ops in counters:
+            ops.reset_launch_counts()
+        times = []
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        ship_s, ship_r = [], []
+        for b in batches:
+            times.append(st.StreamTimes())
+            out = streamed(ship_cfg, b, times=times[-1])
+            if b in check:
+                ship_s.append(out)
+        end.record()
+        end.synchronize()
+        stream_ms = start.elapsed_time(end)
+        launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+        want = dict(no_launch, approx_max_k=2 * len(batches))
+        if flat:
+            want[kernel[mode]] = n_blocks * len(batches)
+        if launches != want:
+            raise AssertionError(f"streaming {mode}: kernel launches {launches}, expected {want}")
+        for k, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"streaming {mode}: non-finite {k}")
+        for k, v in launches.items():
+            total[k] += v
+        start.record()
+        for b in batches:
+            out_r = resident(ship_cfg, b)
+            if b in check:
+                ship_r.append(out_r)
+        end.record()
+        end.synchronize()
+        resident_ms = start.elapsed_time(end)
+        line = compare_shipped(mode, cat(ship_s), cat(ship_r))
+        log("streaming", f"{mode}: the timed runs' first {STREAM_CHECK_QUERIES} queries "
+            f"(grouped_shift_approx), streaming against resident: {line}")
+        del ship_s, ship_r, out_r
+        copy_ms = [c0.elapsed_time(c1) for t in times for c0, c1, _, _ in t.blocks]
+        score_ms = [s0.elapsed_time(s1) for t in times for _, _, s0, s1 in t.blocks]
+        wall_ms = [t.phase1[0].elapsed_time(t.phase1[1]) for t in times]
+        overlap = [1 - w / (sum(c0.elapsed_time(c1) + s0.elapsed_time(s1)
+                                for c0, c1, s0, s1 in t.blocks))
+                   for w, t in zip(wall_ms, times)]
+        gather_ms = [1e3 * t.gather_s for t in times]
+        feat2_ms = [t.feat2_copy[0].elapsed_time(t.feat2_copy[1]) for t in times]
+        # the gathered (Nq, V + 1) rows of both feat2 streams and of the mask
+        feat2_gb = (bsz * (ship_cfg.max_vcmr_video + 1) * N_CLIPS
+                    * (2 * HIDDEN * host.video_feat2.element_size() + 4) / 1e9)
+        if len(copy_ms) != n_blocks * len(batches):
+            raise AssertionError(f"streaming {mode}: {len(copy_ms)} block records")
+        log("streaming", f"{mode}: host cache {nbytes(*host_parts) / 1e9:.3f} GB pinned "
+            f"(pulled in {host_s:.1f} s), resident cache {resident_gb:.3f} GB; "
+            f"{N_QUERIES} queries x {nv} videos in {len(batches)} batches of {bsz}: "
+            f"{stream_ms:.1f} ms = {N_QUERIES * 1e3 / stream_ms:.1f} q/s streaming, "
+            f"{resident_ms:.1f} ms = {N_QUERIES * 1e3 / resident_ms:.1f} q/s resident "
+            f"({ship_cfg.video_score_mode} + gather + grouped_shift_approx, same queries); "
+            f"launches a batch {({k: v // len(batches) for k, v in launches.items() if v})}")
+        log("streaming", f"{mode}: {n_blocks} blocks a batch; a block's copy {np.mean(copy_ms):.3f} "
+            f"ms (copy stream; min {min(copy_ms):.3f}, max {max(copy_ms):.3f}), score + merge "
+            f"{np.mean(score_ms):.3f} ms (compute stream; min {min(score_ms):.3f}, max "
+            f"{max(score_ms):.3f}); phase 1 {np.mean(wall_ms):.2f} ms a batch (min "
+            f"{min(wall_ms):.2f}), overlap 1 - wall / (copy + score) {np.mean(overlap):.3f}; "
+            f"host to device {feat1_batch_bytes / 1e9:.3f} GB a batch at "
+            f"{feat1_batch_bytes / sum(copy_ms) * len(batches) / 1e6:.2f} GB/s of copy time "
+            f"against the probe's {probe_gbs:.2f} GB/s: bound "
+            f"{feat1_batch_bytes / probe_gbs / 1e6:.2f} ms a batch, phase 1 at "
+            f"{100 * feat1_batch_bytes / probe_gbs / 1e6 / np.mean(wall_ms):.1f}% of the "
+            f"bound's rate")
+        log("streaming", f"{mode}: phase 2 a batch: host gather of the top-V (+GT) rows "
+            f"{np.mean(gather_ms):.2f} ms (min {min(gather_ms):.2f}), feat2 + mask copy "
+            f"{np.mean(feat2_ms):.2f} ms ({feat2_gb:.3f} GB, "
+            f"{feat2_gb / np.mean(feat2_ms) * 1e3:.2f} GB/s)")
+
+        # peak device memory of one batch at half and at the full corpus
+        peaks = {}
+        r = host.lp if flat else 1
+        half = dataclasses.replace(
+            host, n_videos=STREAM_HALF, video_feat1=host.video_feat1[:STREAM_HALF * r],
+            sub_feat1=host.sub_feat1[:STREAM_HALF * r],
+            video_feat2=host.video_feat2[:STREAM_HALF], sub_feat2=host.sub_feat2[:STREAM_HALF],
+            mask=host.mask[:STREAM_HALF],
+            video_valid=host.video_valid[:STREAM_HALF] if flat else None)
+        for n, h in ((STREAM_HALF, half), (nv, host)):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            streamed(ship_cfg, batches[0], h=h)
+            torch.cuda.synchronize()
+            peaks[n] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        log("streaming", f"{mode}: peak device memory of a batch above what is held "
+            f"{peaks[STREAM_HALF]:.3f} GB at {STREAM_HALF} videos, {peaks[nv]:.3f} GB at {nv}; "
+            f"the resident cache {resident_gb:.3f} GB")
+        if not (abs(peaks[STREAM_HALF] - peaks[nv]) <= STREAM_MEMORY_RTOL * peaks[nv]
+                and peaks[nv] < resident_gb):
+            raise AssertionError(f"streaming {mode}: peak memory {peaks} GB against the "
+                                 f"resident cache's {resident_gb:.3f} GB")
+        # B11 at both span sites of one streamed batch: equal to its plain
+        # version on the rows it was given, and its recall
+        calls = record_approx(apx, lambda: streamed(ship_cfg, batches[0]))
+        recalls, plain_equal = [], []
+        for (x, k, recall, (vals, idx)), site in zip(calls, APPROX_SITES[1:]):
+            want_v, want_i = apx.approx_max_k_plain(x, k, recall)
+            plain_equal.append(bool(torch.equal(vals, want_v) and torch.equal(idx, want_i)))
+            got = tie_aware_recall(torch.topk(x, k).values.cpu().numpy(),
+                                   vals.cpu().numpy())
+            recalls.append(got)
+            m = apx.bins(x.shape[1], k, recall)
+            log("streaming", f"{mode}, shipped spans, {site[0]}: rows ({x.shape[0]}, "
+                f"{x.shape[1]}), k={k}, M={m} bins at recall {recall}: values and indices "
+                f"bit-equal to approx_max_k_plain {plain_equal[-1]}, mean tie-aware recall "
+                f"{got:.4f} (formula {((m - 1) / m) ** (k - 1):.4f})")
+        if len(calls) != 2 or not all(plain_equal) or not min(recalls) >= SHIPPED_RECALL:
+            raise AssertionError(f"streaming {mode}: B11 at {len(calls)} sites, bit-equal to "
+                                 f"its plain version {plain_equal}, recalls {recalls}, "
+                                 f"target {SHIPPED_RECALL}")
+        del host, half, res_f1, out, times
+        torch.cuda.empty_cache()
+        log("streaming", f"{mode} took {time.perf_counter() - t_mode:.1f} s")
+    del cache, flat_mask
+
+    # the flagship forward entry point, card against CPU
+    fn, args = entry()
+    fn_cpu, args_cpu = entry(device="cpu")
+    with torch.no_grad():
+        card, cpu = fn(*args).item(), fn_cpu(*args_cpu).item()
+    log("streaming", f"entry(): flagship forward loss on the card {card:.6f}, on the CPU "
+        f"{cpu:.6f}, |d| {abs(card - cpu):.3e} (bound {LOSS_ATOL:.0e})")
+    if not (math.isfinite(card) and abs(card - cpu) <= LOSS_ATOL):
+        raise AssertionError(f"entry(): card loss {card} vs CPU {cpu}")
+    log("streaming", f"phase 11 took {time.perf_counter() - t_phase:.1f} s; kernel launches "
+        f"{({k: v for k, v in total.items() if v})}")
+    return total
+
+
 def checkout_entry(checkout: str, name: str):
     """The entry point of library ``name`` of the commit in ``checkout`` (a
     git archive), built from its csrc source (the same C signature as this
@@ -2027,6 +2425,7 @@ def main() -> int:
                     "phase 4's int8 runs this many times, each on the int8 grid and equal "
                     "to the first")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2099,6 +2498,8 @@ def main() -> int:
     for name, n in phase_variants(dev, e2e_world, train_env, args.profile).items():
         launches[name] = launches.get(name, 0) + n
     del e2e_world, train_env
+    torch.cuda.empty_cache()
+    launches_stream = phase_streaming(dev)
 
     if args.parent:
         torch.cuda.empty_cache()
@@ -2124,12 +2525,15 @@ def main() -> int:
               "tvretrieval_tpu/ops/pallas_kernels.py:67"),
              # the TPU's hardware approximate top-k, which no Pallas kernel holds
              ("B11", "approx_max_k", ax_src, "tvretrieval_tpu/retrieval/engine.py:597")]
+    log("smoke", f"every phase took {time.perf_counter() - t_start:.1f} s, the kernel builds "
+        f"included{' and the parent phases' if args.parent else ''}")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # B2, B3, B9, B10: the bf16 kind (B3: int8) in the keys, the other
     # kinds' readings beside them
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[name], "launches_throughput": launches_tp[name],
+         "launches_streaming": launches_stream[name],
          **{k: rec[b][k] for k in keys},
          **{kind: rec[b][kind] for kind in ("bf16", "f32", "library_call", "per_site")
             if kind in rec[b]}}

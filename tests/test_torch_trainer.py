@@ -345,9 +345,10 @@ def test_start_inference_reads_the_run_back(tmp_path):
                                         "--eval_id", "vr_only", "--device", "cpu"])
     assert set(vr["metrics"]) >= {"VR"} and "VCMR" not in vr["metrics"]
     assert vr["metrics"]["VR"] == res["final_metrics"]["VR"]
-    with pytest.raises(NotImplementedError, match="A10"):
-        inference_xml.start_inference(["--model_dir", res["results_dir"],
-                                       "--streaming", "flat"])
+    streamed = inference_xml.start_inference(["--model_dir", res["results_dir"],
+                                              "--streaming", "flat", "--eval_id", "streamed",
+                                              "--device", "cpu"])
+    assert streamed["metrics"] == res["final_metrics"]       # the streaming engine
     approx = inference_xml.start_inference(["--model_dir", res["results_dir"],
                                             "--video_topk_approx", "1", "--eval_id", "approx",
                                             "--device", "cpu"])

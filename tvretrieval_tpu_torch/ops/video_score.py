@@ -91,21 +91,33 @@ def build_flat_feat1(feat1: torch.Tensor, mask: torch.Tensor,
         lp = flat_lp(L)
     if not (lp % 8 == 0 and lp >= L):
         raise ValueError(f"lp={lp} must be >= L={L} and a multiple of 8")
-    valid = mask > 0
-    if not bool(valid.any(dim=1).all()):
+    if not bool((mask > 0).any(dim=1).all()):
         raise ValueError(
             "build_flat_feat1: some video has no valid clip; the mask-free "
             "flat cache cannot represent its -1e10 score — use "
             "video_score_mode='einsum' for corpora with fully-masked rows")
-    first_valid = valid.to(torch.int8).argmax(dim=1)             # first 1
-    fill = feat1[torch.arange(nv, device=feat1.device), first_valid]  # (Nv, D)
-    fixed = torch.where(valid[:, :, None], feat1, fill[:, None])
-    if lp > L:
-        fixed = torch.cat([fixed, fill[:, None].expand(nv, lp - L, d)], dim=1)
+    fixed = flat_rows(feat1, mask, lp).view(nv, lp, d)
     pad_v = (-nv) % chunk_v
     if pad_v:
         fixed = torch.cat([fixed, fixed[-1:].expand(pad_v, lp, d)], dim=0)
     return fixed.reshape((nv + pad_v) * lp, d).contiguous()
+
+
+def flat_rows(feat1: torch.Tensor, mask: torch.Tensor, lp: int) -> torch.Tensor:
+    """The (Nv * lp, D) video-major rows of ``build_flat_feat1`` without its
+    checks and video padding: masked clips and the L -> lp pad take each
+    video's first valid clip row, and a video with no valid clip repeats
+    its row 0 (the streaming engine flags it invalid). Pure data movement,
+    on the tensors' device; the port of the JAX streaming engine's
+    ``_flat_feat1_np``."""
+    nv, L, d = feat1.shape
+    valid = mask > 0
+    first_valid = valid.to(torch.int8).argmax(dim=1)             # first 1, else 0
+    fill = feat1[torch.arange(nv, device=feat1.device), first_valid]  # (Nv, D)
+    fixed = torch.where(valid[:, :, None], feat1, fill[:, None])
+    if lp > L:
+        fixed = torch.cat([fixed, fill[:, None].expand(nv, lp - L, d)], dim=1)
+    return fixed.reshape(nv * lp, d)
 
 
 def quantize_unit_i8(x: torch.Tensor) -> torch.Tensor:

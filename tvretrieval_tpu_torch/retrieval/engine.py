@@ -36,7 +36,9 @@ so ``query_bsz`` bounds its memory.
 
 ``encode_corpus_resident`` encodes from the device-resident corpus
 (data.device_corpus) instead of host-built batches. ``retrieve`` turns the
-results into the submission the evaluator (evaluation.metrics) scores. Mode names are the JAX package's so
+results into the submission the evaluator (evaluation.metrics) scores;
+given ``streaming_host`` it scores each batch from a corpus in host memory
+instead (retrieval.streaming). Mode names are the JAX package's so
 configurations carry over; "pallas" here means the CUDA kernel. The
 approximate selections compute, on the CPU as on the card, the binned
 top-k that ``lax.approx_max_k`` runs on a TPU (ops/approx_topk.py); the
@@ -70,6 +72,7 @@ from tvretrieval_tpu_torch.ops.span import (
     topk_stable_blocked,
     topk_stable_blocked_psort,
 )
+from tvretrieval_tpu_torch.retrieval.streaming import streaming_score_query_batch
 from tvretrieval_tpu_torch.utils.io import load_json
 from tvretrieval_tpu_torch.ops.video_score import (
     build_flat_feat1,
@@ -489,7 +492,8 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
              query_rows: List[dict], corpus: CorpusIndex, cfg: RetrievalConfig,
              tasks: Sequence[str] = ("VCMR", "SVMR", "VR"),
              external_vr_path: Optional[str] = None,
-             return_arrays: bool = False, query_table=None) -> Dict[str, list]:
+             return_arrays: bool = False, query_table=None, streaming_host=None,
+             streaming_block_videos: int = 2048) -> Dict[str, list]:
     """Score all queries against the cached corpus; return submission
     entries per task (reference compute_query2ctx_info,
     inference.py:252-445), or with ``return_arrays`` the row-aligned numpy
@@ -500,9 +504,18 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
     query_table: optional data.device_corpus.QueryTable row-aligned with
     query_rows; query features then stream quantized and are assembled on
     the device, skipping the host's per-row batch building each epoch.
+    streaming_host: a retrieval.streaming.HostCorpusCache; each query batch
+    is then scored by the streaming engine on the model's device, from the
+    corpus in host memory (``cache`` is read for its video metas only, and
+    its device tensors may be gone); streaming_block_videos videos are
+    streamed at a time. External VR is not taken on the streaming path.
     """
     do_svmr = "SVMR" in tasks
-    device = cache.mask.device
+    if streaming_host is not None and external_vr_path:
+        raise ValueError("external VR is not supported on the streaming path (score "
+                         "the resident cache, or merge externally)")
+    device = (next(model.parameters()).device if streaming_host is not None
+              else cache.mask.device)
     vid2meta = {m["vid_name"]: i for i, m in enumerate(cache.metas)}
     meta_video_idx = np.asarray(
         [corpus.video2idx[m["vid_name"]] for m in cache.metas], dtype=np.int64)
@@ -541,11 +554,17 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
                 ext_scores[qi, :k] = scores[:k]
             ext_args = dict(use_external_vr=True, external_idx=on(ext_idx),
                             external_scores=on(ext_scores))
-        out = _score_query_batch(
-            model, cfg, q_feat, q_mask,
-            cache.video_feat1, cache.video_feat2, cache.sub_feat1, cache.sub_feat2,
-            cache.mask, on(gt_idx), do_svmr, feat2_cat=cache.feat2_cat,
-            feat2_cat_scale=cache.feat2_cat_scale, **ext_args)
+        if streaming_host is not None:
+            out = streaming_score_query_batch(
+                model, cfg, q_feat, q_mask, streaming_host,
+                gt_meta_idx=gt_idx if do_svmr else None,
+                block_videos=streaming_block_videos)
+        else:
+            out = _score_query_batch(
+                model, cfg, q_feat, q_mask,
+                cache.video_feat1, cache.video_feat2, cache.sub_feat1, cache.sub_feat2,
+                cache.mask, on(gt_idx), do_svmr, feat2_cat=cache.feat2_cat,
+                feat2_cat_scale=cache.feat2_cat_scale, **ext_args)
         collected.append({k: v.cpu().numpy() for k, v in out.items()})
 
     res = {k: np.concatenate([c[k] for c in collected], axis=0) for k in collected[0]}

@@ -17,6 +17,9 @@ Usage:
     python -m tvretrieval_tpu_torch.retrieval.inference_xml \\
         --model_dir /tmp/results/tvr-demo --tasks VCMR SVMR VR --nms_thd 0.5
 
+``--streaming einsum|flat|flat_int8`` keeps the encoded corpus in host
+memory and streams it to the device (retrieval.streaming).
+
 It runs on the CUDA card unless ``--device cpu`` is given, and exits at
 once when there is no card.
 """
@@ -49,7 +52,8 @@ EVAL_OVERRIDABLE = (
     "max_before_nms", "max_vcmr_video", "external_inference_vr_res_path",
     "span_score_mode", "video_score_mode", "span_topk_mode", "eval_cache_dtype",
     "video_topk_fused", "video_topk_approx", "video_topk_psort",
-    "topk_approx_recall", "span_sim_pad_l", "video_chunk_v",
+    "topk_approx_recall", "span_sim_pad_l", "video_chunk_v", "streaming",
+    "streaming_block_videos",
 )
 
 
@@ -101,9 +105,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="VR submission JSON replacing internal video ranking")
     p.add_argument("--streaming", type=str, default=None,
                    choices=["off", "einsum", "flat", "flat_int8"],
-                   help="the beyond-device-memory streaming engine (not "
-                        "ported: ROADMAP A10)")
-    p.add_argument("--streaming_block_videos", type=int, default=None)
+                   help="score through the streaming engine (the corpus in "
+                        "host memory, feat1 blocks copied to the device): einsum "
+                        "blocks, flat blocks (B2), or int8 flat blocks (B1: half "
+                        "the host memory and copy)")
+    p.add_argument("--streaming_block_videos", type=int, default=None,
+                   help="videos per streamed block (default 2048)")
     p.add_argument("--eval_id", type=str, default="standalone")
     return p
 
@@ -112,9 +119,6 @@ def start_inference(argv: Optional[List[str]] = None) -> dict:
     logging.basicConfig(format="%(asctime)s:%(levelname)s:%(name)s - %(message)s",
                         level=logging.INFO, force=True)
     cli = build_arg_parser().parse_args(argv)
-    if cli.streaming not in (None, "off"):
-        raise NotImplementedError(
-            f"--streaming {cli.streaming}: the streaming engine is ROADMAP A10")
 
     saved = load_json(os.path.join(cli.model_dir, "opt.json"))
     # TestOptions semantics: saved training opts + eval-only overrides

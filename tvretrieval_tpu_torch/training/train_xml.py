@@ -17,12 +17,13 @@ on the device (data/device_corpus.py). Real data: pass --train_path /
 --video_duration_idx_path like the reference scripts/train.sh. Every model
 flag of the JAX CLI is taken (the encoder types, single-stream ``--ctx_mode``,
 the ablations, the span heads, ``--compute_dtype bfloat16``); ``--n_devices``
-above 1 (data-parallel training, ROADMAP A10) raises ``NotImplementedError``
+above 1 (data-parallel training, ROADMAP A10b) raises ``NotImplementedError``
 before any data is built.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -45,6 +46,7 @@ from tvretrieval_tpu_torch.evaluation.nms import POST_PROCESSING_NMS_FUNC
 from tvretrieval_tpu_torch.evaluation.submission import submission_top_n
 from tvretrieval_tpu_torch.models.xml import XMLConfig
 from tvretrieval_tpu_torch.retrieval.engine import (
+    CorpusCache,
     RetrievalConfig,
     arrays_to_submission,
     check_supported,
@@ -52,6 +54,7 @@ from tvretrieval_tpu_torch.retrieval.engine import (
     encode_corpus_resident,
     retrieve,
 )
+from tvretrieval_tpu_torch.retrieval.streaming import host_cache_from_device
 from tvretrieval_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from tvretrieval_tpu_torch.training.early_stop import EarlyStopper
 from tvretrieval_tpu_torch.training.xml_trainer import TrainSettings, XMLTrainer
@@ -230,7 +233,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="VR submission JSON replacing internal video ranking")
     p.add_argument("--n_devices", type=int, default=None,
                    help="data-parallel devices (more than 1 is not ported: "
-                        "ROADMAP A10)")
+                        "ROADMAP A10b)")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint dir to resume params+optimizer state from")
     p.add_argument("--eval_untrained", action="store_true",
@@ -294,7 +297,7 @@ def check_args_supported(args) -> None:
     ValueError for an unknown engine mode."""
     if (args.n_devices or 1) > 1:
         raise NotImplementedError(
-            f"--n_devices {args.n_devices}: data-parallel training is ROADMAP A10")
+            f"--n_devices {args.n_devices}: data-parallel training is ROADMAP A10b")
     check_supported(retrieval_config(args, 1))              # mode names
 
 
@@ -363,11 +366,29 @@ def evaluate_retrieval(model, builder, corpus, eval_rows, args, tasks,
     has_gt = bool(eval_rows) and "ts" in eval_rows[0]
     if not has_gt:
         tasks = tuple(t for t in tasks if t != "SVMR")
-    cache = _encode(model, builder, corpus, rcfg, device_data)
+    streaming = getattr(args, "streaming", None) or "off"
+    stream_kw = {}
+    if streaming != "off":
+        # the streaming engine (JAX train_xml.py:299-327): encode the plain
+        # (Nv, L, D) layout and both feat2 streams, move the cache to host
+        # memory (the host cache builds its own block layout), drop it from
+        # the device and score from the host. "flat": B2 blocks;
+        # "flat_int8": B1 blocks, half the host memory and copy
+        enc_cfg = dataclasses.replace(rcfg, span_score_mode="gather",
+                                      video_score_mode="einsum")
+        cache = _encode(model, builder, corpus, enc_cfg, device_data)
+        host = host_cache_from_device(cache, flat=streaming.startswith("flat"),
+                                      int8=streaming == "flat_int8")
+        cache = CorpusCache(None, None, None, None, mask=host.mask,
+                            n_videos=cache.n_videos, metas=cache.metas)
+        stream_kw = dict(streaming_host=host, streaming_block_videos=getattr(
+            args, "streaming_block_videos", None) or 2048)
+    else:
+        cache = _encode(model, builder, corpus, rcfg, device_data)
     raw = retrieve(model, builder, cache, eval_rows, corpus, rcfg, tasks=tasks,
                    external_vr_path=args.external_inference_vr_res_path,
                    query_table=(device_data.retrieval_queries
-                                if device_data is not None else None))
+                                if device_data is not None else None), **stream_kw)
     raw["video2idx"] = corpus.video2idx
 
     submission = submission_top_n(raw, top_n=100)

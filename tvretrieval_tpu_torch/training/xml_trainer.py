@@ -14,7 +14,7 @@ device-resident path (data/device_corpus.py: the corpus lives on the
 device, a step gathers its context rows there, and the host streams only
 query tokens, slots and labels). Under float32 storage the two give the
 same trajectory bit for bit. Single device; data-parallel training is
-ROADMAP A10.
+ROADMAP A10b.
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ class XMLTrainer:
         and must be the device of ``device_data``."""
         if n_devices != 1:
             raise NotImplementedError(
-                f"n_devices={n_devices}: data-parallel training is ROADMAP A10")
+                f"n_devices={n_devices}: data-parallel training is ROADMAP A10b")
         self.device = torch.device(device)
         if device_data is not None and device_data.device.type != self.device.type:
             raise ValueError(f"device_data lies on {device_data.device}, the "
