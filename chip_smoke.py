@@ -104,11 +104,32 @@ Run from the repository root on a machine with one CUDA card. Phases:
    flat_int8 B11's recall at both span sites; then the flagship forward
    entry point (``tvretrieval_tpu_torch.entry``) on the card against the
    CPU, within 2e-4;
-12. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
+12. the baselines (MEE, CAL / MCN, ExCL; no hand kernel lies on their
+   paths: every launch count is set to 0 before the phase and must read 0
+   after) at the JAX CLIs' full widths with seeded weights: (a) card
+   against CPU on phase 4's corpus: ``mee_retrieve_vr`` (phase 4's f32
+   bound), ``encode_proposal_corpus`` + ``cal_retrieve`` (VCMR, SVMR) for
+   CAL on 16 videos and MCN on 32 (the cached means, and the distances
+   within twice phase 10's recurrent q2c bound; encode ms a video),
+   ``excl_retrieve_svmr`` on every query and
+   ``excl_retrieve_vcmr_with_external_vr`` over the card's MEE submission
+   (phase 10's recurrent span rtol), rankings equal outside near-ties;
+   (b) serving at 21,818 videos: MEE's scoring of 1,000 queries over its
+   encoded corpus (q/s, cache bytes), ``cal_retrieve`` over a synthesized
+   21,818 x 170 x 100 two-stream proposal cache (1,000 queries in batches
+   of 100: q/s, the SVMR rows' bytes copied to the host, peak memory),
+   ExCL's SVMR on 1,000 queries and VCMR over MEE's top-100 for 100 (q/s);
+   (c) ``train_mee``, ``train_cal`` and ``train_excl`` at batch 128 on
+   phase 7's world: the first batch's loss card against CPU within 2e-4
+   (ExCL without dropout), finite and falling step losses, ms a step; (d)
+   ``inference_baselines`` on each run directory on the card (``--nms_thd
+   0.5``; ExCL with MEE's submission as its external VR), its metrics equal
+   to the run's own;
+13. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
    B1-B3, B5, B6 and B11, over phases 7 and 10 for B4 and over phase 9 for
    B7-B10, ``launches_throughput`` over phase 5, ``launches_streaming``
    over phase 11's timed runs);
-13. the last line: ``{"ok": true, "device": {...}}``.
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
 package directory) runs that commit's phases 3, 5 and 8 in a process of
@@ -1337,6 +1358,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
         print(events.table(sort_by="self_cuda_time_total", row_limit=30,
                            max_name_column_width=70), flush=True)
     return launches, dict(builder=builder, dd=dd, train_rows=train_rows, step_ms=step_ms,
+                          world=world,
                           settings=settings)
 
 
@@ -2253,6 +2275,441 @@ def phase_streaming(dev):
     return total
 
 
+# phase 12: the baselines (see phase_baselines)
+BASE_CAL_VIDEOS, BASE_MCN_VIDEOS = 16, 32   # (a) proposal corpora: a CAL video's 170
+#                                             proposals x 24 clips x 7,684 features are
+#                                             125 MB of host-built moment features
+BASE_VCMR_CPU_QUERIES = 5          # (a) ExCL VCMR card vs CPU: 100 videos re-encoded a query
+BASE_PROPS = 170                   # proposals of a 150 s TVR video (data/proposals.py)
+BASE_OUT = 100                     # CAL's output width
+BASE_BSZ = 100                     # query batch of (b)
+BASE_SVMR_QUERIES, BASE_VCMR_QUERIES = 1000, 100
+BASE_TRAIN_CAL_EVAL_VIDEOS = 16    # (c) CAL's evaluation corpus, cut as in (a)
+BASE_TRAIN_EXCL_EVAL = 10          # (c) ExCL's evaluation queries (its VCMR re-encodes 100
+#                                    videos a query)
+# (c) each trainer CLI's own flags: MEE two epochs at 1e-3 (at its default
+# 1e-4 the loss moves by 1e-4 in 24 steps); ExCL at TVR's 3,074 / 770
+# widths, [features; TEF]
+BASE_TRAIN_FLAGS = {"mee": ["--n_epoch", "2", "--lr", "1e-3"], "cal": ["--n_epoch", "1"],
+                    "excl": ["--n_epoch", "1", "--ctx_mode", "video_sub_tef"]}
+# card against CPU, with the reasons:
+# - MEE: phase 4's f32 q2c bound (f32 summation order of unit-vector dots);
+# - CAL: phase 10's recurrent q2c bound for the query LSTM, twice (a squared
+#   distance between unit vectors moves by 2 |d(q.m)|);
+# - ExCL: phase 10's recurrent span rtol (five LSTMs, then two softmaxes).
+MEE_ATOL = 1e-6
+CAL_ATOL = 2 * VARIANT_TOL["lstm"][0]
+EXCL_RTOL = VARIANT_TOL["lstm"][1]
+
+
+def on_card_and_cpu(pool, dev, model_cpu, run):
+    """``run(model)`` with the model on the card (this thread) and on the
+    CPU (a second host thread): (card result, CPU result, card s, CPU s)."""
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    t0 = time.perf_counter()
+    cpu_job = pool.submit(lambda: (run(model_cpu), time.perf_counter()))
+    gpu = run(model_gpu)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    cpu, t_cpu = cpu_job.result()
+    return gpu, cpu, t_gpu, t_cpu - t0
+
+
+def prediction_arrays(entries):
+    """(N, K, 4) [video, st, ed, score] from submission entries of one width."""
+    return np.asarray([e["predictions"] for e in entries], np.float64)
+
+
+def compare_predictions(what, got, ref, clip, atol=0.0, rtol=0.0):
+    """Scores within the bound, the ranking equal outside near-ties; logs
+    and returns whether they agree."""
+    from tvretrieval_tpu_torch.testing import rank_mismatches, within
+    g, r = prediction_arrays(got), prediction_arrays(ref)
+    if g.shape != r.shape or not np.isfinite(g).all():
+        log("baselines", f"{what}: shape {g.shape} against {r.shape}, or non-finite")
+        return False
+    key = lambda p: ((p[..., 0] * 1000 + np.rint(p[..., 1] / clip)) * 1000
+                     + np.rint(p[..., 2] / clip))
+    ok = within(r[..., 3], g[..., 3], atol=atol, rtol=rtol)
+    bad = rank_mismatches(key(r), r[..., 3], key(g), atol=2 * atol, rtol=2 * rtol)
+    err = np.abs(g[..., 3] - r[..., 3])
+    log("baselines", f"{what}: scores max |d| {err.max():.3e}, max rel "
+        f"{(err / np.maximum(np.abs(r[..., 3]), 1e-30)).max():.3e} (atol {atol:.1e}, rtol "
+        f"{rtol:.1e}); ranking mismatches outside near-ties {bad}")
+    return ok and bad == 0
+
+
+def mee_config():
+    from tvretrieval_tpu_torch.models.mee import MEEConfig
+    return MEEConfig(text_input_size=768, vid_input_size=3072, sub_input_size=768,
+                     output_size=256)
+
+
+def cal_config():
+    """train_cal's model at TVR's feature widths: [local; global; TEF] of
+    3,072 video / 768 subtitle features."""
+    from tvretrieval_tpu_torch.models.cal import CALConfig
+    return CALConfig(ctx_mode="video_sub", visual_input_size=2 * 3072 + 2,
+                     textual_input_size=2 * 768 + 2, query_feat_size=768)
+
+
+def excl_config():
+    from tvretrieval_tpu_torch.models.excl import ExCLConfig
+    return ExCLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768)
+
+
+def baselines_card_vs_cpu(dev, e2e_world, tmpdir):
+    """12a: each baseline engine on phase 4's corpus, card against CPU;
+    returns the card's MEE VR submission's path."""
+    from tvretrieval_tpu_torch.data.datasets import CorpusIndex
+    from tvretrieval_tpu_torch.data.retrieval_datasets import (
+        CALBuilderConfig, CALExampleBuilder, MEEExampleBuilder)
+    from tvretrieval_tpu_torch.models.cal import CALWithSub
+    from tvretrieval_tpu_torch.models.excl import ExCL
+    from tvretrieval_tpu_torch.models.mee import MEE
+    from tvretrieval_tpu_torch.retrieval.excl_engine import (
+        excl_retrieve_svmr, excl_retrieve_vcmr_with_external_vr)
+    from tvretrieval_tpu_torch.retrieval.proposal_engine import (
+        cal_retrieve, encode_proposal_corpus)
+    from tvretrieval_tpu_torch.retrieval.vr_engine import mee_retrieve_vr
+    from tvretrieval_tpu_torch.testing import rank_mismatches, within
+    from tvretrieval_tpu_torch.utils.io import save_json
+
+    world, builder = e2e_world
+    rows, corpus, clip = world.annotations, world.corpus, world.clip_length
+    srcs = (world.query_source, world.video_source, world.sub_source)
+    failed = []
+    with ThreadPoolExecutor(1) as pool:
+        # MEE: VR over the 320 videos
+        mee_b = MEEExampleBuilder(*srcs, max_desc_l=30, max_ctx_l=N_CLIPS)
+        model = MEE(mee_config()).init_weights(torch.Generator().manual_seed(0)).eval()
+        run = lambda m: mee_retrieve_vr(m, mee_b, corpus, rows)["VR"]
+        gpu, cpu, t_gpu, t_cpu = on_card_and_cpu(pool, dev, model, run)
+        if not compare_predictions(f"MEE VR ({len(rows)} queries x {len(corpus)} videos; card "
+                                   f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s)", gpu, cpu, clip,
+                                   atol=MEE_ATOL):
+            failed.append("MEE")
+        vr_path = os.path.join(tmpdir, "mee_vr.json")
+        save_json({"VR": gpu, "video2idx": corpus.video2idx}, vr_path)
+
+        # CAL and MCN: encode_proposal_corpus + cal_retrieve (VCMR, SVMR)
+        for model_type, nv in (("cal", BASE_CAL_VIDEOS), ("mcn", BASE_MCN_VIDEOS)):
+            names = corpus.vid_names[:nv]
+            sub = CorpusIndex(vid_names=names, durations=corpus.durations[:nv],
+                              video2idx={v: corpus.video2idx[v] for v in names})
+            bcfg = CALBuilderConfig(ctx_mode="video_sub_tef", model_type=model_type,
+                                    clip_length=clip, max_desc_l=30, max_ctx_l=N_CLIPS)
+            cal_b = CALExampleBuilder(bcfg, *srcs, seed=0)
+            model = CALWithSub(cal_config()).init_weights(torch.Generator().manual_seed(0))
+
+            def run(m):
+                t0 = time.perf_counter()
+                cache = encode_proposal_corpus(m, cal_b, sub)
+                if m.query_linear.weight.is_cuda:
+                    torch.cuda.synchronize()
+                t_enc = time.perf_counter() - t0
+                return cache, t_enc, cal_retrieve(m, cal_b, cache, sub, rows)
+
+            (gcache, g_enc, gout), (ccache, c_enc, cout), _, _ = on_card_and_cpu(
+                pool, dev, model, run)
+            P = gcache.prop_spans.shape[1]
+            err = max(float((getattr(gcache, k).cpu() - getattr(ccache, k)).abs().max())
+                      for k in ("mean_emb_video", "mean_sq_video", "mean_emb_sub", "mean_sq_sub"))
+            log("baselines", f"{model_type.upper()}: encode_proposal_corpus over {nv} videos "
+                f"({P} proposals, {bcfg.max_moment_clips} clips a proposal): card "
+                f"{1e3 * g_enc / nv:.1f} ms a video, CPU {1e3 * c_enc / nv:.1f} ms; cached "
+                f"means card vs CPU max |d| {err:.3e} (bound 1e-5)")
+            ok = err <= 1e-5
+            for task in ("VCMR", "SVMR"):
+                ok &= compare_predictions(f"{model_type.upper()} {task}", gout[task], cout[task],
+                                          clip, atol=CAL_ATOL)
+            if not ok:
+                failed.append(model_type)
+
+        # ExCL: SVMR on every query, VCMR over the card's MEE submission
+        model = ExCL(excl_config()).init_weights(torch.Generator().manual_seed(0)).eval()
+        run = lambda m: excl_retrieve_svmr(m, builder, corpus, rows, clip_length=clip)["SVMR"]
+        gpu, cpu, t_gpu, t_cpu = on_card_and_cpu(pool, dev, model, run)
+        ok = compare_predictions(f"ExCL SVMR ({len(rows)} queries; card {t_gpu:.2f} s, CPU "
+                                 f"{t_cpu:.2f} s)", gpu, cpu, clip, rtol=EXCL_RTOL)
+        run = lambda m: excl_retrieve_vcmr_with_external_vr(
+            m, builder, corpus, rows[:BASE_VCMR_CPU_QUERIES], vr_path, clip_length=clip)["VCMR"]
+        gpu, cpu, t_gpu, t_cpu = on_card_and_cpu(pool, dev, model, run)
+        ok &= compare_predictions(f"ExCL VCMR over the card's MEE top-100 "
+                                  f"({BASE_VCMR_CPU_QUERIES} queries; card {t_gpu:.2f} s, CPU "
+                                  f"{t_cpu:.2f} s)", gpu, cpu, clip, rtol=EXCL_RTOL)
+        if not ok:
+            failed.append("ExCL")
+    if failed:
+        raise AssertionError(f"baselines {failed}: the card disagrees with the CPU")
+    return vr_path
+
+
+def baselines_corpus(dev, e2e_world, vr_path):
+    """12b: serving at the full TVR corpus (21,818 videos): MEE's scoring
+    over its encoded corpus, CAL's over a synthesized proposal cache, ExCL's
+    SVMR and its VCMR over MEE's top-100."""
+    from tvretrieval_tpu_torch.data.datasets import CorpusIndex
+    from tvretrieval_tpu_torch.data.features import MemoryFeatureSource
+    from tvretrieval_tpu_torch.data.retrieval_datasets import CALBuilderConfig, CALExampleBuilder
+    from tvretrieval_tpu_torch.models.cal import CALWithSub
+    from tvretrieval_tpu_torch.models.excl import ExCL
+    from tvretrieval_tpu_torch.models.mee import MEE
+    from tvretrieval_tpu_torch.retrieval.excl_engine import (
+        excl_retrieve_svmr, excl_retrieve_vcmr_with_external_vr)
+    from tvretrieval_tpu_torch.retrieval.proposal_engine import (
+        ProposalCorpusCache, cal_retrieve)
+    from tvretrieval_tpu_torch.retrieval.vr_engine import score_vr_queries
+
+    nv, nq = N_VIDEOS_FULL, N_QUERIES
+    gen = torch.Generator(device=dev).manual_seed(12)
+    unit_rows = lambda n, d: torch.nn.functional.normalize(
+        torch.randn(n, d, device=dev, generator=gen), dim=-1)
+
+    # MEE: the gated units encode 21,818 pooled videos; 1,000 queries in
+    # batches of 100 score them all and select the top 100
+    model = MEE(mee_config()).init_weights(torch.Generator().manual_seed(0)).to(dev).eval()
+    with torch.no_grad():
+        pooled_v, pooled_s = unit_rows(nv, 3072), unit_rows(nv, 768)
+        ev, es = map(torch.cat, zip(*(model.encode_context(pooled_v[i:i + 400],
+                                                           pooled_s[i:i + 400])
+                                      for i in range(0, nv, 400))))
+    del pooled_v, pooled_s
+    queries = torch.randn(nq, 30, 768, device=dev, generator=gen)
+    score = lambda: [score_vr_queries(model, queries[i:i + BASE_BSZ], ev, es, 100)
+                     for i in range(0, nq, BASE_BSZ)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(score, reps=3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log("baselines", f"MEE VR at {nv} videos: {nq} queries in batches of {BASE_BSZ}, "
+        f"{ms:.2f} ms = {nq / ms * 1e3:.0f} q/s; encoded cache {nbytes(ev, es) / 2**20:.1f} MiB, "
+        f"peak {peak:.2f} GiB")
+    del ev, es, queries, model
+
+    # CAL: 21,818 videos x 170 proposals x 100 dims in both streams
+    n_valid = torch.randint(20, BASE_PROPS + 1, (nv,), device=dev, generator=gen)
+    mask = (torch.arange(BASE_PROPS, device=dev)[None] < n_valid[:, None]).float()
+    cache = {}
+    for stream in ("video", "sub"):
+        emb = unit_rows(nv * BASE_PROPS, BASE_OUT).view(nv, BASE_PROPS, BASE_OUT)
+        emb.mul_(torch.rand(nv, BASE_PROPS, 1, device=dev, generator=gen).mul_(0.5).add_(0.5))
+        cache[f"mean_emb_{stream}"] = emb
+        cache[f"mean_sq_{stream}"] = emb.square().sum(-1) + 0.05
+    spans = np.zeros((nv, BASE_PROPS, 2), np.float32)
+    spans[..., 1] = 1.5 * (1 + np.arange(BASE_PROPS))
+    pc = ProposalCorpusCache(prop_mask=mask, prop_spans=spans, n_videos=nv, **cache)
+    rng = np.random.default_rng(12)
+    names = [f"syn_vid_{i:05d}" for i in range(nv)]
+    qsrc = MemoryFeatureSource({str(i): rng.standard_normal((int(rng.integers(5, 20)), 768))
+                                .astype(np.float32) for i in range(nq)})
+    rows = [{"desc_id": i, "vid_name": names[int(rng.integers(nv))]} for i in range(nq)]
+    corpus = CorpusIndex(vid_names=names, durations=[150.0] * nv,
+                         video2idx={v: i for i, v in enumerate(names)})
+    cal_b = CALExampleBuilder(CALBuilderConfig(ctx_mode="video_sub_tef"), qsrc, seed=0)
+    model = CALWithSub(cal_config()).init_weights(torch.Generator().manual_seed(0)).to(dev)
+    run = lambda: cal_retrieve(model, cal_b, pc, corpus, rows, query_bsz=BASE_BSZ,
+                               return_arrays=True)
+    run()                                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = run()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for task, (vid, sp, sc) in out.items():
+        if not (np.isfinite(sc).all() and vid.shape[0] == nq):
+            raise AssertionError(f"CAL at the full corpus, {task}: bad output")
+    log("baselines", f"CAL at {nv} videos x {BASE_PROPS} proposals x {BASE_OUT} dims, two "
+        f"streams (cache {nbytes(*cache.values(), mask) / 1e9:.2f} GB): {nq} queries in batches "
+        f"of {BASE_BSZ}, VCMR + SVMR, {sec * 1e3:.1f} ms = {nq / sec:.0f} q/s (host clock); "
+        f"SVMR rows copied to the host {nq * BASE_PROPS * 4 / 2**20:.2f} MiB (the whole "
+        f"distance matrix would be {nq * nv * BASE_PROPS * 4 / 1e9:.1f} GB); peak "
+        f"{peak:.2f} GiB")
+    del pc, cache, mask, model, out
+
+    # ExCL at 100 clips: SVMR on 1,000 queries, VCMR over MEE's top-100
+    world, builder = e2e_world
+    clip = world.clip_length
+    svmr_rows = [world.annotations[i % len(world.annotations)] for i in range(BASE_SVMR_QUERIES)]
+    model = ExCL(excl_config()).init_weights(torch.Generator().manual_seed(0)).to(dev).eval()
+    for name, run, n in (
+            ("SVMR", lambda: excl_retrieve_svmr(model, builder, world.corpus, svmr_rows,
+                                                clip_length=clip), BASE_SVMR_QUERIES),
+            ("VCMR over MEE's top-100 videos", lambda: excl_retrieve_vcmr_with_external_vr(
+                model, builder, world.corpus, world.annotations[:BASE_VCMR_QUERIES], vr_path,
+                clip_length=clip), BASE_VCMR_QUERIES)):
+        t0 = time.perf_counter()
+        out = run()
+        sec = time.perf_counter() - t0
+        for entries in out.values():
+            if not (len(entries) == n and np.isfinite(prediction_arrays(entries)).all()):
+                raise AssertionError(f"ExCL {name}: bad output")
+        log("baselines", f"ExCL {name}: {n} queries at {N_CLIPS} clips in {sec:.2f} s = "
+            f"{n / sec:.0f} q/s (host clock, batch building included)")
+
+
+def baseline_world(kind, train_world, train_builder):
+    """A ``setup_world`` for train_<kind> on phase 7's full-width world
+    (1,024 videos x 100 clips, 3,072 / 768 / 768 features; 3,072 + 1,024
+    queries), its evaluation cut for CAL (the first 16 videos) and ExCL
+    (100 queries)."""
+    from tvretrieval_tpu_torch.data.datasets import CorpusIndex
+    from tvretrieval_tpu_torch.data.retrieval_datasets import (
+        CALBuilderConfig, CALExampleBuilder, MEEExampleBuilder)
+
+    world = train_world
+    n_train = TRAIN_QUERIES - TRAIN_EVAL_QUERIES
+    train_rows, eval_rows = world.annotations[:n_train], world.annotations[n_train:]
+    srcs = (world.query_source, world.video_source, world.sub_source)
+
+    def setup_world(args):
+        corpus = world.corpus
+        if kind == "mee":
+            builder = MEEExampleBuilder(*srcs, ctx_mode=args.ctx_mode, max_desc_l=args.max_desc_l,
+                                        max_ctx_l=args.max_ctx_l)
+            return train_rows, eval_rows, builder, corpus
+        if kind == "excl":
+            return train_rows, eval_rows[:BASE_TRAIN_EXCL_EVAL], train_builder, corpus
+        names = corpus.vid_names[:BASE_TRAIN_CAL_EVAL_VIDEOS]
+        corpus = CorpusIndex(vid_names=names, durations=corpus.durations[:len(names)],
+                             video2idx={v: corpus.video2idx[v] for v in names})
+        bcfg = CALBuilderConfig(ctx_mode=args.ctx_mode, model_type=args.model_type,
+                                clip_length=args.clip_length, max_desc_l=args.max_desc_l,
+                                max_ctx_l=args.max_ctx_l, max_moment_clips=args.max_moment_clips)
+        return (train_rows, [r for r in eval_rows if r["vid_name"] in corpus.video2idx],
+                CALExampleBuilder(bcfg, *srcs, seed=args.seed), corpus)
+
+    return setup_world
+
+
+def baselines_train_and_cli(dev, train_world, train_builder, tmpdir):
+    """12c / 12d: each trainer CLI at full width on phase 7's world (batch
+    128, one epoch of 24 steps): the first batch's loss on the card against
+    the CPU, finite and falling step losses, ms a step; then
+    inference_baselines on each run directory, its metrics equal to the
+    run's own from the same checkpoint."""
+    from tvretrieval_tpu_torch.data.pipeline import BatchIterator
+    from tvretrieval_tpu_torch.retrieval import inference_baselines
+    from tvretrieval_tpu_torch.training import generic, train_cal, train_excl, train_mee
+    from tvretrieval_tpu_torch.utils.io import load_json
+
+    epochs = []                               # (steps, ms, step losses) of each epoch
+    train_epoch = generic.GenericTrainer.train_epoch
+
+    def timed_epoch(self, epoch):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = train_epoch(self, epoch)
+        end.record()
+        end.synchronize()
+        steps = len(self.last_step_losses)
+        epochs.append((steps, start.elapsed_time(end) / steps,
+                       [r["loss"] for r in self.last_step_losses]))
+        return out
+
+    vr_path = None
+    runs = (("mee", train_mee), ("cal", train_cal), ("excl", train_excl))
+    generic.GenericTrainer.train_epoch = timed_epoch
+    saved = {m: m.setup_world for _, m in runs}
+    try:
+        for kind, module in runs:
+            module.setup_world = baseline_world(kind, train_world, train_builder)
+            flags = ["--bsz", str(TRAIN_BSZ), "--seed", "0", "--exp_id", kind,
+                     "--results_root", tmpdir] + BASE_TRAIN_FLAGS[kind]
+            # the first batch, card against CPU (ExCL without dropout)
+            args = module.build_arg_parser().parse_args(
+                flags + (["--drop", "0"] if kind == "excl" else []))
+            train_rows, _, builder, _ = module.setup_world(args)
+            trainer = module.make_trainer(args, module.model_config(args, builder), builder,
+                                          train_rows)
+            it = BatchIterator(train_rows, TRAIN_BSZ, shuffle=True, drop_last=True, seed=0)
+            t0 = time.perf_counter()
+            batch = trainer.build_fn(next(iter(it)))
+            build_ms = (time.perf_counter() - t0) * 1e3
+            losses = {}
+            for where, device in (("card", dev), ("cpu", "cpu")):
+                model = copy.deepcopy(trainer.model).to(device).train()
+                on = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                      for k, v in batch.items()}
+                with torch.no_grad():
+                    losses[where] = float(trainer.loss_apply(model, on, None, True)[0])
+            del trainer, model
+            err = abs(losses["card"] - losses["cpu"])
+            # the CLI run on the card
+            t0 = time.perf_counter()
+            extra = (["--external_inference_vr_res_path", vr_path] if kind == "excl" else [])
+            n_before = len(epochs)
+            out = module.start_training(flags + extra)
+            sec = time.perf_counter() - t0
+            step_losses = sum((e[2] for e in epochs[n_before:]), [])
+            steps, step_ms = len(step_losses), epochs[-1][1]
+            first, last = float(np.mean(step_losses[:4])), float(np.mean(step_losses[-4:]))
+            log("baselines", f"train_{kind}: first batch card {losses['card']:.6f} vs CPU "
+                f"{losses['cpu']:.6f}, |d| {err:.2e} (bound {LOSS_ATOL}); {steps} steps of "
+                f"batch {TRAIN_BSZ}: {step_ms:.2f} ms a step in the last epoch, the host builds "
+                f"a batch in {build_ms:.1f} ms; mean loss of the first / last 4 steps "
+                f"{first:.4f} -> {last:.4f}; the CLI took {sec:.1f} s with its evaluations")
+            if not (err <= LOSS_ATOL and steps >= 16 and np.isfinite(step_losses).all()
+                    and last < first):
+                raise AssertionError(f"train_{kind}: first-batch |d| {err}, losses {step_losses}")
+            run_dir = out["results_dir"]
+            if kind == "mee":
+                vr_path = os.path.join(run_dir, "best_predictions.json")
+            # the inference CLI on the run directory, on the card
+            cli = ["--model_type", kind, "--model_dir", run_dir, "--nms_thd", "0.5"] + extra
+            res = inference_baselines.start_inference(cli)
+            want = load_json(os.path.join(run_dir, "best_predictions_metrics.json"))
+            if kind == "excl":
+                want["VCMR"] = load_json(os.path.join(
+                    run_dir, "vcmr_external_predictions_metrics.json"))["VCMR"]
+            tasks = {"mee": ("VR",), "cal": ("VCMR", "SVMR"), "excl": ("SVMR", "VCMR")}[kind]
+            same = all(dict(res["metrics"][t]) == want[t] for t in tasks)
+            log("baselines", f"inference_baselines --model_type {kind}: "
+                + "; ".join(f"{t} {json.dumps(res['metrics'][t])}" for t in tasks)
+                + f"; equal to the run's: {same}; after NMS 0.5: "
+                + ("; ".join(f"{t} {json.dumps(res['metrics_nms'][t])}" for t in tasks
+                             if t in res["metrics_nms"]) or "no span task"))
+            if not same:
+                raise AssertionError(f"inference_baselines {kind}: metrics differ from the run's")
+    finally:
+        generic.GenericTrainer.train_epoch = train_epoch
+        for module, fn in saved.items():
+            module.setup_world = fn
+
+
+def phase_baselines(dev, e2e_world, train_world, train_builder):
+    """Phase 12: the baselines (see the module docstring). No hand kernel
+    lies on their paths: every count is set to 0 before and must read 0
+    after."""
+    import tempfile
+
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+    from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import sort as tsort
+    from tvretrieval_tpu_torch.ops import topk as ttopk
+    from tvretrieval_tpu_torch.ops import video_score as vs
+
+    counters = (vs, gt_ops, tsort, apx, fsc, ttopk)
+    for ops in counters:
+        ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        vr_path = baselines_card_vs_cpu(dev, e2e_world, tmpdir)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        baselines_corpus(dev, e2e_world, vr_path)
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        baselines_train_and_cli(dev, train_world, train_builder, tmpdir)
+    launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+    log("baselines", f"phase 12 took {time.perf_counter() - t0:.1f} s (12a {t1 - t0:.1f} s, "
+        f"12b {t2 - t1:.1f} s, 12c + 12d {time.perf_counter() - t2:.1f} s); hand-kernel "
+        f"launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"a hand kernel launched on a baseline path: {launches}")
+
+
 def checkout_entry(checkout: str, name: str):
     """The entry point of library ``name`` of the commit in ``checkout`` (a
     git archive), built from its csrc source (the same C signature as this
@@ -2497,9 +2954,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, n in phase_variants(dev, e2e_world, train_env, args.profile).items():
         launches[name] = launches.get(name, 0) + n
+    # phase 12 reuses the host worlds of phases 4 and 7, not phase 7's device tables
+    base_env = (e2e_world, train_env["world"], train_env["builder"])
     del e2e_world, train_env
     torch.cuda.empty_cache()
     launches_stream = phase_streaming(dev)
+    torch.cuda.empty_cache()
+    phase_baselines(dev, *base_env)
+    del base_env
 
     if args.parent:
         torch.cuda.empty_cache()

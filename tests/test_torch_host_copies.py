@@ -172,3 +172,143 @@ def test_batch_iterator_and_prefetcher_order():
         assert [g.tolist() for g in got] == first
     tail = BatchIterator(rows, 5, shuffle=False, drop_last=False)
     assert [len(b) for b in tail] == [5, 5, 5, 5, 3]
+
+
+# --------------------------------------------------------------------------
+# the baselines' host modules: proposals, the proposal upper bound, the MEE
+# and CAL example builders, late fusion
+# --------------------------------------------------------------------------
+
+from tvretrieval_tpu.data import proposal_upper_bound as jpub  # noqa: E402
+from tvretrieval_tpu.data import proposals as jprop  # noqa: E402
+from tvretrieval_tpu.data import retrieval_datasets as jrd  # noqa: E402
+from tvretrieval_tpu.evaluation import fusion as jfus  # noqa: E402
+from tvretrieval_tpu_torch.data import proposal_upper_bound as tpub  # noqa: E402
+from tvretrieval_tpu_torch.data import proposals as tprop  # noqa: E402
+from tvretrieval_tpu_torch.data import retrieval_datasets as trd  # noqa: E402
+from tvretrieval_tpu_torch.evaluation import fusion as tfus  # noqa: E402
+
+
+@pytest.mark.parametrize("dset", ["tvr", "didemo", "anet_cap", "charades_sta"])
+def test_proposals_bit_equal(dset):
+    assert jprop.PROPOSAL_CONFIGS == tprop.PROPOSAL_CONFIGS
+    jp, tp = jprop.get_proposal_interface(dset), tprop.get_proposal_interface(dset)
+    rng = np.random.default_rng(6)
+    for dur in list(rng.uniform(1, 160, 12)) + [1.5, 150.0, 0.4]:
+        a, b = jp(dur), tp(dur)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+        for max_n in (5, 300):
+            for x, y in zip(jprop.pad_proposals(a, max_n), tprop.pad_proposals(b, max_n)):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_proposal_upper_bound_and_cli(tmp_path, capsys):
+    (jw, _), _ = _builders()
+    for dset in ("tvr", "charades_sta"):
+        assert jpub.proposal_upper_bound(jw.annotations, dset) == \
+            tpub.proposal_upper_bound(jw.annotations, dset)
+    path = str(tmp_path / "eval.jsonl")
+    tio.save_jsonl(jw.annotations, path)
+    assert tpub.main(["--eval_path", path]) == jpub.main(["--eval_path", path])
+    assert "upper_bound_recall_iou0.7" in capsys.readouterr().out
+
+
+def _baseline_builders(kind, model_type="cal", ctx_mode="video_sub_tef", external=False):
+    out = []
+    for syn, rd in ((jsyn, jrd), (tsyn, trd)):
+        w = syn.make_synthetic_world(**WORLD)
+        if kind == "mee":
+            out.append((w, rd.MEEExampleBuilder(
+                query_source=w.query_source, video_source=w.video_source,
+                sub_source=w.sub_source, ctx_mode=ctx_mode, max_desc_l=10, max_ctx_l=12)))
+            continue
+        vr = None
+        if external:     # guided negatives: each query's top videos, its own among them
+            vr = {r["desc_id"]: [(n, d) for n, d in zip(w.corpus.vid_names[i % 5:][:6],
+                                                        w.corpus.durations[i % 5:][:6])]
+                  for i, r in enumerate(w.annotations)}
+        cfg = rd.CALBuilderConfig(ctx_mode=ctx_mode, model_type=model_type,
+                                  clip_length=w.clip_length, max_desc_l=10, max_ctx_l=12,
+                                  max_moment_clips=5)
+        out.append((w, rd.CALExampleBuilder(cfg, w.query_source, w.video_source,
+                                            w.sub_source, external_vr_top_videos=vr, seed=9)))
+    return out
+
+
+@pytest.mark.parametrize("ctx_mode", ["video_sub", "video", "sub"])
+def test_mee_builder_bit_equal(ctx_mode):
+    (jw, jb), (_, tb) = _baseline_builders("mee", ctx_mode=ctx_mode)
+    rows, names = jw.annotations[2:9], jw.corpus.vid_names[3:11]
+    for a, b in ((jb.build_train_batch(rows), tb.build_train_batch(rows)),
+                 (jb.build_context_batch(names), tb.build_context_batch(names)),
+                 (jb.build_query_batch(rows), tb.build_query_batch(rows))):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("model_type,ctx_mode,external", [
+    ("cal", "video_sub_tef", False), ("mcn", "video_sub_tef", False),
+    ("cal", "tef", False), ("cal", "video_sub", True)])
+def test_cal_builder_bit_equal(model_type, ctx_mode, external):
+    """Three train batches in a row from the builders' own generators (the
+    intra negatives' random spans, the inter negatives' videos or the
+    exp-decay ranks of guided sampling), then the query batch and a video's
+    proposal batch."""
+    (jw, jb), (tw, tb) = _baseline_builders("cal", model_type, ctx_mode, external)
+    for i in range(3):
+        rows = jw.annotations[4 * i:4 * i + 6]
+        a = jb.build_train_batch(rows, jw.annotations)
+        b = tb.build_train_batch(rows, tw.annotations)
+        assert a.keys() == b.keys() and len(a) == 11
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k], err_msg=(i, k))
+    assert jb.rng.integers(1 << 30) == tb.rng.integers(1 << 30)
+    qa, qb = jb.build_query_batch(jw.annotations[:5]), tb.build_query_batch(tw.annotations[:5])
+    for k in qa:
+        np.testing.assert_array_equal(qa[k], qb[k])
+    name, dur = jw.corpus.vid_names[1], jw.corpus.durations[1]
+    props = jprop.get_proposal_interface("tvr")(dur)
+    for max_n in (len(props) + 3, 4):
+        for x, y in zip(jb.build_proposal_batch(name, dur, props, max_n),
+                        tb.build_proposal_batch(name, dur, props, max_n)):
+            np.testing.assert_array_equal(x, y)
+    if model_type == "mcn":
+        assert tb.cfg.max_moment_clips == 1
+
+
+def _vcmr(rng, rows, n_vid, top):
+    return {"video2idx": {f"v{i}": i for i, _ in enumerate(range(n_vid))}, "VCMR": [
+        {"desc_id": r["desc_id"], "desc": r["desc"], "predictions": [
+            [int(rng.integers(0, n_vid)), float(s), float(s + 3), float(-k)]
+            for k, s in enumerate(rng.integers(0, 8, top) * 1.5)]} for r in rows]}
+
+
+def test_fusion_bit_equal_and_cli(tmp_path, capsys):
+    """mix_predictions on two saved prediction files whose moments overlap
+    in part (fewer survivors than max_after_nms: padded by repetition), and
+    the CLI with ground truth."""
+    (jw, _), _ = _builders()
+    rows = jw.annotations[:10]
+    rng = np.random.default_rng(8)
+    a, b = _vcmr(rng, rows, 4, 30), _vcmr(rng, rows, 4, 40)
+    paths = {n: str(tmp_path / f"{n}.json") for n in ("a", "b", "j", "t", "jc", "tc")}
+    tio.save_json(a, paths["a"])
+    tio.save_json(b, paths["b"])
+    for n_after in (100, 7):
+        want = jfus.mix_predictions(paths["a"], paths["b"], paths["j"], max_after_nms=n_after)
+        got = tfus.mix_predictions(paths["a"], paths["b"], paths["t"], max_after_nms=n_after)
+        assert want == got and any(0 < len(e["predictions"]) for e in got["VCMR"])
+        assert open(paths["j"]).read() == open(paths["t"]).read()
+    gt = str(tmp_path / "gt.jsonl")
+    tio.save_jsonl([dict(r, vid_name=f"v{i % 4}") for i, r in enumerate(rows)], gt)
+    for mod, out in ((jfus, paths["jc"]), (tfus, paths["tc"])):
+        mod.main(["--pred_path", paths["a"], "--rerank_pred_path", paths["b"],
+                  "--save_path", out, "--gt_path", gt])
+    assert open(paths["jc"]).read() == open(paths["tc"]).read()
+    assert tio.load_json(paths["jc"].replace(".json", "_metrics.json")) == \
+        tio.load_json(paths["tc"].replace(".json", "_metrics.json"))
+    capsys.readouterr()

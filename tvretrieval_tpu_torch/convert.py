@@ -6,14 +6,24 @@ and leaves map by name:
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
 - Conv ``kernel`` (k, in, out) -> ``weight`` (out, in, k);
-- LayerNorm ``scale`` -> ``weight``; ``bias`` and ``pos_embed`` unchanged;
+- LayerNorm and BatchNorm ``scale`` -> ``weight``; ``bias``,
+  ``pos_embed`` and NetVLAD's raw ``clusters`` (D, K) / ``clusters2``
+  (1, D, K) unchanged (they are parameters, not Dense kernels: not
+  transposed);
 - a recurrent cell (flax 0.12 ``OptimizedLSTMCell`` / ``GRUCell``: one
   Dense per gate) -> the ``nn.LSTM`` / ``nn.GRU`` tensors of
   ``models.rnn``, gates stacked in torch's order. LSTM: ``weight_ih`` =
   [ii; if; ig; io]^T, ``weight_hh`` = [hi; hf; hg; ho]^T, ``bias_hh`` the
   h-biases, ``bias_ih`` zero (flax has no input bias). GRU, in [r; z; n]
   order: ``bias_ih`` = [ir; iz; in], ``bias_hh`` = [0; 0; hn] (flax has no
-  hr / hz bias).
+  hr / hz bias). A bidirectional encoder's ``fwd_cell`` / ``bwd_cell`` and
+  CAL's one-directional query LSTM (``fwd_cell`` alone) map alike.
+
+``flax_variables_to_state_dict`` takes the whole variables dict: its
+``params`` as above, and the ``batch_stats`` collection of flax BatchNorm
+(``mean`` -> ``running_mean``, ``var`` -> ``running_var``, plus a
+``num_batches_tracked`` buffer of 0 for each, which torch's BatchNorm
+state carries and flax does not).
 
 The port names its submodules after the flax ones, so the result loads
 with ``model.load_state_dict(sd, strict=True)``.
@@ -81,11 +91,38 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 key = f"{prefix}.weight"
             elif name == "scale":
                 key = f"{prefix}.weight"
-            elif name in ("bias", "pos_embed"):
+            elif name in ("bias", "pos_embed", "clusters", "clusters2"):
                 key = path
             else:
                 raise ValueError(f"{path}: unknown flax leaf {name!r}")
             out[key] = torch.from_numpy(np.ascontiguousarray(a))
 
     visit(params, "")
+    return out
+
+
+BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def flax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``variables``: the whole flax variables dict (``params`` and, for
+    models with flax BatchNorm, ``batch_stats``)."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"unknown flax collections {sorted(unknown)}")
+    out = flax_params_to_state_dict(variables["params"])
+
+    def visit(tree: Mapping, prefix: str) -> None:
+        for name, value in tree.items():
+            path = f"{prefix}.{name}" if prefix else name
+            if isinstance(value, Mapping):
+                visit(value, path)
+                continue
+            if name not in BATCH_STATS:
+                raise ValueError(f"{path}: unknown batch_stats leaf {name!r}")
+            out[f"{prefix}.{BATCH_STATS[name]}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+            out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+    visit(variables.get("batch_stats", {}), "")
     return out

@@ -17,6 +17,7 @@ Under float32 each block computes exactly what it computed before.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -283,3 +284,16 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
                         nn.init.orthogonal_(p[g * h:(g + 1) * h], generator=generator)
                 else:
                     p.zero_()
+
+
+@contextlib.contextmanager
+def evaluating(module: nn.Module):
+    """``module.eval()`` inside the block, its former mode restored after:
+    the engines' counterpart of flax's ``train=False`` /
+    ``deterministic=True`` (BatchNorm's running statistics, no dropout)."""
+    was_training = module.training
+    module.eval()
+    try:
+        yield module
+    finally:
+        module.train(was_training)

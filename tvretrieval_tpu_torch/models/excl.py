@@ -1,0 +1,131 @@
+"""ExCL — Extractive Clip Localization (SVMR baseline), PyTorch.
+
+Port of tvretrieval_tpu/models/excl.py (reference baselines/excl/
+model.py:21-165): a bidirectional-LSTM query encoder pooled to its final
+hidden, two stacked bidirectional context LSTMs per stream with the query
+vector concatenated between them, and MLP(tanh) start/end predictors over
+[ctx2; ctx1; query]. Cross-entropy span loss only (SVMR task).
+
+The five LSTMs are models.rnn.RNNEncoder (cuDNN under float32). Dropout
+is on in ``model.train()`` and draws from the ``generator`` passed to
+``forward`` / ``span_logits`` (the global generator when None), never
+from JAX's PRNG: parity with the JAX model holds with ``drop=0`` or in
+eval mode. Compute dtype: under ``dtype_str="bfloat16"`` the LSTMs and the
+predictors' Dense layers compute at bf16 (the LSTM outputs stay float32,
+flax's carry dtype), and the masked logits are float32.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from tvretrieval_tpu_torch.models.components import Dense, init_like_flax
+from tvretrieval_tpu_torch.models.rnn import RNNEncoder
+from tvretrieval_tpu_torch.models.xml import _cross_entropy
+from tvretrieval_tpu_torch.ops.masking import mask_logits
+
+
+@dataclass(frozen=True)
+class ExCLConfig:
+    """Same fields and defaults as tvretrieval_tpu.models.excl.ExCLConfig."""
+    ctx_mode: str = "video_sub"
+    visual_input_size: int = 3074
+    sub_input_size: int = 770
+    query_input_size: int = 768
+    hidden_size: int = 256
+    drop: float = 0.5
+    initializer_range: float = 0.02
+    dtype_str: str = "float32"
+
+    @property
+    def use_video(self) -> bool:
+        return "video" in self.ctx_mode
+
+    @property
+    def use_sub(self) -> bool:
+        return "sub" in self.ctx_mode
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype_str == "bfloat16" else torch.float32
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - p, kept values
+    scaled by 1 / (1 - p); the mask drawn from ``generator``."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
+
+
+class SpanPredictor(nn.Module):
+    """Linear -> tanh -> Linear(1) (reference excl/model.py:57-60)."""
+
+    def __init__(self, in_dim: int, hidden_size: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Dense_0 = Dense(in_dim, hidden_size, dtype=dtype)
+        self.Dense_1 = Dense(hidden_size, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_1(torch.tanh(self.Dense_0(x)))[..., 0]
+
+
+class ExCL(nn.Module):
+    def __init__(self, cfg: ExCLConfig):
+        super().__init__()
+        self.cfg = c = cfg
+        h, dt = c.hidden_size // 2, c.dtype
+        self.query_encoder = RNNEncoder(c.query_input_size, h, "lstm", True, dt)
+        for stream, in_dim, used in (("video", c.visual_input_size, c.use_video),
+                                     ("sub", c.sub_input_size, c.use_sub)):
+            if not used:
+                continue
+            add = lambda name, module: setattr(self, f"{stream}_{name}", module)
+            add("encoder", RNNEncoder(in_dim, h, "lstm", True, dt))
+            add("encoder2", RNNEncoder(4 * h, h, "lstm", True, dt))
+            add("st_predictor", SpanPredictor(6 * h, c.hidden_size, dt))
+            add("ed_predictor", SpanPredictor(6 * h, c.hidden_size, dt))
+
+    def init_weights(self, generator: torch.Generator) -> "ExCL":
+        """Seeded initialization with the JAX package's initializers."""
+        init_like_flax(self, generator)
+        return self
+
+    def _single_stream(self, encoded_query, ctx_feat, ctx_mask, stream, generator):
+        """(reference get_prob_single_stream, excl/model.py:110-123)"""
+        lengths = ctx_mask.sum(dim=1).int()
+        drop = lambda x: dropout(x, self.cfg.drop, self.training, generator)
+        ctx1, _ = getattr(self, f"{stream}_encoder")(drop(ctx_feat), lengths)
+        ctx2, _ = getattr(self, f"{stream}_encoder2")(
+            drop(torch.cat([ctx1, encoded_query], dim=-1)), lengths)
+        feat3 = torch.cat([ctx2, ctx1, encoded_query], dim=-1)
+        st = getattr(self, f"{stream}_st_predictor")(feat3)
+        ed = getattr(self, f"{stream}_ed_predictor")(feat3)
+        return mask_logits(st, ctx_mask), mask_logits(ed, ctx_mask)
+
+    def span_logits(self, query_feat, query_mask, video_feat, video_mask, sub_feat, sub_mask,
+                    generator: Optional[torch.Generator] = None):
+        """(st_logits, ed_logits), each (N, Lc)."""
+        c = self.cfg
+        _, q_hidden = self.query_encoder(query_feat, query_mask.sum(dim=1).int())  # (N, D)
+        Lc = (video_feat if c.use_video else sub_feat).shape[1]
+        q_rep = q_hidden[:, None, :].expand(q_hidden.shape[0], Lc, q_hidden.shape[-1])
+        vst, ved = (self._single_stream(q_rep, video_feat, video_mask, "video", generator)
+                    if c.use_video else (0, 0))
+        sst, sed = (self._single_stream(q_rep, sub_feat, sub_mask, "sub", generator)
+                    if c.use_sub else (0, 0))
+        n = int(c.use_video) + int(c.use_sub)
+        return (vst + sst) / n, (ved + sed) / n
+
+    def forward(self, query_feat, query_mask, video_feat, video_mask, sub_feat, sub_mask,
+                st_ed_indices, generator: Optional[torch.Generator] = None):
+        st, ed = self.span_logits(query_feat, query_mask, video_feat, video_mask,
+                                  sub_feat, sub_mask, generator)
+        loss = (_cross_entropy(st.float(), st_ed_indices[:, 0])
+                + _cross_entropy(ed.float(), st_ed_indices[:, 1]))
+        return loss, {"loss_st_ed": loss}
