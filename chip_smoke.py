@@ -125,11 +125,31 @@ Run from the repository root on a machine with one CUDA card. Phases:
    ``inference_baselines`` on each run directory on the card (``--nms_thd
    0.5``; ExCL with MEE's submission as its external VR), its metrics equal
    to the run's own;
-13. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
+13. the offline feature pipelines and the profiling suite (no hand kernel
+   lies on their paths: every launch count is set to 0 before the phase and
+   must read 0 after): (a) ResNet-152 (3, 8, 36, 3) on 224 x 224 frames and
+   I3D on 23-frame 224 x 224 clips, the card against the CPU on the same
+   seeded weights within ``BACKBONE_RTOL`` of the largest feature, then
+   frames/s of ``make_resnet152_frame_model`` at batch 32 and clips/s of
+   ``make_i3d_clip_model`` at batch 4 (CUDA events) beside their bounds at
+   the f32 peak (TF32 is off), and peak memory; (b) both extraction loops
+   over synthetic videos of 100 clips, the pooling helpers, the shapes
+   (100, 2048) and (100, 1024) read back (HDF5 where h5py imports, else
+   the per-video functions the writers call, said on a line of its own);
+   (c) ``mask_tokens`` and the learning-rate schedule, and where
+   transformers imports, ``finetune_mlm`` on a roberta-base-width RoBERTa
+   with random weights (a falling loss) and token features through the
+   torch embedder from seeded ids; (d) ``profile_models.main`` as the CLI
+   runs it (XML retrieval at 2,000 videos, ``--train`` in f32 and bf16,
+   ``--baselines``, ``--data``) and ``search_simulation`` (20,000 x 256,
+   128 clusters, nprobe 8 and 128): the JAX key sets, finite positive
+   times, recall 1.0 at full probe, k-means card against CPU from the same
+   initial rows within ``KMEANS_ATOL`` on separated blobs;
+14. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
    B1-B3, B5, B6 and B11, over phases 7 and 10 for B4 and over phase 9 for
    B7-B10, ``launches_throughput`` over phase 5, ``launches_streaming``
    over phase 11's timed runs);
-14. the last line: ``{"ok": true, "device": {...}}``.
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
 package directory) runs that commit's phases 3, 5 and 8 in a process of
@@ -2710,6 +2730,367 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
         raise AssertionError(f"a hand kernel launched on a baseline path: {launches}")
 
 
+# ---------------------------------------------------------------- phase 13
+# the profiling suite and the offline feature pipelines (see phase_features)
+FEAT_PX = 224                      # frames and clips at the backbones' published input size
+FEAT_FRAME_BSZ = 32                # extract_clip_features' batch
+FEAT_CLIP_BSZ = 4                  # extract_i3d_clip_features' batch
+FEAT_I3D_T = 23                    # frames a clip (reference extract_i3d_features.py:39-41)
+FEAT_FRAMES_A_CLIP = 3             # ResNet frames a 1.5 s clip (video_features.py:28)
+FEAT_CLIPS = 100                   # clips a synthetic video of (b)
+FEAT_VIDEOS = 2
+FEAT_CPU_FRAMES, FEAT_CPU_CLIPS = 4, 1   # (a) card against CPU
+FEAT_REPS = 5
+# (a) max |card - CPU| over max |CPU|, both f32 (TF32 off): each conv output
+# sums K <= 4,608 products in another order on each side (about sqrt(K) *
+# 2^-24 = 4e-6 of the sum's scale a layer), carried through 155 convs in
+# ResNet-152 (about sqrt(155) * 4e-6 = 5e-5) and 57 in I3D; cuDNN may pick
+# Winograd or FFT transforms for the 3x3 convs, whose rounding is an order
+# larger. 1e-3 holds all of that; a wrong layer or padding is O(1)
+BACKBONE_RTOL = 1e-3
+KMEANS_ATOL = 1e-5                 # (d) unit-scale blobs: f32 means of ~156 rows
+MLM_STEPS = 8                      # (c) roberta-base fine-tuning steps
+MLM_BSZ, MLM_LEN = 32, 64          # MLMSettings' batch and length
+# (d) the JAX profilers' key sets (tests/test_torch_profiling.py holds the
+# port's dicts equal to theirs)
+XML_PROFILE_KEYS = {"encode_context_batch_s", "encode_query_batch_s", "score_query_batch_s",
+                    "corpus_encode_total_s", "retrieval_queries_per_sec",
+                    "extrapolated_1000000v_retrieval_s_per_query",
+                    "extrapolated_1000000v_encode_total_s", "storage_gb"}
+TRAIN_PROFILE_KEYS = {"train_step_s", "examples_per_sec", "epoch_s_extrapolated",
+                      "full_train_hours_extrapolated"}
+BASELINE_PROFILE_KEYS = {
+    "mee": {"ctx_encode_batch_s", "query_encode_batch_s", "retrieval_100k_block_s",
+            "extrapolated_1000000v_ctx_encode_s",
+            "extrapolated_1000000v_retrieval_s_per_100q"},
+    "cal": {"moment_encode_batch_s", "query_encode_batch_s", "cdist_10k_proposals_s",
+            "extrapolated_1000000v_moment_encode_s", "extrapolated_1000000v_cdist_s_per_100q"},
+    "excl": {"span_scores_100pairs_s", "extrapolated_1000000v_s_per_query"}}
+DATA_PROFILE_KEYS = {"per_row_build_batch_s", "prebuilt_gather_batch_s",
+                     "prebuilt_f16_gather_batch_s", "speedup", "speedup_f16",
+                     "prebuild_once_s", "cache_gb", "cache_f16_gb"}
+SEARCH_KEYS = {"flat_search_ms", "ivf_search_ms", "ivf_recall_at_topk", "n_videos",
+               "n_clusters", "nprobe"}
+
+
+def conv_flops(module, x) -> int:
+    """Operations (2 a multiply-add) of every convolution in one
+    ``module(x)``, counted from the shapes of this run."""
+    total = [0]
+
+    def hook(m, _inp, out):
+        total[0] += 2 * out.numel() * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
+    with torch.no_grad():
+        module(x)
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def rel_diff(card, cpu) -> float:
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    return float(np.abs(card - cpu).max() / np.abs(cpu).max())
+
+
+def features_backbones(dev):
+    """13a: ResNet-152 and I3D at full size, card against CPU on the same
+    seeded weights, then frames/s and clips/s of the frame and clip models
+    (CUDA events) beside their f32 bounds, and peak memory."""
+    from tvretrieval_tpu_torch.features import video_features as vf
+
+    rng = np.random.default_rng(13)
+    out = {}
+    for kind, make, bsz, n_cpu, shape in (
+            ("resnet152", vf.make_resnet152_frame_model, FEAT_FRAME_BSZ, FEAT_CPU_FRAMES,
+             (FEAT_PX, FEAT_PX, 3)),
+            ("i3d", vf.make_i3d_clip_model, FEAT_CLIP_BSZ, FEAT_CPU_CLIPS,
+             (FEAT_I3D_T, FEAT_PX, FEAT_PX, 3))):
+        x = rng.integers(0, 256, (bsz, *shape), np.uint8)
+        fn_cpu = make(seed=0, device="cpu")
+        t0 = time.perf_counter()
+        ref = fn_cpu(x[:n_cpu])
+        t_cpu = time.perf_counter() - t0
+        fn = make(seed=0, device=dev)
+        got = fn(x[:n_cpu])
+        err = rel_diff(got, ref)
+        del fn_cpu
+        xdev = torch.from_numpy(x).to(dev).float()
+        flops = conv_flops(fn.module, xdev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(lambda: fn(x), reps=FEAT_REPS)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        with torch.no_grad():           # the net alone, on a float batch on the card
+            ms_net = cuda_ms(lambda: fn.module(xdev), reps=FEAT_REPS)
+        del xdev
+        weights = sum(t.numel() * t.element_size() for t in fn.module.state_dict().values())
+        b = bound(x.nbytes + weights, flops, torch.float32)
+        rate, rate_bound = bsz / ms * 1e3, bsz / b["bound_ms"] * 1e3
+        unit = "frames" if kind == "resnet152" else "clips"
+        log("features", f"13a {kind}: card vs CPU on {n_cpu} {unit} of {shape}: max |d| / "
+            f"max |CPU| {err:.3e} (bound {BACKBONE_RTOL:.0e}; CPU {t_cpu:.2f} s); batch {bsz}: "
+            f"{ms:.2f} ms, {rate:.1f} {unit}/s (the convolutions' {flops / 1e9:.1f} GFLOP a "
+            f"batch at the f32 peak of 67 TFLOP/s: {b['bound_ms']:.2f} ms, {rate_bound:.1f} "
+            f"{unit}/s; {b['bound_ms'] / ms:.1%} of it; TF32 off), peak {peak:.2f} GiB; the "
+            f"net alone on a float batch on the card {ms_net:.2f} ms "
+            f"({b['bound_ms'] / ms_net:.1%} of the bound)")
+        if not (np.isfinite(got).all() and err <= BACKBONE_RTOL):
+            raise AssertionError(f"13a {kind}: card against CPU {err:.3e} > {BACKBONE_RTOL}")
+        out[kind] = fn
+    return out
+
+
+def features_extraction(models):
+    """13b: the two extraction loops over synthetic videos of FEAT_CLIPS
+    clips, the pooling helpers, the shapes read back. Without h5py the same
+    per-video functions the HDF5 writers call run, and writing is held on
+    the CPU (tests/test_torch_features.py)."""
+    import importlib.util
+    import tempfile
+
+    from tvretrieval_tpu_torch.features import pooling
+    from tvretrieval_tpu_torch.features import video_features as vf
+
+    rng = np.random.default_rng(14)
+    n_frames = FEAT_CLIPS * FEAT_FRAMES_A_CLIP
+    n_i3d = FEAT_CLIPS * FEAT_I3D_T
+    frames = {f"v{i}": rng.integers(0, 256, (n_frames - 2 * i, FEAT_PX, FEAT_PX, 3), np.uint8)
+              for i in range(FEAT_VIDEOS)}
+    base = rng.integers(0, 256, (n_i3d, FEAT_PX, FEAT_PX, 3), np.uint8)
+    # the second video one frame short: its last clip padded with its final frame
+    clips = {f"v{i}": base[:n_i3d - i] for i in range(FEAT_VIDEOS)}
+    t0 = time.perf_counter()
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = [os.path.join(tmp, n) for n in ("resnet.h5", "i3d.h5")]
+            vf.extract_clip_features(frames, models["resnet152"], paths[0],
+                                     FEAT_FRAMES_A_CLIP, batch_size=FEAT_FRAME_BSZ)
+            vf.extract_i3d_clip_features(clips, models["i3d"], paths[1], FEAT_I3D_T,
+                                         batch_size=FEAT_CLIP_BSZ)
+            feats = []
+            for p in paths:
+                with h5py.File(p) as h5:
+                    feats.append({k: h5[k][()] for k in h5.keys()})
+        how = "written to HDF5 and read back"
+    else:
+        log("features", "13b h5py does not import on this machine: HDF5 writing is held on "
+            "the CPU only (tests/test_torch_features.py); the same per-video functions the "
+            "writers call run here")
+        feats = [{k: vf.frame_clip_features(v, models["resnet152"], FEAT_FRAMES_A_CLIP,
+                                            batch_size=FEAT_FRAME_BSZ)
+                  for k, v in frames.items()},
+                 {k: vf.i3d_clip_features(v, models["i3d"], FEAT_I3D_T,
+                                          batch_size=FEAT_CLIP_BSZ)
+                  for k, v in clips.items()}]
+        how = "from the per-video functions"
+    t_ext = time.perf_counter() - t0
+    for (kind, dim), got in zip((("resnet152", 2048), ("i3d", 1024)), feats):
+        for k, a in got.items():
+            if a.shape != (FEAT_CLIPS, dim) or a.dtype != np.float32 or not np.isfinite(a).all():
+                raise AssertionError(f"13b {kind} {k}: {a.shape} {a.dtype}")
+    cat = {k: pooling.normalize_and_concat([feats[0][k], feats[1][k]]) for k in frames}
+    norms = np.concatenate([np.linalg.norm(c[:, :2048], axis=1) for c in cat.values()]
+                           + [np.linalg.norm(c[:, 2048:], axis=1) for c in cat.values()])
+    toks = rng.normal(size=(40, 768)).astype(np.float32)
+    sub = pooling.tokens_to_clip_features(toks, [(0.0, 4.0), (10.0, 30.0)], [(0, 15), (15, 40)],
+                                          FEAT_CLIPS)
+    if any(c.shape != (FEAT_CLIPS, 3072) for c in cat.values()) or \
+            np.abs(norms - 1).max() > 1e-3 or sub.shape != (FEAT_CLIPS, 768):
+        raise AssertionError("13b pooling: shapes or norms")
+    log("features", f"13b extraction of {FEAT_VIDEOS} videos x {FEAT_CLIPS} clips "
+        f"({n_frames} frames of ResNet-152 and {n_i3d} of I3D a video), {how}: "
+        f"{t_ext:.1f} s; shapes ({FEAT_CLIPS}, 2048) and ({FEAT_CLIPS}, 1024); "
+        f"normalize_and_concat -> ({FEAT_CLIPS}, 3072), unit norms within "
+        f"{np.abs(norms - 1).max():.1e}; tokens_to_clip_features -> {sub.shape}")
+
+
+def features_text(dev):
+    """13c: mask_tokens and the learning-rate schedule; where transformers
+    imports, MLM fine-tuning of a roberta-base-width RoBERTa with random
+    weights (a falling loss) and its encoder through the torch embedder."""
+    import importlib.util
+
+    from tvretrieval_tpu_torch.features import lm_finetune as lm
+    from tvretrieval_tpu_torch.features import text_features as tf
+
+    settings = lm.MLMSettings(lr=5e-4, warmup_steps=2, total_steps=MLM_STEPS,
+                              batch_size=MLM_BSZ, max_length=MLM_LEN)
+    rate = lm.warmup_cosine_lr(settings)
+    rates = [rate(s) for s in range(MLM_STEPS + 1)]
+    if rates[0] != 0.0 or max(rates) != settings.lr or rates[-1] > 1e-12:
+        raise AssertionError(f"13c schedule {rates}")
+    rng = np.random.default_rng(15)
+    # a regular corpus (each row a shifted run of ids), so a few steps learn
+    base = (np.arange(MLM_LEN)[None] + rng.integers(0, 50, (MLM_BSZ, 1))) % 200 + 4
+    batches = []
+    for _ in range(MLM_STEPS):
+        ids, labels = lm.mask_tokens(rng, base, np.ones_like(base), mask_token_id=3,
+                                     vocab_size=50265, special_ids=(0, 1, 2))
+        batches.append({"input_ids": ids, "attention_mask": np.ones_like(base),
+                        "labels": labels})
+    picked = np.mean([(b["labels"] != -100).mean() for b in batches])
+    if importlib.util.find_spec("transformers") is None:
+        log("features", f"13c transformers does not import on this machine: fine-tuning "
+            f"and the embedder are held on the CPU only (tests/test_torch_features.py); "
+            f"mask_tokens picked {picked:.3f} of the tokens, the schedule {rates}")
+        return
+    from transformers import RobertaConfig, RobertaForMaskedLM
+
+    torch.manual_seed(0)
+    model = RobertaForMaskedLM(RobertaConfig())
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    model, losses = lm.finetune_mlm(model, batches, settings, device=dev)
+    torch.cuda.synchronize()
+    t_ft = time.perf_counter() - t0
+    # texts of 4-64 words; no tokenizer ships in the repository, so
+    # encode_fn gives seeded ids, one a word, padded with RoBERTa's pad id 1
+    texts = {str(i): " ".join(["w"] * int(n))
+             for i, n in enumerate(rng.integers(4, MLM_LEN + 1, 64))}
+
+    def encode_fn(chunk):
+        n_words = np.array([len(t.split()) for t in chunk])
+        mask = (np.arange(MLM_LEN)[None] < n_words[:, None]).astype(np.int64)
+        return np.where(mask == 1, rng.integers(4, 50265, (len(chunk), MLM_LEN)), 1), mask
+
+    embed_fn = tf.make_torch_embed_fn(model.roberta, device=dev)
+    t0 = time.perf_counter()
+    feats = dict(tf.token_features(texts, encode_fn, embed_fn, batch_size=32))
+    t_emb = time.perf_counter() - t0
+    hidden = model.config.hidden_size
+    shapes_ok = list(feats) == list(texts) and all(
+        feats[k].shape == (len(t.split()), hidden) for k, t in texts.items())
+    finite = all(np.isfinite(a).all() for a in feats.values())
+    log("features", f"13c roberta-base width ({n_params / 1e6:.1f} M parameters, random): "
+        f"{MLM_STEPS} MLM steps of {MLM_BSZ} x {MLM_LEN} on the card in {t_ft:.2f} s, losses "
+        f"{[round(x, 3) for x in losses]}; mask_tokens picked {picked:.3f} of the tokens; "
+        f"token features of {len(texts)} texts through the torch embedder in {t_emb:.2f} s "
+        f"(HDF5 writing: the CPU tests)")
+    if not (np.isfinite(losses).all() and np.mean(losses[-2:]) < losses[0] and shapes_ok
+            and finite):
+        raise AssertionError(f"13c: losses {losses}, shapes {shapes_ok}, finite {finite}")
+
+
+def check_profile(what, res, keys):
+    if set(res) != keys:
+        raise AssertionError(f"13d {what}: keys {sorted(res)} against {sorted(keys)}")
+    times = {k: v for k, v in res.items() if k != "storage_gb"}
+    if not all(math.isfinite(v) and v > 0 for v in times.values()):
+        raise AssertionError(f"13d {what}: {times}")
+
+
+def features_profilers(dev):
+    """13d: the stage profilers' CLI paths and the search simulation on the
+    card, the JAX key sets, full-probe IVF recall 1.0, and the k-means
+    centroids card against CPU from the same initial rows."""
+    import contextlib
+    import io
+
+    from tvretrieval_tpu_torch.profiling import profile_models as pm
+    from tvretrieval_tpu_torch.profiling import search_simulation as ss
+
+    def quiet(fn, *a, **k):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*a, **k)
+
+    t0 = time.perf_counter()
+    xml = quiet(pm.main, [])
+    check_profile("xml", xml, XML_PROFILE_KEYS)
+    train = {d: quiet(pm.main, ["--train", "--dtype", d]) for d in ("float32", "bfloat16")}
+    for d, r in train.items():
+        check_profile(f"train {d}", r, TRAIN_PROFILE_KEYS)
+    base = quiet(pm.main, ["--baselines"])
+    for name, keys in BASELINE_PROFILE_KEYS.items():
+        check_profile(name, base[name], keys)
+    t1 = time.perf_counter()
+    data = quiet(pm.main, ["--data"])
+    check_profile("data", data, DATA_PROFILE_KEYS)
+    t2 = time.perf_counter()
+    sim = quiet(ss.main, [])
+    full = ss.simulate(nprobe=128, device=dev)
+    for what, r in (("search", sim), ("search full probe", full)):
+        if set(r) != SEARCH_KEYS or not (r["flat_search_ms"] > 0 and r["ivf_search_ms"] > 0):
+            raise AssertionError(f"13d {what}: {r}")
+    if full["ivf_recall_at_topk"] != 1.0:
+        raise AssertionError(f"13d IVF recall at full probe {full['ivf_recall_at_topk']}")
+    # k-means from the same initial rows, card against CPU: well-separated
+    # unit-scale blobs (no assignment near a tie), then the simulation's own
+    # unit vectors (which have ties near every boundary: agreement reported)
+    rng = np.random.default_rng(16)
+    k, n_per, d = 128, 20000 // 128, 256
+    blobs = (rng.normal(0, 1, (k, 1, d)) + rng.normal(0, 0.05, (k, n_per, d))).reshape(-1, d)
+    blobs = torch.from_numpy(blobs.astype(np.float32))
+    idx = torch.arange(k) * n_per
+    (cc, ca), (gc, ga) = (ss.lloyd(x, x[idx.to(x.device)], 10)
+                          for x in (blobs, blobs.to(dev)))
+    km_err = float((gc.cpu() - cc).abs().max())
+    sims = rng.normal(size=(20000, d)).astype(np.float32)
+    sims /= np.linalg.norm(sims, axis=1, keepdims=True)
+    sims = torch.from_numpy(sims)
+    init = ss.initial_indices(sims.shape[0], k)
+    (sc, sa), (tc, ta) = (ss.lloyd(x, x[init.to(x.device)], 10) for x in (sims, sims.to(dev)))
+    n_flip = int((ta.cpu() != sa).sum())
+    t3 = time.perf_counter()
+    log("features", f"13d profilers on the card: XML retrieval {xml['retrieval_queries_per_sec']:.1f} "
+        f"q/s at 2,000 videos (batch 50; {xml['score_query_batch_s'] * 1e3:.2f} ms a batch, "
+        f"context encode {xml['encode_context_batch_s'] * 1e3:.2f} ms a batch of 200); train "
+        f"step f32 {train['float32']['train_step_s'] * 1e3:.2f} ms, bf16 "
+        f"{train['bfloat16']['train_step_s'] * 1e3:.2f} ms (batch 128); MEE "
+        f"{json.dumps({k: round(v, 6) for k, v in base['mee'].items()})}; CAL "
+        f"{json.dumps({k: round(v, 6) for k, v in base['cal'].items()})}; ExCL "
+        f"{json.dumps({k: round(v, 6) for k, v in base['excl'].items()})}; {t1 - t0:.1f} s")
+    log("features", f"13d host batch building (--data): per-row "
+        f"{data['per_row_build_batch_s'] * 1e3:.1f} ms, prebuilt "
+        f"{data['prebuilt_gather_batch_s'] * 1e3:.2f} ms, f16 "
+        f"{data['prebuilt_f16_gather_batch_s'] * 1e3:.2f} ms a batch of 128; {t2 - t1:.1f} s")
+    log("features", f"13d search simulation (20,000 x 256, 128 clusters): flat "
+        f"{sim['flat_search_ms']:.3f} ms, IVF nprobe 8 {sim['ivf_search_ms']:.3f} ms, recall "
+        f"{sim['ivf_recall_at_topk']}; nprobe 128 {full['ivf_search_ms']:.3f} ms, recall "
+        f"{full['ivf_recall_at_topk']}; k-means card vs CPU on separated blobs: centroids max "
+        f"|d| {km_err:.2e} (bound {KMEANS_ATOL:.0e}), assignments equal "
+        f"{bool((ga.cpu() == ca).all())}; on the simulation's unit vectors {n_flip} of 20000 "
+        f"assignments differ; {t3 - t2:.1f} s")
+    if km_err > KMEANS_ATOL or not bool((ga.cpu() == ca).all()):
+        raise AssertionError(f"13d k-means card against CPU: {km_err:.2e}")
+
+
+def phase_features(dev):
+    """Phase 13: the offline feature pipelines and the profiling suite (see
+    the module docstring). No hand kernel lies on their paths: every count
+    is set to 0 before and must read 0 after."""
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+    from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import sort as tsort
+    from tvretrieval_tpu_torch.ops import topk as ttopk
+    from tvretrieval_tpu_torch.ops import video_score as vs
+
+    counters = (vs, gt_ops, tsort, apx, fsc, ttopk)
+    for ops in counters:
+        ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    models = features_backbones(dev)
+    t1 = time.perf_counter()
+    features_extraction(models)
+    del models
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    features_text(dev)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    features_profilers(dev)
+    launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+    log("features", f"phase 13 took {time.perf_counter() - t0:.1f} s (13a {t1 - t0:.1f} s, "
+        f"13b {t2 - t1:.1f} s, 13c {t3 - t2:.1f} s, 13d {time.perf_counter() - t3:.1f} s); "
+        f"hand-kernel launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"a hand kernel launched on a feature or profiler path: {launches}")
+
+
 def checkout_entry(checkout: str, name: str):
     """The entry point of library ``name`` of the commit in ``checkout`` (a
     git archive), built from its csrc source (the same C signature as this
@@ -2962,6 +3343,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_baselines(dev, *base_env)
     del base_env
+    torch.cuda.empty_cache()
+    phase_features(dev)
 
     if args.parent:
         torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 """Helpers shared by the baseline tests (tests/test_torch_{baselines,cal,
-excl,baseline_cli}.py).
+excl,baseline_cli}.py); ``one_torch_thread`` also by
+tests/test_torch_{profiling,backbones,features}.py.
 
 ``JaxTrainer``: the JAX package's GenericTrainer on one device, started
 from given variables; the port's trainer is held against it. Skipping its

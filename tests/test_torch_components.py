@@ -252,6 +252,14 @@ def test_converter_rejects_unknown_leaf():
         flax_params_to_state_dict({"dense": {"kernel": np.zeros((2, 3)), "gamma": np.ones(3)}})
 
 
+# the profiling suite and the offline feature pipelines, which the two
+# checks below must reach
+NEW_SLICE = tuple(f"tvretrieval_tpu_torch.{m}" for m in (
+    "features", "features.pooling", "features.subtitles", "features.video_split",
+    "features.backbones", "features.video_features", "features.text_features",
+    "features.lm_finetune", "profiling.profile_models", "profiling.search_simulation"))
+
+
 def test_port_imports_without_jax():
     """Importing every module of the port leaves neither JAX nor any module
     of the JAX package in ``sys.modules``."""
@@ -259,6 +267,8 @@ def test_port_imports_without_jax():
             "import tvretrieval_tpu_torch as pkg\n"
             "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
             "assert len(names) > 20, names\n"
+            f"missing = set({NEW_SLICE!r}) - set(names)\n"
+            "assert not missing, missing\n"
             "for name in names:\n"
             "    importlib.import_module(name)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
@@ -279,6 +289,8 @@ def test_port_sources_do_not_name_the_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "tvretrieval_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    scanned = {os.path.relpath(f, REPO)[:-3].replace(os.sep, ".") for f in files}
+    assert {m if m.count(".") > 1 else m + ".__init__" for m in NEW_SLICE} <= scanned
     bad = [(os.path.relpath(f, REPO), m.group(0).strip())
            for f in files for m in pat.finditer(open(f).read())]
     assert not bad, bad

@@ -5,7 +5,8 @@ reference model (tests/test_xml.py:334-398): module paths join with ".",
 and leaves map by name:
 
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in), transposed;
-- Conv ``kernel`` (k, in, out) -> ``weight`` (out, in, k);
+- Conv ``kernel`` (*spatial, in, out) -> ``weight`` (out, in, *spatial),
+  for 1-d, 2-d and 3-d convolutions;
 - LayerNorm and BatchNorm ``scale`` -> ``weight``; ``bias``,
   ``pos_embed`` and NetVLAD's raw ``clusters`` (D, K) / ``clusters2``
   (1, D, K) unchanged (they are parameters, not Dense kernels: not
@@ -84,8 +85,9 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             if name == "kernel":
                 if a.ndim == 2:
                     a = a.T
-                elif a.ndim == 3:
-                    a = a.transpose(2, 1, 0)
+                elif a.ndim in (3, 4, 5):
+                    # (*spatial, in, out) -> (out, in, *spatial)
+                    a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
                 else:
                     raise ValueError(f"{path}: unexpected kernel rank {a.ndim}")
                 key = f"{prefix}.weight"
@@ -125,4 +127,59 @@ def flax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
     visit(variables.get("batch_stats", {}), "")
+    return out
+
+
+def flax_resnet152_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``ResNet152`` variables -> the port's
+    ``features.backbones.ResNet152`` state_dict (torchvision's names):
+    ``layer{S}_{B}`` -> ``layer{S}.{B}``, ``downsample_conv`` /
+    ``downsample_bn`` -> ``downsample.0`` / ``downsample.1``."""
+    out = {}
+    for key, value in flax_variables_to_state_dict(variables).items():
+        parts = key.split(".")
+        if parts[0].startswith("layer"):
+            stage, block = parts[0].split("_")
+            parts[:1] = [stage, block]
+        key = ".".join(parts).replace("downsample_conv", "downsample.0")
+        out[key.replace("downsample_bn", "downsample.1")] = value
+    return out
+
+
+def flax_i3d_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax ``InceptionI3d`` variables -> the port's
+    ``features.backbones.InceptionI3d`` state_dict (the same names; its
+    scale-free BatchNorm keeps no ``num_batches_tracked``)."""
+    return {k: v for k, v in flax_variables_to_state_dict(variables).items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def flax_roberta_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A transformers Flax RoBERTa's ``params`` (``FlaxRobertaModel`` or
+    ``FlaxRobertaForMaskedLM``) -> the torch model's state_dict: paths
+    joined with ".", Dense ``kernel`` (in, out) -> ``weight`` (out, in),
+    LayerNorm ``scale`` and Embed ``embedding`` -> ``weight``; the masked
+    LM's decoder is tied to the word embeddings and its bias to
+    ``lm_head.bias``, as torch's model ties them."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def visit(tree: Mapping, prefix: str) -> None:
+        for name, value in tree.items():
+            path = f"{prefix}.{name}" if prefix else name
+            if isinstance(value, Mapping):
+                visit(value, path)
+                continue
+            a = np.array(value, dtype=np.float32)
+            if name == "kernel":
+                a = a.T
+            if name in ("kernel", "scale", "embedding"):
+                path = f"{prefix}.weight"
+            elif name != "bias":
+                raise ValueError(f"{path}: unknown flax leaf {name!r}")
+            out[path] = torch.from_numpy(np.ascontiguousarray(a))
+
+    visit(params, "")
+    if "lm_head.bias" in out:
+        out["lm_head.decoder.weight"] = out["roberta.embeddings.word_embeddings.weight"]
+        out["lm_head.decoder.bias"] = out["lm_head.bias"]
     return out

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from tvretrieval_tpu_torch.data.pipeline import BatchIterator, DevicePrefetcher
+from tvretrieval_tpu_torch.utils.device import require_device  # noqa: F401 (the CLIs' import)
 from tvretrieval_tpu_torch.utils.io import AverageMeter
 
 
@@ -35,13 +36,6 @@ def staircase_decay(transition_steps: int, decay_rate: float) -> Callable[[int],
     """optax ``exponential_decay(..., staircase=True)`` as a multiplier of
     the base rate: ``decay_rate ** (count // transition_steps)``."""
     return lambda count: decay_rate ** (count // transition_steps)
-
-
-def require_device(cli: str, device: str) -> None:
-    """Exit with one line when ``device`` is the card and there is none."""
-    if device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"{cli}: no CUDA device is available; pass --device cpu to run "
-                         "on the CPU")
 
 
 def default_loss_apply(model, batch, generator, train):
