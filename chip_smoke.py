@@ -145,11 +145,25 @@ Run from the repository root on a machine with one CUDA card. Phases:
    128 clusters, nprobe 8 and 128): the JAX key sets, finite positive
    times, recall 1.0 at full probe, k-means card against CPU from the same
    initial rows within ``KMEANS_ATOL`` on separated blobs;
-14. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
+14. several devices (``parallel``), with logical shards on the one card:
+   (a) corpus-sharded serving (``parallel.sharded_retrieval``) at the
+   flagship's full width, 4 shards against the resident engine on the same
+   cache: the bf16 flagship (indices equal outside near-ties), shipped
+   (each approximate site's recall on every shard's rows >= 0.90), all-int8
+   psort and all-int8 fused (bit-equal); each kernel launched 4 times the
+   resident engine's count a batch (B1 / B3, B5, B6, B11); q/s at 1, 2 and
+   4 shards beside the resident engine's; (b) the streaming engine with a
+   2-shard mesh, flat (B2) and flat_int8 (B1), bit-equal to streaming
+   without one; (c) data-parallel XML training on 2 gloo ranks sharing the
+   card at phase 7's shape (dropout off): the first step's loss within
+   2e-4 of one process's, a falling loss, B4 twice a step in each rank, ms
+   a step;
+15. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
    B1-B3, B5, B6 and B11, over phases 7 and 10 for B4 and over phase 9 for
    B7-B10, ``launches_throughput`` over phase 5, ``launches_streaming``
-   over phase 11's timed runs);
-15. the last line: ``{"ok": true, "device": {...}}``.
+   over phase 11's timed runs, ``launches_sharded`` over phase 14's (a),
+   (b) and (c)'s ranks);
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` (a ``git archive`` of another commit, outside the
 package directory) runs that commit's phases 3, 5 and 8 in a process of
@@ -3213,6 +3227,413 @@ def phase_study_path(dev):
 
 
 # phases 3, 5 and 8 of another commit's chip_smoke.py, run from its checkout
+# ---------------------------------------------------------------------------
+# phase 14: several devices (see phase_sharded)
+SHARD_K = 4                        # logical shards of the serving checks
+SHARD_KS = (1, 2, 4)               # shard counts timed beside the resident engine
+SHARD_STREAM_K = 2                 # shards of the streaming check
+SHARD_STREAM_QUERIES = 100         # two batches of STREAM_BSZ
+DP_RANKS = 2                       # gloo ranks of the data-parallel training check
+DP_STEPS = 8                       # steps an epoch, two epochs: one chunk of SCAN_STEPS each
+SHARD_RTOL = 2.0 ** -8             # bf16 flagship, sharded vs resident: one bf16 rounding
+
+
+def dp_tables(world, builder):
+    """The host tables of phase 7's resident world (its float8 context
+    table and the train queries' table) and its train rows, built once by
+    phase 14 and handed to its ranks pickled."""
+    from tvretrieval_tpu_torch.data.device_corpus import ContextTable, QueryTable
+
+    train_rows = world.annotations[:TRAIN_QUERIES - TRAIN_EVAL_QUERIES]
+    ctx = ContextTable.build(builder, world.corpus, "float8_e4m3fn")
+    tq = QueryTable.build(builder, train_rows, world.corpus, ctx.ctx_l, "float8_e4m3fn")
+    return ctx, tq, train_rows
+
+
+def dp_train(dev, n_devices: int, tables):
+    """Two epochs of DP_STEPS steps of the full-width XML (dropout off) at
+    phase 7's batch on its resident float8 world (``dp_tables``), as one
+    rank of n_devices (or alone): (the per-step overall losses of both
+    epochs, ms a step in the second). The device-resident path reads the
+    builder's max_desc_l only, and the train rows' count."""
+    import types
+
+    from tvretrieval_tpu_torch.data.device_corpus import DeviceData
+    from tvretrieval_tpu_torch.models.xml import XMLConfig
+    from tvretrieval_tpu_torch.training.xml_trainer import TrainSettings, XMLTrainer
+
+    ctx, tq, train_rows = tables
+    dd = DeviceData(ctx_table=ctx, ctx_device=ctx.device_arrays(dev), train_queries=tq)
+    cfg = XMLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768,
+                    hidden_size=HIDDEN, n_heads=4, max_ctx_l=N_CLIPS, max_desc_l=30,
+                    input_drop=0.0, drop=0.0, cross_att_drop=0.0)
+    settings = TrainSettings(bsz=TRAIN_BSZ, scan_steps=SCAN_STEPS, n_epoch=1, lr=TRAIN_LR,
+                             seed=0, debug_max_steps=DP_STEPS)
+    trainer = XMLTrainer(cfg, settings, types.SimpleNamespace(max_desc_l=30), train_rows,
+                         device_data=dd, device=dev, n_devices=n_devices)
+    losses, ms = [], 0.0
+    for epoch in range(2):     # the second epoch is timed warm
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = trainer.train_epoch(epoch)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / out["steps"]
+        losses += [ld["loss_overall"] for ld in trainer.last_step_losses]
+    return losses, ms
+
+
+def dp_rank(rank: int, port: int, tables_path: str, out_dir: str) -> None:
+    """One gloo rank of phase 14's data-parallel check, on cuda:0: writes
+    its losses, ms a step and B4 launches to ``out_dir/rank<r>.json``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from tvretrieval_tpu_torch.ops import gather as gt_ops
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    with open(tables_path, "rb") as f:
+        tables = pickle.load(f)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=DP_RANKS, rank=rank)
+    try:
+        gt_ops.reset_launch_counts()
+        losses, ms = dp_train(torch.device("cuda", 0), DP_RANKS, tables)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(dict(losses=losses, ms=ms, b4=gt_ops.LAUNCHES["gather_byte_rows"]), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(dev, dp_env=None):
+    """Phase 14: several devices, with SHARD_K logical shards on the one
+    card (``make_mesh(k, devices=["cuda:0"] * k)``; each shard's kernels on
+    its own slice). (a) corpus-sharded serving at the flagship's full width
+    (21,818 videos x 100 clips, 1,000 queries, bench.py's cache synthesized
+    on the card) against the resident engine on the same cache, in four
+    configurations: the bf16 flagship (B1; indices equal outside near-ties,
+    scores within SHARD_RTOL), shipped (B1, B11 at recall 0.90; each site's
+    tie-aware recall on every shard's rows >= 0.90), all-int8 psort (B1,
+    B5, B6) and all-int8 fused (B3, B5, B6), the last two bit-equal in
+    every output; each kernel's launches SHARD_K times the resident
+    engine's a batch; one more batch of each under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the shard loop never
+    waits for the card); q/s of the bf16 flagship and the all-int8 psort at
+    SHARD_KS shards beside the resident engine's. (b) the streaming engine
+    with a SHARD_STREAM_K-shard mesh at phase 11's corpus, flat (B2) and
+    flat_int8 (B1): every output bit-equal to streaming without a mesh, B1
+    / B2 SHARD_STREAM_K times a block, q/s beside it. (c) data-parallel
+    XML training on DP_RANKS gloo ranks, each on cuda:0, at phase 7's
+    shape (batch 128, 1,024 resident videos, dropout off): DP_STEPS steps,
+    the first step's loss within LOSS_ATOL of one process training the
+    same global batches, the loss falling, ms a step beside it. NCCL needs
+    distinct cards and is not run here. ``dp_env``: phase 7's (world,
+    builder), built here when None; its host tables go to the ranks. Returns the kernel launches of (a), (b)
+    and (c)'s ranks (B4, counted in their processes)."""
+    import torch.multiprocessing as mp
+
+    from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.ops import approx_topk as apx
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+    from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import sort as tsort
+    from tvretrieval_tpu_torch.ops import topk as ttopk
+    from tvretrieval_tpu_torch.ops import video_score as vs
+    from tvretrieval_tpu_torch.parallel.mesh import make_mesh
+    from tvretrieval_tpu_torch.parallel import sharded_retrieval as sr
+    from tvretrieval_tpu_torch.retrieval import streaming as st
+    from tvretrieval_tpu_torch.retrieval.engine import (
+        CorpusCache, RetrievalConfig, _maybe_pad_clip_axis, _score_query_batch)
+    from tvretrieval_tpu_torch.testing import rank_mismatches, tie_aware_recall, within
+
+    t_phase = time.perf_counter()
+    counters = (vs, gt_ops, tsort, fsc, ttopk, apx)
+    reset = lambda: [ops.reset_launch_counts() for ops in counters]
+    read = lambda: {k: n for ops in counters for k, n in ops.LAUNCHES.items()}
+    total = {k: 0 for k in read()}
+
+    # ---- (a) sharded serving at the full corpus
+    nv, nq = N_VIDEOS_FULL, N_QUERIES
+    model = XML(XMLConfig(visual_input_size=3074, sub_input_size=770, query_input_size=768,
+                          hidden_size=HIDDEN, n_heads=4, max_ctx_l=N_CLIPS, max_desc_l=30)
+                ).init_weights(torch.Generator().manual_seed(0)).eval().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    mask = torch.ones((nv, N_CLIPS), device=dev)
+    vf1, sf1 = (unit((nv, N_CLIPS, HIDDEN), gen, dev).to(torch.bfloat16) for _ in range(2))
+    feat2_raw = torch.randn((nv, N_CLIPS, 2 * HIDDEN), generator=gen,
+                            device=dev).to(torch.bfloat16)
+    q_feat = torch.randn((nq, 30, 768), generator=gen, device=dev)
+    q_mask = torch.ones((nq, 30), device=dev)
+    gt = torch.randint(0, nv, (nq,), generator=gen, device=dev)
+    base = dict(cache_dtype_str="bfloat16", video_chunk_v=CHUNK_V)
+    configs = {
+        "bf16 flagship": RetrievalConfig(**base, span_score_mode="simsweep_cat_bf16",
+                                         video_score_mode="pallas_int8",
+                                         span_topk_mode="grouped_shift", span_sim_pad_l=128),
+        "shipped": RetrievalConfig(**base, span_score_mode="simsweep_cat_bf16",
+                                   video_score_mode="pallas_int8",
+                                   span_topk_mode="grouped_shift_approx",
+                                   video_topk_approx=True, topk_approx_recall=SHIPPED_RECALL,
+                                   span_sim_pad_l=128),
+        "all-int8 psort": RetrievalConfig(**base, span_score_mode="simsweep_cat_int8_flat",
+                                          video_score_mode="pallas_int8",
+                                          span_topk_mode="grouped_shift_psort",
+                                          video_topk_psort=True),
+        "all-int8 fused": RetrievalConfig(**base, span_score_mode="simsweep_cat_int8_flat",
+                                          video_score_mode="pallas_int8",
+                                          span_topk_mode="grouped_shift_psort",
+                                          video_topk_fused=True),
+    }
+
+    def resident(cfg):
+        f1 = [vs.build_flat_feat1(f, mask, chunk_v=CHUNK_V) for f in (vf1, sf1)]
+        f1 = [vs.quantize_unit_i8(f) for f in f1]
+        if cfg.span_score_mode == "simsweep_cat_int8_flat":
+            f2, f2s = vs.build_flat_feat2_i8(feat2_raw, chunk_v=CHUNK_V)
+        else:
+            f2, f2s = _maybe_pad_clip_axis(feat2_raw, cfg), None
+        return lambda: _score_query_batch(model, cfg, q_feat, q_mask, f1[0], None, f1[1], None,
+                                          mask, gt, True, feat2_cat=f2, feat2_cat_scale=f2s)
+
+    def sharded(cfg, k):
+        mesh = make_mesh(k, devices=[str(dev)] * k)
+        flat8 = cfg.span_score_mode == "simsweep_cat_int8_flat"
+        cache = CorpusCache(vf1, None, sf1, None, mask, nv, [],
+                            feat2_cat=feat2_raw if flat8 else _maybe_pad_clip_axis(feat2_raw, cfg))
+        sc = sr.shard_corpus_cache(cache, mesh, cfg)
+        vf2, sf2 = sr.cat_mode_feat2_args(sc)
+        models = sr.replicate_model(model, mesh)
+        return lambda: sr.score_query_batch_sharded(model, cfg, q_feat, q_mask, sc.video_feat1,
+                                                    vf2, sc.sub_feat1, sf2, sc.mask, gt, True,
+                                                    mesh, models=models)
+
+    def timed(run):
+        for _ in range(WARMUP_RUNS):
+            run()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(TIMED_RUNS):
+            run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / TIMED_RUNS
+
+    def host(out):
+        o = {k: v.cpu().numpy() for k, v in out.items()}
+        if "vcmr_vid_local" in o:
+            o["vcmr_vid_global"] = np.take_along_axis(o["topv_idx"], o.pop("vcmr_vid_local"),
+                                                      1).astype(np.int32)
+        return o
+
+    keys = lambda o, task: ((o["vcmr_vid_global"].astype(np.int64) if task == "vcmr" else 0)
+                            * 1000 + o[f"{task}_st"].astype(np.int64)) * 1000 + o[f"{task}_ed"]
+    qps = {}
+    for name, cfg in configs.items():
+        torch.cuda.empty_cache()
+        res_run, sh_run = resident(cfg), sharded(cfg, SHARD_K)
+        reset()
+        ro = host(res_run())
+        want = {k: SHARD_K * n for k, n in read().items()}
+        reset()
+        if name == "shipped":
+            calls = record_approx(apx, sh_run)
+            so = None
+        else:
+            so = host(sh_run())
+        got = read()
+        for k, n in got.items():
+            total[k] += n
+        if got != want:
+            raise AssertionError(f"sharded {name}: kernel launches {got}, expected {SHARD_K} "
+                                 f"times the resident engine's, {want}")
+        line = f"launches a batch {({k: n for k, n in got.items() if n})}"
+        if name == "shipped":
+            per_site = {}
+            # in call order: every shard's video site, then each shard's two span sites
+            sites = ([APPROX_SITES[0][0]] * SHARD_K
+                     + [s for _ in range(SHARD_K) for s in (APPROX_SITES[1][0],
+                                                            APPROX_SITES[2][0])])
+            if len(calls) != 3 * SHARD_K:
+                raise AssertionError(f"sharded shipped: {len(calls)} approximate selections")
+            for site, (x, k, recall, (vals, _)) in zip(sites, calls):
+                r = tie_aware_recall(torch.topk(x, k).values.cpu().numpy(), vals.cpu().numpy())
+                per_site.setdefault(site, []).append((r, tuple(x.shape), k,
+                                                      apx.bins(x.shape[1], k, recall)))
+            line += "; per shard (recall, rows, k, bins): " + json.dumps(per_site)
+            if min(r for v in per_site.values() for r, *_ in v) < SHIPPED_RECALL:
+                raise AssertionError(f"sharded shipped: a site's recall is below "
+                                     f"{SHIPPED_RECALL}: {per_site}")
+        elif name.startswith("all-int8"):
+            differ = [k for k in ro if not np.array_equal(ro[k], so[k])]
+            line += f"; outputs not bit-equal to the resident engine: {differ}"
+            if differ or set(ro) != set(so):
+                raise AssertionError(f"sharded {name} differs from the resident engine: {line}")
+        else:
+            ok = (np.array_equal(so["topv_idx"], ro["topv_idx"])
+                  and within(ro["topv_scores"], so["topv_scores"], rtol=SHARD_RTOL)
+                  and within(ro["vcmr_scores"], so["vcmr_scores"], rtol=SHARD_RTOL)
+                  and within(ro["svmr_scores"], so["svmr_scores"], rtol=SHARD_RTOL))
+            bad = {t: rank_mismatches(keys(ro, t), ro[f"{t}_scores"], keys(so, t),
+                                      rtol=2 * SHARD_RTOL) for t in ("vcmr", "svmr")}
+            same = [k for k in ro if np.array_equal(ro[k], so[k])]
+            line += (f"; VCMR scores max rel |d| "
+                     f"{np.max(np.abs(so['vcmr_scores'] - ro['vcmr_scores']) / ro['vcmr_scores']):.3e}"
+                     f", moment mismatches outside near-ties {bad}; bit-equal: {same}")
+            if not ok or any(bad.values()):
+                raise AssertionError(f"sharded {name} differs from the resident engine: {line}")
+        # the shard loop never waits for the card: a synchronising call raises here
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sh_run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log("sharded", f"{name}, {SHARD_K} shards on {dev}, Nq={nq} x Nv={nv}: {line}; a "
+            "batch under torch.cuda.set_sync_debug_mode('error'): no synchronisation")
+        if name in ("bf16 flagship", "all-int8 psort"):
+            qps[name] = {"resident": nq * 1000.0 / timed(res_run)}
+            del sh_run
+            for k in SHARD_KS:
+                torch.cuda.empty_cache()
+                reset()
+                run = sharded(cfg, k)
+                qps[name][k] = nq * 1000.0 / timed(run)
+                for kk, n in read().items():
+                    total[kk] += n
+                if k == SHARD_K:
+                    from torch.profiler import ProfilerActivity, profile
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        run()
+                        torch.cuda.synchronize()
+                    busy = device_time_ms(prof)
+                    ms = nq * 1000.0 / qps[name][k]
+                    log("sharded", f"{name}, {k} shards: {busy:.3f} ms of device time in a "
+                        f"batch (profiled) = {100 * busy / ms:.1f}% busy of the {ms:.2f} ms "
+                        "measured without the profiler")
+                del run
+        del res_run
+    torch.cuda.empty_cache()
+    log("sharded", "q/s, resident engine and 1 / 2 / 4 logical shards on one card "
+        f"({TIMED_RUNS} timed batches after {WARMUP_RUNS}): "
+        + "; ".join(f"{n}: resident {v['resident']:.1f}, "
+                    + ", ".join(f"{k} shards {v[k]:.1f}" for k in SHARD_KS)
+                    for n, v in qps.items()))
+    del vf1, sf1, feat2_raw, mask, q_feat, q_mask, gt
+    torch.cuda.empty_cache()
+
+    # ---- (b) streaming with a mesh at phase 11's corpus
+    t_b = time.perf_counter()
+    cache = stream_cache(dev)
+    sgen = torch.Generator(device=dev).manual_seed(15)
+    q_feat = torch.randn((SHARD_STREAM_QUERIES, 30, 768), generator=sgen, device=dev)
+    q_mask = torch.ones((SHARD_STREAM_QUERIES, 30), device=dev)
+    gt = torch.randint(0, N_VIDEOS_FULL, (SHARD_STREAM_QUERIES,), generator=sgen, device=dev)
+    mesh = make_mesh(SHARD_STREAM_K, devices=[str(dev)] * SHARD_STREAM_K)
+    n_blocks = -(-N_VIDEOS_FULL // STREAM_BLOCK)
+    kernel = {"flat": "video_scores_flat", "flat_int8": "video_scores_flat_i8"}
+    scfg = RetrievalConfig(span_score_mode="gather", query_bsz=STREAM_BSZ,
+                           span_topk_mode="grouped_shift", video_chunk_v=CHUNK_V)
+    for mode in ("flat", "flat_int8"):
+        hc = st.host_cache_from_device(cache, flat=True, int8=mode == "flat_int8")
+        batches = [slice(i, i + STREAM_BSZ) for i in range(0, SHARD_STREAM_QUERIES, STREAM_BSZ)]
+        run = lambda m, b: st.streaming_score_query_batch(
+            model, scfg, q_feat[b], q_mask[b], hc, gt_meta_idx=gt[b], block_videos=STREAM_BLOCK,
+            mesh=m)
+        ms = {}
+        for label, m in (("without a mesh", None), (f"{SHARD_STREAM_K} shards", mesh)):
+            run(m, batches[0])                            # warm
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            outs = [host(run(m, b)) for b in batches]
+            ms[label] = (time.perf_counter() - t0) * 1e3 / len(batches)
+            got = read()
+            want_n = len(batches) * n_blocks * (1 if m is None else SHARD_STREAM_K)
+            if got[kernel[mode]] != want_n or sum(got.values()) != want_n:
+                raise AssertionError(f"streaming {mode} {label}: launches {got}, expected "
+                                     f"{want_n} of {kernel[mode]} and nothing else")
+            if m is not None:
+                for kk, n in got.items():
+                    total[kk] += n
+                differ = sorted({k for a, b in zip(outs, ref) for k in a
+                                 if not np.array_equal(a[k], b[k])})
+                if differ:
+                    raise AssertionError(f"streaming {mode} with {SHARD_STREAM_K} shards "
+                                         f"differs from streaming without: {differ}")
+            ref = outs
+        log("sharded", f"streaming {mode}, {N_VIDEOS_FULL} videos in blocks of {STREAM_BLOCK}, "
+            f"{SHARD_STREAM_QUERIES} queries in batches of {STREAM_BSZ}: every output "
+            f"bit-equal with {SHARD_STREAM_K} shards; {kernel[mode]} {SHARD_STREAM_K} times "
+            "a block; host ms a batch " + ", ".join(f"{k} {v:.1f} ({STREAM_BSZ * 1e3 / v:.1f} "
+                                                   f"q/s)" for k, v in ms.items()))
+        del hc
+    del cache, model
+    torch.cuda.empty_cache()
+
+    # ---- (c) data-parallel training on DP_RANKS gloo ranks, each on cuda:0
+    import pickle
+    import socket
+    import tempfile
+    t_c = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    if dp_env is None:
+        from tvretrieval_tpu_torch.data.datasets import ExampleBuilder
+        from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
+
+        world = make_synthetic_world(n_videos=TRAIN_VIDEOS, n_queries=TRAIN_QUERIES,
+                                     vid_dim=3072, text_dim=768, query_dim=768,
+                                     max_clips=N_CLIPS, seed=1)
+        dp_env = (world, ExampleBuilder(
+            query_source=world.query_source, video_source=world.video_source,
+            sub_source=world.sub_source, ctx_mode="video_sub_tef", max_desc_l=30,
+            max_ctx_l=N_CLIPS, clip_length=world.clip_length))
+    tables = dp_tables(*dp_env)
+    with tempfile.TemporaryDirectory() as tmp:
+        tables_path = os.path.join(tmp, "tables.pkl")
+        with open(tables_path, "wb") as f:
+            pickle.dump(tables, f, protocol=pickle.HIGHEST_PROTOCOL)
+        t0 = time.perf_counter()
+        mp.start_processes(dp_rank, args=(port, tables_path, tmp), nprocs=DP_RANKS,
+                           join=True, start_method="spawn")
+        t1 = time.perf_counter()
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    dp_losses, dp_ms = ranks[0]["losses"], ranks[0]["ms"]
+    # B4 in the ranks' processes: two gathers of a rank's rows a step
+    b4 = [r["b4"] for r in ranks]
+    if b4 != [2 * 2 * DP_STEPS] * DP_RANKS or ranks[1]["losses"] != dp_losses:
+        raise AssertionError(f"data-parallel ranks: B4 launches {b4} (expected "
+                             f"{4 * DP_STEPS} each), losses equal across ranks "
+                             f"{ranks[1]['losses'] == dp_losses}")
+    total["gather_byte_rows"] += sum(b4)
+    one_losses, one_ms = dp_train(dev, 1, tables)
+    del tables
+    err = abs(dp_losses[0] - one_losses[0])
+    first, last = float(np.mean(dp_losses[:2])), float(np.mean(dp_losses[-2:]))
+    log("sharded", f"data-parallel XML, {DP_RANKS} gloo ranks on {dev} (ranks started and "
+        f"trained in {t1 - t0:.1f} s), 2 x {DP_STEPS} steps of the global batch {TRAIN_BSZ} "
+        f"on phase 7's resident world, dropout off: loss per step "
+        + " ".join(f"{x:.4f}" for x in dp_losses)
+        + f"; one process: " + " ".join(f"{x:.4f}" for x in one_losses)
+        + f"; first step |d| {err:.3e} (bound {LOSS_ATOL}); B4 launches by rank {b4}; "
+        f"{dp_ms:.2f} ms a step on "
+        f"{DP_RANKS} ranks sharing the card against {one_ms:.2f} ms alone (second epoch)")
+    if not (np.isfinite(dp_losses).all() and err <= LOSS_ATOL and last < first):
+        raise AssertionError(f"data-parallel training: first-step |d| {err}, mean loss of the "
+                             f"first two steps {first} -> last two {last}")
+    t_end = time.perf_counter()
+    log("sharded", f"phase 14 took {t_end - t_phase:.1f} s ((a) {t_b - t_phase:.1f} s, (b) "
+        f"{t_c - t_b:.1f} s, (c) {t_end - t_c:.1f} s); kernel launches "
+        f"{({k: n for k, n in total.items() if n})}")
+    return total
+
+
 PARENT_PHASES = """
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -3342,9 +3763,13 @@ def main() -> int:
     launches_stream = phase_streaming(dev)
     torch.cuda.empty_cache()
     phase_baselines(dev, *base_env)
+    dp_env = base_env[1:]       # phase 7's host world, for phase 14's training ranks
     del base_env
     torch.cuda.empty_cache()
     phase_features(dev)
+    torch.cuda.empty_cache()
+    launches_sharded = phase_sharded(dev, dp_env)
+    del dp_env
 
     if args.parent:
         torch.cuda.empty_cache()
@@ -3379,6 +3804,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": where,
          "launches": launches[name], "launches_throughput": launches_tp[name],
          "launches_streaming": launches_stream[name],
+         "launches_sharded": launches_sharded[name],
          **{k: rec[b][k] for k in keys},
          **{kind: rec[b][kind] for kind in ("bf16", "f32", "library_call", "per_site")
             if kind in rec[b]}}

@@ -257,7 +257,10 @@ def test_converter_rejects_unknown_leaf():
 NEW_SLICE = tuple(f"tvretrieval_tpu_torch.{m}" for m in (
     "features", "features.pooling", "features.subtitles", "features.video_split",
     "features.backbones", "features.video_features", "features.text_features",
-    "features.lm_finetune", "profiling.profile_models", "profiling.search_simulation"))
+    "features.lm_finetune", "profiling.profile_models", "profiling.search_simulation",
+    "parallel", "parallel.mesh", "parallel.sharded_retrieval"))
+SUBPACKAGES = ("data", "evaluation", "features", "models", "native", "ops", "parallel",
+               "profiling", "retrieval", "training", "utils")
 
 
 def test_port_imports_without_jax():
@@ -294,3 +297,24 @@ def test_port_sources_do_not_name_the_jax_package():
     bad = [(os.path.relpath(f, REPO), m.group(0).strip())
            for f in files for m in pat.finditer(open(f).read())]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_importing_a_subpackage_builds_nothing(sub):
+    """A subpackage alone, its ``__init__`` re-exports resolved: no kernel
+    or native library built or loaded, and neither JAX, the JAX package
+    nor transformers imported."""
+    code = ("import sys\n"
+            f"import tvretrieval_tpu_torch.{sub} as m\n"
+            "assert m.__all__ and all(hasattr(m, n) for n in m.__all__), m.__all__\n"
+            "from tvretrieval_tpu_torch.ops import _build\n"
+            "from tvretrieval_tpu_torch.native import loader\n"
+            "assert _build.load.cache_info().currsize == 0\n"
+            "assert loader._lib is None and not loader._load_failed\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'flax', 'transformers', 'tvretrieval_tpu')]\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

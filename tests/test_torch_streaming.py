@@ -36,6 +36,7 @@ from tvretrieval_tpu_torch.convert import flax_params_to_state_dict
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
 from tvretrieval_tpu_torch.ops import approx_topk
 from tvretrieval_tpu_torch.ops.masking import NEG_INF
+from tvretrieval_tpu_torch.parallel.mesh import make_mesh
 from tvretrieval_tpu_torch.retrieval import engine as te
 from tvretrieval_tpu_torch.retrieval import inference_xml
 from tvretrieval_tpu_torch.retrieval import streaming as ts
@@ -229,10 +230,14 @@ def test_refusals(setup, tmp_path):
         te.retrieve(tm, builder, cache, world.annotations[:3], world.corpus,
                     te.RetrievalConfig(**COMMON), external_vr_path=str(path),
                     streaming_host=host)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ts.streaming_score_query_batch(tm, te.RetrievalConfig(**COMMON),
-                                       torch.from_numpy(qb.query_feat),
-                                       torch.from_numpy(qb.query_mask), host, mesh=object())
+    # streaming over a mesh of cards where there are none: refused, no fallback
+    # to the CPU (the mesh path itself is held in test_torch_parallel.py)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="CUDA cards"):
+            ts.streaming_score_query_batch(tm, te.RetrievalConfig(**COMMON),
+                                           torch.from_numpy(qb.query_feat),
+                                           torch.from_numpy(qb.query_mask), host,
+                                           mesh=make_mesh(2))
 
 
 TINY = ["--synthetic", "--synthetic_videos", "16", "--synthetic_queries", "48",

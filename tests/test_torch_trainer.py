@@ -151,7 +151,12 @@ def test_eval_loss_includes_remainder_and_paths_agree():
 
 def test_trainer_options():
     w, builder = _world_and_builder(n_queries=16)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # data-parallel training (A10b) needs a batch that splits and a process
+    # group of that many ranks (tests/test_torch_ddp.py trains with one)
+    with pytest.raises(ValueError, match="not divisible"):
+        XMLTrainer(_model_cfg(builder), TrainSettings(bsz=8), builder, w.annotations,
+                   device="cpu", n_devices=3)
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         XMLTrainer(_model_cfg(builder), TrainSettings(bsz=8), builder, w.annotations,
                    device="cpu", n_devices=4)
     # bf16 compute was refused until A8; it now trains with float32 master weights
@@ -387,20 +392,19 @@ def test_start_training_needs_a_card_or_device_cpu(tmp_path, capsys):
 ])
 def test_unported_flags_raise_before_any_data(tmp_path, monkeypatch, flags, item):
     """``item`` is the ROADMAP item each flag was queued under. The model
-    variants (A8), the int8, psort and approximate engine modes and
-    ``simsweep`` have been ported since: their flags pass the check and the
-    CLI goes on to build its data. Only data-parallel training (A10) is
-    still refused."""
+    variants (A8), the int8, psort and approximate engine modes,
+    ``simsweep`` and data-parallel training (A10) have been ported since:
+    their flags pass the check and the CLI goes on to build its data (with
+    ``--n_devices``: to start the ranks that build it)."""
     class DataWasBuilt(Exception):
         pass
 
-    def setup_world(args):
+    def setup_world(*args):
         raise DataWasBuilt
 
     monkeypatch.setattr(train_xml, "setup_world", setup_world)
-    ported = item != "A10"
-    with pytest.raises(DataWasBuilt if ported else NotImplementedError,
-                       match=None if ported else item):
+    monkeypatch.setattr(train_xml, "_spawn_ranks", setup_world)
+    with pytest.raises(DataWasBuilt):
         train_xml.start_training(TINY + ["--device", "cpu", "--results_root", str(tmp_path)]
                                  + flags)
 

@@ -1,11 +1,13 @@
 // Temporal 1-D NMS on the host: the port's own copy of the JAX package's
-// native/temporal_nms.cpp (its single-query entry point), the native path
-// of tvretrieval_tpu_torch/evaluation/nms.py::temporal_nms (greedy
-// keep-best with strict-> IoU suppression, float32).
+// native/temporal_nms.cpp, the native path of
+// tvretrieval_tpu_torch/evaluation/nms.py::temporal_nms (greedy keep-best
+// with strict-> IoU suppression, float32), and its batched form over many
+// queries delimited by offsets.
 //
 // Build: with the host C++ compiler at first use, by
 // tvretrieval_tpu_torch/native/loader.py (into tvretrieval_tpu_torch/_build/).
 #include <algorithm>
+#include <cstdint>
 #include <numeric>
 #include <vector>
 
@@ -44,6 +46,20 @@ int temporal_nms(const float* preds, int n, float nms_threshold,
     }
   }
   return kept;
+}
+
+// Batched variant: `offsets` has n_queries+1 entries delimiting each query's
+// rows in `preds`. Output rows land at query q's slice of `out`
+// (q * max_after * 3); `n_kept[q]` receives the per-query count.
+void temporal_nms_batch(const float* preds, const int64_t* offsets,
+                        int n_queries, float nms_threshold, int max_after,
+                        float* out, int* n_kept) {
+  for (int q = 0; q < n_queries; ++q) {
+    const int64_t begin = offsets[q];
+    const int n = static_cast<int>(offsets[q + 1] - begin);
+    n_kept[q] = temporal_nms(preds + begin * 3, n, nms_threshold, max_after,
+                             out + static_cast<int64_t>(q) * max_after * 3);
+  }
 }
 
 }  // extern "C"

@@ -21,6 +21,7 @@ import contextlib
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -115,6 +116,20 @@ class TrainablePositionalEncoding(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         L = x.shape[-2]
         return self.drop(self.ln(x + self.pos_embed[:L]))
+
+
+def sinusoidal_position_encoding(length: int, dim: int) -> torch.Tensor:
+    """Static sine / cosine PE table, (length, dim) float32 (reference
+    PositionEncoding:105-125): even columns sin(pos * f), odd columns
+    cos(pos * f), f = exp(-ln(10000) * 2i / dim). Built on the host with
+    numpy's float32 sin / cos, as the JAX package builds it (torch's differ
+    by up to 8e-6 at position 100), so the two tables are equal."""
+    position = np.arange(length, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, dim, 2, dtype=np.float32) * -(math.log(10000.0) / dim))
+    pe = np.zeros((length, dim), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term[: pe[:, 1::2].shape[1]])
+    return torch.from_numpy(pe)
 
 
 class BertSelfAttention(nn.Module):

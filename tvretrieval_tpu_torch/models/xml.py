@@ -21,7 +21,7 @@ the losses are float32. Dropout follows ``model.train()`` / ``model.eval()``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -583,22 +583,73 @@ class XML(nn.Module):
         neg_ranks: optional ((N,) ctx ranks, (N,) query ranks) taking the
         place of the draw (tests inject the ranks another framework drew).
         """
-        c = self.cfg
-        vf1, vf2, sf1, sf2 = self.encode_context(video_feat, video_mask, sub_feat, sub_mask)
-        q2ctx, st_logits, ed_logits = self.get_pred_from_raw_query(
-            query_feat, query_mask, vf1, vf2, video_mask, sf1, sf2, sub_mask, cross=False)
-        loss_st = _cross_entropy(st_logits.float(), st_ed_indices[:, 0])
-        loss_ed = _cross_entropy(ed_logits.float(), st_ed_indices[:, 1])
-        loss_st_ed = loss_st + loss_ed
+        return self.forward_shard(query_feat, query_mask, video_feat, video_mask, sub_feat,
+                                  sub_mask, st_ed_indices, None, 0, 1, lw_st_ed=lw_st_ed,
+                                  neg_sample_upper=neg_sample_upper, generator=generator,
+                                  neg_ranks=neg_ranks)
 
-        bsz = q2ctx.shape[0]
-        upper = bsz if neg_sample_upper is None else min(int(neg_sample_upper), bsz)
+    def forward_shard(self, query_feat, query_mask, video_feat, video_mask, sub_feat,
+                      sub_mask, st_ed_indices, gather: Optional[Callable], rank: int,
+                      world: int,
+                      lw_st_ed: float = 0.01, neg_sample_upper: Optional[int] = None,
+                      generator: Optional[torch.Generator] = None,
+                      neg_ranks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """This rank's share of the GLOBAL-batch training loss, for
+        data-parallel training over ``world`` ranks, each holding its
+        b = B / world rows (rank r: global rows r * b ... (r + 1) * b - 1).
+        The shares sum over the ranks to ``forward`` on the global batch.
+
+        ``gather(x)`` returns every rank's x concatenated on axis 0 in rank
+        order, with autograd (a gradient flows back to the rank that owns
+        each row); ``forward`` is the case world = 1, gather None. The
+        in-batch ranking losses need rows and columns of
+        the (B, B) query-by-context score matrix: this rank's b queries
+        against every context (the gathered feat1 and masks) for the
+        context negatives, and every query (the gathered query vectors)
+        against its b contexts for the query negatives. The negative ranks
+        are drawn for all B rows from ``generator``, which holds the same
+        state on every rank, and this rank takes its b; ``neg_ranks`` are
+        the global (B,) vectors when given. The ranking terms are sums over
+        the rank's rows divided by B, and the span loss, a per-row mean, is
+        the rank's mean divided by ``world``. Returns (loss, loss dict) of
+        this rank's share."""
+        c = self.cfg
+        b = query_feat.shape[0]
+        B = b * world
+        vf1, vf2, sf1, sf2 = self.encode_context(video_feat, video_mask, sub_feat, sub_mask)
+        video_query, sub_query = self.encode_query(query_feat, query_mask)
+        if c.merged_spans:
+            st_logits, ed_logits = self.merged_st_ed_scores(
+                video_query, vf2, sub_query, sf2, video_mask, False)
+        else:
+            vst, ved = (self.single_stream_st_ed_scores(video_query, vf2, video_mask, "video")
+                        if c.use_video else (0, 0))
+            sst, sed = (self.single_stream_st_ed_scores(sub_query, sf2, sub_mask, "sub")
+                        if c.use_sub else (0, 0))
+            st_logits, ed_logits = (vst + sst) / c.n_streams, (ved + sed) / c.n_streams
+        loss_st_ed = (_cross_entropy(st_logits.float(), st_ed_indices[:, 0])
+                      + _cross_entropy(ed_logits.float(), st_ed_indices[:, 1])) / world
+
+        rows = cols = 0                      # (b, B): q2ctx[mine, :] and q2ctx[:, mine].T
+        for used, q, f1, m in ((c.use_video, video_query, vf1, video_mask),
+                               (c.use_sub, sub_query, sf1, sub_mask)):
+            if used:
+                rows = rows + cosine_video_scores(q, f1 if world == 1 else gather(f1),
+                                                  m if world == 1 else gather(m))
+                if world > 1:
+                    cols = cols + cosine_video_scores(gather(q), f1, m).T
+        rows = (rows / c.n_streams).float()
+        cols = rows.T if world == 1 else (cols / c.n_streams).float()
+
+        upper = B if neg_sample_upper is None else min(int(neg_sample_upper), B)
         if not self.training and generator is None:
             generator = torch.Generator().manual_seed(0)
-        loss_neg_ctx, loss_neg_q = video_level_ranking_losses(
-            q2ctx.float(), generator, margin=c.margin, loss_type=c.ranking_loss_type,
-            neg_sample_upper=upper, ranks=neg_ranks)
-
+        if neg_ranks is None:
+            neg_ranks = draw_negative_ranks(B, upper, generator, rows.device)
+        loss_neg_ctx, loss_neg_q = _ranking_losses(
+            rows, cols, rank * b, tuple(r.to(rows.device)[rank * b:(rank + 1) * b]
+                                        for r in neg_ranks),
+            c.margin, c.ranking_loss_type, B)
         loss = lw_st_ed * loss_st_ed + c.lw_neg_ctx * loss_neg_ctx + c.lw_neg_q * loss_neg_q
         return loss, {
             "loss_st_ed": lw_st_ed * loss_st_ed,
@@ -654,26 +705,33 @@ def video_level_ranking_losses(scores: torch.Tensor,
     (ctx, query) rank vectors to use instead of drawing them.
     """
     n = scores.shape[0]
-    idx = torch.arange(n, device=scores.device)
-    pos = scores[idx, idx]
-    eye = torch.eye(n, dtype=scores.dtype, device=scores.device)
-    masked = scores * (1 - eye) + eye * 999.0
     if ranks is None:
         ranks = draw_negative_ranks(n, neg_sample_upper, generator, scores.device)
+    return _ranking_losses(scores, scores.T, 0, ranks, margin, loss_type, n)
 
-    def sample_neg(s, s_masked, r):
-        order = torch.sort(-s_masked, dim=1, stable=True).indices   # rank 0 = diagonal
-        neg_cols = torch.gather(order, 1, r.long()[:, None])[:, 0]
-        return s[idx, neg_cols]
 
-    neg_ctx = sample_neg(scores, masked, ranks[0])              # pos query, neg video
-    neg_q = sample_neg(scores.T, masked.T, ranks[1])            # neg query, pos video
+def _ranking_losses(rows: torch.Tensor, cols: torch.Tensor, offset: int,
+                    ranks: Tuple[torch.Tensor, torch.Tensor], margin: float,
+                    loss_type: str, n: int):
+    """The two ranking losses' terms of b rows of an (n, n) score matrix,
+    summed and divided by n: ``rows`` (b, n) = scores[offset:offset + b],
+    ``cols`` (b, n) = scores[:, offset:offset + b].T, ``ranks`` their (ctx,
+    query) rank vectors. Rank 0 is the positive, scores[i, i]."""
+    b = rows.shape[0]
+    diag = torch.arange(b, device=rows.device) + offset
+    eye = torch.zeros_like(rows)
+    eye[torch.arange(b, device=rows.device), diag] = 1.0
+    pos = rows.gather(1, diag[:, None])[:, 0]
 
-    def rank_loss(p, ng):
+    def negatives(s, r):                      # rank 0 = the diagonal
+        order = torch.sort(-(s * (1 - eye) + eye * 999.0), dim=1, stable=True).indices
+        return s.gather(1, order.gather(1, r.long()[:, None]))[:, 0]
+
+    def rank_loss(ng):
         if loss_type == "hinge":
-            return torch.clamp_min(margin + ng - p, 0.0).mean()
+            return torch.clamp_min(margin + ng - pos, 0.0).sum() / n
         if loss_type == "lse":
-            return torch.log1p(torch.exp(ng - p)).mean()
+            return torch.log1p(torch.exp(ng - pos)).sum() / n
         raise NotImplementedError(loss_type)
 
-    return rank_loss(pos, neg_ctx), rank_loss(pos, neg_q)
+    return rank_loss(negatives(rows, ranks[0])), rank_loss(negatives(cols, ranks[1]))

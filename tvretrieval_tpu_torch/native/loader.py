@@ -1,5 +1,6 @@
 """ctypes loader for the port's native host helper, temporal NMS
-(csrc/temporal_nms.cpp): the port's copy of tvretrieval_tpu/native/loader.py.
+(csrc/temporal_nms.cpp), one query or a batch of queries by offsets: the
+port's copy of tvretrieval_tpu/native/loader.py.
 
 The library is built with the host C++ compiler (``$CXX``, else ``g++``) on
 first use into ``tvretrieval_tpu_torch/_build/``, under a name keyed on a
@@ -69,6 +70,11 @@ def get_native_lib() -> Optional[ctypes.CDLL]:
     lib.temporal_nms.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
+    lib.temporal_nms_batch.restype = None
+    lib.temporal_nms_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int)]
     _lib = lib
     return _lib
 
@@ -92,3 +98,30 @@ def temporal_nms_native(preds: np.ndarray, nms_threshold: float,
         ctypes.c_float(nms_threshold), max_after_nms,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out[:kept]
+
+
+def temporal_nms_batch_native(preds: np.ndarray, offsets: np.ndarray,
+                              nms_threshold: float, max_after_nms: int):
+    """preds: (sum_n, 3) float32 [st, ed, score] rows of all queries;
+    offsets: (n_queries + 1,) int64, non-decreasing, query q's rows are
+    preds[offsets[q]:offsets[q + 1]] (an empty range keeps nothing) ->
+    (out (n_queries, max_after_nms, 3) float32, n_kept (n_queries,) int32);
+    only out[q, :n_kept[q]] is written."""
+    lib = get_native_lib()
+    if lib is None:
+        raise RuntimeError("the native NMS library is unavailable (no host C++ compiler)")
+    preds = np.ascontiguousarray(preds, dtype=np.float32).reshape(-1, 3)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    if offsets.ndim != 1 or len(offsets) < 1 or offsets[0] < 0 \
+            or offsets[-1] > len(preds) or np.any(np.diff(offsets) < 0):
+        raise ValueError("offsets must be non-decreasing within [0, number of rows]")
+    n_q = len(offsets) - 1
+    out = np.empty((n_q, max_after_nms, 3), dtype=np.float32)
+    n_kept = np.empty((n_q,), dtype=np.int32)
+    lib.temporal_nms_batch(
+        preds.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        n_q, ctypes.c_float(nms_threshold), max_after_nms,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        n_kept.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    return out, n_kept

@@ -10,6 +10,8 @@ through the approximate top-k (ops.approx_topk.approx_max_k, B11).
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -94,6 +96,15 @@ def _band_indices(L: int, min_l: int, max_l: int):
     idx = np.arange(L)[:, None] + np.arange(min_l, max_l)[None, :]
     valid = (idx < L).astype(np.float32)
     return np.clip(idx, 0, L - 1), valid, W
+
+
+def _band_tables(L: int, min_l: int, max_l: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_band_indices``'s (L, W) end indices (int64) and validity (f32),
+    built on ``dev``: a host table copied to a card would make the host wait
+    for the card's queue (a pageable copy synchronises its stream)."""
+    ends = (torch.arange(L, device=dev)[:, None]
+            + torch.arange(min_l, max_l, device=dev)[None, :])
+    return ends.clamp(0, L - 1), (ends < L).to(torch.float32)
 
 
 def _decode(flat: torch.Tensor, L: int, W: int, min_l: int):
@@ -238,10 +249,10 @@ def banded_top_spans_from_probs(st_probs: torch.Tensor, ed_probs: torch.Tensor,
     """Top-N banded spans of single videos, (N, L) probs -> (st, ed,
     scores), each (N, top_n) (span.py:720-734; the SVMR row)."""
     n_rows, L = st_probs.shape
-    idx_np, valid_np, W = _band_indices(L, min_l, max_l)
-    dev = st_probs.device
-    ed_band = ed_probs[:, torch.as_tensor(idx_np, device=dev)]          # (N, L, W)
-    joint = st_probs[:, :, None] * ed_band * torch.as_tensor(valid_np, device=dev)[None]
+    W = max_l - min_l
+    idx, valid = _band_tables(L, min_l, max_l, st_probs.device)
+    ed_band = ed_probs[:, idx]                                          # (N, L, W)
+    joint = st_probs[:, :, None] * ed_band * valid[None]
     k = min(top_n, L * W)
     scores, flat = topk_stable(joint.reshape(n_rows, L * W), k)
     if k < top_n:
@@ -289,12 +300,10 @@ def chunked_masked_max_scores(queries_n: torch.Tensor, feat1_n: torch.Tensor,
 
 def _banded_joint(st_probs, ed_probs, video_scores, min_l: int, max_l: int):
     """(Nq, V, L, W) banded joint st * ed * video_score, invalid ends zero."""
-    L = st_probs.shape[-1]
-    idx_np, valid_np, _ = _band_indices(L, min_l, max_l)
-    dev = st_probs.device
-    ed_band = ed_probs[:, :, torch.as_tensor(idx_np, device=dev)]
+    idx, valid = _band_tables(st_probs.shape[-1], min_l, max_l, st_probs.device)
+    ed_band = ed_probs[:, :, idx]
     return (st_probs[:, :, :, None] * ed_band * video_scores[:, :, None, None]
-            * torch.as_tensor(valid_np, device=dev)[None, None])
+            * valid[None, None])
 
 
 def banded_topk_spans(st_probs: torch.Tensor, ed_probs: torch.Tensor,

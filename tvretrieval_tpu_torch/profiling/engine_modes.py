@@ -12,7 +12,7 @@ CUDA events (one synchronisation before and one after the timed batches):
 
 Run:  python -m tvretrieval_tpu_torch.profiling.engine_modes [--nq 200]
       [--n_videos 21818] [--iters 8] [--warmup 2] [--hidden 256]
-      [--modes ...] [--chunk_v 16] [--device {cuda,cpu}]
+      [--modes ...] [--chunk_v 16] [--interpret] [--device {cuda,cpu}]
 Prints one line per mode combination; the span candidates of every
 combination are held to the first one's (indices exactly, scores to
 rtol 1e-6) and a difference prints MISMATCH.
@@ -92,6 +92,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="RetrievalConfig.video_chunk_v: the flat caches' video padding "
                         "multiple and the bound on videos per block maximum (applies to "
                         "every combo: the flat caches are built once)")
+    p.add_argument("--interpret", action="store_true",
+                   help="RetrievalConfig.pallas_interpret, kept so that the JAX command "
+                        "line carries over; the CUDA kernels have no interpret mode, so it "
+                        "changes nothing")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cpu runs the kernels' plain versions (a smoke run)")
     return p
@@ -311,7 +315,7 @@ def run(args, model: Optional[XML] = None,
               ["/".join(c) for c in itertools.product(("gather", "simsweep"),
                                                       ("einsum", "pallas"))])
     base = RetrievalConfig(cache_dtype_str="bfloat16", query_bsz=args.nq,
-                           video_chunk_v=args.chunk_v)
+                           video_chunk_v=args.chunk_v, pallas_interpret=args.interpret)
     cfgs = {c: combo_config(base, c) for c in combos}       # raises before any allocation
     span = lambda c: c.split("/")[0]
     video = lambda c: c.split("/")[1]

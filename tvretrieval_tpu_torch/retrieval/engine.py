@@ -172,6 +172,16 @@ def check_supported(cfg: RetrievalConfig) -> None:
                          f"{tuple(SPAN_TOPK)}")
 
 
+def auto_interpret(cfg: RetrievalConfig) -> RetrievalConfig:
+    """cfg unchanged. The JAX engine switches ``pallas_interpret`` on where
+    a Pallas mode meets the CPU backend, since Mosaic lowers only on a TPU;
+    here a kernel wrapper runs its plain version on CPU tensors and
+    launches its CUDA kernel on CUDA tensors, and the kernels have no
+    interpret mode, so there is nothing to switch. Kept so that callers of
+    the JAX function carry over."""
+    return cfg
+
+
 @dataclass
 class CorpusCache:
     """Encoded corpus on one device (feat1 = retrieval stream, feat2 =
@@ -493,7 +503,7 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
              tasks: Sequence[str] = ("VCMR", "SVMR", "VR"),
              external_vr_path: Optional[str] = None,
              return_arrays: bool = False, query_table=None, streaming_host=None,
-             streaming_block_videos: int = 2048) -> Dict[str, list]:
+             streaming_block_videos: int = 2048, streaming_mesh=None) -> Dict[str, list]:
     """Score all queries against the cached corpus; return submission
     entries per task (reference compute_query2ctx_info,
     inference.py:252-445), or with ``return_arrays`` the row-aligned numpy
@@ -508,7 +518,9 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
     is then scored by the streaming engine on the model's device, from the
     corpus in host memory (``cache`` is read for its video metas only, and
     its device tensors may be gone); streaming_block_videos videos are
-    streamed at a time. External VR is not taken on the streaming path.
+    streamed at a time, split over the devices of ``streaming_mesh`` (a
+    ``parallel.mesh.Mesh``) when one is given. External VR is not taken on
+    the streaming path.
     """
     do_svmr = "SVMR" in tasks
     if streaming_host is not None and external_vr_path:
@@ -558,7 +570,7 @@ def retrieve(model: XML, builder: ExampleBuilder, cache: CorpusCache,
             out = streaming_score_query_batch(
                 model, cfg, q_feat, q_mask, streaming_host,
                 gt_meta_idx=gt_idx if do_svmr else None,
-                block_videos=streaming_block_videos)
+                block_videos=streaming_block_videos, mesh=streaming_mesh)
         else:
             out = _score_query_batch(
                 model, cfg, q_feat, q_mask,

@@ -20,6 +20,10 @@ device:
    shipped once; the span stage is the resident engine's span mode
    "gather" on those rows.
 
+With a device mesh (``parallel.mesh``) each block is split into one
+contiguous sub-block per mesh device, copied and scored there, and only
+the (Nq, B) scores meet on the model's device for the merge.
+
 The device memory a batch takes does not grow with the number of videos:
 two blocks, the running state and the gathered rows. Results equal the
 resident engine's (retrieval.engine, span mode "gather", video mode
@@ -186,60 +190,83 @@ def _block_scorer(host: HostCorpusCache, vqn: torch.Tensor, sqn: torch.Tensor,
 def _device_blocks(host: HostCorpusCache, block_videos: int, dev: torch.device,
                    times: Optional[StreamTimes]):
     """Yield (offset, [feat1_v, feat1_s, mask or valid]) for each block,
-    on ``dev``. The caller scores a block before it asks for the next one.
+    on ``dev``: ``_shard_blocks`` on one device."""
+    for off, parts in _shard_blocks(host, block_videos, (dev,), times):
+        yield off, parts[0]
 
-    On a card: two preallocated sets of block buffers, used in turn; each
-    block is copied from pinned host memory on a copy stream, after the
-    event of the compute-stream work that last read its buffers; the
-    compute stream waits for the copy's event. The rows past the corpus in
-    the last block are zeroed on the device (zero mask / not valid: -1e10),
-    not padded on the host, which would need an unpinned copy. The buffers
-    are allocated on the compute stream: the copy stream first waits for
-    the work already queued there (their memory may have been freed by
-    it), and they stay alive until this generator ends, after the compute
-    stream has waited for every copy, so the caching allocator cannot hand
-    them out while a copy writes them."""
+
+def _shard_blocks(host: HostCorpusCache, block_videos: int, devs, times: Optional[StreamTimes]):
+    """Yield (offset, parts) for each block of block_videos videos, split
+    into len(devs) contiguous sub-blocks: parts[s] = [feat1_v, feat1_s,
+    mask or valid] of videos offset + s * sub ... on devs[s]. The caller
+    scores a block before it asks for the next one.
+
+    On a card, per shard: two preallocated sets of sub-block buffers, used
+    in turn, and a copy stream of its own; each sub-block is copied from
+    pinned host memory on that stream, after the event of the
+    compute-stream work that last read its buffers, and the shard's compute
+    stream waits for the copy's event. The rows past the corpus in the last
+    block are zeroed on the device (zero mask / not valid: -1e10), not
+    padded on the host, which would need an unpinned copy. The buffers are
+    allocated on the compute stream: each copy stream first waits for the
+    work already queued there (their memory may have been freed by it),
+    and they stay alive until this generator ends, after the compute
+    streams have waited for every copy, so the caching allocator cannot
+    hand them out while a copy writes them. ``times`` gets one entry per
+    block and shard."""
     n = host.n_videos
+    k = len(devs)
+    sub = block_videos // k
     r = host.lp if host.flat else 1             # feat1 rows per video
     srcs = ((host.video_feat1, r), (host.sub_feat1, r),
             (host.video_valid, 1) if host.flat else (host.mask, 1))
-    bufs = [[torch.empty((block_videos * k,) + s.shape[1:], dtype=s.dtype, device=dev)
-             for s, k in srcs] for _ in range(2)]
-    cuda = dev.type == "cuda"
-    if cuda:
-        compute = torch.cuda.current_stream(dev)
-        copy = torch.cuda.Stream(dev)
-        copy.wait_stream(compute)
-        ready = [torch.cuda.Event(), torch.cuda.Event()]
-        free = [torch.cuda.Event(), torch.cuda.Event()]
-        timed = lambda: torch.cuda.Event(enable_timing=True)
+    shards = []
+    for dev in devs:
+        sh = dict(dev=dev, cuda=dev.type == "cuda",
+                  bufs=[[torch.empty((sub * m,) + src.shape[1:], dtype=src.dtype, device=dev)
+                         for src, m in srcs] for _ in range(2)])
+        if sh["cuda"]:
+            sh["compute"] = torch.cuda.current_stream(dev)
+            sh["copy"] = torch.cuda.Stream(dev)
+            sh["copy"].wait_stream(sh["compute"])
+            sh["ready"] = [torch.cuda.Event(), torch.cuda.Event()]
+            sh["free"] = [torch.cuda.Event(), torch.cuda.Event()]
+        shards.append(sh)
+    timed = lambda: torch.cuda.Event(enable_timing=True)
     for i, off in enumerate(range(0, n, block_videos)):
         slot = i % 2
-        nb = min(block_videos, n - off)
-        ev = (timed(), timed(), timed(), timed()) if cuda and times is not None else None
-        with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
+        evs = []
+        for si, sh in enumerate(shards):
+            cuda = sh["cuda"]
+            o = off + si * sub
+            nb = max(0, min(sub, n - o))
+            ev = (timed(), timed(), timed(), timed()) if cuda and times is not None else None
+            with torch.cuda.stream(sh["copy"]) if cuda else contextlib.nullcontext():
+                if cuda:
+                    sh["copy"].wait_event(sh["free"][slot])   # a no-op before its first record
+                    if ev:
+                        ev[0].record(sh["copy"])
+                for buf, (src, m) in zip(sh["bufs"][slot], srcs):
+                    if nb:
+                        buf[:nb * m].copy_(src[o * m:(o + nb) * m], non_blocking=cuda)
+                    if nb < sub:
+                        buf[nb * m:].zero_()
+                if cuda:
+                    if ev:
+                        ev[1].record(sh["copy"])
+                    sh["ready"][slot].record(sh["copy"])
             if cuda:
-                copy.wait_event(free[slot])        # a no-op before its first record
+                sh["compute"].wait_event(sh["ready"][slot])
                 if ev:
-                    ev[0].record(copy)
-            for buf, (src, k) in zip(bufs[slot], srcs):
-                buf[:nb * k].copy_(src[off * k:(off + nb) * k], non_blocking=cuda)
-                if nb < block_videos:
-                    buf[nb * k:].zero_()
-            if cuda:
+                    ev[2].record(sh["compute"])
+            evs.append(ev)
+        yield off, [sh["bufs"][slot] for sh in shards]
+        for sh, ev in zip(shards, evs):
+            if sh["cuda"]:
+                sh["free"][slot].record(sh["compute"])
                 if ev:
-                    ev[1].record(copy)
-                ready[slot].record(copy)
-        if cuda:
-            compute.wait_event(ready[slot])
-            if ev:
-                ev[2].record(compute)
-        yield off, bufs[slot]
-        if cuda:
-            free[slot].record(compute)
-            if ev:
-                ev[3].record(compute)
-                times.blocks.append(ev)
+                    ev[3].record(sh["compute"])
+                    times.blocks.append(ev)
 
 
 def _span_topk(cfg):
@@ -274,10 +301,14 @@ def streaming_score_query_batch(model: XML, cfg, query_feat, query_mask,
     state, their indices clipped to the last video. It is exact whatever
     ``video_topk_approx`` / ``video_topk_psort`` say, as in the JAX engine.
     gt_meta_idx: (Nq,) host indices of the GT videos, or None (no SVMR).
-    times: a StreamTimes filled in on a card. mesh (several devices) is
-    ROADMAP A10b."""
-    if mesh is not None:
-        raise NotImplementedError("streaming over several devices (mesh) is ROADMAP A10b")
+    times: a StreamTimes filled in on a card.
+
+    mesh: a ``parallel.mesh.Mesh``; each block is then split into
+    mesh.size contiguous sub-blocks, one on each mesh device, each scored
+    there (B1 / B2 on a flat host cache), and only the (Nq, B / k) scores
+    come back to the model's device for the running merge.
+    ``block_videos`` rounds up to a multiple of k (of 16 k for a flat host
+    cache, whole kernel chunks per shard), as in the JAX engine."""
     dev = next(model.parameters()).device
     cuda = dev.type == "cuda"
     host_parts = (host.video_feat1, host.sub_feat1, host.video_feat2, host.sub_feat2,
@@ -295,7 +326,16 @@ def streaming_score_query_batch(model: XML, cfg, query_feat, query_mask,
     nq = query_feat.shape[0]
     vq, sq = model.encode_query(query_feat, query_mask)
     # q / (||q|| + 1e-12), the JAX streaming engine's normalization
-    score = _block_scorer(host, l2_normalize(vq), l2_normalize(sq), block_videos)
+    vqn, sqn = l2_normalize(vq), l2_normalize(sq)
+    if mesh is None:
+        devs = (dev,)
+    else:
+        devs = tuple(mesh.devices)
+        mult = len(devs) * (16 if host.flat else 1)
+        block_videos = -(-block_videos // mult) * mult
+    sub = block_videos // len(devs)
+    scorers = [_block_scorer(host, vqn.to(d, non_blocking=True), sqn.to(d, non_blocking=True), sub)
+               for d in devs]
 
     # ---- phase 1: feat1 blocks, running exact top-V
     timed = lambda: torch.cuda.Event(enable_timing=True)
@@ -304,8 +344,9 @@ def streaming_score_query_batch(model: XML, cfg, query_feat, query_mask,
         times.phase1[0].record()
     best_scores = torch.full((nq, V), -torch.inf, dtype=f32, device=dev)
     best_idx = torch.zeros((nq, V), dtype=torch.int64, device=dev)
-    for off, block in _device_blocks(host, block_videos, dev, times):
-        s = score(*block)                                            # (Nq, B)
+    for off, parts in _shard_blocks(host, block_videos, devs, times):
+        s = torch.cat([score(*part).to(dev, non_blocking=True)
+                       for score, part in zip(scorers, parts)], dim=1)  # (Nq, B)
         idx = torch.arange(off, off + block_videos, device=dev).expand(nq, -1)
         # lax.top_k keeps ties in concatenation order; the state's indices
         # precede the block's, so a stable sort by value is the same

@@ -17,7 +17,8 @@ contract returns it as ``new_model_state`` instead.
 Learning rate: ``lr_multiplier(update_count)`` scales the optimizer's base
 rate per update, counted as optax counts a schedule (0 for the first
 update). Losses stay on the device until the epoch ends (no per-step host
-sync), as the JAX loop keeps them. Data-parallel training is ROADMAP A10b.
+sync), as the JAX loop keeps them. Data-parallel training of the
+baselines is ROADMAP A10c (XML's is in training/xml_trainer.py).
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ class GenericTrainer:
         initialized from ``seed`` and moved to ``device``."""
         if n_devices != 1:
             raise NotImplementedError(
-                f"n_devices={n_devices}: data-parallel training is ROADMAP A10b")
+                f"n_devices={n_devices}: data-parallel training of the baselines is "
+                "ROADMAP A10c")
         self.device = torch.device(device)
         self.model = model.init_weights(torch.Generator().manual_seed(seed)).to(self.device)
         self.optimizer = optimizer_fn(self.model.parameters())

@@ -16,9 +16,14 @@ on the device (data/device_corpus.py). Real data: pass --train_path /
 --eval_path jsonl annotations, h5 feature paths and
 --video_duration_idx_path like the reference scripts/train.sh. Every model
 flag of the JAX CLI is taken (the encoder types, single-stream ``--ctx_mode``,
-the ablations, the span heads, ``--compute_dtype bfloat16``); ``--n_devices``
-above 1 (data-parallel training, ROADMAP A10b) raises ``NotImplementedError``
-before any data is built.
+the ablations, the span heads, ``--compute_dtype bfloat16``).
+
+``--n_devices k`` (k > 1) trains data-parallel on k processes, one per
+device (training/xml_trainer.py): the command starts them itself (rank r on
+cuda:r, NCCL; with ``--device cpu`` k CPU processes, gloo), or, run under
+``torchrun --nproc_per_node k``, joins the group torchrun made. Each rank
+builds its own rows of every global batch; rank 0 alone evaluates, writes
+the run directory and checkpoints, while the others wait at a barrier.
 """
 from __future__ import annotations
 
@@ -28,10 +33,13 @@ import json
 import logging
 import os
 import pickle
+import socket
+import tempfile
 import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from tvretrieval_tpu_torch.data.datasets import (
     CorpusIndex,
@@ -232,8 +240,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--external_inference_vr_res_path", type=str, default=None,
                    help="VR submission JSON replacing internal video ranking")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="data-parallel devices (more than 1 is not ported: "
-                        "ROADMAP A10b)")
+                   help="data-parallel devices: one process per device, started "
+                        "here (or by torchrun); --bsz must divide by it")
     p.add_argument("--resume", type=str, default=None,
                    help="checkpoint dir to resume params+optimizer state from")
     p.add_argument("--eval_untrained", action="store_true",
@@ -292,12 +300,11 @@ def model_config(args, builder: Optional[ExampleBuilder]) -> XMLConfig:
 
 
 def check_args_supported(args) -> None:
-    """Raise before any data is built: NotImplementedError, naming the
-    ROADMAP item, for a flag whose feature the port does not have yet, and
-    ValueError for an unknown engine mode."""
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError(
-            f"--n_devices {args.n_devices}: data-parallel training is ROADMAP A10b")
+    """Raise ValueError before any data is built: an unknown engine mode,
+    or a batch that does not split over --n_devices."""
+    n = args.n_devices or 1
+    if n < 1 or args.bsz % n:
+        raise ValueError(f"--bsz {args.bsz} does not split over --n_devices {n}")
     check_supported(retrieval_config(args, 1))              # mode names
 
 
@@ -443,31 +450,95 @@ def evaluate_retrieval_fast(model, builder, corpus, eval_rows, args, tasks,
     return metrics, arrays
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_worker(rank: int, argv: List[str], world: int, port: int, backend: str,
+                 result_path: str) -> None:
+    """One rank of ``--n_devices``: join the group, train, and on rank 0
+    leave the result for the parent."""
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        out = start_training(argv)
+        if rank == 0:
+            with open(result_path, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(argv: List[str], args) -> dict:
+    """Start --n_devices ranks of this command on localhost and return rank
+    0's result; the run directory is named once, here, for all of them."""
+    import torch.multiprocessing as mp
+
+    n = args.n_devices
+    if args.device == "cuda" and torch.cuda.device_count() < n:
+        raise SystemExit(f"train_xml: --n_devices {n} needs {n} CUDA cards, found "
+                         f"{torch.cuda.device_count()}")
+    argv = list(argv) + ["--exp_id", args.exp_id or time.strftime("%Y%m%d_%H%M%S")]
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        result_path = os.path.join(tmp, "rank0.pkl")
+        mp.start_processes(_rank_worker, args=(argv, n, _free_port(), backend, result_path),
+                           nprocs=n, join=True, start_method="spawn")
+        with open(result_path, "rb") as f:
+            return pickle.load(f)
+
+
 def start_training(argv: Optional[List[str]] = None) -> dict:
     logging.basicConfig(format="%(asctime)s:%(levelname)s:%(name)s - %(message)s",
                         level=logging.INFO, force=True)
+    argv = list(argv) if argv is not None else None
     args = build_arg_parser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_xml: no CUDA device is available; pass --device cpu "
                          "to train on the CPU")
     check_args_supported(args)
+    n_dev = args.n_devices or 1
+    if n_dev > 1 and not dist.is_initialized():
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:        # under torchrun
+            dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+        else:
+            import sys
+            return _spawn_ranks(sys.argv[1:] if argv is None else argv, args)
+    rank = dist.get_rank() if n_dev > 1 else 0
+    if n_dev > 1 and dist.get_world_size() != n_dev:
+        raise ValueError(f"--n_devices {n_dev} in a group of {dist.get_world_size()} ranks")
+    main = rank == 0
+    if not main:
+        logging.getLogger().setLevel(logging.WARNING)
+    device = torch.device(args.device)
+    if n_dev > 1 and device.type == "cpu":
+        # the ranks share the host's cores instead of each taking all of them
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_dev))
+    if n_dev > 1 and device.type == "cuda":
+        if rank >= torch.cuda.device_count():
+            raise ValueError(f"rank {rank} needs cuda:{rank}; there are "
+                             f"{torch.cuda.device_count()} cards")
+        device = torch.device("cuda", rank)
     if args.debug:
         args.n_epoch = min(args.n_epoch, 1)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
-    torch.manual_seed(args.seed)        # dropout masks
+    torch.manual_seed(args.seed + rank)   # dropout masks, decorrelated across ranks
 
     exp_id = args.exp_id or time.strftime("%Y%m%d_%H%M%S")
     results_dir = os.path.join(args.results_root, f"{args.dset_name}-{exp_id}")
-    os.makedirs(results_dir, exist_ok=True)
-    save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
-    # source snapshot per run (reference config.py:219-226 code.zip); a run
-    # goes on without it
-    try:
-        make_code_zip(os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))), os.path.join(results_dir, "code.zip"))
-    except OSError:
-        logger.warning("code snapshot failed", exc_info=True)
+    if main:
+        os.makedirs(results_dir, exist_ok=True)
+        save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
+        # source snapshot per run (reference config.py:219-226 code.zip); a
+        # run goes on without it
+        try:
+            make_code_zip(os.path.dirname(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))), os.path.join(results_dir, "code.zip"))
+        except OSError:
+            logger.warning("code snapshot failed", exc_info=True)
 
     train_rows, eval_rows, builder, corpus = setup_world(args)
     logger.info("train=%d eval=%d corpus=%d videos",
@@ -486,14 +557,14 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
 
     device_data = None
     if args.device_data:
+        # every rank holds the whole context block (JAX: replicate_sharding)
         device_data = build_device_data(builder, corpus, train_rows, eval_rows,
-                                        dtype_name=args.device_data_dtype,
-                                        device=args.device)
+                                        dtype_name=args.device_data_dtype, device=device)
     trainer = XMLTrainer(model_cfg, settings, builder, train_rows,
-                         device_data=device_data, device=args.device)
+                         device_data=device_data, device=device, n_devices=n_dev)
     model = trainer.model
-    logger.info("device: %s; %d steps/epoch; %s params", trainer.device,
-                trainer.steps_per_epoch, f"{count_params(model):,}")
+    logger.info("device: %s (%d of %d ranks); %d steps/epoch; %s params", trainer.device,
+                rank + 1, n_dev, trainer.steps_per_epoch, f"{count_params(model):,}")
 
     start_epoch = 0
     if args.resume:
@@ -504,6 +575,15 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
             trainer.optimizer.load_state_dict(opt_state)
         start_epoch = ckpt_epoch + 1
         logger.info("resumed from %s at epoch %d", args.resume, ckpt_epoch)
+
+    def rank0_says(flag: bool) -> bool:
+        """Rank 0's flag on every rank; the other ranks wait here while
+        rank 0 evaluates and writes."""
+        if n_dev == 1:
+            return flag
+        t = torch.tensor([float(flag)], device=trainer.device)
+        dist.broadcast(t, 0)
+        return bool(t.item())
 
     stopper = EarlyStopper(max_es_cnt=args.max_es_cnt, min_delta=args.es_min_delta,
                            best=-1.0)
@@ -517,7 +597,7 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
     ctx_batch_cache: list = []
     ctx_cache_path = (os.path.join(args.prebuild_cache_dir, "eval_ctx_batches.pkl")
                       if args.prebuild_cache_dir else None)
-    if ctx_cache_path and os.path.exists(ctx_cache_path):
+    if main and ctx_cache_path and os.path.exists(ctx_cache_path):
         logger.info("loading eval context-batch cache from %s", ctx_cache_path)
         with open(ctx_cache_path, "rb") as f:
             ctx_batch_cache = pickle.load(f)
@@ -530,10 +610,12 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
             logger.info("cached eval context batches to %s", ctx_cache_path)
 
     fast_kw = dict(eval_kw, ctx_batch_cache=ctx_batch_cache)
-    metrics_logger = MetricsLogger(results_dir)
-    with open(os.path.join(results_dir, "train.log.txt"), "a") as train_log, \
-            open(os.path.join(results_dir, "eval.log.txt"), "a") as eval_log:
-        if args.eval_untrained and eval_rows:
+    metrics_logger = MetricsLogger(results_dir) if main else None
+    logs = ((open(os.path.join(results_dir, "train.log.txt"), "a"),
+             open(os.path.join(results_dir, "eval.log.txt"), "a")) if main
+            else (open(os.devnull, "w"), open(os.devnull, "w")))
+    with logs[0] as train_log, logs[1] as eval_log:
+        if args.eval_untrained and eval_rows and main:
             metrics, _ = evaluate_retrieval_fast(model, builder, corpus, eval_rows,
                                                  args, **fast_kw)
             save_ctx_cache()
@@ -545,72 +627,79 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
         for epoch in range(start_epoch, args.n_epoch):
             t0 = time.time()
             losses = trainer.train_epoch(epoch)
-            train_log.write(f"[epoch {epoch}] "
-                            + " ".join(f"{k} {v:.4f}" for k, v in losses.items())
-                            + f" ({time.time() - t0:.1f}s)\n")
-            train_log.flush()
-            metrics_logger.scalars("train", losses, trainer.global_step)
-            # per-step scalars (reference writes per step, train.py:88-90);
-            # kept on the device during the epoch, written here
-            base_step = trainer.global_step - len(trainer.last_step_losses)
-            for si, step_loss in enumerate(trainer.last_step_losses):
-                metrics_logger.scalars("train_step", step_loss, base_step + si + 1)
+            if main:
+                train_log.write(f"[epoch {epoch}] "
+                                + " ".join(f"{k} {v:.4f}" for k, v in losses.items())
+                                + f" ({time.time() - t0:.1f}s)\n")
+                train_log.flush()
+                metrics_logger.scalars("train", losses, trainer.global_step)
+                # per-step scalars (reference writes per step, train.py:88-90);
+                # kept on the device during the epoch, written here
+                base_step = trainer.global_step - len(trainer.last_step_losses)
+                for si, step_loss in enumerate(trainer.last_step_losses):
+                    metrics_logger.scalars("train_step", step_loss, base_step + si + 1)
             logger.info("epoch %d train loss %.4f (%.1fs)", epoch,
                         losses["loss_overall"], time.time() - t0)
 
             if not eval_rows:
-                save(epoch)
+                if main:
+                    save(epoch)
+                rank0_says(False)
                 continue
 
-            eval_losses = trainer.eval_loss_epoch(eval_rows, epoch)
-            if args.dset_name == "didemo":  # multi-annotation rows need dict path
-                metrics, _, _ = evaluate_retrieval(
-                    model, builder, corpus, eval_rows, args, results_dir=results_dir,
-                    tag="latest", **eval_kw)
-                eval_arrays = None
-            else:
-                metrics, eval_arrays = evaluate_retrieval_fast(
-                    model, builder, corpus, eval_rows, args, **fast_kw)
-                save_ctx_cache()    # the first epoch fills it without --eval_untrained
-            eval_log.write(f"[epoch {epoch}] {json.dumps(metrics)}\n")
-            eval_log.flush()
-            if eval_losses:
-                metrics_logger.scalars("eval_loss", eval_losses, trainer.global_step)
-            for task in settings.eval_tasks:
-                if task in metrics:
-                    metrics_logger.scalars(f"eval/{task}", dict(metrics[task]),
-                                           trainer.global_step)
+            eval_losses = trainer.eval_loss_epoch(eval_rows, epoch)    # every rank
+            should_stop = False
+            if main:
+                if args.dset_name == "didemo":  # multi-annotation rows need dict path
+                    metrics, _, _ = evaluate_retrieval(
+                        model, builder, corpus, eval_rows, args, results_dir=results_dir,
+                        tag="latest", **eval_kw)
+                    eval_arrays = None
+                else:
+                    metrics, eval_arrays = evaluate_retrieval_fast(
+                        model, builder, corpus, eval_rows, args, **fast_kw)
+                    save_ctx_cache()    # the first epoch fills it without --eval_untrained
+                eval_log.write(f"[epoch {epoch}] {json.dumps(metrics)}\n")
+                eval_log.flush()
+                if eval_losses:
+                    metrics_logger.scalars("eval_loss", eval_losses, trainer.global_step)
+                for task in settings.eval_tasks:
+                    if task in metrics:
+                        metrics_logger.scalars(f"eval/{task}", dict(metrics[task]),
+                                               trainer.global_step)
 
-            stop_names = ["r1"] if args.stop_task == "VR" else ["0.5-r1", "0.7-r1"]
-            stop_score = sum(metrics[args.stop_task][k] for k in stop_names)
-            logger.info("epoch %d eval %s stop_score=%.3f (best %.3f)",
-                        epoch, args.stop_task, stop_score, stopper.best)
+                stop_names = ["r1"] if args.stop_task == "VR" else ["0.5-r1", "0.7-r1"]
+                stop_score = sum(metrics[args.stop_task][k] for k in stop_names)
+                logger.info("epoch %d eval %s stop_score=%.3f (best %.3f)",
+                            epoch, args.stop_task, stop_score, stopper.best)
 
-            is_best, should_stop = stopper.update(stop_score)
-            if is_best:
-                best_metrics = metrics
-                save(epoch)
-                if eval_arrays is not None:
-                    submission = arrays_to_submission(eval_arrays, eval_rows)
-                    submission["video2idx"] = corpus.video2idx
-                    save_json(submission_top_n(submission, 100),
-                              os.path.join(results_dir, "best_predictions.json"))
-                    save_json(metrics, os.path.join(
-                        results_dir, "best_predictions_metrics.json"), pretty=True)
-            if should_stop:
+                is_best, should_stop = stopper.update(stop_score)
+                if is_best:
+                    best_metrics = metrics
+                    save(epoch)
+                    if eval_arrays is not None:
+                        submission = arrays_to_submission(eval_arrays, eval_rows)
+                        submission["video2idx"] = corpus.video2idx
+                        save_json(submission_top_n(submission, 100),
+                                  os.path.join(results_dir, "best_predictions.json"))
+                        save_json(metrics, os.path.join(
+                            results_dir, "best_predictions_metrics.json"), pretty=True)
+            if rank0_says(should_stop):
                 logger.info("early stop at epoch %d", epoch)
                 break
-    metrics_logger.close()
+    if main:
+        metrics_logger.close()
 
     # final inference with NMS (reference train.py:359-375 chains inference)
     final_metrics = None
-    if eval_rows:
+    if eval_rows and main:
         final_metrics, _, _ = evaluate_retrieval(
             model, builder, corpus, eval_rows, args, results_dir=results_dir,
             tag="inference", apply_nms=True, **eval_kw)
         logger.info("final metrics: %s",
                     json.dumps({t: final_metrics[t] for t in settings.eval_tasks
                                 if t in final_metrics}))
+    rank0_says(False)
     return {"results_dir": results_dir, "best_metrics": best_metrics,
             "final_metrics": final_metrics}
 

@@ -13,8 +13,21 @@ built on background threads and copied to the device) and the
 device-resident path (data/device_corpus.py: the corpus lives on the
 device, a step gathers its context rows there, and the host streams only
 query tokens, slots and labels). Under float32 storage the two give the
-same trajectory bit for bit. Single device; data-parallel training is
-ROADMAP A10b.
+same trajectory bit for bit.
+
+Data-parallel training (``n_devices`` k > 1) runs one process per device
+under an initialised ``torch.distributed`` group of k ranks (NCCL on cards,
+gloo on the CPU; ``train_xml --n_devices`` starts them). Like a step of the
+JAX trainer on a k-device mesh, a step computes the GLOBAL-batch function:
+every rank builds or assembles only its b = bsz / k rows of the global
+batch, ``XML.forward_shard`` computes its share of the global loss (the
+in-batch ranking losses over the whole (bsz, bsz) score matrix, from query
+vectors and feat1 gathered with autograd, and negative ranks drawn for the
+whole batch from a generator every rank holds in the same state), and the
+gradients are summed over the ranks in one all-reduce before BertAdam's
+per-parameter clip. No DDP wrapper: its gradient average would divide the
+summed shares by k a second time. The device-resident path keeps the
+whole context block on every rank and assembles the rank's rows with B4.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tvretrieval_tpu_torch.data.datasets import ExampleBuilder, PrebuiltExamples
 from tvretrieval_tpu_torch.data.device_corpus import DeviceData, assemble_batch
@@ -83,6 +97,37 @@ class TrainSettings:
     scan_steps: int = 8
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every rank's (b, ...) tensor concatenated on axis 0 in rank order,
+    with autograd: the gradient of each rank's rows is the sum over the
+    ranks of the gradient of those rows, an all-reduce of the whole
+    gradient of which each rank keeps its slice (gloo has no CUDA
+    reduce-scatter). Sub-f32 tensors travel as f32, which holds them
+    exactly."""
+
+    @staticmethod
+    def forward(ctx, x, rank: int, world: int):
+        ctx.rank, ctx.b = rank, x.shape[0]
+        wide = x.dtype if x.dtype in (torch.float32, torch.float64) else torch.float32
+        mine = x.to(wide).contiguous()
+        parts = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(parts, mine)
+        return torch.cat(parts).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wide = grad.dtype if grad.dtype in (torch.float32, torch.float64) else torch.float32
+        g = grad.to(wide, copy=True).contiguous()
+        dist.all_reduce(g)
+        return g[ctx.rank * ctx.b:(ctx.rank + 1) * ctx.b].to(grad.dtype), None, None
+
+
+def gather_rows(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
+    """Every rank's rows of ``x`` in rank order, with autograd
+    (``XML.forward_shard``'s ``gather``)."""
+    return _GatherRows.apply(x, rank, world)
+
+
 class XMLTrainer:
     def __init__(self, model_cfg: XMLConfig, settings: TrainSettings,
                  builder: ExampleBuilder, train_rows: List[dict],
@@ -91,10 +136,21 @@ class XMLTrainer:
         """device_data: optional data.device_corpus.DeviceData; switches
         train / eval-loss epochs to the device-resident corpus path
         (on-device batch assembly). ``device`` is where the model lives
-        and must be the device of ``device_data``."""
-        if n_devices != 1:
-            raise NotImplementedError(
-                f"n_devices={n_devices}: data-parallel training is ROADMAP A10b")
+        and must be the device of ``device_data``. n_devices > 1: this
+        process is one rank of a data-parallel group of that size, which
+        must be initialised (``torch.distributed.init_process_group``)."""
+        if settings.bsz % n_devices:
+            raise ValueError(f"bsz {settings.bsz} not divisible by {n_devices} devices")
+        self.world = n_devices
+        self.rank = 0
+        if n_devices > 1:
+            if not (dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() == n_devices):
+                raise RuntimeError(
+                    f"n_devices={n_devices}: data-parallel training runs one process per "
+                    f"device; initialise torch.distributed with {n_devices} ranks first "
+                    "(train_xml --n_devices starts them)")
+            self.rank = dist.get_rank()
         self.device = torch.device(device)
         if device_data is not None and device_data.device.type != self.device.type:
             raise ValueError(f"device_data lies on {device_data.device}, the "
@@ -116,12 +172,17 @@ class XMLTrainer:
 
         self.model = XML(model_cfg).init_weights(
             torch.Generator().manual_seed(settings.seed)).to(self.device)
+        if self.world > 1:
+            # every rank seeds the same weights; rank 0's are the ones kept
+            for t in self.model.state_dict().values():
+                dist.broadcast(t, 0)
         self.optimizer = BertAdam(
             param_groups_from_mask(self.model, no_decay_mask(self.model), settings.wd),
             lr=settings.lr, t_total=t_total, warmup=settings.lr_warmup_proportion,
             schedule="warmup_linear", weight_decay=settings.wd, max_grad_norm=1.0)
         # negative ranks are drawn on the host, so a step never waits for
-        # the device; dropout uses torch's global generator
+        # the device; every rank draws the whole batch's from the same state.
+        # Dropout uses torch's global generator
         self.neg_generator = torch.Generator().manual_seed(settings.seed + 1)
         #: optional (global_step, batch size, rank upper bound) -> (ctx, query)
         #: rank vectors replacing the draw (differential tests inject ranks)
@@ -166,37 +227,86 @@ class XMLTrainer:
         return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
 
     # ------------------------------------------------------------------ steps
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_rows(x, self.rank, self.world)
+
     def _train_step(self, batch, lw_st_ed: float, neg_upper: int) -> Dict[str, torch.Tensor]:
-        """One optimizer step; returns the detached loss dict (on the device)."""
+        """One optimizer step on this rank's rows of the global batch;
+        returns the detached global loss dict (on the device)."""
         self.model.train()
-        bsz = batch["query_feat"].shape[0]
+        bsz = batch["query_feat"].shape[0] * self.world
         ranks = (self.neg_ranks_fn(self.global_step, bsz, min(neg_upper, bsz))
                  if self.neg_ranks_fn is not None else None)
         batch = dict(batch, video_feat=batch["video_feat"].float(),
                      sub_feat=batch["sub_feat"].float())
-        loss, loss_dict = self.model(**batch, lw_st_ed=lw_st_ed,
-                                     neg_sample_upper=neg_upper,
-                                     generator=self.neg_generator, neg_ranks=ranks)
+        kw = dict(lw_st_ed=lw_st_ed, neg_sample_upper=neg_upper,
+                  generator=self.neg_generator, neg_ranks=ranks)
+        if self.world == 1:
+            loss, loss_dict = self.model(**batch, **kw)
+        else:
+            loss, loss_dict = self.model.forward_shard(
+                **batch, gather=self._gather, rank=self.rank, world=self.world, **kw)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        losses = torch.stack([loss_dict[k].detach().float() for k in LOSS_KEYS])
+        if self.world > 1:
+            # one all-reduce of every gradient and the four loss shares:
+            # the sums are the global batch's gradient and losses
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            flat = torch.cat([g.reshape(-1).float() for g in grads] + [losses])
+            dist.all_reduce(flat)
+            off = 0
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+            losses = flat[off:]
         if self.s.grad_clip != -1.0:
             # reference train.py:83-85: optional GLOBAL-norm clip on top of
             # BertAdam's per-parameter clip
             torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.s.grad_clip)
         self.optimizer.step()
         self.global_step += 1
-        return {k: v.detach() for k, v in loss_dict.items()}
+        return dict(zip(LOSS_KEYS, losses))
 
-    @torch.no_grad()
     def _eval_step(self, batch, lw_st_ed: float, neg_upper: int) -> Dict[str, float]:
         """Dropout off, fixed negative sampling (reference eval pass:
         train_epoch(training=False), train.py:178-179)."""
+        return dict(zip(LOSS_KEYS, self._eval_values(batch, lw_st_ed, neg_upper).cpu().tolist()))
+
+    @torch.no_grad()
+    def _eval_values(self, batch, lw_st_ed: float, neg_upper: int,
+                     shard: bool = False) -> torch.Tensor:
+        """``_eval_step``'s four losses (LOSS_KEYS order) on the device;
+        ``shard``: this rank's share of the global batch's."""
         self.model.eval()
         batch = dict(batch, video_feat=batch["video_feat"].float(),
                      sub_feat=batch["sub_feat"].float())
-        _, loss_dict = self.model(**batch, lw_st_ed=lw_st_ed, neg_sample_upper=neg_upper)
-        stacked = torch.stack([loss_dict[k].float() for k in LOSS_KEYS]).cpu()
-        return dict(zip(LOSS_KEYS, stacked.tolist()))
+        if shard:
+            _, loss_dict = self.model.forward_shard(
+                **batch, gather=self._gather, rank=self.rank, world=self.world,
+                lw_st_ed=lw_st_ed, neg_sample_upper=neg_upper)
+        else:
+            _, loss_dict = self.model(**batch, lw_st_ed=lw_st_ed, neg_sample_upper=neg_upper)
+        return torch.stack([loss_dict[k].float() for k in LOSS_KEYS])
+
+    def _eval_loss(self, idx: np.ndarray, make_batch: Callable, lw_st_ed: float,
+                   neg_upper: int) -> Dict[str, float]:
+        """The eval losses of the batch of rows ``idx``: split over the
+        ranks when its size divides, else run whole on rank 0 (a remainder
+        batch) and broadcast."""
+        n = len(idx)
+        if self.world == 1:
+            return self._eval_step(make_batch(idx), lw_st_ed, neg_upper)
+        if n % self.world == 0:
+            b = n // self.world
+            vals = self._eval_values(make_batch(idx[self.rank * b:(self.rank + 1) * b]),
+                                     lw_st_ed, neg_upper, shard=True)
+            dist.all_reduce(vals)
+        else:
+            vals = (self._eval_values(make_batch(idx), lw_st_ed, neg_upper) if self.rank == 0
+                    else torch.zeros(len(LOSS_KEYS), device=self.device))
+            dist.broadcast(vals, 0)
+        return dict(zip(LOSS_KEYS, vals.cpu().tolist()))
 
     # ----------------------------------------------------------------- epochs
     def _schedule(self, epoch: int):
@@ -249,10 +359,15 @@ class XMLTrainer:
             for r in range(n_rem):
                 yield (1, order[base + r * B: base + (r + 1) * B])
 
+        b = B // self.world
+        lo = self.rank * b
+
         def build(item):
+            # this rank's b rows of each of the chunk's k global batches
             k, idx = item
+            idx = idx.reshape(k, B)[:, lo:lo + b].reshape(-1)
             return tuple(torch.from_numpy(np.ascontiguousarray(a))
-                         .reshape((k, B) + a.shape[1:]) for a in tq.chunk(idx))
+                         .reshape((k, b) + a.shape[1:]) for a in tq.chunk(idx))
 
         def put(arrs):
             return tuple(a.to(self.device, non_blocking=True) for a in arrs)
@@ -295,8 +410,10 @@ class XMLTrainer:
         it = BatchIterator(self.train_rows, self.s.bsz, shuffle=True,
                            drop_last=True, seed=self.s.seed)
         it.epoch = epoch
-        prefetch = DevicePrefetcher(it, build_fn=self._build, put_fn=self._put,
-                                    n_workers=self.s.prefetch_workers)
+        b = self.s.bsz // self.world
+        lo = self.rank * b
+        prefetch = DevicePrefetcher(it, build_fn=lambda rows: self._build(rows[lo:lo + b]),
+                                    put_fn=self._put, n_workers=self.s.prefetch_workers)
         # per-step losses stay on the device; one transfer at epoch end (a
         # host sync per step would stall the queue of launches)
         step_losses = []
@@ -327,22 +444,21 @@ class XMLTrainer:
         if self.device_data is not None:
             dd = self.device_data
             on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            for lo in range(0, n, self.s.bsz):
-                idx = np.arange(lo, min(lo + self.s.bsz, n))
-                batch = assemble_batch(dd.ctx_device, *map(on, dd.eval_queries.chunk(idx)),
-                                       max_desc_l=self.builder.max_desc_l,
-                                       **dd.assemble_kwargs)
-                for k, v in self._eval_step(batch, lw, neg_upper).items():
-                    meters[k].update(v)
-            gather.check_indices(self.device)
-            return {k: m.avg for k, m in meters.items()}
-        if self.prebuilt is not None and self._eval_prebuilt_key != id(eval_rows):
-            # eval rows recur every epoch: cache them like the train rows
-            self._eval_prebuilt = self._load_or_build_prebuilt(
-                "eval_prebuilt.pkl", eval_rows, eval_labels=False)
-            self._eval_prebuilt_key = id(eval_rows)
-        for rows in BatchIterator(eval_rows, self.s.bsz, shuffle=False, drop_last=False,
-                                  seed=self.s.seed):
-            for k, v in self._eval_step(self._put(self._build(rows)), lw, neg_upper).items():
+            make_batch = lambda idx: assemble_batch(
+                dd.ctx_device, *map(on, dd.eval_queries.chunk(idx)),
+                max_desc_l=self.builder.max_desc_l, **dd.assemble_kwargs)
+        else:
+            if self.prebuilt is not None and self._eval_prebuilt_key != id(eval_rows):
+                # eval rows recur every epoch: cache them like the train rows
+                self._eval_prebuilt = self._load_or_build_prebuilt(
+                    "eval_prebuilt.pkl", eval_rows, eval_labels=False)
+                self._eval_prebuilt_key = id(eval_rows)
+            make_batch = lambda idx: self._put(self._build([eval_rows[i] for i in idx]))
+        # every batch in order, the last one smaller (drop_last=False)
+        for lo in range(0, n, self.s.bsz):
+            idx = np.arange(lo, min(lo + self.s.bsz, n))
+            for k, v in self._eval_loss(idx, make_batch, lw, neg_upper).items():
                 meters[k].update(v)
+        if self.device_data is not None:
+            gather.check_indices(self.device)
         return {k: m.avg for k, m in meters.items()}
