@@ -157,7 +157,12 @@ Run from the repository root on a machine with one CUDA card. Phases:
    without one; (c) data-parallel XML training on 2 gloo ranks sharing the
    card at phase 7's shape (dropout off): the first step's loss within
    2e-4 of one process's, a falling loss, B4 twice a step in each rank, ms
-   a step;
+   a step; (d) the baselines' trainers (MEE, CAL, ExCL with dropout) on 2
+   gloo ranks sharing the card at phase 12's widths and flags, 2 x 4
+   steps of batch 128: the first step's loss against one process's (MEE
+   within 1e-5 relative, CAL and ExCL within phase 10's recurrent 3e-4),
+   a falling loss, no hand kernel launched, ms a step beside one
+   process's;
 15. a ``kernels`` JSON line (``launches`` counted over phases 4 and 10 for
    B1-B3, B5, B6 and B11, over phases 7 and 10 for B4 and over phase 9 for
    B7-B10, ``launches_throughput`` over phase 5, ``launches_streaming``
@@ -3306,6 +3311,135 @@ def dp_rank(rank: int, port: int, tables_path: str, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
+# (d) the baselines' data-parallel trainers: phase 12's widths and flags,
+# a world of DPB_VIDEOS videos that each rank makes again from its seed
+DPB_STEPS = 4                      # steps an epoch, two epochs
+DPB_VIDEOS = 64
+# first-step loss, 2 ranks against one process on the card, relative:
+# MEE's f32 sums in another order; CAL and ExCL phase 10's recurrent span
+# rtol (cuDNN's LSTMs see batches of 64 instead of 128)
+DPB_RTOL = {"mee": 1e-5, "cal": VARIANT_TOL["lstm"][1], "excl": VARIANT_TOL["lstm"][1]}
+
+
+def dpb_world():
+    """(d)'s world: phase 7's widths (3,072 / 768 / 768 features, 100
+    clips) over DPB_VIDEOS videos, and DPB_STEPS batches of queries."""
+    from tvretrieval_tpu_torch.data.datasets import ExampleBuilder
+    from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
+
+    world = make_synthetic_world(n_videos=DPB_VIDEOS, n_queries=TRAIN_BSZ * DPB_STEPS,
+                                 vid_dim=3072, text_dim=768, query_dim=768,
+                                 max_clips=N_CLIPS, seed=1)
+    return world, ExampleBuilder(
+        query_source=world.query_source, video_source=world.video_source,
+        sub_source=world.sub_source, ctx_mode="video_sub_tef", max_desc_l=30,
+        max_ctx_l=N_CLIPS, clip_length=world.clip_length)
+
+
+def dpb_train(kind: str, dev, n_devices: int, env):
+    """Two epochs of DPB_STEPS steps of train_<kind>'s trainer (its CLI's
+    flags in phase 12, batch TRAIN_BSZ) on ``env`` (``dpb_world``), as one
+    rank of n_devices (or alone): (the per-step losses, ms a step in the
+    second epoch)."""
+    from tvretrieval_tpu_torch.training import train_cal, train_excl, train_mee
+
+    module = {"mee": train_mee, "cal": train_cal, "excl": train_excl}[kind]
+    args = module.build_arg_parser().parse_args(
+        ["--bsz", str(TRAIN_BSZ), "--seed", "0"] + BASE_TRAIN_FLAGS[kind])
+    rows, _, builder, _ = baseline_world(kind, *env)(args)
+    trainer = module.make_trainer(args, module.model_config(args, builder), builder,
+                                  rows[:TRAIN_BSZ * DPB_STEPS], dev, n_devices)
+    losses, ms = [], 0.0
+    for epoch in range(2):     # the second epoch is timed warm
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        trainer.train_epoch(epoch)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / len(trainer.last_step_losses)
+        losses += [r["loss"] for r in trainer.last_step_losses]
+    return losses, ms
+
+
+def hand_kernel_counts():
+    """Every wrapper's launch count, by kernel."""
+    from tvretrieval_tpu_torch.ops import approx_topk, fused_score, gather, sort, topk, video_score
+    return {k: n for ops in (video_score, gather, sort, approx_topk, fused_score, topk)
+            for k, n in ops.LAUNCHES.items()}
+
+
+def dpb_rank(rank: int, port: int, out_dir: str) -> None:
+    """One gloo rank of phase 14 (d), on cuda:0: each baseline's losses and
+    ms a step, and the hand kernels' launches, to ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_RANKS))
+    env = dpb_world()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=DP_RANKS, rank=rank)
+    try:
+        out = {kind: dpb_train(kind, torch.device("cuda", 0), DP_RANKS, env)
+               for kind in ("mee", "cal", "excl")}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(dict(runs=out, launches=hand_kernel_counts()), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dp_baselines(dev):
+    """Phase 14 (d): train_mee's, train_cal's and train_excl's trainers on
+    DP_RANKS gloo ranks sharing cuda:0 (one spawn), each rank building the
+    global batch of TRAIN_BSZ and training on its half, against one process
+    on the card: the first step's loss within DPB_RTOL, the loss falling
+    (the second epoch's mean below the first's: the same rows), no hand
+    kernel launched, ms a step beside one process's."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(dpb_rank, args=(port, tmp), nprocs=DP_RANKS, join=True,
+                           start_method="spawn")
+        t_ranks = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    launches = {k: n for r in ranks for k, n in r["launches"].items() if n}
+    before = hand_kernel_counts()
+    env = dpb_world()
+    failed = []
+    for kind in ("mee", "cal", "excl"):
+        (dp_losses, dp_ms), (r1_losses, _) = ranks[0]["runs"][kind], ranks[1]["runs"][kind]
+        one_losses, one_ms = dpb_train(kind, dev, 1, env)
+        err = abs(dp_losses[0] - one_losses[0]) / abs(one_losses[0])
+        first, second = (float(np.mean(dp_losses[i * DPB_STEPS:(i + 1) * DPB_STEPS]))
+                         for i in range(2))
+        log("sharded", f"data-parallel {kind.upper()}, {DP_RANKS} gloo ranks on {dev}, "
+            f"2 x {DPB_STEPS} steps of the global batch {TRAIN_BSZ} at phase 12's widths: "
+            f"loss per step " + " ".join(f"{x:.4f}" for x in dp_losses)
+            + "; one process: " + " ".join(f"{x:.4f}" for x in one_losses)
+            + f"; first step rel |d| {err:.3e} (bound {DPB_RTOL[kind]:.0e}); epoch means "
+            f"{first:.4f} -> {second:.4f}; {dp_ms:.2f} ms a step on {DP_RANKS} ranks sharing "
+            f"the card against {one_ms:.2f} ms alone (second epoch)")
+        if not (np.isfinite(dp_losses).all() and r1_losses == dp_losses
+                and err <= DPB_RTOL[kind] and second < first):
+            failed.append(kind)
+    launches.update({k: n - before[k] for k, n in hand_kernel_counts().items()
+                     if n != before[k]})
+    log("sharded", f"(d) ranks started and trained in {t_ranks:.1f} s; hand-kernel launches "
+        f"{launches}")
+    if failed or launches:
+        raise AssertionError(f"data-parallel baselines {failed} (first-step loss, equal "
+                             f"ranks, falling loss); hand-kernel launches {launches}")
+
+
 def phase_sharded(dev, dp_env=None):
     """Phase 14: several devices, with SHARD_K logical shards on the one
     card (``make_mesh(k, devices=["cuda:0"] * k)``; each shard's kernels on
@@ -3327,10 +3461,12 @@ def phase_sharded(dev, dp_env=None):
     XML training on DP_RANKS gloo ranks, each on cuda:0, at phase 7's
     shape (batch 128, 1,024 resident videos, dropout off): DP_STEPS steps,
     the first step's loss within LOSS_ATOL of one process training the
-    same global batches, the loss falling, ms a step beside it. NCCL needs
+    same global batches, the loss falling, ms a step beside it. (d) the
+    baselines' data-parallel trainers (``phase_dp_baselines``). NCCL needs
     distinct cards and is not run here. ``dp_env``: phase 7's (world,
-    builder), built here when None; its host tables go to the ranks. Returns the kernel launches of (a), (b)
-    and (c)'s ranks (B4, counted in their processes)."""
+    builder), built here when None; its host tables go to the ranks.
+    Returns the kernel launches of (a), (b) and (c)'s ranks (B4, counted
+    in their processes); (d) launches none."""
     import torch.multiprocessing as mp
 
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
@@ -3627,9 +3763,11 @@ def phase_sharded(dev, dp_env=None):
     if not (np.isfinite(dp_losses).all() and err <= LOSS_ATOL and last < first):
         raise AssertionError(f"data-parallel training: first-step |d| {err}, mean loss of the "
                              f"first two steps {first} -> last two {last}")
+    t_d = time.perf_counter()
+    phase_dp_baselines(dev)
     t_end = time.perf_counter()
     log("sharded", f"phase 14 took {t_end - t_phase:.1f} s ((a) {t_b - t_phase:.1f} s, (b) "
-        f"{t_c - t_b:.1f} s, (c) {t_end - t_c:.1f} s); kernel launches "
+        f"{t_c - t_b:.1f} s, (c) {t_d - t_c:.1f} s, (d) {t_end - t_d:.1f} s); kernel launches "
         f"{({k: n for k, n in total.items() if n})}")
     return total
 

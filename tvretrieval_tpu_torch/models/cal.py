@@ -15,6 +15,10 @@ query embeddings are bf16 (their norms as models.xml.l2_normalize takes
 them), a sum over the embedding axis accumulates float32 and rounds back
 to bf16 (jnp's sum of a bf16 array), and the masked means and products
 with float32 operands are float32, where jnp promotes them.
+
+Data-parallel training (``shard``, a ``training.data_parallel.Shard`` of
+world k > 1): the triplet losses are per-query means, so a rank's share
+is the sum over its rows divided by the global count, its mean over k.
 """
 from __future__ import annotations
 
@@ -162,9 +166,10 @@ class CALWithSub(nn.Module):
     def forward(self, query_feat, query_mask,
                 pos_video_feat, pos_sub_feat, pos_mask,
                 intra_video_feat, intra_sub_feat, intra_mask,
-                inter_video_feat, inter_sub_feat, inter_mask):
+                inter_video_feat, inter_sub_feat, inter_mask, shard=None):
         """Triplet loss: pos vs intra-video negative + weighted inter-video
-        negative (reference forward :247-286)."""
+        negative (reference forward :247-286); under a ``shard`` of world
+        > 1, this rank's share of the global batch's."""
         q = self.encode_query(query_feat, query_mask)
         pos = self.compute_pdist(q, pos_video_feat, pos_sub_feat, pos_mask)
         intra = self.compute_pdist(q, intra_video_feat, intra_sub_feat, intra_mask)
@@ -172,4 +177,6 @@ class CALWithSub(nn.Module):
         if self.cfg.inter_loss_weight != 0:
             inter = self.compute_pdist(q, inter_video_feat, inter_sub_feat, inter_mask)
             loss = loss + self.cfg.inter_loss_weight * self._rank_loss(pos, inter)
+        if shard is not None and shard.world > 1:
+            loss = loss / shard.world
         return loss, {"loss_overall": loss}

@@ -13,6 +13,13 @@ from JAX's PRNG: parity with the JAX model holds with ``drop=0`` or in
 eval mode. Compute dtype: under ``dtype_str="bfloat16"`` the LSTMs and the
 predictors' Dense layers compute at bf16 (the LSTM outputs stay float32,
 flax's carry dtype), and the masked logits are float32.
+
+Data-parallel training (``shard``, a ``training.data_parallel.Shard`` of
+world k > 1; the rank holds its rows of the global batch): each dropout
+mask is drawn for the global batch from the generator, which holds the
+same state on every rank, and the rank keeps its rows (JAX draws one key
+for the whole sharded batch); the start / end cross-entropy, a per-row
+mean, becomes the rank's share, its mean over k.
 """
 from __future__ import annotations
 
@@ -54,12 +61,18 @@ class ExCLConfig:
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], shard=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - p, kept values
-    scaled by 1 / (1 - p); the mask drawn from ``generator``."""
+    scaled by 1 / (1 - p); the mask drawn from ``generator``. Under a
+    ``shard``, ``x`` holds the rank's rows: the mask is drawn for the
+    global batch and the rank's rows kept."""
     if not training or p == 0.0:
         return x
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - p, generator=generator)
+    world = 1 if shard is None else shard.world
+    keep = torch.empty((x.shape[0] * world,) + tuple(x.shape[1:]), device=x.device)
+    keep.bernoulli_(1.0 - p, generator=generator)
+    if world > 1:
+        keep = keep[shard.rows(len(keep))]
     return x * keep / (1.0 - p)
 
 
@@ -96,10 +109,10 @@ class ExCL(nn.Module):
         init_like_flax(self, generator)
         return self
 
-    def _single_stream(self, encoded_query, ctx_feat, ctx_mask, stream, generator):
+    def _single_stream(self, encoded_query, ctx_feat, ctx_mask, stream, generator, shard=None):
         """(reference get_prob_single_stream, excl/model.py:110-123)"""
         lengths = ctx_mask.sum(dim=1).int()
-        drop = lambda x: dropout(x, self.cfg.drop, self.training, generator)
+        drop = lambda x: dropout(x, self.cfg.drop, self.training, generator, shard)
         ctx1, _ = getattr(self, f"{stream}_encoder")(drop(ctx_feat), lengths)
         ctx2, _ = getattr(self, f"{stream}_encoder2")(
             drop(torch.cat([ctx1, encoded_query], dim=-1)), lengths)
@@ -109,23 +122,28 @@ class ExCL(nn.Module):
         return mask_logits(st, ctx_mask), mask_logits(ed, ctx_mask)
 
     def span_logits(self, query_feat, query_mask, video_feat, video_mask, sub_feat, sub_mask,
-                    generator: Optional[torch.Generator] = None):
-        """(st_logits, ed_logits), each (N, Lc)."""
+                    generator: Optional[torch.Generator] = None, shard=None):
+        """(st_logits, ed_logits), each (N, Lc); ``shard``: the rows are a
+        rank's of a global batch (the dropout masks)."""
         c = self.cfg
         _, q_hidden = self.query_encoder(query_feat, query_mask.sum(dim=1).int())  # (N, D)
         Lc = (video_feat if c.use_video else sub_feat).shape[1]
         q_rep = q_hidden[:, None, :].expand(q_hidden.shape[0], Lc, q_hidden.shape[-1])
-        vst, ved = (self._single_stream(q_rep, video_feat, video_mask, "video", generator)
+        vst, ved = (self._single_stream(q_rep, video_feat, video_mask, "video", generator, shard)
                     if c.use_video else (0, 0))
-        sst, sed = (self._single_stream(q_rep, sub_feat, sub_mask, "sub", generator)
+        sst, sed = (self._single_stream(q_rep, sub_feat, sub_mask, "sub", generator, shard)
                     if c.use_sub else (0, 0))
         n = int(c.use_video) + int(c.use_sub)
         return (vst + sst) / n, (ved + sed) / n
 
     def forward(self, query_feat, query_mask, video_feat, video_mask, sub_feat, sub_mask,
-                st_ed_indices, generator: Optional[torch.Generator] = None):
+                st_ed_indices, generator: Optional[torch.Generator] = None, shard=None):
+        """The span loss, or under a ``shard`` of world > 1 this rank's
+        share of the global batch's."""
         st, ed = self.span_logits(query_feat, query_mask, video_feat, video_mask,
-                                  sub_feat, sub_mask, generator)
+                                  sub_feat, sub_mask, generator, shard)
         loss = (_cross_entropy(st.float(), st_ed_indices[:, 0])
                 + _cross_entropy(ed.float(), st_ed_indices[:, 1]))
+        if shard is not None and shard.world > 1:
+            loss = loss / shard.world
         return loss, {"loss_st_ed": loss}

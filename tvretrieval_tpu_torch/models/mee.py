@@ -15,6 +15,16 @@ statistics are float32 whatever the input's dtype, and eps is 1e-5.
 running ones; ``model.eval()`` normalizes with the running ones. The
 running statistics are module buffers, so they live in ``state_dict``.
 
+Data-parallel training (``shard``, a ``training.data_parallel.Shard`` of
+world k > 1; each rank holds its rows of the global batch) computes the
+global batch's function, as the JAX step does on a k-device mesh: in
+training, BatchNorm normalizes with the global batch's moments (Σx, Σx²
+and the row count summed over the ranks, their gradient summed back), so
+the running statistics move as one process's do; ``forward`` returns the
+rank's share of the max-margin loss over the global (N, N) confusion
+matrix, from the gathered query embeddings and MoE weights (its columns)
+and the gathered video / subtitle embeddings (its rows).
+
 Padded query tokens count: NetVLAD pools over all N * L tokens, pads
 included, and ``forward`` takes ``query_mask`` and ignores it, as the JAX
 model does. ``_l2norm`` is ``x / (||x|| + 1e-12)``.
@@ -76,12 +86,20 @@ class BatchNorm(nn.BatchNorm1d):
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         x = x.float()
         if self.training:
             rows = x.reshape(-1, x.shape[-1])
-            mean = rows.mean(dim=0)
-            var = torch.clamp_min((rows * rows).mean(dim=0) - mean * mean, 0.0)
+            if shard is None or shard.world == 1:
+                mean = rows.mean(dim=0)
+                var = torch.clamp_min((rows * rows).mean(dim=0) - mean * mean, 0.0)
+            else:
+                # the global batch's moments: (Σx, Σx², rows) over every rank
+                d = rows.shape[1]
+                sums = shard.all_reduce(torch.cat([rows.sum(dim=0), (rows * rows).sum(dim=0),
+                                                   rows.new_tensor([rows.shape[0]])]))
+                mean = sums[:d] / sums[-1]
+                var = torch.clamp_min(sums[d:2 * d] / sums[-1] - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(self.momentum * mean)
                 self.running_var.mul_(BN_MOMENTUM).add_(self.momentum * var)
@@ -100,10 +118,10 @@ class NetVLAD(nn.Module):
         self.clusters2 = nn.Parameter(torch.zeros(1, dim, cluster_size))
         self.bn = BatchNorm(cluster_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         n, L, D = x.shape
         K = self.clusters.shape[1]
-        assignment = self.bn(x.reshape(-1, D) @ self.clusters)              # (NL, K)
+        assignment = self.bn(x.reshape(-1, D) @ self.clusters, shard)       # (NL, K)
         assignment = torch.softmax(assignment, dim=1).reshape(n, L, K)
         a = assignment.sum(dim=1, keepdim=True) * self.clusters2          # (N, D, K)
         vlad = torch.einsum("nlk,nld->nkd", assignment, x).transpose(1, 2) - a
@@ -119,8 +137,8 @@ class ContextGating(nn.Module):
         self.Dense_0 = Dense(dim, dim, dtype=dtype)
         self.bn = BatchNorm(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.sigmoid(self.bn(self.Dense_0(x)))
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        return x * torch.sigmoid(self.bn(self.Dense_0(x), shard))
 
 
 class GatedEmbeddingUnit(nn.Module):
@@ -131,8 +149,8 @@ class GatedEmbeddingUnit(nn.Module):
         self.Dense_0 = Dense(in_dim, output_dim, dtype=dtype)
         self.ContextGating_0 = ContextGating(output_dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _l2norm(self.ContextGating_0(self.Dense_0(x)))
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        return _l2norm(self.ContextGating_0(self.Dense_0(x), shard))
 
 
 def max_margin_ranking_loss(scores: torch.Tensor, margin: float) -> torch.Tensor:
@@ -143,6 +161,21 @@ def max_margin_ranking_loss(scores: torch.Tensor, margin: float) -> torch.Tensor
     row = torch.relu(margin - diag[:, None] + scores)   # query -> all videos
     col = torch.relu(margin - diag[None, :] + scores)   # video -> all queries
     return (row.mean() + col.mean()) / 2
+
+
+def max_margin_ranking_loss_share(rows: torch.Tensor, cols: torch.Tensor, lo: int,
+                                  margin: float) -> torch.Tensor:
+    """A rank's share of ``max_margin_ranking_loss`` over the global (N, N)
+    matrix: ``rows`` (b, N) are its queries' rows, ``cols`` (N, b) its
+    contexts' columns (global rows and columns lo ... lo + b - 1). The
+    share is its rows' row terms plus its columns' column terms, each over
+    2 N^2; the shares sum over the ranks to the global loss."""
+    b, n = rows.shape
+    idx = torch.arange(b, device=rows.device)
+    diag = rows[idx, lo + idx]
+    row = torch.relu(margin - diag[:, None] + rows).sum()
+    col = torch.relu(margin - diag[None, :] + cols).sum()
+    return (row + col) / (2 * n * n)
 
 
 class MEE(nn.Module):
@@ -175,28 +208,50 @@ class MEE(nn.Module):
                 m.reset_parameters()
         return self
 
-    def encode_context(self, video_feat, sub_feat):
+    def encode_context(self, video_feat, sub_feat, shard=None):
         """video_feat / sub_feat: (N, D) mean-pooled video-level features."""
         c = self.cfg
-        ev = self.video_gu(video_feat) if c.use_video else None
-        es = self.sub_gu(sub_feat) if c.use_sub else None
+        ev = self.video_gu(video_feat, shard) if c.use_video else None
+        es = self.sub_gu(sub_feat, shard) if c.use_sub else None
         return ev, es
 
-    def pool_query(self, query_feat):
-        return self.query_pooling(query_feat)
+    def pool_query(self, query_feat, shard=None):
+        return self.query_pooling(query_feat, shard)
 
-    def scores(self, pooled_query, encoded_video, encoded_sub):
-        """(Nq, Nc) fused similarity (reference model.py:64-83)."""
+    def query_embeddings(self, pooled_query, shard=None):
+        """(video query embedding, subtitle query embedding, MoE weights
+        (Nq, 2)); None for a stream or a fusion the model lacks."""
         c = self.cfg
-        v = self.video_query_gu(pooled_query) @ encoded_video.T if c.use_video else 0
-        s = self.sub_query_gu(pooled_query) @ encoded_sub.T if c.use_sub else 0
-        if c.use_video and c.use_sub:
-            w = self.moe_fc(pooled_query)                                   # (Nq, 2)
+        qv = self.video_query_gu(pooled_query, shard) if c.use_video else None
+        qs = self.sub_query_gu(pooled_query, shard) if c.use_sub else None
+        w = self.moe_fc(pooled_query) if c.use_video and c.use_sub else None
+        return qv, qs, w
+
+    @staticmethod
+    def fuse(qv, qs, w, encoded_video, encoded_sub):
+        """(Nq, Nc) fused similarity of the query embeddings and weights
+        against the encoded contexts."""
+        v = qv @ encoded_video.T if qv is not None else 0
+        s = qs @ encoded_sub.T if qs is not None else 0
+        if w is not None:
             return w[:, 0:1] * v + w[:, 1:2] * s
         return v + s
 
-    def forward(self, query_feat, query_mask, video_feat, sub_feat):
-        """The training loss; ``query_mask`` is taken and ignored."""
-        pooled = self.pool_query(query_feat)
-        ev, es = self.encode_context(video_feat, sub_feat)
-        return max_margin_ranking_loss(self.scores(pooled, ev, es).float(), self.cfg.margin)
+    def scores(self, pooled_query, encoded_video, encoded_sub):
+        """(Nq, Nc) fused similarity (reference model.py:64-83)."""
+        return self.fuse(*self.query_embeddings(pooled_query), encoded_video, encoded_sub)
+
+    def forward(self, query_feat, query_mask, video_feat, sub_feat, shard=None):
+        """The training loss, or under a ``shard`` of world > 1 the rank's
+        share of the global batch's; ``query_mask`` is taken and ignored."""
+        pooled = self.pool_query(query_feat, shard)
+        ev, es = self.encode_context(video_feat, sub_feat, shard)
+        if shard is None or shard.world == 1:
+            return max_margin_ranking_loss(self.scores(pooled, ev, es).float(),
+                                           self.cfg.margin)
+        qv, qs, w = self.query_embeddings(pooled, shard)
+        rows = self.fuse(qv, qs, w, shard.gather(ev), shard.gather(es)).float()   # (b, N)
+        cols = self.fuse(shard.gather(qv), shard.gather(qs), shard.gather(w), ev,
+                         es).float()                                               # (N, b)
+        return max_margin_ranking_loss_share(rows, cols, shard.rank * len(pooled),
+                                             self.cfg.margin)

@@ -9,7 +9,10 @@ early stop on VCMR; re-training with MEE-guided inter-video negatives via
 --external_train_vr_res_path and a warm start from a port checkpoint via
 --init_ckpt_path (scripts/re_train_cal.sh). Takes the JAX CLI's flags plus
 ``--device {cuda,cpu}`` (default ``cuda``; without a card it exits at
-once).
+once). On ``--device cuda`` it trains on every card that divides
+``--bsz``, one rank a card, or joins the group torchrun (or the caller)
+made, as train_mee does (training/generic.py); rank 0 alone evaluates
+and writes.
 
     python -m tvretrieval_tpu_torch.training.train_cal --synthetic --device cpu \\
         --exp_id demo --n_epoch 3 --bsz 12 --results_root /tmp/results
@@ -20,6 +23,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 import time
 from typing import List, Optional
 
@@ -33,6 +37,7 @@ from tvretrieval_tpu_torch.evaluation.metrics import eval_retrieval_arrays
 from tvretrieval_tpu_torch.evaluation.submission import submission_top_n
 from tvretrieval_tpu_torch.models.cal import CALConfig, CALWithSub
 from tvretrieval_tpu_torch.retrieval.proposal_engine import cal_retrieve, encode_proposal_corpus
+from tvretrieval_tpu_torch.training import data_parallel as dp
 from tvretrieval_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from tvretrieval_tpu_torch.training.early_stop import EarlyStopper
 from tvretrieval_tpu_torch.training.generic import (
@@ -157,12 +162,14 @@ def model_config(args, builder: CALExampleBuilder) -> CALConfig:
         inter_loss_weight=args.inter_loss_weight)
 
 
-def cal_loss_apply(model, batch, generator, train):
-    return model(**batch)
+def cal_loss_apply(model, batch, generator, train, shard: dp.Shard = dp.Shard()):
+    return model(**batch, shard=shard)
 
 
-def make_trainer(args, cfg: CALConfig, builder, train_rows) -> GenericTrainer:
-    """SGD with momentum and weight decay, x0.1 every 30 epochs of updates."""
+def make_trainer(args, cfg: CALConfig, builder, train_rows, device=None,
+                 n_devices: int = 1) -> GenericTrainer:
+    """SGD with momentum and weight decay, x0.1 every 30 epochs of updates;
+    on ``device`` (default ``--device``), one rank of ``n_devices``."""
     steps_per_epoch = max(len(train_rows) // args.bsz, 1)
     optimizer_fn = lambda ps: torch.optim.SGD(ps, lr=args.lr, momentum=args.momentum,
                                               weight_decay=args.wd)
@@ -170,7 +177,8 @@ def make_trainer(args, cfg: CALConfig, builder, train_rows) -> GenericTrainer:
                           lambda rows: builder.build_train_batch(rows, train_rows),
                           train_rows, args.bsz, args.seed, loss_apply=cal_loss_apply,
                           lr_multiplier=staircase_decay(30 * steps_per_epoch, 0.1),
-                          device=args.device)
+                          device=args.device if device is None else device,
+                          n_devices=n_devices)
 
 
 def start_training(argv: Optional[List[str]] = None) -> dict:
@@ -179,56 +187,72 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
     args = build_arg_parser().parse_args(argv)
     require_device("train_cal", args.device)
     exp_id = args.exp_id or time.strftime("%Y%m%d_%H%M%S")
+    k = dp.baseline_world(args.device, args.bsz)
+    spawned = dp.join_or_spawn(start_training, list(sys.argv[1:] if argv is None else argv)
+                               + ["--exp_id", exp_id], args.device, k)
+    if spawned is not None:
+        return spawned
+    rank, device = dp.rank_device(args.device, k)
+    main = rank == 0
+    if not main:
+        logging.getLogger().setLevel(logging.WARNING)
     results_dir = os.path.join(args.results_root, f"{args.dset_name}-{args.model_type}-{exp_id}")
-    os.makedirs(results_dir, exist_ok=True)
-    save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
+    if main:
+        os.makedirs(results_dir, exist_ok=True)
+        save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
 
     train_rows, eval_rows, builder, corpus = setup_world(args)
     cfg = model_config(args, builder)
-    trainer = make_trainer(args, cfg, builder, train_rows)
+    trainer = make_trainer(args, cfg, builder, train_rows, device, k)
     model = trainer.model
     if args.init_ckpt_path:
         params, _, _, init_epoch = load_checkpoint(args.init_ckpt_path,
                                                    map_location=trainer.device)
         model.load_state_dict(params, strict=True)
+        trainer.broadcast_weights()
         logger.info("warm-started params from %s (epoch %d); optimizer state fresh "
                     "(reference re-train semantics)", args.init_ckpt_path, init_epoch)
 
-    metrics_logger = MetricsLogger(results_dir)
+    metrics_logger = MetricsLogger(results_dir) if main else None
     stopper = EarlyStopper(max_es_cnt=args.max_es_cnt, min_delta=args.es_min_delta, best=-1.0)
     best_metrics = None
     retrieve_kw = dict(tasks=("VCMR", "SVMR"), query_bsz=args.eval_query_bsz,
                        max_before_nms=args.max_before_nms)
     for epoch in range(args.n_epoch):
         losses = trainer.train_epoch(epoch)
-        metrics_logger.scalars("train", losses, (epoch + 1) * trainer.steps_per_epoch)
         logger.info("epoch %d loss %.4f", epoch, losses["loss"])
+        if main:
+            metrics_logger.scalars("train", losses, (epoch + 1) * trainer.steps_per_epoch)
         if not eval_rows:
             continue
-        cache = encode_proposal_corpus(model, builder, corpus, dset_name=args.dset_name)
-        # array-path per-epoch eval; dict submission only on a new best
-        arrays = cal_retrieve(model, builder, cache, corpus, eval_rows, return_arrays=True,
-                              **retrieve_kw)
-        metrics = eval_retrieval_arrays(
-            eval_rows, corpus.video2idx, vcmr=arrays["VCMR"][:2], svmr=arrays["SVMR"][:2],
-            use_desc_type=args.dset_name == "tvr")
-        stop_score = metrics["VCMR"]["0.5-r1"] + metrics["VCMR"]["0.7-r1"]
-        logger.info("epoch %d VCMR %s", epoch, json.dumps(metrics["VCMR"]))
-        is_best, should_stop = stopper.update(stop_score)
-        if is_best:
-            best_metrics = metrics
-            raw = cal_retrieve(model, builder, cache, corpus, eval_rows, **retrieve_kw)
-            raw["video2idx"] = corpus.video2idx
-            save_json(submission_top_n(raw, 100),
-                      os.path.join(results_dir, "best_predictions.json"))
-            save_json(metrics, os.path.join(results_dir, "best_predictions_metrics.json"),
-                      pretty=True)
-            save_checkpoint(os.path.join(results_dir, "ckpt"), model.state_dict(),
-                            trainer.optimizer.state_dict(), cfg, epoch)
-        if should_stop:
+        should_stop = False
+        if main:
+            cache = encode_proposal_corpus(model, builder, corpus, dset_name=args.dset_name)
+            # array-path per-epoch eval; dict submission only on a new best
+            arrays = cal_retrieve(model, builder, cache, corpus, eval_rows, return_arrays=True,
+                                  **retrieve_kw)
+            metrics = eval_retrieval_arrays(
+                eval_rows, corpus.video2idx, vcmr=arrays["VCMR"][:2], svmr=arrays["SVMR"][:2],
+                use_desc_type=args.dset_name == "tvr")
+            stop_score = metrics["VCMR"]["0.5-r1"] + metrics["VCMR"]["0.7-r1"]
+            logger.info("epoch %d VCMR %s", epoch, json.dumps(metrics["VCMR"]))
+            is_best, should_stop = stopper.update(stop_score)
+            if is_best:
+                best_metrics = metrics
+                raw = cal_retrieve(model, builder, cache, corpus, eval_rows, **retrieve_kw)
+                raw["video2idx"] = corpus.video2idx
+                save_json(submission_top_n(raw, 100),
+                          os.path.join(results_dir, "best_predictions.json"))
+                save_json(metrics, os.path.join(results_dir, "best_predictions_metrics.json"),
+                          pretty=True)
+                save_checkpoint(os.path.join(results_dir, "ckpt"), model.state_dict(),
+                                trainer.optimizer.state_dict(), cfg, epoch)
+        if dp.rank0_says(should_stop, k, trainer.device):
             logger.info("early stop at epoch %d", epoch)
             break
-    metrics_logger.close()
+    if main:
+        metrics_logger.close()
+    dp.rank0_says(False, k, trainer.device)         # every rank leaves with rank 0
     return {"results_dir": results_dir, "best_metrics": best_metrics}
 
 

@@ -6,7 +6,10 @@ generator (seeded from ``--seed``), early stop on SVMR, SVMR inference each
 epoch, then VCMR through an external VR submission when
 ``--external_inference_vr_res_path`` is given. Takes the JAX CLI's flags
 plus ``--device {cuda,cpu}`` (default ``cuda``; without a card it exits at
-once).
+once). On ``--device cuda`` it trains on every card that divides
+``--bsz``, one rank a card, or joins the group torchrun (or the caller)
+made, as train_mee does (training/generic.py; the dropout masks drawn
+for the global batch); rank 0 alone evaluates and writes.
 
     python -m tvretrieval_tpu_torch.training.train_excl --synthetic --device cpu \\
         --exp_id demo --n_epoch 3 --bsz 12 --results_root /tmp/results
@@ -17,6 +20,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 import time
 from typing import List, Optional
 
@@ -32,6 +36,7 @@ from tvretrieval_tpu_torch.retrieval.excl_engine import (
     excl_retrieve_svmr,
     excl_retrieve_vcmr_with_external_vr,
 )
+from tvretrieval_tpu_torch.training import data_parallel as dp
 from tvretrieval_tpu_torch.training.checkpoint import save_checkpoint
 from tvretrieval_tpu_torch.training.early_stop import EarlyStopper
 from tvretrieval_tpu_torch.training.generic import GenericTrainer, require_device
@@ -122,11 +127,15 @@ def model_config(args, builder: ExampleBuilder) -> ExCLConfig:
         hidden_size=args.hidden_size, drop=args.drop)
 
 
-def make_trainer(args, cfg: ExCLConfig, builder, train_rows) -> GenericTrainer:
-    """Adam at a constant rate; dropout from the trainer's generator."""
+def make_trainer(args, cfg: ExCLConfig, builder, train_rows, device=None,
+                 n_devices: int = 1) -> GenericTrainer:
+    """Adam at a constant rate; dropout from the trainer's generator; on
+    ``device`` (default ``--device``), one rank of ``n_devices``."""
     return GenericTrainer(ExCL(cfg), lambda ps: torch.optim.Adam(ps, lr=args.lr),
                           lambda rows: builder.build_train_batch(rows).model_inputs(),
-                          train_rows, args.bsz, args.seed, device=args.device)
+                          train_rows, args.bsz, args.seed,
+                          device=args.device if device is None else device,
+                          n_devices=n_devices)
 
 
 def svmr_kw(args) -> dict:
@@ -145,45 +154,58 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
     args = build_arg_parser().parse_args(argv)
     require_device("train_excl", args.device)
     exp_id = args.exp_id or time.strftime("%Y%m%d_%H%M%S")
+    k = dp.baseline_world(args.device, args.bsz)
+    spawned = dp.join_or_spawn(start_training, list(sys.argv[1:] if argv is None else argv)
+                               + ["--exp_id", exp_id], args.device, k)
+    if spawned is not None:
+        return spawned
+    rank, device = dp.rank_device(args.device, k)
+    main = rank == 0
+    if not main:
+        logging.getLogger().setLevel(logging.WARNING)
     results_dir = os.path.join(args.results_root, f"{args.dset_name}-excl-{exp_id}")
-    os.makedirs(results_dir, exist_ok=True)
-    save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
+    if main:
+        os.makedirs(results_dir, exist_ok=True)
+        save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
 
     train_rows, eval_rows, builder, corpus = setup_world(args)
     cfg = model_config(args, builder)
-    trainer = make_trainer(args, cfg, builder, train_rows)
+    trainer = make_trainer(args, cfg, builder, train_rows, device, k)
     model = trainer.model
 
-    metrics_logger = MetricsLogger(results_dir)
+    metrics_logger = MetricsLogger(results_dir) if main else None
     stopper = EarlyStopper(max_es_cnt=args.max_es_cnt, min_delta=args.es_min_delta, best=-1.0)
     best_metrics = None
     use_desc_type = args.dset_name == "tvr"
     for epoch in range(args.n_epoch):
         losses = trainer.train_epoch(epoch)
-        metrics_logger.scalars("train", losses, (epoch + 1) * trainer.steps_per_epoch)
         logger.info("epoch %d loss %.4f", epoch, losses["loss"])
+        if main:
+            metrics_logger.scalars("train", losses, (epoch + 1) * trainer.steps_per_epoch)
         if not eval_rows:
             continue
-        raw = excl_retrieve_svmr(model, builder, corpus, eval_rows, **svmr_kw(args))
-        raw["video2idx"] = corpus.video2idx
-        submission = submission_top_n(raw, 100)
-        metrics = eval_retrieval(submission, eval_rows, use_desc_type=use_desc_type)
-        stop_score = metrics["SVMR"]["0.5-r1"] + metrics["SVMR"]["0.7-r1"]
-        logger.info("epoch %d SVMR %s", epoch, json.dumps(metrics["SVMR"]))
-        is_best, should_stop = stopper.update(stop_score)
-        if is_best:
-            best_metrics = metrics
-            save_json(submission, os.path.join(results_dir, "best_predictions.json"))
-            save_json(metrics, os.path.join(results_dir, "best_predictions_metrics.json"),
-                      pretty=True)
-            save_checkpoint(os.path.join(results_dir, "ckpt"), model.state_dict(),
-                            trainer.optimizer.state_dict(), cfg, epoch)
-        if should_stop:
+        should_stop = False
+        if main:
+            raw = excl_retrieve_svmr(model, builder, corpus, eval_rows, **svmr_kw(args))
+            raw["video2idx"] = corpus.video2idx
+            submission = submission_top_n(raw, 100)
+            metrics = eval_retrieval(submission, eval_rows, use_desc_type=use_desc_type)
+            stop_score = metrics["SVMR"]["0.5-r1"] + metrics["SVMR"]["0.7-r1"]
+            logger.info("epoch %d SVMR %s", epoch, json.dumps(metrics["SVMR"]))
+            is_best, should_stop = stopper.update(stop_score)
+            if is_best:
+                best_metrics = metrics
+                save_json(submission, os.path.join(results_dir, "best_predictions.json"))
+                save_json(metrics, os.path.join(results_dir, "best_predictions_metrics.json"),
+                          pretty=True)
+                save_checkpoint(os.path.join(results_dir, "ckpt"), model.state_dict(),
+                                trainer.optimizer.state_dict(), cfg, epoch)
+        if dp.rank0_says(should_stop, k, trainer.device):
             logger.info("early stop at epoch %d", epoch)
             break
 
     # optional VCMR via external VR results (reference inference_with_vcmr.py)
-    if eval_rows and args.external_inference_vr_res_path:
+    if main and eval_rows and args.external_inference_vr_res_path:
         raw = excl_retrieve_vcmr_with_external_vr(
             model, builder, corpus, eval_rows, args.external_inference_vr_res_path,
             **vcmr_kw(args))
@@ -194,7 +216,9 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
         save_json(metrics, os.path.join(results_dir, "vcmr_external_predictions_metrics.json"),
                   pretty=True)
         logger.info("VCMR (external VR): %s", json.dumps(metrics.get("VCMR", {})))
-    metrics_logger.close()
+    if main:
+        metrics_logger.close()
+    dp.rank0_says(False, k, trainer.device)         # every rank leaves with rank 0
     return {"results_dir": results_dir, "best_metrics": best_metrics}
 
 

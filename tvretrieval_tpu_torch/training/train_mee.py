@@ -10,6 +10,14 @@ r1 + r5. Takes the JAX CLI's flags plus ``--device {cuda,cpu}`` (default
 port's checkpoint layout; the model's ``state_dict`` there carries
 BatchNorm's running statistics.
 
+On ``--device cuda`` it trains on every card that divides ``--bsz`` (the
+JAX trainer's data mesh): with k > 1 cards it starts k ranks, rank r on
+cuda:r with NCCL, each on its rows of every global batch
+(training/generic.py); under ``torchrun`` (or inside an initialised
+``torch.distributed`` group, gloo with ``--device cpu``) it joins that
+group. Rank 0 alone evaluates and writes the run directory; the early
+stop is its decision, sent to every rank.
+
     python -m tvretrieval_tpu_torch.training.train_mee --synthetic --device cpu \\
         --exp_id demo --n_epoch 5 --bsz 16 --results_root /tmp/results
 """
@@ -19,6 +27,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 import time
 from typing import List, Optional
 
@@ -32,6 +41,7 @@ from tvretrieval_tpu_torch.evaluation.metrics import eval_retrieval_arrays
 from tvretrieval_tpu_torch.evaluation.submission import submission_top_n
 from tvretrieval_tpu_torch.models.mee import MEE, MEEConfig
 from tvretrieval_tpu_torch.retrieval.vr_engine import mee_retrieve_vr
+from tvretrieval_tpu_torch.training import data_parallel as dp
 from tvretrieval_tpu_torch.training.checkpoint import save_checkpoint
 from tvretrieval_tpu_torch.training.early_stop import EarlyStopper
 from tvretrieval_tpu_torch.training.generic import (
@@ -118,15 +128,17 @@ def model_config(args, builder: MEEExampleBuilder) -> MEEConfig:
         output_size=args.output_size, margin=args.margin)
 
 
-def mee_loss_apply(model, batch, generator, train):
-    """MEE's forward returns the loss alone; BatchNorm's running statistics
-    move in its buffers."""
-    loss = model(**batch)
+def mee_loss_apply(model, batch, generator, train, shard: dp.Shard = dp.Shard()):
+    """MEE's forward returns the loss (the rank's share) alone; BatchNorm's
+    running statistics move in its buffers."""
+    loss = model(**batch, shard=shard)
     return loss, {"loss_overall": loss}
 
 
-def make_trainer(args, cfg: MEEConfig, builder, train_rows) -> GenericTrainer:
-    """Adam (AdamW under --wd) with the per-epoch staircase decay."""
+def make_trainer(args, cfg: MEEConfig, builder, train_rows, device=None,
+                 n_devices: int = 1) -> GenericTrainer:
+    """Adam (AdamW under --wd) with the per-epoch staircase decay; on
+    ``device`` (default ``--device``), one rank of ``n_devices``."""
     steps_per_epoch = max(len(train_rows) // args.bsz, 1)
     if args.wd == 0:
         optimizer_fn = lambda ps: torch.optim.Adam(ps, lr=args.lr)
@@ -135,7 +147,8 @@ def make_trainer(args, cfg: MEEConfig, builder, train_rows) -> GenericTrainer:
     return GenericTrainer(MEE(cfg), optimizer_fn, builder.build_train_batch, train_rows,
                           args.bsz, args.seed, loss_apply=mee_loss_apply,
                           lr_multiplier=staircase_decay(steps_per_epoch, 0.95),
-                          device=args.device)
+                          device=args.device if device is None else device,
+                          n_devices=n_devices)
 
 
 def vr_submission(corpus, eval_rows, arrays) -> dict:
@@ -152,47 +165,62 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
     args = build_arg_parser().parse_args(argv)
     require_device("train_mee", args.device)
     exp_id = args.exp_id or time.strftime("%Y%m%d_%H%M%S")
+    k = dp.baseline_world(args.device, args.bsz)
+    spawned = dp.join_or_spawn(start_training, list(sys.argv[1:] if argv is None else argv)
+                               + ["--exp_id", exp_id], args.device, k)
+    if spawned is not None:
+        return spawned
+    rank, device = dp.rank_device(args.device, k)
+    main = rank == 0
+    if not main:
+        logging.getLogger().setLevel(logging.WARNING)
     results_dir = os.path.join(args.results_root, f"{args.dset_name}-mee-{exp_id}")
-    os.makedirs(results_dir, exist_ok=True)
-    save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
+    if main:
+        os.makedirs(results_dir, exist_ok=True)
+        save_json(vars(args), os.path.join(results_dir, "opt.json"), pretty=True)
 
     train_rows, eval_rows, builder, corpus = setup_world(args)
     cfg = model_config(args, builder)
-    trainer = make_trainer(args, cfg, builder, train_rows)
+    trainer = make_trainer(args, cfg, builder, train_rows, device, k)
     model = trainer.model
 
-    metrics_logger = MetricsLogger(results_dir)
+    metrics_logger = MetricsLogger(results_dir) if main else None
     stopper = EarlyStopper(max_es_cnt=args.max_es_cnt, min_delta=args.es_min_delta, best=-1.0)
     best_metrics = None
     for epoch in range(args.n_epoch):
         losses = trainer.train_epoch(epoch)
-        metrics_logger.scalars("train", losses, (epoch + 1) * trainer.steps_per_epoch)
         logger.info("epoch %d loss %.4f", epoch, losses["loss"])
+        if main:
+            metrics_logger.scalars("train", losses, (epoch + 1) * trainer.steps_per_epoch)
         if not eval_rows:
             continue
-        # array-path per-epoch eval (no prediction dicts); the dict
-        # submission is built only when a new best is found
-        arrays = mee_retrieve_vr(model, builder, corpus, eval_rows,
-                                 ctx_bsz=args.eval_ctx_bsz, query_bsz=args.eval_query_bsz,
-                                 return_arrays=True)
-        metrics = eval_retrieval_arrays(eval_rows, corpus.video2idx, vr=arrays["VR"][0],
-                                        use_desc_type=args.dset_name == "tvr")
-        stop_score = metrics["VR"]["r1"] + metrics["VR"]["r5"]
-        logger.info("epoch %d VR %s", epoch, json.dumps(metrics["VR"]))
-        is_best, should_stop = stopper.update(stop_score)
-        if is_best:
-            best_metrics = metrics
-            save_json(submission_top_n(vr_submission(corpus, eval_rows, arrays), 100),
-                      os.path.join(results_dir, "best_predictions.json"))
-            save_json(metrics, os.path.join(results_dir, "best_predictions_metrics.json"),
-                      pretty=True)
-            # the state dict holds BatchNorm's running statistics
-            save_checkpoint(os.path.join(results_dir, "ckpt"), model.state_dict(),
-                            trainer.optimizer.state_dict(), cfg, epoch)
-        if should_stop:
+        should_stop = False
+        if main:
+            # array-path per-epoch eval (no prediction dicts); the dict
+            # submission is built only when a new best is found
+            arrays = mee_retrieve_vr(model, builder, corpus, eval_rows,
+                                     ctx_bsz=args.eval_ctx_bsz, query_bsz=args.eval_query_bsz,
+                                     return_arrays=True)
+            metrics = eval_retrieval_arrays(eval_rows, corpus.video2idx, vr=arrays["VR"][0],
+                                            use_desc_type=args.dset_name == "tvr")
+            stop_score = metrics["VR"]["r1"] + metrics["VR"]["r5"]
+            logger.info("epoch %d VR %s", epoch, json.dumps(metrics["VR"]))
+            is_best, should_stop = stopper.update(stop_score)
+            if is_best:
+                best_metrics = metrics
+                save_json(submission_top_n(vr_submission(corpus, eval_rows, arrays), 100),
+                          os.path.join(results_dir, "best_predictions.json"))
+                save_json(metrics, os.path.join(results_dir, "best_predictions_metrics.json"),
+                          pretty=True)
+                # the state dict holds BatchNorm's running statistics
+                save_checkpoint(os.path.join(results_dir, "ckpt"), model.state_dict(),
+                                trainer.optimizer.state_dict(), cfg, epoch)
+        if dp.rank0_says(should_stop, k, trainer.device):
             logger.info("early stop at epoch %d", epoch)
             break
-    metrics_logger.close()
+    if main:
+        metrics_logger.close()
+    dp.rank0_says(False, k, trainer.device)         # every rank leaves with rank 0
     return {"results_dir": results_dir, "best_metrics": best_metrics}
 
 

@@ -33,8 +33,7 @@ import json
 import logging
 import os
 import pickle
-import socket
-import tempfile
+import sys
 import time
 from typing import List, Optional
 
@@ -63,6 +62,7 @@ from tvretrieval_tpu_torch.retrieval.engine import (
     retrieve,
 )
 from tvretrieval_tpu_torch.retrieval.streaming import host_cache_from_device
+from tvretrieval_tpu_torch.training import data_parallel as dp
 from tvretrieval_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from tvretrieval_tpu_torch.training.early_stop import EarlyStopper
 from tvretrieval_tpu_torch.training.xml_trainer import TrainSettings, XMLTrainer
@@ -450,44 +450,15 @@ def evaluate_retrieval_fast(model, builder, corpus, eval_rows, args, tasks,
     return metrics, arrays
 
 
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
-
-
-def _rank_worker(rank: int, argv: List[str], world: int, port: int, backend: str,
-                 result_path: str) -> None:
-    """One rank of ``--n_devices``: join the group, train, and on rank 0
-    leave the result for the parent."""
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank)
-    try:
-        out = start_training(argv)
-        if rank == 0:
-            with open(result_path, "wb") as f:
-                pickle.dump(out, f)
-    finally:
-        dist.destroy_process_group()
-
-
 def _spawn_ranks(argv: List[str], args) -> dict:
     """Start --n_devices ranks of this command on localhost and return rank
     0's result; the run directory is named once, here, for all of them."""
-    import torch.multiprocessing as mp
-
     n = args.n_devices
     if args.device == "cuda" and torch.cuda.device_count() < n:
         raise SystemExit(f"train_xml: --n_devices {n} needs {n} CUDA cards, found "
                          f"{torch.cuda.device_count()}")
     argv = list(argv) + ["--exp_id", args.exp_id or time.strftime("%Y%m%d_%H%M%S")]
-    backend = "nccl" if args.device == "cuda" else "gloo"
-    with tempfile.TemporaryDirectory() as tmp:
-        result_path = os.path.join(tmp, "rank0.pkl")
-        mp.start_processes(_rank_worker, args=(argv, n, _free_port(), backend, result_path),
-                           nprocs=n, join=True, start_method="spawn")
-        with open(result_path, "rb") as f:
-            return pickle.load(f)
+    return dp.spawn_ranks(start_training, argv, n, dp.backend_for(args.device))
 
 
 def start_training(argv: Optional[List[str]] = None) -> dict:
@@ -501,26 +472,16 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
     check_args_supported(args)
     n_dev = args.n_devices or 1
     if n_dev > 1 and not dist.is_initialized():
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:        # under torchrun
-            dist.init_process_group("nccl" if args.device == "cuda" else "gloo")
+        if dp.under_torchrun():
+            dist.init_process_group(dp.backend_for(args.device))
         else:
-            import sys
             return _spawn_ranks(sys.argv[1:] if argv is None else argv, args)
-    rank = dist.get_rank() if n_dev > 1 else 0
     if n_dev > 1 and dist.get_world_size() != n_dev:
         raise ValueError(f"--n_devices {n_dev} in a group of {dist.get_world_size()} ranks")
+    rank, device = dp.rank_device(args.device, n_dev)
     main = rank == 0
     if not main:
         logging.getLogger().setLevel(logging.WARNING)
-    device = torch.device(args.device)
-    if n_dev > 1 and device.type == "cpu":
-        # the ranks share the host's cores instead of each taking all of them
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n_dev))
-    if n_dev > 1 and device.type == "cuda":
-        if rank >= torch.cuda.device_count():
-            raise ValueError(f"rank {rank} needs cuda:{rank}; there are "
-                             f"{torch.cuda.device_count()} cards")
-        device = torch.device("cuda", rank)
     if args.debug:
         args.n_epoch = min(args.n_epoch, 1)
     if args.detect_anomaly:
@@ -576,14 +537,7 @@ def start_training(argv: Optional[List[str]] = None) -> dict:
         start_epoch = ckpt_epoch + 1
         logger.info("resumed from %s at epoch %d", args.resume, ckpt_epoch)
 
-    def rank0_says(flag: bool) -> bool:
-        """Rank 0's flag on every rank; the other ranks wait here while
-        rank 0 evaluates and writes."""
-        if n_dev == 1:
-            return flag
-        t = torch.tensor([float(flag)], device=trainer.device)
-        dist.broadcast(t, 0)
-        return bool(t.item())
+    rank0_says = lambda flag: dp.rank0_says(flag, n_dev, trainer.device)
 
     stopper = EarlyStopper(max_es_cnt=args.max_es_cnt, min_delta=args.es_min_delta,
                            best=-1.0)

@@ -26,8 +26,10 @@ vectors and feat1 gathered with autograd, and negative ranks drawn for the
 whole batch from a generator every rank holds in the same state), and the
 gradients are summed over the ranks in one all-reduce before BertAdam's
 per-parameter clip. No DDP wrapper: its gradient average would divide the
-summed shares by k a second time. The device-resident path keeps the
-whole context block on every rank and assembles the rank's rows with B4.
+summed shares by k a second time (the plumbing is
+training/data_parallel.py, which the baselines' trainer shares). The
+device-resident path keeps the whole context block on every rank and
+assembles the rank's rows with B4.
 """
 from __future__ import annotations
 
@@ -47,6 +49,12 @@ from tvretrieval_tpu_torch.data.device_corpus import DeviceData, assemble_batch
 from tvretrieval_tpu_torch.data.pipeline import BatchIterator, DevicePrefetcher
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
 from tvretrieval_tpu_torch.ops import gather
+from tvretrieval_tpu_torch.training.data_parallel import (
+    all_reduce_grads,
+    broadcast_module,
+    gather_rows,
+    group_rank,
+)
 from tvretrieval_tpu_torch.training.optimization import (
     BertAdam,
     no_decay_mask,
@@ -97,37 +105,6 @@ class TrainSettings:
     scan_steps: int = 8
 
 
-class _GatherRows(torch.autograd.Function):
-    """Every rank's (b, ...) tensor concatenated on axis 0 in rank order,
-    with autograd: the gradient of each rank's rows is the sum over the
-    ranks of the gradient of those rows, an all-reduce of the whole
-    gradient of which each rank keeps its slice (gloo has no CUDA
-    reduce-scatter). Sub-f32 tensors travel as f32, which holds them
-    exactly."""
-
-    @staticmethod
-    def forward(ctx, x, rank: int, world: int):
-        ctx.rank, ctx.b = rank, x.shape[0]
-        wide = x.dtype if x.dtype in (torch.float32, torch.float64) else torch.float32
-        mine = x.to(wide).contiguous()
-        parts = [torch.empty_like(mine) for _ in range(world)]
-        dist.all_gather(parts, mine)
-        return torch.cat(parts).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, grad):
-        wide = grad.dtype if grad.dtype in (torch.float32, torch.float64) else torch.float32
-        g = grad.to(wide, copy=True).contiguous()
-        dist.all_reduce(g)
-        return g[ctx.rank * ctx.b:(ctx.rank + 1) * ctx.b].to(grad.dtype), None, None
-
-
-def gather_rows(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
-    """Every rank's rows of ``x`` in rank order, with autograd
-    (``XML.forward_shard``'s ``gather``)."""
-    return _GatherRows.apply(x, rank, world)
-
-
 class XMLTrainer:
     def __init__(self, model_cfg: XMLConfig, settings: TrainSettings,
                  builder: ExampleBuilder, train_rows: List[dict],
@@ -139,18 +116,8 @@ class XMLTrainer:
         and must be the device of ``device_data``. n_devices > 1: this
         process is one rank of a data-parallel group of that size, which
         must be initialised (``torch.distributed.init_process_group``)."""
-        if settings.bsz % n_devices:
-            raise ValueError(f"bsz {settings.bsz} not divisible by {n_devices} devices")
+        self.rank = group_rank(n_devices, settings.bsz)
         self.world = n_devices
-        self.rank = 0
-        if n_devices > 1:
-            if not (dist.is_available() and dist.is_initialized()
-                    and dist.get_world_size() == n_devices):
-                raise RuntimeError(
-                    f"n_devices={n_devices}: data-parallel training runs one process per "
-                    f"device; initialise torch.distributed with {n_devices} ranks first "
-                    "(train_xml --n_devices starts them)")
-            self.rank = dist.get_rank()
         self.device = torch.device(device)
         if device_data is not None and device_data.device.type != self.device.type:
             raise ValueError(f"device_data lies on {device_data.device}, the "
@@ -174,8 +141,7 @@ class XMLTrainer:
             torch.Generator().manual_seed(settings.seed)).to(self.device)
         if self.world > 1:
             # every rank seeds the same weights; rank 0's are the ones kept
-            for t in self.model.state_dict().values():
-                dist.broadcast(t, 0)
+            broadcast_module(self.model)
         self.optimizer = BertAdam(
             param_groups_from_mask(self.model, no_decay_mask(self.model), settings.wd),
             lr=settings.lr, t_total=t_total, warmup=settings.lr_warmup_proportion,
@@ -250,16 +216,8 @@ class XMLTrainer:
         loss.backward()
         losses = torch.stack([loss_dict[k].detach().float() for k in LOSS_KEYS])
         if self.world > 1:
-            # one all-reduce of every gradient and the four loss shares:
             # the sums are the global batch's gradient and losses
-            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-            flat = torch.cat([g.reshape(-1).float() for g in grads] + [losses])
-            dist.all_reduce(flat)
-            off = 0
-            for g in grads:
-                g.copy_(flat[off:off + g.numel()].view_as(g))
-                off += g.numel()
-            losses = flat[off:]
+            losses = all_reduce_grads(self.model.parameters(), losses)
         if self.s.grad_clip != -1.0:
             # reference train.py:83-85: optional GLOBAL-norm clip on top of
             # BertAdam's per-parameter clip
