@@ -6,13 +6,14 @@ Run from the repository root on a machine with one CUDA card. Phases:
 
 1. the device, and its name and power limit from nvidia-smi;
 2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc, one
-   compiler per source, side by side; the SASS must hold IMMA (s8 tensor
-   core) instructions in the int8 video-score kernel and in B5, HMMA
-   without .TF32 in the bf16 instances of the video-score and masked-score
-   kernels, HMMA all of the .TF32 form in their f32 (3xTF32) instances, no
-   instance of those two libraries without tensor-core instructions, and no
-   IDP (dp4a); then the mma.sync ceiling: s8, bf16 and tf32 products from
-   registers on every SM (csrc/mma_probe.cu), in TOPS beside the data
+   compiler per source, side by side; the SASS must hold IGMMA (s8 wgmma)
+   and no IMMA or HMMA in the int8 video-score kernels (B1 / B3-int8) and
+   in B5, HMMA without .TF32 in the bf16 instances of the video-score and
+   masked-score kernels, HMMA all of the .TF32 form in their f32 (3xTF32)
+   instances, no instance of those two libraries without tensor-core
+   instructions, and no IDP (dp4a); then the tensor-core ceilings: s8, bf16
+   and tf32 mma.sync products from registers and s8 wgmma m64n256k32 from
+   shared memory on every SM (csrc/mma_probe.cu), in TOPS beside the data
    sheet's peaks;
 3. each kernel against its plain PyTorch version at the full-corpus
    shapes (21,818 videos, 1,000 queries): the video scores (lp=104, D=256)
@@ -20,7 +21,9 @@ Run from the repository root on a machine with one CUDA card. Phases:
    f32) within f32 summation slack, block maxima exact; the int8 span sweep
    B5 (2,793,472 flat rows, K=512) bit-equal over all its outputs, pads
    exactly zero (B1, B2, B5 as a share of the peak and of the probed
-   ceiling, f32 counted as three TF32 products); the sorting
+   ceilings, f32 counted as three TF32 products; B1 and B5 beside
+   ``torch._int_mm`` over their operands, the s8 GEMM alone, and the host
+   cost of B1's four tensor-map encodes); the sorting
    top-k B6 at the engine's five row shapes equal in values and indices on
    rows with planted ties; the approximate top-k B11 at the engine's three
    sites (video top-V 21,818, span group select 10,000, final span select
@@ -44,7 +47,8 @@ Run from the repository root on a machine with one CUDA card. Phases:
    site's mean recall on the batch's own rows at least 0.90; q/s and the
    device's busy share beside the flagship's, and the share of the
    flagship's top-200 moments it returns), in
-   the all-int8 psort modes (B1 once, B5 once, B6 five times per batch), in
+   the all-int8 psort modes (B1 once, B5 once, B6 five times per batch;
+   its device time too), in
    bf16 parity, the flagship's modes with the bf16 video scores over the
    bf16 flat feat1 cache (B2 once per batch, no other kernel), and in f32
    parity, the same over the engine's default f32 caches (feat1 drawn in
@@ -185,6 +189,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import json
 import math
@@ -291,16 +296,18 @@ def video_score_bound(q, feat, n_out: int) -> dict:
 
 def check_tensor_cores(_build) -> str:
     """Phase 2: the kernels run on the tensor cores. In the SASS, each int8
-    instance of video_score and each instance of span_sim holds IMMA; each
-    bf16 instance of video_score and masked_score holds HMMA and none of
-    the .TF32 form; each f32 instance of those two holds HMMA, every one of
-    the .TF32 form (the 3xTF32 products, TF32 by no other door); no
-    instance of video_score or masked_score is without tensor-core
-    instructions (no FMA kernel is left); no library holds IDP (dp4a)."""
+    instance of video_score and each instance of span_sim holds IGMMA (s8
+    wgmma) and no IMMA or HMMA; each bf16 instance of video_score and
+    masked_score holds HMMA and none of the .TF32 form; each f32 instance of
+    those two holds HMMA, every one of the .TF32 form (the 3xTF32 products,
+    TF32 by no other door); no instance of video_score or masked_score is
+    without tensor-core instructions (no FMA kernel is left); no library
+    holds IDP (dp4a)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    kinds = {"video_score": (("int8", "S8Mma"), ("bf16", "Bf16Mma"), ("f32", "Tf32x3Mma")),
+    kinds = {"video_score": (("int8", "video_score_wgmma"), ("bf16", "Bf16Mma"),
+                             ("f32", "Tf32x3Mma")),
              "masked_score": (("bf16", "MaskedBf16"), ("f32", "MaskedTf32x3")),
-             "span_sim": (("int8", "span_sim_kernel"),)}
+             "span_sim": (("int8", "span_sim_wgmma"),)}
     bad, lines, idp = [], [], 0
     for lib, want in kinds.items():
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
@@ -312,12 +319,12 @@ def check_tensor_cores(_build) -> str:
                 bad.append(f"{lib}: {name[:60]} is none of its kinds")
         for what, key in want:
             found = [body for name, body in functions if key in name]
-            counts = [(body.count("IMMA"), body.count("HMMA"), body.count("HMMA.1688.F32.TF32"))
-                      for body in found]
-            lines.append(f"{lib} {what}: (IMMA, HMMA, HMMA .TF32) per instance {counts}")
-            ok = {"int8": lambda i, h, t: i > 0 and h == 0,
-                  "bf16": lambda i, h, t: h > 0 and t == 0 and i == 0,
-                  "f32": lambda i, h, t: t > 0 and t == h and i == 0}[what]
+            counts = [(body.count("IGMMA"), body.count("IMMA"), body.count("HMMA"),
+                       body.count("HMMA.1688.F32.TF32")) for body in found]
+            lines.append(f"{lib} {what}: (IGMMA, IMMA, HMMA, HMMA .TF32) per instance {counts}")
+            ok = {"int8": lambda g, i, h, t: g > 0 and i == 0 and h == 0,
+                  "bf16": lambda g, i, h, t: h > 0 and t == 0 and i == 0 and g == 0,
+                  "f32": lambda g, i, h, t: t > 0 and t == h and i == 0 and g == 0}[what]
             if not counts or not all(ok(*c) for c in counts):
                 bad.append(lines[-1])
     if idp or bad:
@@ -326,20 +333,25 @@ def check_tensor_cores(_build) -> str:
 
 
 def probe_mma(dev, _build) -> dict:
-    """Phase 2: the mma.sync ceiling on this card: back-to-back s8 m16n8k32,
-    bf16 m16n8k16 and tf32 m16n8k8 products from registers on every SM
-    (csrc/mma_probe.cu), at 2 and 4 blocks of 8 warps an SM, the faster
-    kept. Returns operations/s by input type ("tf32" for the last)."""
+    """Phase 2: the tensor-core ceilings on this card (csrc/mma_probe.cu):
+    back-to-back mma.sync s8 m16n8k32, bf16 m16n8k16 and tf32 m16n8k8
+    products from registers on every SM, at 2 and 4 blocks of 8 warps an
+    SM, and s8 wgmma m64n256k32 from shared memory at 1 and 2 blocks of two
+    warpgroups an SM; the faster of each kept. Returns operations/s by input
+    type ("tf32" for the third, "wgmma_s8" for the last)."""
     lib = _build.load("mma_probe")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    iters, chains, warps = 4096, 8, 8          # csrc/mma_probe.cu: kChains, kThreads / 32
     out = torch.empty(4 * n_sm * 256, device=dev)
     ceiling = {}
-    for kind, dtype, ops, name in ((0, torch.int8, 16 * 8 * 32 * 2, "s8 m16n8k32"),
-                                   (1, torch.bfloat16, 16 * 8 * 16 * 2, "bf16 m16n8k16"),
-                                   (2, "tf32", 16 * 8 * 8 * 2, "tf32 m16n8k8")):
+    # kind, key, operations a product, products a block and iteration, blocks an SM
+    probes = ((0, torch.int8, 16 * 8 * 32 * 2, 8 * 8, (2, 4), "s8 m16n8k32 mma.sync"),
+              (1, torch.bfloat16, 16 * 8 * 16 * 2, 8 * 8, (2, 4), "bf16 m16n8k16 mma.sync"),
+              (2, "tf32", 16 * 8 * 8 * 2, 8 * 8, (2, 4), "tf32 m16n8k8 mma.sync"),
+              (3, "wgmma_s8", 64 * 256 * 32 * 2, 2 * 4, (1, 2), "s8 m64n256k32 wgmma"))
+    iters = 4096            # csrc/mma_probe.cu: 8 warps x 8 chains, or 2 warpgroups x 4 k-steps
+    for kind, key, ops, per_iter, per_sms, name in probes:
         rates = []
-        for per_sm in (2, 4):
+        for per_sm in per_sms:
             blocks = per_sm * n_sm
 
             def launch():
@@ -349,24 +361,44 @@ def probe_mma(dev, _build) -> dict:
                     raise RuntimeError(f"mma_probe: launch failed with CUDA error {err}")
 
             ms = cuda_ms(launch, reps=5)
-            rates.append(blocks * warps * iters * chains * ops / ms * 1e3)
-        ceiling[dtype] = max(rates)
-        log("build", f"mma.sync probe, {name}: {ceiling[dtype] / 1e12:.1f} TOPS "
-            f"({' / '.join(f'{r / 1e12:.1f}' for r in rates)} at 2 / 4 blocks an SM, "
-            f"{n_sm} SMs) = {100 * ceiling[dtype] / PEAK_OPS[dtype]:.1f}% of the data "
-            f"sheet's {PEAK_OPS[dtype] / 1e12:.1f}")
+            rates.append(blocks * iters * per_iter * ops / ms * 1e3)
+        ceiling[key] = max(rates)
+        peak = PEAK_OPS[torch.int8 if key == "wgmma_s8" else key]
+        log("build", f"{name} probe: {ceiling[key] / 1e12:.1f} TOPS "
+            f"({' / '.join(f'{r / 1e12:.1f}' for r in rates)} at "
+            f"{' / '.join(map(str, per_sms))} blocks an SM, {n_sm} SMs) = "
+            f"{100 * ceiling[key] / peak:.1f}% of the data sheet's {peak / 1e12:.1f}")
     return ceiling
 
 
 def rate_str(n_ops: float, ms: float, dtype, ceiling) -> str:
     """Operations/s of a kernel as a share of the data sheet's peak and of
-    the probed mma.sync ceiling (f32: TF32 operations, three a multiply-add)."""
+    the probed ceilings: int8 of the s8 wgmma and the s8 mma.sync probes,
+    others of their mma.sync probe (f32: TF32 operations, three a
+    multiply-add)."""
     n_ops, dtype = tc_ops(n_ops, dtype)
     rate = n_ops / ms * 1e3
-    probed = f", {100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync ceiling" \
-        if ceiling else ""
+    probed = ""
+    if ceiling and dtype == torch.int8:
+        probed = (f", {100 * rate / ceiling['wgmma_s8']:.1f}% of the probed wgmma ceiling, "
+                  f"{100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync one")
+    elif ceiling:
+        probed = f", {100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync ceiling"
     return (f"{rate / 1e12:.1f} TOPS = {100 * rate / PEAK_OPS[dtype]:.1f}% of the "
             f"{PEAK_OPS[dtype] / 1e12:.1f} peak{probed}")
+
+
+def int_mm_ms(a, rows, chunk: int = 2 ** 18) -> float:
+    """Yardstick of an s8 kernel: ``torch._int_mm`` of (M, K) int8 ``a`` by
+    the (R, K) int8 ``rows``, in chunks of ``chunk`` rows (s32 out, 1 GB a
+    chunk at M = 1,000): the s8 GEMM alone, no max, no rescale; the chunks'
+    CUDA-event times summed. Not the kernel's function, so not its
+    library_ms."""
+    total = 0.0
+    for r0 in range(0, rows.shape[0], chunk):
+        bt = rows[r0:r0 + chunk].T
+        total += cuda_ms(lambda: torch._int_mm(a, bt), reps=3)
+    return total
 
 
 def bound_str(b: dict) -> str:
@@ -381,8 +413,10 @@ def unit(shape, gen, dev):
 def phase_kernels(dev, vs, ceiling=None):
     """Phase 3: every kernel against its plain version at the main path's
     shapes. Returns the per-kernel record for the kernels line. ``ceiling``:
-    the probed mma.sync rates (phase 2), for the tensor-core kernels' share;
-    None when a later commit's ``--parent`` run calls this phase alone."""
+    the probed tensor-core rates (phase 2), for the tensor-core kernels'
+    share and B1's yardsticks; None when a later commit's ``--parent`` run
+    calls this phase alone."""
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops.span import topk_stable
     from tvretrieval_tpu_torch.testing import rank_mismatches
 
@@ -424,6 +458,19 @@ def phase_kernels(dev, vs, ceiling=None):
         f"({rate_str(n_ops, ms, torch.int8, ceiling)}) vs plain {pms:.3f} ms; "
         f"{bound_str(rec['B1'])}, {100 * rec['B1']['bound_ms'] / ms:.1f}% of its rate")
     b1_scores = k
+    if ceiling is not None:     # this commit's yardsticks (a --parent run calls this phase too)
+        qv8 = q8["v"].T.contiguous()
+        ns = ctypes.c_double()
+        err = _build.load("video_score").tvr_tensor_map_encode_ns(
+            qv8.data_ptr(), i8["v"].data_ptr(), N_QUERIES, i8["v"].shape[0], HIDDEN, 1000,
+            ctypes.byref(ns))
+        if err:
+            raise AssertionError(f"tensor-map encode probe: CUDA error {err}")
+        yard = int_mm_ms(qv8, i8["v"])
+        log("kernels", f"B1 yardstick: torch._int_mm over one stream's operands ((1,000, 256) "
+            f"x (2,269,696, 256) int8 -> s32, in row chunks: half of B1's products, written "
+            f"out) {yard:.3f} ms = {rate_str(n_ops / 2, yard, torch.int8, None)}; B1's four "
+            f"tensor-map encodes {ns.value / 1e3:.2f} us a launch on the host")
 
     # B2 (bf16, f32): f32 summation slack, identical top-100 outside near-ties
     argsb = (qb["v"], qb["s"], bf["v"], bf["s"], nv, LP)
@@ -528,6 +575,8 @@ def phase_span_sim(dev, vs, ceiling=None):
     flat_bf = torch.nn.functional.pad(feat2_cat, (0, 0, 0, SPAN_LP - N_CLIPS)).reshape(-1, k)
     q_bf = qcat.to(torch.bfloat16)
     sweep_ms = cuda_ms(lambda: q_bf @ flat_bf.T, reps=3)
+    del flat_bf, q_bf
+    yard = int_mm_ms(q8, f8) if ceiling is not None else float("nan")
     log("kernels", f"B5 span_sim_cat_i8: Nq={nq} rows={f8.shape[0]} (Nv_pad={nv_pad} x "
         f"{SPAN_LP}) K={k}: bit-equal over {n_out} outputs, pads exactly zero; {ms:.3f} ms "
         f"({rate_str(2 * nq * f8.shape[0] * k, ms, torch.int8, ceiling)}) vs plain "
@@ -535,7 +584,12 @@ def phase_span_sim(dev, vs, ceiling=None):
         f"{2 * n_out / ms / 1e9:.2f} TB/s of bf16 output; the bf16 torch.matmul sweep of "
         f"simsweep_cat_bf16 on this corpus {sweep_ms:.3f} ms; caches int8 flat "
         f"{f8.numel() / 1e9:.3f} GB + scales {fs.numel() * 4 / 1e6:.1f} MB vs bf16 "
-        f"{flat_bf.numel() * 2 / 1e9:.3f} GB")
+        f"{2 * f8.numel() / 1e9:.3f} GB")
+    if ceiling is not None:
+        log("kernels", f"B5 yardstick: torch._int_mm over its operands ((1,000, 512) x "
+            f"({f8.shape[0]:,}, 512) int8 -> s32, in row chunks: its products, no rescale, "
+            f"4 bytes an output) {yard:.3f} ms = "
+            f"{rate_str(2 * nq * f8.shape[0] * k, yard, torch.int8, None)}")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None,
                 replaced_bf16_sweep_ms=sweep_ms, **bnd)
 
@@ -976,7 +1030,8 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     tie-aware recall on one batch's own rows against the exact top-k of the
     same rows must reach 0.90; the share of the flagship's top-200 moments
     it returns is reported; both beside their device's busy share); the
-    all-int8 psort modes over the int8 flat feat2 cache, (bf16 parity) the
+    all-int8 psort modes over the int8 flat feat2 cache (beside its busy
+    share too), (bf16 parity) the
     flagship's modes with the bf16 video scores B2 over the bf16 flat feat1
     cache in place of B1, and (f32 parity) the same over the engine's
     default f32 caches: the f32 flat feat1 (drawn in f32) scored by B2-f32,
@@ -1108,7 +1163,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
             f"{feat2_bytes / 1e9:.3f} GB; peak memory "
             f"{peak:.2f} GiB ({held:.2f} GiB held before the first batch); launches per "
             f"batch {({k: v // n_runs for k, v in launches.items() if v})}")
-        if name in ("bf16 flagship", "shipped"):
+        if name in ("bf16 flagship", "shipped", "all-int8 psort"):
             from torch.profiler import ProfilerActivity, profile
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 run()

@@ -2,7 +2,9 @@
 edge shapes the full-size checks in chip_smoke.py do not reach.
 
 Video scores (B1-B3, csrc/video_score.cu): query and video counts off the
-block tiles (128 x 16 int8 and bf16 on the tensor cores, 64 x 32 f32),
+block tiles (int8 on wgmma: 128 queries x a tile of whole videos, lp = 8
+to 264, d = 16 to 384, the streaming block and a shard's corpus, ties
+across the videos of a tile; 128 x 16 bf16 on the tensor cores, 64 x 32 f32),
 feature rows shorter than one 32-byte k-step or with a tail, bf16 rows of
 two and three 256-byte ring steps (D = 256, 384) and videos that cross a
 64-row ring step, lp = 8 to 256, int8 bytes all +-127, and block maxima
@@ -10,11 +12,12 @@ whose chunk is not a power of two or spans several warps. Byte-row
 gather (B4, csrc/gather.cu): one index to a thousand, rows of one to
 nineteen 16 KiB segments, duplicate and boundary
 indices, a strided and an int64 index tensor, an index outside the table.
-Span similarity (B5, csrc/span_sim.cu): query counts on and off the
-64-query warp group and the 128-query tile, row counts off the 128-row tile
-and not a multiple of 8 (8-byte stores), K with a tail inside and past one
-128-byte chunk, K past 512 (query chunks streamed), lp = 4 to 256, bytes
-all +-127, bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
+Span similarity (B5, csrc/span_sim.cu, on wgmma): query counts on and off
+the 64-query warpgroups and the 128-query tile, 1,000 queries, row counts
+off the 256-row tile and not a multiple of 8 (8-byte stores instead of the
+TMA store), K with a tail inside and past one 128-byte chunk, K = 16, 512
+and past 512 (query chunks streamed), lp = 4 to 256, bytes all +-127,
+bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
 and one below a power of two, k = 1, k = n - 1, k = n, k >= n, rows of one
 repeated value, ties across the cut with 0.0 and -0.0 mixed, the engine's
 five shapes with 65-value ties, rows with fewer than k finite values, rows
@@ -401,6 +404,55 @@ def test_b4_wrapper_rejects_what_the_kernel_does_not_take(dev):
                             .view(10, 8, 128), idx)
 
 
+
+# nq, nv_pad, n_videos, lp, d, chunk_v: the wgmma kernel's edges. Query
+# counts around its two 64-query warpgroups and its 128-query tile; lp = 8
+# (32 videos a tile), 104 (the compile-time fold, 2 videos, N = 208), 128,
+# 264 (a video over two 256-row segments); d = 16 (one K chunk, mostly
+# TMA's zero fill), 256, 384 (three chunks); pad videos; the streaming
+# block (50 x 2,048) and one of 4 shards of the engine's corpus
+# (21,824 / 4 videos); chunks of 3, 7 and 16 videos across tile ranges.
+WGMMA_B1_SHAPES = [
+    (1, 40, 37, 8, 16, 8),
+    (63, 33, 30, 104, 256, 16),
+    (65, 20, 20, 128, 384, 4),
+    (130, 9, 7, 264, 256, 3),
+    (129, 7, 5, 16, 16, 7),
+    (64, 17, 16, 104, 384, 16),
+    (50, 2048, 2048, 104, 256, 16),
+    (1000, 5456, 5450, 104, 256, 16),
+]
+
+
+@pytest.mark.parametrize("nq,nv_pad,n_videos,lp,d,chunk_v", WGMMA_B1_SHAPES)
+def test_b1_b3_wgmma_edges_bit_equal(dev, nq, nv_pad, n_videos, lp, d, chunk_v):
+    qv, qs, fv, fs = _flat_i8(dev, nq, nv_pad, lp, d, seed=nq + nv_pad + lp + d)
+    n0 = vs.LAUNCHES["video_scores_flat_i8"]
+    out = vs.video_scores_flat_i8(qv, qs, fv, fs, n_videos, lp=lp)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_flat_i8"] == n0 + 1
+    assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, n_videos, lp))
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, n_videos, lp=lp, chunk_v=chunk_v)
+    ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, n_videos, lp, chunk_v)
+    assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+
+
+@pytest.mark.parametrize("lp", [8, 104, 128])
+def test_b1_b3_wgmma_ties_across_the_videos_of_a_tile(dev, lp):
+    """Every pair of neighbouring videos holds the same rows, so each
+    query's maxima tie across the videos of a tile (and of a block)."""
+    nq, nv_pad, d = 70, 24, 256
+    qv, qs, fv, fs = _flat_i8(dev, nq, nv_pad, lp, d, seed=lp)
+    for f in (fv, fs):
+        f3 = f.view(nv_pad, lp, d)
+        f3[1::2] = f3[0::2]
+    out = vs.video_scores_flat_i8(qv, qs, fv, fs, nv_pad, lp=lp)
+    assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, nv_pad, lp))
+    assert torch.equal(out[:, 0::2], out[:, 1::2])
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv_pad, lp=lp, chunk_v=2)
+    ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv_pad, lp, 2)
+    assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+
 # ------------------------------------------------------------------ B5
 @pytest.mark.parametrize("nq,nv,L,k,lp,chunk_v", [
     (1, 3, 7, 16, 8, 1),             # one query, 24 rows, one 16-byte piece of K
@@ -481,6 +533,21 @@ def test_b5_k_axis_and_extremes(dev, k):
     f8[:lp] = -127                                  # query 0 x video 0: -K * 127^2
     out = _span_equal(q8, qs, f8, fs, lp)
     assert out[0, 0, 0].item() < 0
+
+
+@pytest.mark.parametrize("k", [16, 512, 528])
+@pytest.mark.parametrize("nq,nv,lp", [
+    (1, 3, 8),                 # 24 rows: one short 256-row tile
+    (63, 37, 4),               # 148 rows: not a multiple of 8 (8-byte stores, no TMA store)
+    (65, 21, 128),             # 2,688 rows: a tile past the last row
+    (130, 9, 104),             # 936 rows; queries past the 128-query tile
+    (1000, 16, 128)])          # the engine's query count
+def test_b5_wgmma_edges_bit_equal(dev, nq, nv, lp, k):
+    """B5 on wgmma: K = 16 (one chunk, mostly TMA's zero fill), 512 (the
+    model's: the query tile resident) and 528 (query chunks streamed through
+    the ring), on and off its 256-row tiles and 64-query warpgroups."""
+    q8, qs, f8, fs = _span_sim_case(dev, nq, nv, max(1, lp - 3), k, lp, 1, seed=nq + nv + k)
+    _span_equal(q8, qs, f8, fs, lp)
 
 
 def test_b5_wrapper_rejects_what_the_kernel_does_not_take(dev):

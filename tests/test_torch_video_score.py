@@ -211,7 +211,9 @@ def test_library_names_hash_the_included_headers(tmp_path, monkeypatch):
     from tvretrieval_tpu_torch.ops import _build
 
     assert [p.name for p in _build.sources_of("video_score")] == ["video_score.cu",
-                                                                   "s8_mma.cuh"]
+                                                                   "s8_mma.cuh",
+                                                                   "s8_wgmma.cuh"]
+    assert [p.name for p in _build.sources_of("span_sim")] == ["span_sim.cu", "s8_wgmma.cuh"]
     (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
     (tmp_path / "b.cuh").write_text("// b\n")

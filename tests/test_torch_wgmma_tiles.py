@@ -1,0 +1,337 @@
+"""CPU model of the int8 kernels' wgmma tiling (csrc/s8_wgmma.cuh,
+csrc/video_score.cu::video_score_wgmma_kernel for B1 / B3-int8,
+csrc/span_sim.cu::span_sim_wgmma_kernel for B5), in numpy.
+
+- ``acc_map``: the s8 wgmma m64nNk32 accumulator layout, (thread,
+  register) -> (row, column) of the 64 x N tile, as in the PTX ISA's
+  figure for D; a bijection for every N the kernels use.
+- B1's per-video fold run through that map on the s32 dots of random int8
+  caches: each thread's three-way maxima over its columns of each video,
+  the two quad shuffles, stream v's maxima then stream s's, one f32
+  rescale; equal to ``video_scores_flat_plain`` at lp = 8, 104 (the
+  compile-time fold), 128 and 264 (a video over two segments), with ties
+  planted across the two videos of a tile; B3's block maxima folded across
+  a block's consecutive tiles equal the plain version's.
+- The persistent tile walk (``tile_range`` and the launch's grid) covers
+  every (query, video) and every (query, flat row) exactly once at the
+  engine's shapes (1,000 x 21,818), the streaming block (50 x 2,048), a
+  4-way shard, and nq in {1, 63, 65}; B5's row tiles cover every (query,
+  row) once.
+- B5's epilogue: the staging tile's 128-byte swizzle is a bijection onto
+  the four TMA boxes, each word lands where the TMA store reads that
+  (query, column), a warp's writes hit 32 different banks, and the row
+  scales reach every lane by the shuffle map.
+
+The kernels themselves run on the card (tests/test_torch_kernels_cuda.py,
+chip_smoke.py phase 3); these tests hold the index arithmetic they are
+built on. Seconds on one core.
+"""
+import numpy as np
+import pytest
+import torch
+
+from tvretrieval_tpu_torch.ops import video_score as vs
+
+N_SM = 132          # the H100's SMs: the launch's grid
+QUERIES = 128       # a block's query tile: two consumer warpgroups of 64
+SEG = 256           # the widest wgmma N: a segment of a longer video
+
+
+def acc_map(n: int):
+    """(128 threads, n / 2 registers) -> (row, column) of the m64nNk32 s32
+    accumulator: thread t (warp w = t / 32, lane l), register i holds row
+    16 w + 8 ((i / 2) % 2) + l / 4, column 8 (i / 4) + 2 (l % 4) + i % 2."""
+    t = np.arange(128)[:, None]
+    i = np.arange(n // 2)[None, :]
+    w, lane = t // 32, t % 32
+    row = 16 * w + 8 * ((i // 2) % 2) + lane // 4
+    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return np.broadcast_to(row, (128, n // 2)), np.broadcast_to(col, (128, n // 2))
+
+
+def tile_n(lp: int) -> int:
+    """The wgmma N of video_score_wgmma_kernel: two videos of 104 rows at
+    the model's lp, else 256."""
+    return 208 if lp == 104 else SEG
+
+
+def tile_geometry(lp: int):
+    """(videos a tile, segments a video, rows a tile) as the kernel has them."""
+    if lp == 104:
+        vpt = tile_n(lp) // lp
+    else:
+        vpt = SEG // lp if lp <= SEG else 1
+    return vpt, -(-lp // SEG), vpt * lp
+
+
+def tile_range(n_tiles: int, groups: int, g: int):
+    """s8_wgmma.cuh::tile_range: range g of the contiguous ranges cutting
+    n_tiles tiles."""
+    base, rem = divmod(n_tiles, groups)
+    return g * base + min(g, rem), base + (1 if g < rem else 0)
+
+
+def grid(nq: int, n_tiles: int):
+    """The launch: query tiles x ranges, one block an SM."""
+    n_qtiles = -(-nq // QUERIES)
+    return n_qtiles, max(1, min(N_SM // n_qtiles, n_tiles))
+
+
+# ------------------------------------------------------------ the layout
+@pytest.mark.parametrize("n", [208, 256])
+def test_accumulator_map_is_a_bijection(n):
+    row, col = acc_map(n)
+    assert row.min() == 0 and row.max() == 63 and col.min() == 0 and col.max() == n - 1
+    assert len(np.unique(row * n + col)) == 128 * (n // 2) == 64 * n
+    # a quad's four lanes hold all eight columns of each eight-column group
+    # of the same two rows: what lets two shuffles finish a video's max
+    quad = np.arange(128) // 4
+    for q in range(0, 32, 7):
+        r = row[quad == q]
+        c = col[quad == q]
+        assert len(np.unique(r)) == 2
+        for g in range(n // 8):
+            assert sorted(c[(c // 8) == g]) == sorted(list(range(8 * g, 8 * g + 8)) * 2)
+
+
+# ------------------------------------------------------- B1's per-video fold
+def fold_tile(blocks, lp, v_local, cols_valid):
+    """One warpgroup's fold of a tile's segments (each a (64, N) s32 block
+    of one stream) through the accumulator map: per thread and register
+    half (row ra or ra + 8), the max of its columns of each video, then the
+    max over the quad. Returns (64 rows, v_local videos) maxima."""
+    n = blocks[0].shape[1]
+    row, col = acc_map(n)
+    half = (np.arange(n // 2) // 2) % 2                    # 0: row ra, 1: ra + 8
+    run = np.full((128, 2, v_local), np.iinfo(np.int32).min, dtype=np.int64)
+    for seg, block in enumerate(blocks):
+        held = block[row, col]                             # (128 threads, n / 2)
+        for i in range(n // 2):
+            c = SEG * seg + 8 * (i // 4)                   # register i's eight-column group
+            if c >= cols_valid:                            # past the tile's videos
+                continue
+            v = c // lp                                    # the same for every thread
+            run[:, half[i], v] = np.maximum(run[:, half[i], v], held[:, i])
+    quad = run.reshape(32, 4, 2, v_local).max(axis=1)      # the two shuffles
+    out = np.empty((64, v_local), dtype=np.int64)
+    for qd in range(32):
+        w, g = divmod(qd, 8)
+        out[16 * w + g] = quad[qd, 0]
+        out[16 * w + g + 8] = quad[qd, 1]
+    return out
+
+
+def model_b1(qv, qs, fv, fs, n_videos, lp, chunk=None):
+    """B1 (chunk None) or B3-int8 through the modelled tiling: (Nq, n_videos)
+    scores, or (Nq, Nv_pad) scores with pads at -inf and the (Nq, Nv_pad /
+    chunk) block maxima folded over each block's consecutive tiles."""
+    nq, nv_pad = qv.shape[0], fv.shape[0] // lp
+    n = tile_n(lp)
+    vpt, n_seg, span = tile_geometry(lp)
+    dots = [q.astype(np.int64) @ f.astype(np.int64).T for q, f in ((qv, fv), (qs, fs))]
+    n_vtiles = -(-nv_pad // vpt)
+    n_qtiles, groups = grid(nq, n_vtiles)
+    scale = np.float32(vs.I8_SCALE)
+    scores = np.full((nq, nv_pad), np.nan, dtype=np.float32)
+    bmax = None if chunk is None else np.full((nq, nv_pad // chunk), -np.inf, np.float32)
+    for x in range(n_qtiles):
+        for y in range(groups):
+            first, count = tile_range(n_vtiles, groups, y)
+            run_chunk = np.full(QUERIES, -1)
+            run_max = np.full(QUERIES, -np.inf, dtype=np.float32)
+            for t in range(first, first + count):
+                v0, maxima = t * vpt, []
+                for d in dots:                             # stream v, then stream s
+                    q_rows = np.zeros((QUERIES, d.shape[1]), dtype=np.int64)
+                    part = d[x * QUERIES:(x + 1) * QUERIES]
+                    q_rows[:part.shape[0]] = part          # TMA's zero rows past nq
+                    wg = []
+                    for half in range(2):                  # the two warpgroups
+                        blocks = []
+                        for seg in range(n_seg):
+                            r0 = t * span + seg * SEG
+                            block = np.zeros((64, n), dtype=np.int64)
+                            got = q_rows[64 * half:64 * half + 64, r0:r0 + n]
+                            block[:, :got.shape[1]] = got  # rows past the cache: zeros
+                            blocks.append(block)
+                        wg.append(fold_tile(blocks, lp, vpt, span))
+                    maxima.append(np.concatenate(wg))
+                s = (maxima[0] + maxima[1]).astype(np.float32) * scale
+                for vl in range(vpt):
+                    v = v0 + vl
+                    if v >= nv_pad:
+                        continue
+                    col = s[:, vl].copy()
+                    if chunk is not None and v >= n_videos:
+                        col[:] = -np.inf
+                    q_hi = min(QUERIES, nq - x * QUERIES)
+                    scores[x * QUERIES:x * QUERIES + q_hi, v] = col[:q_hi]
+                    if chunk is None:
+                        continue
+                    c = v // chunk                          # the running block maximum
+                    for q in range(q_hi):
+                        if c != run_chunk[q]:
+                            if run_chunk[q] >= 0:
+                                qq = x * QUERIES + q
+                                bmax[qq, run_chunk[q]] = max(bmax[qq, run_chunk[q]],
+                                                             run_max[q])
+                            run_chunk[q], run_max[q] = c, -np.inf
+                        run_max[q] = max(run_max[q], col[q])
+            if chunk is not None:
+                for q in range(min(QUERIES, nq - x * QUERIES)):
+                    if run_chunk[q] >= 0:
+                        qq = x * QUERIES + q
+                        bmax[qq, run_chunk[q]] = max(bmax[qq, run_chunk[q]], run_max[q])
+    assert not np.isnan(scores).any()
+    if chunk is None:
+        return scores[:, :n_videos]
+    return scores, bmax
+
+
+def _caches(nq, nv_pad, lp, d, seed, tie=False):
+    rng = np.random.default_rng(seed)
+    draw = lambda *s: rng.integers(-127, 128, s, dtype=np.int8)
+    qv, qs = draw(nq, d), draw(nq, d)
+    fv, fs = draw(nv_pad * lp, d), draw(nv_pad * lp, d)
+    if tie:
+        # the two videos of every tile hold the same rows in both streams,
+        # so each query's maxima tie across them; and video 0's best row
+        # repeats at its last row (a tie inside a video)
+        for f in (fv, fs):
+            f3 = f.reshape(nv_pad, lp, d)
+            f3[1::2] = f3[0::2][:f3[1::2].shape[0]]
+            f3[:, -1] = f3[:, 0]
+    return qv, qs, fv, fs
+
+
+def _plain(qv, qs, fv, fs, n_videos, lp):
+    t = lambda a: torch.from_numpy(a)
+    return vs.video_scores_flat_plain(t(qv).T, t(qs).T, t(fv), t(fs), n_videos, lp).numpy()
+
+
+@pytest.mark.parametrize("lp,nq,nv_pad,n_videos", [
+    (8, 70, 70, 67),          # 32 videos a tile, three tiles (the last short)
+    (104, 130, 9, 8),         # the compile-time fold: two videos a tile, one short
+    (128, 65, 6, 6),          # two videos of 128 rows
+    (264, 1, 3, 2)])          # a video over two segments (256 + 8 rows)
+def test_b1_fold_through_the_map_equals_the_plain_version(lp, nq, nv_pad, n_videos):
+    qv, qs, fv, fs = _caches(nq, nv_pad, lp, 32, seed=lp + nq)
+    got = model_b1(qv, qs, fv, fs, n_videos, lp)
+    assert np.array_equal(got, _plain(qv, qs, fv, fs, n_videos, lp))
+
+
+@pytest.mark.parametrize("lp", [8, 104, 128])
+def test_b1_fold_with_ties_across_the_videos_of_a_tile(lp):
+    nq, nv_pad, n_videos = 66, 10, 10
+    qv, qs, fv, fs = _caches(nq, nv_pad, lp, 16, seed=lp, tie=True)
+    got = model_b1(qv, qs, fv, fs, n_videos, lp)
+    ref = _plain(qv, qs, fv, fs, n_videos, lp)
+    assert np.array_equal(got, ref)
+    assert np.array_equal(ref[:, 0::2], ref[:, 1::2])     # the planted ties hold
+
+
+@pytest.mark.parametrize("lp,nv_pad,chunk", [(104, 16, 16), (8, 40, 8), (104, 12, 4), (264, 6, 3)])
+def test_b3_block_maxima_folded_across_tiles(lp, nv_pad, chunk):
+    nq, n_videos = 70, nv_pad - 3
+    qv, qs, fv, fs = _caches(nq, nv_pad, lp, 32, seed=nv_pad)
+    scores, bmax = model_b1(qv, qs, fv, fs, n_videos, lp, chunk=chunk)
+    t = lambda a: torch.from_numpy(a)
+    ps, pb = vs.video_scores_flat_bmax_plain(t(qv).T, t(qs).T, t(fv), t(fs), n_videos, lp,
+                                             chunk)
+    assert np.array_equal(scores, ps.numpy()) and np.array_equal(bmax, pb.numpy())
+
+
+# ---------------------------------------------------------- the tile walk
+def _coverage(nq, n_units, n_tiles, units_of_tile):
+    """(nq, n_units) counts of the walk: every block (x, y) takes its query
+    tile and its range's tiles; units_of_tile(t) -> the units tile t covers."""
+    n_qtiles, groups = grid(nq, n_tiles)
+    counts = np.zeros((n_qtiles, n_units), dtype=np.int32)
+    for y in range(groups):
+        first, count = tile_range(n_tiles, groups, y)
+        for t in range(first, first + count):
+            lo, hi = units_of_tile(t)
+            counts[:, lo:min(hi, n_units)] += 1
+    assert n_qtiles * QUERIES >= nq > (n_qtiles - 1) * QUERIES
+    return counts, groups
+
+
+@pytest.mark.parametrize("nq,nv_pad,lp", [
+    (1000, 21824, 104),       # the engine: 21,818 videos padded to 16
+    (50, 2048, 104),          # a streaming block
+    (1000, 5456, 104),        # one of 4 shards (21,824 / 4)
+    (1, 37, 8), (63, 40, 264), (65, 9, 128)])
+def test_b1_walk_covers_every_query_video_and_row_once(nq, nv_pad, lp):
+    vpt, n_seg, span = tile_geometry(lp)
+    n_vtiles = -(-nv_pad // vpt)
+    counts, groups = _coverage(nq, nv_pad, n_vtiles, lambda t: (t * vpt, t * vpt + vpt))
+    assert (counts == 1).all()
+    # the rows: segment seg of tile t covers flat rows t * span + seg * 256
+    # .. + N, of which the columns below span count
+    rows = np.zeros(nv_pad * lp, dtype=np.int32)
+    n = tile_n(lp)
+    for t in range(n_vtiles):
+        for seg in range(n_seg):
+            lo = t * span + seg * SEG
+            hi = min(lo + n, t * span + span, nv_pad * lp)
+            rows[lo:hi] += 1
+    assert (rows == 1).all()
+    if nq == 1000 and nv_pad == 21824:
+        assert groups == 16 and -(-nq // QUERIES) * groups == 128   # 128 of the 132 SMs
+
+
+@pytest.mark.parametrize("nq,rows", [(1000, 2793472), (50, 2048 * 128), (1, 148), (63, 888),
+                                     (65, 4736), (1000, 698368)])
+def test_b5_walk_covers_every_query_row_once(nq, rows):
+    n_rtiles = -(-rows // SEG)
+    counts, _ = _coverage(nq, rows, n_rtiles, lambda t: (t * SEG, t * SEG + SEG))
+    assert (counts == 1).all()
+
+
+# ---------------------------------------------------------- B5's epilogue
+def staging_words():
+    """Per (thread, j, half): the byte offset of the 4-byte word (two bf16:
+    columns 8 j + 2 (l % 4), + 1 of tile row ra + 8 half) in a warpgroup's
+    staging tile: four boxes of 64 rows x 128 bytes, 16-byte chunk c of row
+    r at chunk c ^ (r % 8)."""
+    t = np.arange(128)[:, None, None]
+    j = np.arange(32)[None, :, None]
+    h = np.arange(2)[None, None, :]
+    lane = t % 32
+    ra = 16 * (t // 32) + lane // 4
+    r = ra + 8 * h
+    off = (j >> 3) * (64 * 128) + r * 128 + (((j & 7) ^ (ra & 7)) * 16) + 4 * (lane % 4)
+    return np.broadcast_arrays(off, r, 8 * j + 2 * (lane % 4))
+
+
+def test_b5_staging_swizzle_is_a_bijection_onto_the_tma_boxes():
+    off, r, c = staging_words()
+    assert len(np.unique(off)) == off.size == 64 * 256 * 2 // 4
+    assert off.min() == 0 and off.max() == 4 * 8192 - 4 and (off % 4 == 0).all()
+    # where the TMA store (128-byte swizzle, box 64 x 64 bf16) reads each word
+    box, within = off // 8192, off % 8192
+    row, chunk = within // 128, (within % 128) // 16
+    col = 64 * box + 8 * (chunk ^ (row % 8)) + (within % 16) // 2
+    assert np.array_equal(row, r) and np.array_equal(col, c)
+
+
+def test_b5_staging_writes_are_free_of_bank_conflicts():
+    off, _, _ = staging_words()
+    for w in range(4):
+        for j in range(32):
+            for h in range(2):
+                banks = (off[32 * w:32 * w + 32, j, h] // 4) % 32
+                assert len(np.unique(banks)) == 32
+
+
+def test_b5_row_scales_reach_every_lane():
+    """Lane 4 b + c loads the pairs of columns 8 (b + 8 i) + 2 c, i < 4; for
+    eight-column group j a lane of quad position c reads register j / 8 of
+    lane 4 (j % 8) + c, and gets columns 8 j + 2 c, + 1."""
+    lane = np.arange(32)
+    held = {(l, i): 8 * ((l >> 2) + 8 * i) + 2 * (l & 3) for l in lane for i in range(4)}
+    for j in range(32):
+        for l in lane:
+            src = 4 * (j & 7) + (l & 3)
+            assert held[(src, j >> 3)] == 8 * j + 2 * (l & 3)
+    assert sorted(held.values()) == list(range(0, 256, 2))

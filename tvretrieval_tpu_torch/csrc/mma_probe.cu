@@ -1,14 +1,18 @@
 // Tensor-core ceiling probe for Hopper (sm_90a): back-to-back mma.sync
 // products from registers on every SM, s8 m16n8k32 (s32 sums), bf16
-// m16n8k16 or tf32 m16n8k8 (f32 sums), with no memory traffic. It ports no
-// TPU kernel and no engine path runs it: chip_smoke.py (phase 2) times it,
-// so that the kernels built on mma.sync (B1, B2 / B3, B5, B9 / B10) can be
-// stated as a share of what that instruction reaches on this card as well
-// as of the data sheet's peak (which only wgmma reaches).
+// m16n8k16 or tf32 m16n8k8 (f32 sums), and back-to-back s8 wgmma
+// m64n256k32 from shared memory, with no memory traffic. It ports no TPU
+// kernel and no engine path runs it: chip_smoke.py (phase 2) times it, so
+// that the tensor-core kernels (B1 / B3-int8 and B5 on wgmma; B2 / B3,
+// B9 / B10 on mma.sync) can be stated as a share of what their instruction
+// reaches on this card as well as of the data sheet's peak.
 //
-// Each warp keeps kChains independent accumulators, so a product's latency
-// hides behind the next chains' issue; operands are seeded from the thread
-// index, and the sums are written out, so nothing folds away.
+// mma.sync: each warp keeps kChains independent accumulators, so a
+// product's latency hides behind the next chains' issue; operands are
+// seeded from the thread index, and the sums are written out, so nothing
+// folds away. wgmma: each of a block's two warpgroups issues four k-steps
+// a group on one 64 x 256 accumulator, one group in flight behind the
+// next, from a 48 KiB tile of seeded bytes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (tvretrieval_tpu_torch/ops/_build.py). C interface, loaded with
@@ -20,6 +24,7 @@
 #include <type_traits>
 
 #include "s8_mma.cuh"
+#include "s8_wgmma.cuh"
 
 namespace {
 
@@ -62,19 +67,59 @@ __global__ void __launch_bounds__(kThreads) mma_probe_kernel(int iters, float* _
   out[blockIdx.x * kThreads + threadIdx.x] = sum;
 }
 
+constexpr int kWgThreads = 256;         // two warpgroups
+constexpr int kWgTile = 48 * 1024;      // A: 2 x 64 rows, B: 256 rows, of 128 bytes
+constexpr int kWgSmem = kWgTile + s8wg::kGroupBytes;
+
+__global__ void __launch_bounds__(kWgThreads, 1) wgmma_probe_kernel(int iters,
+                                                                   float* __restrict__ out) {
+  using namespace s8wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kGroupBytes - (smem_u32(smem_raw) & (kGroupBytes - 1)))
+                                    & (kGroupBytes - 1));
+  for (int i = threadIdx.x; i < kWgTile / 4; i += kWgThreads)
+    reinterpret_cast<uint32_t*>(smem)[i] = (i * 2654435761u) ^ blockIdx.x;
+  fence_async_smem();                   // the stores, visible to wgmma
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  const uint32_t a = smem_u32(smem) + wg * 64 * kChunk, b = smem_u32(smem) + 2 * 64 * kChunk;
+  int acc[Wgmma<256>::kRegs];
+  for (int it = 0; it < iters; ++it) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 32; ++kk)
+      Wgmma<256>::mma(acc, desc_sw128(a + 32 * kk), desc_sw128(b + 32 * kk), it | kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < Wgmma<256>::kRegs; ++i) sum += acc[i];
+  out[blockIdx.x * kWgThreads + threadIdx.x] = static_cast<float>(sum);
+}
+
 }  // namespace
 
 extern "C" {
 
-// kind 0: s8 m16n8k32, 1: bf16 m16n8k16, 2: tf32 m16n8k8. `blocks` blocks
-// of 256 threads, each warp issuing iters x 8 products; out: blocks x 256
-// floats. Returns cudaGetLastError() after the launch.
+// kind 0: s8 m16n8k32, 1: bf16 m16n8k16, 2: tf32 m16n8k8: `blocks` blocks
+// of 256 threads, each warp issuing iters x 8 products; kind 3: s8 wgmma
+// m64n256k32, `blocks` blocks of two warpgroups, each issuing iters x 4
+// products. out: blocks x 256 floats. Returns cudaGetLastError() after the
+// launch.
 int tvr_mma_probe(int kind, int blocks, int iters, void* out, void* stream) {
-  if (blocks <= 0 || iters <= 0 || kind < 0 || kind > 2)
+  if (blocks <= 0 || iters <= 0 || kind < 0 || kind > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (kind == 0)
+  if (kind == 3) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wgmma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    wgmma_probe_kernel<<<blocks, kWgThreads, kWgSmem, s>>>(iters, o);
+  } else if (kind == 0)
     mma_probe_kernel<0><<<blocks, kThreads, 0, s>>>(iters, o);
   else if (kind == 1)
     mma_probe_kernel<1><<<blocks, kThreads, 0, s>>>(iters, o);

@@ -2,10 +2,11 @@
 // 16-byte copies into XOR-swizzled shared-memory tiles, ldmatrix fragment
 // loads, and the s8 x s8 -> s32 m16n8k32, bf16 x bf16 -> f32 m16n8k16 and
 // tf32 x tf32 -> f32 m16n8k8 products, the last as a 3xTF32 split that
-// keeps f32 accuracy. Shared by the video-score kernels (csrc/video_score.cu,
-// B1 / B2 / B3 in int8, bf16 and f32), the masked video scores
-// (csrc/masked_score.cu, B9 / B10 in bf16 and f32) and the int8 span sweep
-// (csrc/span_sim.cu, B5).
+// keeps f32 accuracy. Shared by the bf16 and f32 video-score kernels
+// (csrc/video_score.cu, B2 / B3), the masked video scores
+// (csrc/masked_score.cu, B9 / B10 in bf16 and f32) and the ceiling probe
+// (csrc/mma_probe.cu, which alone still issues the s8 product: the int8
+// kernels B1 / B3-int8 and B5 run on wgmma, s8_wgmma.cuh).
 //
 // Tile layout. A tile holds rows of int8 with K contiguous, `row_bytes` a
 // multiple of 128 (8 chunks of 16 bytes). Chunk c of row r sits at chunk

@@ -15,44 +15,57 @@
 // rows x K = 512) the work is 2.86e12 int8 operations (1.45 ms at the
 // 1,979 TOPS peak) and 7.03 GB of traffic, 5.59 GB of it the bf16 output
 // (2.10 ms at 3.35 TB/s): bound by bytes. The TPU kernel exists so that the
-// s32 similarity never reaches device memory, and so does this one.
+// s32 similarity never reaches device memory, and so does this one. So the
+// design keeps device memory writing without a break, and the products
+// and the epilogue out of its way.
 //
-// The design: s8 tensor cores through mma.sync.m16n8k32 (tile code in
-// s8_mma.cuh). A block owns a tile of 128 queries (A) and walks row tiles
-// of 128 flat rows (B; one video at lp = 128) with 8 warps, 2 query groups
-// of 64 (four m16 fragments) x 4 row columns of 32 (four n8 fragments).
-// The K axis moves in chunks of 128 bytes (four k-steps), each chunk of a
-// 128-row tile a 16 KiB XOR-swizzled shared-memory tile read with ldmatrix.
-// Shared memory at K <= 512, per block:
-//   queries resident   128 x 512 B                = 64 KiB
-//   row ring           3 stages x 128 x 128 B     = 48 KiB
-//   query scales       128 x 4 B                  = 0.5 KiB
-//   total 112.5 KiB, so two blocks share an SM (2 x 113.5 <= 228 KiB with
-//   the 1 KiB each reserves) and one's barriers, copies and epilogue run
-//   under the other's products.
-// For K > 512 the query tile does not fit twice; the query chunks then
-// stream through the ring beside the row chunks (3 x 32 KiB).
-// The ring is cp.async with two chunks in flight and runs on across row
-// tiles: a block takes row tiles y, y + G, y + 2G, ... (G = gridDim.y,
-// sized so that every block is resident at once), so the next tile's
-// chunks load while this tile's products and epilogue run. The grid's
-// query tiles vary fastest and the blocks of one y walk the same row tiles
-// side by side, so the 1.43 GB cache is read from device memory about once
-// and from L2 once per query tile.
-// The epilogue is a store problem: a lane's C fragment holds two adjacent
-// rows of a query per n8 fragment (4 bytes once in bf16), which stored as
-// they are would be half-sector writes. A four-lane transpose (shuffles)
-// gives each lane eight adjacent rows of one query instead: one 16-byte
-// store a lane, 64 contiguous bytes a quad.
+// The design (shared pieces in s8_wgmma.cuh). A persistent block of three
+// warpgroups owns 128 queries and walks a contiguous range of row tiles of
+// 256 flat rows (two videos at lp = 128). Warpgroup 2 is the producer: one
+// thread keeps TMA loads of 128-byte K chunks of the row tiles in an
+// mbarrier ring (the query tile, K <= 512, loads once and stays resident;
+// past that its chunks ride in the ring beside the rows'). Warpgroups 0 and
+// 1 each own 64 queries and multiply with wgmma m64n256k32 (s8 x s8 -> s32,
+// both operands from shared memory): four k-steps a chunk, a stage handed
+// back as soon as the products of the next chunk are in flight. Both
+// issue their products even where their 64 queries lie past nq (TMA's zero
+// rows): a branch around wgmma makes ptxas serialize every product (its
+// C7518 warning), which cost 10-24% of the kernel's time on the H100.
+// The tile's 256 row scales load into registers under its products, eight
+// a lane (lane 4 b + c the pairs of columns 8 j + 2 c, j = b mod 8), and
+// reach the lanes that need them by shuffles: loaded in the epilogue, 32
+// loads a thread took 2.3 times as long. The epilogue converts the
+// 128 s32 sums a thread holds, rescales them, rounds
+// to bf16 and writes them into a 128-byte-swizzled staging tile (64
+// queries x 256 rows, four boxes of 64 columns; a warp's writes fall in
+// eight different bank groups); one thread then issues four TMA stores of
+// the tile and goes on to the next row tile, whose loads the producer has
+// already issued. Before the staging tile is rewritten a tile later, that
+// thread waits for the stores to have read it (cp.async.bulk.wait_group
+// .read), so each tile's store overlaps the next tile's loads and
+// products. The blocks that share a range (one per query tile) run side
+// by side, so the cache is read from device memory about once and from L2
+// once per query tile. Shared memory at K <= 512: queries 64 KiB, the ring
+// 3 x 32 KiB, staging 64 KiB (one block an SM). Output rows whose stride is
+// not a multiple of 16 bytes (rows % 8 != 0), which a TMA store cannot
+// address, leave the staging tile by 8-byte stores instead.
+//
+// Where its time goes (H100 80GB HBM3, 700 W, 2.89 ms at the full corpus):
+// the products alone (no epilogue, no store) take 1.56 ms, the loads,
+// epilogue and stores without the products 2.80 ms, so the epilogue and
+// store path bounds it at 1.9 TB/s of output. Two variants measured no
+// faster: consumers taking 128-query x 128-row tiles in turn, one's
+// epilogue under the other's products (ping-pong, 2.83-2.95 ms), and a
+// strided walk, the groups' tiles adjacent at any moment (2.95-2.98 ms).
 //
 // Exactness. The s32 dot is exact in any order (|s| <= K * 127^2); the
 // epilogue converts it to f32 (round to nearest), multiplies by the query
 // scale and then by the row scale with two separately rounded f32
 // multiplications in that association, and rounds once to bf16 (nearest
 // even): bit-equal to span_sim_int8_xla, the plain version. Rows past the
-// end of the cache and K past its end load as zeros (cp.async with no
-// source bytes) and add nothing; queries and rows off the tile are not
-// stored.
+// end of the cache, queries past nq and K past its end load as zeros
+// (TMA's out-of-bounds fill) and add nothing; queries and rows off the
+// tensor are not stored.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (tvretrieval_tpu_torch/ops/_build.py). C interface, loaded with
@@ -61,219 +74,246 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
-#include "s8_mma.cuh"
+#include "s8_wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;           // 8 warps: 2 query groups x 4 row columns
-constexpr int kQueries = 128;           // the query tile (A)
-constexpr int kRows = 128;              // a row tile (B)
-constexpr int kChunk = 128;             // bytes of K a chunk tile holds: four k-steps
-constexpr int kStages = 3;              // ring depth; two chunks in flight
-constexpr int kTileBytes = kRows * kChunk;           // 16 KiB
+using namespace s8wg;
+
+constexpr int kThreads = 384;           // consumer warpgroups 0, 1; the producer's 2
+constexpr int kQueries = 128;           // the query tile (A): 64 a consumer warpgroup
+constexpr int kRows = 256;              // a row tile (B): the wgmma N
+constexpr int kQChunk = kQueries * kChunk;          // 16 KiB: a K chunk of the query tile
+constexpr int kRChunk = kRows * kChunk;             // 32 KiB: a K chunk of a row tile
+constexpr int kBoxCols = kChunk / 2;                // bf16 columns of an output box
+constexpr int kStaged = 64 * kRows * 2;             // 32 KiB: a warpgroup's staged output
+constexpr int kMaxStages = 8;
+constexpr int kBarBytes = 3 * kMaxStages * 8;       // full, empty, the query tile's
 constexpr int kMaxResidentK = 512;      // the query tile stays resident up to this K
-static_assert(kQueries == kRows, "a chunk tile holds 128 query rows or 128 flat rows");
 
-__host__ __device__ constexpr int smem_bytes(bool resident, int nkc) {
-  return (resident ? nkc * kTileBytes + kStages * kTileBytes : kStages * 2 * kTileBytes)
-         + kQueries * 4;
+__host__ __device__ constexpr int stage_bytes(bool resident) {
+  return kRChunk + (resident ? 0 : kQChunk);
 }
-static_assert(2 * (smem_bytes(true, kMaxResidentK / kChunk) + 1024) <= 228 * 1024,
-              "K = 512: two blocks an SM");
-
-// K chunk `kc` of rows [base, base + 128) of `src` (n_src rows of k bytes)
-// into the swizzled chunk tile at `dst`; rows past n_src and 16-byte pieces
-// past the K axis (n_valid pieces) are zeros. A thread copies one piece of
-// four rows 32 apart: the same swizzle in each.
-__device__ __forceinline__ void load_chunk(uint32_t dst, const int8_t* __restrict__ src,
-                                           long long base, long long n_src, int k, int kc,
-                                           int n_valid, int tid) {
-  using namespace s8mma;
-  const int c = tid & 7, r0 = tid >> 3;
-  const int piece = kc * (kChunk / 16) + c;
-  const uint32_t d0 = dst + swizzle(r0, c, kChunk);
-#pragma unroll
-  for (int j = 0; j < kRows / 32; ++j) {
-    const long long r = base + r0 + 32 * j;
-    const bool ok = r < n_src && piece < n_valid;
-    cp_async16(d0 + j * 32 * kChunk, ok ? src + r * k + piece * 16 : src, ok ? 16 : 0);
-  }
+__host__ __device__ constexpr int query_bytes(bool resident, int nkc) {
+  return resident ? nkc * kQChunk : 0;
 }
-
-// lane t of a quad holds w[n] = its two rows of n8 fragment n (rows 8n + 2t,
-// 8n + 2t + 1); afterwards it holds w[s] = lane s's two rows of fragment t,
-// i.e. rows 8t .. 8t + 7 in order. Two butterfly stages of a 4 x 4 transpose.
-__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t) {
-  const bool hi = t & 2, lo = t & 1;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {           // 2 x 2 blocks, with lane t ^ 2
-    const uint32_t y = __shfl_xor_sync(0xffffffffu, hi ? w[k] : w[2 + k], 2);
-    if (hi) w[k] = y; else w[2 + k] = y;
-  }
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {           // inside the blocks, with lane t ^ 1
-    const uint32_t y = __shfl_xor_sync(0xffffffffu, lo ? w[2 * k] : w[2 * k + 1], 1);
-    if (lo) w[2 * k] = y; else w[2 * k + 1] = y;
-  }
+// ring stages that fit beside the queries, the staging tiles and the
+// barriers (and the 1 KiB the alignment may take)
+__host__ __device__ constexpr int n_stages(bool resident, int nkc) {
+  return (kMaxSmem - kGroupBytes - kBarBytes - query_bytes(resident, nkc) - 2 * kStaged) /
+         stage_bytes(resident);
 }
+__host__ __device__ constexpr int smem_bytes(bool resident, int nkc, int stages) {
+  return kGroupBytes + query_bytes(resident, nkc) + stages * stage_bytes(resident) +
+         2 * kStaged + kBarBytes;
+}
+static_assert(n_stages(true, kMaxResidentK / kChunk) >= 3, "K = 512: three stages");
+static_assert(n_stages(false, 1) >= 3, "streamed queries: three stages");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo)))
          | (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
 }
 
-// q8: (nq, k) int8; f8: (rows, k) int8; q_scale: (nq); f_scale: (rows);
-// out: (nq, rows) bf16. k % 16 == 0 and rows % 4 == 0 (the wrapper checks).
-// Resident: the query tile stays in shared memory (k <= kMaxResidentK).
+__device__ __forceinline__ float rescale(int s, float qs, float fs) {
+  return __fmul_rn(__fmul_rn(static_cast<float>(s), qs), fs);
+}
+
+// q8: (nq, k) int8 (map_q: boxes of 128 queries x 128 bytes); f8: (rows, k)
+// (map_f: 256 rows x 128 bytes); out: (nq, rows) bf16 (map_o: boxes of 64
+// queries x 64 columns, used when rows % 8 == 0). k % 16 == 0, rows % 4 ==
+// 0 (the wrapper checks). Block (x, y): query tile x, the y-th of gridDim.y
+// contiguous ranges of row tiles.
 template <bool Resident>
-__global__ void __launch_bounds__(kThreads, 2)
-span_sim_kernel(const int8_t* __restrict__ q8, const float* __restrict__ q_scale,
-                const int8_t* __restrict__ f8, const float* __restrict__ f_scale,
-                int nq, long long rows, int k, int n_rtiles, __nv_bfloat16* __restrict__ out) {
-  using namespace s8mma;
-  constexpr int MF = 4, NF = 4;           // a warp: 64 queries x 32 rows
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 1)
+span_sim_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_f,
+                      const __grid_constant__ CUtensorMap map_o,
+                      const float* __restrict__ q_scale, const float* __restrict__ f_scale,
+                      __nv_bfloat16* __restrict__ out, int nq, long long rows, int k,
+                      int n_rtiles, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  // every tile on a 1,024-byte boundary: the swizzle's period
+  unsigned char* smem = smem_raw + ((kGroupBytes - (smem_u32(smem_raw) & (kGroupBytes - 1)))
+                                    & (kGroupBytes - 1));
   const int nkc = (k + kChunk - 1) / kChunk;
-  const int n_valid = k / 16;
-  // Resident: [chunk][128 queries][128 B] then [stage][128 rows][128 B];
-  // streamed: [stage][queries, rows][128][128 B]. Then the query scales.
-  unsigned char* q_tile = smem;
-  unsigned char* ring = smem + (Resident ? nkc * kTileBytes : 0);
-  float* qsc = reinterpret_cast<float*>(ring + kStages * (Resident ? 1 : 2) * kTileBytes);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t4 = lane & 3;
+  constexpr int kStage = stage_bytes(Resident);
+  unsigned char* ring = smem + query_bytes(Resident, nkc);
+  unsigned char* staged = ring + stages * kStage;
+  const uint32_t full0 = smem_u32(staged + 2 * kStaged);
+  const uint32_t empty0 = full0 + 8 * kMaxStages, q_full = empty0 + 8 * kMaxStages;
+  const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kQueries;
-  const int n_mine = (n_rtiles - static_cast<int>(blockIdx.y) + gridDim.y - 1) / gridDim.y;
-  const int n_steps = n_mine * nkc;       // step t: row tile t / nkc, K chunk t % nkc
+  int first, count;
+  tile_range(n_rtiles, gridDim.y, blockIdx.y, first, count);
 
-  if (tid < kQueries) qsc[tid] = q0 + tid < nq ? q_scale[q0 + tid] : 0.0f;
-  if (Resident)
-    for (int kc = 0; kc < nkc; ++kc)
-      load_chunk(smem_addr(q_tile + kc * kTileBytes), q8, q0, nq, k, kc, n_valid, tid);
-  auto row_base = [&](int t) {
-    return (static_cast<long long>(blockIdx.y) + static_cast<long long>(t / nkc) * gridDim.y)
-           * kRows;
-  };
-  auto load_step = [&](int t) {
-    const int kc = t % nkc;
-    const uint32_t stage = smem_addr(ring + (t % kStages) * (Resident ? 1 : 2) * kTileBytes);
-    if (!Resident) load_chunk(stage, q8, q0, nq, k, kc, n_valid, tid);
-    load_chunk(stage + (Resident ? 0 : kTileBytes), f8, row_base(t), rows, k, kc, n_valid, tid);
-  };
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) { // the first group carries the queries
-    if (t < n_steps) load_step(t);
-    cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2 * 128);         // every consumer thread
+    }
+    mbar_init(q_full, 1);
+    fence_mbar_init();
   }
+  __syncthreads();
 
-  const bool vec16 = (rows & 7) == 0;     // query rows of out start 16-byte aligned
-  int acc[MF][NF][4];
-  for (int t = 0; t < n_steps; ++t) {
-    cp_async_wait<kStages - 2>();         // step t has landed, for this thread
-    __syncthreads();                      // ... for all; step t - 1 is done
-    if (t + kStages - 1 < n_steps) load_step(t + kStages - 1);
-    cp_async_commit();
-    const int kc = t % nkc;
-    const uint32_t stage = smem_addr(ring + (t % kStages) * (Resident ? 1 : 2) * kTileBytes);
-    const uint32_t qa = Resident ? smem_addr(q_tile + kc * kTileBytes) : stage;
-    const uint32_t fb = Resident ? stage : stage + kTileBytes;
-    if (kc == 0) {
-#pragma unroll
-      for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NF; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 32; ++kk) {
-      uint32_t b[NF][2];
-#pragma unroll
-      for (int np = 0; np < NF / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_frag_pair_addr(fb, wn * 32 + np * 16, kk, lane, kChunk));
-        b[2 * np][0] = r[0];
-        b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2];
-        b[2 * np + 1][1] = r[3];
+  if (tid >= 256) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (tid == 256) {
+      prefetch_map(&map_q);
+      prefetch_map(&map_f);
+      if (Resident) {
+        mbar_expect_tx(q_full, nkc * kQChunk);
+        for (int kc = 0; kc < nkc; ++kc)
+          tma_load(smem_u32(smem + kc * kQChunk), &map_q, q_full, kc * kChunk, q0);
       }
-#pragma unroll
-      for (int mi = 0; mi < MF; ++mi) {
-        uint32_t a[4];
-        ldmatrix_x4(a, a_frag_addr(qa, wm * 64 + mi * 16, kk, lane, kChunk));
-#pragma unroll
-        for (int ni = 0; ni < NF; ++ni) mma(acc[mi][ni], a, b[ni][0], b[ni][1]);
-      }
-    }
-    if (kc != nkc - 1) continue;
-
-    // epilogue of the row tile: (f32(s) * q_scale) * f_scale, one rounding
-    // to bf16, a quad transpose, 16-byte stores
-    const long long rw = row_base(t) + wn * 32;           // the warp's 32 rows
-    float2 fs[NF];
-#pragma unroll
-    for (int ni = 0; ni < NF; ++ni) {
-      const long long r = rw + 8 * ni + 2 * t4;           // rows % 4 == 0: r, r + 1 both in
-      fs[ni] = r < rows ? *reinterpret_cast<const float2*>(f_scale + r) : make_float2(0.f, 0.f);
-    }
-    const long long r = rw + 8 * t4;                      // this lane's 8 rows after the transpose
-#pragma unroll
-    for (int mi = 0; mi < MF; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = wm * 64 + mi * 16 + g + 8 * h;
-        const float qs = qsc[q];
-        uint32_t w[NF];
-#pragma unroll
-        for (int ni = 0; ni < NF; ++ni)
-          w[ni] = pack_bf16(
-              __fmul_rn(__fmul_rn(static_cast<float>(acc[mi][ni][2 * h]), qs), fs[ni].x),
-              __fmul_rn(__fmul_rn(static_cast<float>(acc[mi][ni][2 * h + 1]), qs), fs[ni].y));
-        quad_transpose(w, t4);
-        if (q0 + q >= nq || r >= rows) continue;          // r < rows: r + 4 <= rows
-        __nv_bfloat16* dst = out + static_cast<long long>(q0 + q) * rows + r;
-        if (vec16 && r + 8 <= rows) {
-          *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-        } else {
-          *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
-          if (r + 8 <= rows) *reinterpret_cast<uint2*>(dst + 4) = make_uint2(w[2], w[3]);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < count; ++t) {
+        const int r0 = (first + t) * kRows;
+        for (int kc = 0; kc < nkc; ++kc) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          const uint32_t full = full0 + 8 * stage;
+          const uint32_t st = smem_u32(ring + stage * kStage);
+          mbar_expect_tx(full, kStage);
+          tma_load(st, &map_f, full, kc * kChunk, r0);
+          if (!Resident) tma_load(st + kRChunk, &map_q, full, kc * kChunk, q0);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
+    }
+  } else {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int wg = tid >> 7, t = tid & 127, lane = t & 31;
+    const int ra = 16 * (t >> 5) + (lane >> 2);   // this thread's tile rows: ra, ra + 8
+    const int qa = q0 + 64 * wg + ra, qb = qa + 8;
+    const float qs_a = qa < nq ? q_scale[qa] : 0.0f, qs_b = qb < nq ? q_scale[qb] : 0.0f;
+    const bool tma_out = (rows & 7) == 0;
+    unsigned char* mine = staged + wg * kStaged;
+    const uint32_t a_off = wg * 64 * kChunk;        // the warpgroup's 64 query rows
+    if (Resident) mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    int acc[Wgmma<kRows>::kRegs];
+    for (int tt = 0; tt < count; ++tt) {
+      const long long r0 = static_cast<long long>(first + tt) * kRows;
+      // the tile's 256 row scales, loaded under its products: lane 4 b + c
+      // holds the pair of columns 8 j + 2 c for j = b, b + 8, b + 16, b + 24
+      // (rows % 4 == 0: both or neither past the end)
+      float2 fs_held[kRows / 64];
+#pragma unroll
+      for (int i = 0; i < kRows / 64; ++i) {
+        const long long c = r0 + 8 * ((lane >> 2) + 8 * i) + 2 * (lane & 3);
+        fs_held[i] = c < rows ? *reinterpret_cast<const float2*>(f_scale + c)
+                              : make_float2(0.0f, 0.0f);
+      }
+      int prev = 0;
+      for (int kc = 0; kc < nkc; ++kc) {
+        mbar_wait(full0 + 8 * stage, phase);
+        unsigned char* st = ring + stage * kStage;
+        const uint32_t a = smem_u32(Resident ? smem + kc * kQChunk : st + kRChunk) + a_off;
+        const uint32_t b = smem_u32(st);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 32; ++kk)
+          Wgmma<kRows>::mma(acc, desc_sw128(a + 32 * kk), desc_sw128(b + 32 * kk),
+                            (kc | kk) != 0);
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();                           // the previous chunk's products are done
+          mbar_arrive(empty0 + 8 * prev);
+        }
+        prev = stage;
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(empty0 + 8 * prev);
+
+      // epilogue: (f32(s) * q_scale) * f_scale, one rounding to bf16, into
+      // the swizzled staging tile; four TMA stores
+      if (t == 0 && tma_out) tma_store_wait_read();  // the last tile's stores have read it
+      bar_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j) {
+        const int held = 4 * (j & 7) + (lane & 3);          // the lane holding j's pair
+        const float2 fs = make_float2(__shfl_sync(0xffffffffu, fs_held[j >> 3].x, held),
+                                      __shfl_sync(0xffffffffu, fs_held[j >> 3].y, held));
+        // box j / 8, 16-byte chunk j % 8 of tile rows ra and ra + 8 (one swizzle)
+        unsigned char* box = mine + (j >> 3) * (64 * kChunk);
+        const int sw = ((j & 7) ^ (ra & 7)) * 16 + 4 * (lane & 3);
+        *reinterpret_cast<uint32_t*>(box + ra * kChunk + sw) =
+            pack_bf16(rescale(acc[4 * j], qs_a, fs.x), rescale(acc[4 * j + 1], qs_a, fs.y));
+        *reinterpret_cast<uint32_t*>(box + (ra + 8) * kChunk + sw) =
+            pack_bf16(rescale(acc[4 * j + 2], qs_b, fs.x), rescale(acc[4 * j + 3], qs_b, fs.y));
+      }
+      if (tma_out) fence_async_smem();
+      bar_sync(1 + wg, 128);
+      if (tma_out) {
+        if (t == 0) {
+          for (int bx = 0; bx < kRows / kBoxCols; ++bx)
+            tma_store(&map_o, smem_u32(mine + bx * 64 * kChunk),
+                      static_cast<int>(r0) + bx * kBoxCols, q0 + 64 * wg);
+          tma_store_commit();
+        }
+      } else {
+        // 64 queries x 64 pieces of four bf16 (8 bytes: rows % 4 == 0)
+        for (int i = t; i < 64 * (kRows / 4); i += 128) {
+          const int r = i / (kRows / 4), p = i % (kRows / 4), j = p >> 1;
+          const long long c = r0 + 4 * p;
+          const int q = q0 + 64 * wg + r;
+          if (q >= nq || c >= rows) continue;
+          const unsigned char* src = mine + (j >> 3) * (64 * kChunk) + r * kChunk
+                                     + ((j & 7) ^ (r & 7)) * 16 + (p & 1) * 8;
+          *reinterpret_cast<uint2*>(out + static_cast<long long>(q) * rows + c) =
+              *reinterpret_cast<const uint2*>(src);
+        }
+      }
+    }
+    if (t == 0 && tma_out) tma_store_wait_all();
   }
 }
 
 template <bool Resident>
 int launch(const void* q8, const void* q_scale, const void* f8, const void* f_scale, int nq,
            long long rows, int k, void* out, cudaStream_t stream) {
-  const auto kernel = span_sim_kernel<Resident>;
+  const auto kernel = span_sim_wgmma_kernel<Resident>;
   const int nkc = (k + kChunk - 1) / kChunk;
-  const int bytes = smem_bytes(Resident, nkc);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, n_sm = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device)) !=
-          cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes)) !=
-          cudaSuccess)
-    return static_cast<int>(err);
-  const long long n_qtiles = (nq + kQueries - 1) / kQueries;
-  const long long n_rtiles = (rows + kRows - 1) / kRows;
-  // row-tile groups: enough blocks to fill every SM once, each walking
-  // n_rtiles / G row tiles
-  long long groups = (static_cast<long long>(n_sm) * (per_sm > 0 ? per_sm : 1) + n_qtiles - 1)
-                     / n_qtiles;
+  const int stages = n_stages(Resident, nkc) < kMaxStages ? n_stages(Resident, nkc) : kMaxStages;
+  const int bytes = smem_bytes(Resident, nkc, stages);
+  CUtensorMap map_q, map_f, map_o;
+  memset(&map_o, 0, sizeof(map_o));
+  int err;
+  if ((err = encode_s8_rows(&map_q, q8, k, nq, kQueries)) ||
+      (err = encode_s8_rows(&map_f, f8, k, rows, kRows)) ||
+      ((rows & 7) == 0 && (err = encode_2d(&map_o, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, out,
+                                            rows, nq, kBoxCols, 64))))
+    return err;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int device = 0, n_sm = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(e);
+  const int n_qtiles = (nq + kQueries - 1) / kQueries;
+  const int n_rtiles = static_cast<int>((rows + kRows - 1) / kRows);
+  // one block an SM: the query tiles of one range side by side
+  int groups = n_sm / n_qtiles;
   groups = groups < 1 ? 1 : groups > n_rtiles ? n_rtiles : groups;
-  if (groups > 65535) groups = 65535;
   const dim3 grid(static_cast<unsigned>(n_qtiles), static_cast<unsigned>(groups));
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const int8_t*>(q8), static_cast<const float*>(q_scale),
-      static_cast<const int8_t*>(f8), static_cast<const float*>(f_scale), nq, rows, k,
-      static_cast<int>(n_rtiles), static_cast<__nv_bfloat16*>(out));
+      map_q, map_f, map_o, static_cast<const float*>(q_scale), static_cast<const float*>(f_scale),
+      static_cast<__nv_bfloat16*>(out), nq, rows, k, n_rtiles, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,13 +322,14 @@ int launch(const void* q8, const void* q_scale, const void* f8, const void* f_sc
 extern "C" {
 
 // k_words: the K axis in 4-byte words (a multiple of 4); rows a multiple of
-// 4; every pointer 16-byte aligned. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a shape the kernel does not take.
+// 4 and below 2^31 (TMA coordinates are 32-bit); every pointer 16-byte
+// aligned. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
 int tvr_span_sim_i8(const void* q8, const void* q_scale, const void* f8,
                     const void* f_scale, int nq, long long rows, int k_words,
                     void* out, void* stream) {
   if (nq <= 0 || rows <= 0 || k_words <= 0 || k_words % 4 || rows % 4 ||
-      (rows + kRows - 1) / kRows > 2147483647LL)
+      rows + kRows > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int k = 4 * k_words;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

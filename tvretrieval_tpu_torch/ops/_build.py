@@ -30,9 +30,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # library name -> (source, {entry point: argtypes}); every entry returns cudaError_t
 SOURCES: Dict[str, tuple] = {
     # tvr_video_scores(kind, qv, qs, fv, fs, nq, nv_pad, lp, d_words, n_videos,
-    #                  out, out_cols, bmax, chunk, stream)
+    #                  out, out_cols, bmax, chunk, stream);
+    # tvr_tensor_map_encode_ns(q, f, nq, rows, d, n, ns): the int8 launch's
+    # host cost of its tensor maps (chip_smoke.py phase 3; no kernel)
     "video_score": (_PKG / "csrc" / "video_score.cu", {
-        "tvr_video_scores": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P]}),
+        "tvr_video_scores": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P],
+        "tvr_tensor_map_encode_ns": [_P, _P, _I, _L, _I, _I, _P]}),
     # tvr_gather_byte_rows(table, idx, out, n_rows, n_idx, row_bytes, bad, stream)
     "gather": (_PKG / "csrc" / "gather.cu", {
         "tvr_gather_byte_rows": [_P, _P, _P, _L, _I, _L, _P, _P]}),
@@ -58,8 +61,8 @@ SOURCES: Dict[str, tuple] = {
     # tvr_approx_topk(x, nq, n, m, k, out_v, out_i, stream)
     "approx_topk": (_PKG / "csrc" / "approx_topk.cu", {
         "tvr_approx_topk": [_P, _I, _I, _I, _I, _P, _P, _P]}),
-    # tvr_mma_probe(kind, blocks, iters, out, stream): the mma.sync ceiling
-    # (chip_smoke.py phase 2; no engine path runs it)
+    # tvr_mma_probe(kind, blocks, iters, out, stream): the mma.sync and the
+    # s8 wgmma ceilings (chip_smoke.py phase 2; no engine path runs it)
     "mma_probe": (_PKG / "csrc" / "mma_probe.cu", {
         "tvr_mma_probe": [_I, _I, _I, _P, _P]}),
 }

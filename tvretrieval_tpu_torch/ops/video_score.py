@@ -25,13 +25,13 @@ wrapper (plain runs are not counted).
 
 What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
 * lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000) on the tensor
-cores (``mma.sync``): int8 and bf16 products as they are, f32 as three
-TF32 products (a 3xTF32 split that keeps f32 accuracy); the (Nq, Nv_pad *
-lp) dot matrix never reaches device memory. B9 does the same on the
-unflattened caches, the mask applied per clip. B5 does Nv_pad * 128 x 2D x Nq
-MACs on the s8 tensor cores and writes the rescaled similarity as bf16
-(bound by those bytes); its s32 dots never reach device memory. See the
-sources for the tiling.
+cores: int8 through ``wgmma`` fed by TMA (csrc/s8_wgmma.cuh), bf16 and f32
+through ``mma.sync``, f32 as three TF32 products (a 3xTF32 split that keeps
+f32 accuracy); the (Nq, Nv_pad * lp) dot matrix never reaches device
+memory. B9 does the same on the unflattened caches, the mask applied per
+clip. B5 does Nv_pad * 128 x 2D x Nq MACs through s8 ``wgmma`` and writes
+the rescaled similarity as bf16 by TMA stores (bound by those bytes); its
+s32 dots never reach device memory. See the sources for the tiling.
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ _INV_127 = float(np.float32(1.0 / 127.0))
 SPAN_LP = 128
 
 # the longest feature rows the tensor-core kernels take: query tiles stay
-# in the block's shared memory (csrc/video_score.cu::S8Mma / Bf16Mma /
-# Tf32x3MmaWide::kMaxRowBytes; csrc/masked_score.cu::kMaxD)
+# in the block's shared memory (csrc/video_score.cu::kI8MaxRowBytes,
+# Bf16Mma / Tf32x3MmaWide::kMaxRowBytes; csrc/masked_score.cu::kMaxD)
 I8_MAX_D = 384
 BF16_MAX_D = 512
 F32_MAX_D = 640
@@ -285,9 +285,9 @@ def video_scores_flat_i8(qvt_i8, qst_i8, fv_flat_i8, fs_flat_i8, n_videos: int,
 
     qvt_i8 / qst_i8: (D, Nq) int8 quantized normalized queries
     (``quantize_unit_i8(q).T``); fv/fs: (Nv_pad * lp, D) int8 flat caches.
-    s8 x s8 -> s32 dots on the tensor cores, exact integer max per video,
-    one f32 rescale: bit-equal to ``video_scores_int8_xla``. D (a multiple
-    of 16) is at most ``I8_MAX_D``. (The TPU wrapper's chunk_v only tiles
+    s8 x s8 -> s32 dots on the tensor cores (``wgmma``), exact integer max
+    per video, one f32 rescale: bit-equal to ``video_scores_int8_xla``. D
+    (a multiple of 16) is at most ``I8_MAX_D``. (The TPU wrapper's chunk_v only tiles
     its grid, so it has no counterpart here.) Replaces
     pallas_score.video_scores_pallas_flat_i8.
     """
@@ -412,9 +412,9 @@ def span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp: int = SPAN_LP) -> torch.
     q8: (Nq, K) int8 quantized halved concatenated query vectors; q_scale:
     (Nq, 1) f32; f8_flat: (Nv_pad * lp, K) int8 and f_scales: (Nv_pad, lp)
     f32 from ``build_flat_feat2_i8``. The layout serves the engine's top-V
-    row gather, which reads contiguous lp-runs. The kernel loads 16-byte
-    vectors along K and stores four bf16 at a time, so K must be a
-    multiple of 16 and lp of 4. (The TPU wrapper's chunk_v and q_tile only
+    row gather, which reads contiguous lp-runs. The kernel's TMA loads need
+    rows of a multiple of 16 bytes and its stores at least four bf16 at a
+    time, so K must be a multiple of 16 and lp of 4. (The TPU wrapper's chunk_v and q_tile only
     tile its grid, so they have no counterpart here.) Replaces
     pallas_score.span_sim_pallas_cat_i8."""
     name = "span_sim_cat_i8"
