@@ -7,22 +7,26 @@ Run from the repository root on a machine with one CUDA card. Phases:
 1. the device, and its name and power limit from nvidia-smi;
 2. build the CUDA kernels from tvretrieval_tpu_torch/csrc with nvcc, one
    compiler per source, side by side; the SASS must hold IGMMA (s8 wgmma)
-   and no IMMA or HMMA in the int8 video-score kernels (B1 / B3-int8) and
-   in B5, HMMA without .TF32 in the bf16 instances of the video-score and
-   masked-score kernels, HMMA all of the .TF32 form in their f32 (3xTF32)
-   instances, no instance of those two libraries without tensor-core
+   and no IMMA, HMMA or HGMMA in the int8 video-score kernels (B1 /
+   B3-int8) and in B5, HGMMA (wgmma) all of the BF16 form and no HMMA in
+   the bf16 video-score instances (B2 / B3), HGMMA all of the TF32 form and
+   no HMMA in the f32 ones (3xTF32), HMMA without .TF32 in the bf16
+   masked-score instances (B9 / B10) and HMMA all of the .TF32 form in
+   their f32 ones, no instance of those two libraries without tensor-core
    instructions, and no IDP (dp4a); then the tensor-core ceilings: s8, bf16
-   and tf32 mma.sync products from registers and s8 wgmma m64n256k32 from
-   shared memory on every SM (csrc/mma_probe.cu), in TOPS beside the data
-   sheet's peaks;
+   and tf32 mma.sync products from registers, wgmma s8 m64n256k32 and bf16
+   m64n208k16 from shared memory and tf32 m64n104k8 with A from registers,
+   on every SM (csrc/mma_probe.cu), in TOPS beside the data sheet's peaks;
 3. each kernel against its plain PyTorch version at the full-corpus
    shapes (21,818 videos, 1,000 queries): the video scores (lp=104, D=256)
    B1 and B3-int8 bit-equal, B2 and B3 in bf16 and f32 (caches drawn in
    f32) within f32 summation slack, block maxima exact; the int8 span sweep
    B5 (2,793,472 flat rows, K=512) bit-equal over all its outputs, pads
-   exactly zero (B1, B2, B5 as a share of the peak and of the probed
-   ceilings, f32 counted as three TF32 products; B1 and B5 beside
-   ``torch._int_mm`` over their operands, the s8 GEMM alone, and the host
+   exactly zero (B1-B3, B5 as a share of the peak and of the probed wgmma
+   and mma.sync ceilings, f32 counted as three TF32 products; B1 and B5
+   beside ``torch._int_mm`` over their operands, the s8 GEMM alone, B2
+   beside ``torch.matmul`` over one stream's bf16 and f32 operands (TF32
+   off), the GEMM alone, and the host
    cost of B1's four tensor-map encodes); the sorting
    top-k B6 at the engine's five row shapes equal in values and indices on
    rows with planted ties; the approximate top-k B11 at the engine's three
@@ -297,18 +301,27 @@ def video_score_bound(q, feat, n_out: int) -> dict:
 def check_tensor_cores(_build) -> str:
     """Phase 2: the kernels run on the tensor cores. In the SASS, each int8
     instance of video_score and each instance of span_sim holds IGMMA (s8
-    wgmma) and no IMMA or HMMA; each bf16 instance of video_score and
-    masked_score holds HMMA and none of the .TF32 form; each f32 instance of
-    those two holds HMMA, every one of the .TF32 form (the 3xTF32 products,
-    TF32 by no other door); no instance of video_score or masked_score is
-    without tensor-core instructions (no FMA kernel is left); no library
-    holds IDP (dp4a)."""
+    wgmma) and no IMMA, HMMA or HGMMA; each bf16 instance of video_score
+    holds HGMMA (wgmma), every one of the BF16 form, and no HMMA (mma.sync);
+    each f32 instance of video_score holds HGMMA, every one of the TF32
+    form (the 3xTF32 products, TF32 by no other door), and no HMMA; each
+    bf16 instance of masked_score holds HMMA and none of the .TF32 form,
+    each f32 one HMMA, every one of the .TF32 form; no instance of
+    video_score or masked_score is without tensor-core instructions (no FMA
+    kernel is left); no library holds IDP (dp4a)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    kinds = {"video_score": (("int8", "video_score_wgmma"), ("bf16", "Bf16Mma"),
-                             ("f32", "Tf32x3Mma")),
+    kinds = {"video_score": (("int8", "video_score_wgmma"), ("bf16 wgmma", "Bf16Wg"),
+                             ("f32 wgmma", "Tf32x3Wg")),
              "masked_score": (("bf16", "MaskedBf16"), ("f32", "MaskedTf32x3")),
              "span_sim": (("int8", "span_sim_wgmma"),)}
-    bad, lines, idp = [], [], 0
+    # per instance: IGMMA, IMMA, HMMA, HMMA .TF32, HGMMA, HGMMA of the TF32
+    # form, HGMMA of the BF16 form
+    ok = {"int8": lambda g, i, h, t, w, wt, wb: g > 0 and i == h == w == 0,
+          "bf16": lambda g, i, h, t, w, wt, wb: h > 0 and t == i == g == w == 0,
+          "f32": lambda g, i, h, t, w, wt, wb: t > 0 and t == h and i == g == w == 0,
+          "bf16 wgmma": lambda g, i, h, t, w, wt, wb: w > 0 and wb == w and i == g == h == 0,
+          "f32 wgmma": lambda g, i, h, t, w, wt, wb: w > 0 and wt == w and i == g == h == 0}
+    bad, lines, idp, forms = [], [], 0, set()
     for lib, want in kinds.items():
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
@@ -319,26 +332,32 @@ def check_tensor_cores(_build) -> str:
                 bad.append(f"{lib}: {name[:60]} is none of its kinds")
         for what, key in want:
             found = [body for name, body in functions if key in name]
-            counts = [(body.count("IGMMA"), body.count("IMMA"), body.count("HMMA"),
-                       body.count("HMMA.1688.F32.TF32")) for body in found]
-            lines.append(f"{lib} {what}: (IGMMA, IMMA, HMMA, HMMA .TF32) per instance {counts}")
-            ok = {"int8": lambda g, i, h, t: g > 0 and i == 0 and h == 0,
-                  "bf16": lambda g, i, h, t: h > 0 and t == 0 and i == 0 and g == 0,
-                  "f32": lambda g, i, h, t: t > 0 and t == h and i == 0 and g == 0}[what]
-            if not counts or not all(ok(*c) for c in counts):
+            counts = []
+            for body in found:
+                hg = [ln.split()[1] for ln in body.splitlines()
+                      if "HGMMA" in ln and len(ln.split()) > 1]
+                forms.update(op for op in hg if op.startswith("HGMMA"))
+                counts.append((body.count("IGMMA"), body.count("IMMA"), body.count("HMMA"),
+                               body.count("HMMA.1688.F32.TF32"), len(hg),
+                               sum("TF32" in op for op in hg), sum("BF16" in op for op in hg)))
+            lines.append(f"{lib} {what}: (IGMMA, IMMA, HMMA, HMMA .TF32, HGMMA, HGMMA TF32, "
+                         f"HGMMA BF16) per instance {counts}")
+            if not counts or not all(ok[what](*c) for c in counts):
                 bad.append(lines[-1])
     if idp or bad:
-        raise AssertionError(f"SASS: {'; '.join(bad)}; {idp} IDP")
-    return f"SASS: {'; '.join(lines)}; {idp} IDP"
+        raise AssertionError(f"SASS: {'; '.join(bad)}; {idp} IDP; HGMMA forms {sorted(forms)}")
+    return f"SASS: {'; '.join(lines)}; {idp} IDP; HGMMA forms {sorted(forms)}"
 
 
 def probe_mma(dev, _build) -> dict:
     """Phase 2: the tensor-core ceilings on this card (csrc/mma_probe.cu):
     back-to-back mma.sync s8 m16n8k32, bf16 m16n8k16 and tf32 m16n8k8
     products from registers on every SM, at 2 and 4 blocks of 8 warps an
-    SM, and s8 wgmma m64n256k32 from shared memory at 1 and 2 blocks of two
-    warpgroups an SM; the faster of each kept. Returns operations/s by input
-    type ("tf32" for the third, "wgmma_s8" for the last)."""
+    SM, and wgmma s8 m64n256k32 and bf16 m64n208k16 from shared memory and
+    tf32 m64n104k8 with A from registers (B2's instructions at lp = 104), at
+    1 and 2 blocks of two warpgroups an SM; the faster of each kept.
+    Returns operations/s by input type for mma.sync ("tf32" for the
+    third), and "wgmma_s8", "wgmma_bf16" and "wgmma_tf32"."""
     lib = _build.load("mma_probe")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out = torch.empty(4 * n_sm * 256, device=dev)
@@ -347,7 +366,10 @@ def probe_mma(dev, _build) -> dict:
     probes = ((0, torch.int8, 16 * 8 * 32 * 2, 8 * 8, (2, 4), "s8 m16n8k32 mma.sync"),
               (1, torch.bfloat16, 16 * 8 * 16 * 2, 8 * 8, (2, 4), "bf16 m16n8k16 mma.sync"),
               (2, "tf32", 16 * 8 * 8 * 2, 8 * 8, (2, 4), "tf32 m16n8k8 mma.sync"),
-              (3, "wgmma_s8", 64 * 256 * 32 * 2, 2 * 4, (1, 2), "s8 m64n256k32 wgmma"))
+              (3, "wgmma_s8", 64 * 256 * 32 * 2, 2 * 4, (1, 2), "s8 m64n256k32 wgmma"),
+              (4, "wgmma_bf16", 64 * 208 * 16 * 2, 2 * 4, (1, 2), "bf16 m64n208k16 wgmma"),
+              (5, "wgmma_tf32", 64 * 104 * 8 * 2, 2 * 4, (1, 2),
+               "tf32 m64n104k8 wgmma (A from registers)"))
     iters = 4096            # csrc/mma_probe.cu: 8 warps x 8 chains, or 2 warpgroups x 4 k-steps
     for kind, key, ops, per_iter, per_sms, name in probes:
         rates = []
@@ -363,7 +385,8 @@ def probe_mma(dev, _build) -> dict:
             ms = cuda_ms(launch, reps=5)
             rates.append(blocks * iters * per_iter * ops / ms * 1e3)
         ceiling[key] = max(rates)
-        peak = PEAK_OPS[torch.int8 if key == "wgmma_s8" else key]
+        peak = PEAK_OPS[{"wgmma_s8": torch.int8, "wgmma_bf16": torch.bfloat16,
+                         "wgmma_tf32": "tf32"}.get(key, key)]
         log("build", f"{name} probe: {ceiling[key] / 1e12:.1f} TOPS "
             f"({' / '.join(f'{r / 1e12:.1f}' for r in rates)} at "
             f"{' / '.join(map(str, per_sms))} blocks an SM, {n_sm} SMs) = "
@@ -371,16 +394,17 @@ def probe_mma(dev, _build) -> dict:
     return ceiling
 
 
-def rate_str(n_ops: float, ms: float, dtype, ceiling) -> str:
+def rate_str(n_ops: float, ms: float, dtype, ceiling, wgmma: bool = True) -> str:
     """Operations/s of a kernel as a share of the data sheet's peak and of
-    the probed ceilings: int8 of the s8 wgmma and the s8 mma.sync probes,
-    others of their mma.sync probe (f32: TF32 operations, three a
-    multiply-add)."""
+    the probed ceilings: of its wgmma probe (int8: s8 m64n256k32; with
+    ``wgmma``, bf16: m64n208k16, f32: tf32 m64n104k8) and of its mma.sync
+    probe (f32: TF32 operations, three a multiply-add)."""
     n_ops, dtype = tc_ops(n_ops, dtype)
     rate = n_ops / ms * 1e3
     probed = ""
-    if ceiling and dtype == torch.int8:
-        probed = (f", {100 * rate / ceiling['wgmma_s8']:.1f}% of the probed wgmma ceiling, "
+    wg_key = {torch.int8: "wgmma_s8", torch.bfloat16: "wgmma_bf16", "tf32": "wgmma_tf32"}
+    if ceiling and (wgmma or dtype == torch.int8):
+        probed = (f", {100 * rate / ceiling[wg_key[dtype]]:.1f}% of the probed wgmma ceiling, "
                   f"{100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync one")
     elif ceiling:
         probed = f", {100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync ceiling"
@@ -388,16 +412,20 @@ def rate_str(n_ops: float, ms: float, dtype, ceiling) -> str:
             f"{PEAK_OPS[dtype] / 1e12:.1f} peak{probed}")
 
 
-def int_mm_ms(a, rows, chunk: int = 2 ** 18) -> float:
-    """Yardstick of an s8 kernel: ``torch._int_mm`` of (M, K) int8 ``a`` by
-    the (R, K) int8 ``rows``, in chunks of ``chunk`` rows (s32 out, 1 GB a
-    chunk at M = 1,000): the s8 GEMM alone, no max, no rescale; the chunks'
-    CUDA-event times summed. Not the kernel's function, so not its
-    library_ms."""
+def gemm_ms(a, rows, chunk: int = 2 ** 18) -> float:
+    """Yardstick of a tensor-core kernel: the GEMM alone (no max, no
+    rescale) of (M, K) ``a`` by the (R, K) ``rows`` in chunks of ``chunk``
+    rows, the chunks' CUDA-event times summed: int8 by ``torch._int_mm``
+    (s32 out, 1 GB a chunk at M = 1,000), bf16 and f32 by ``torch.matmul``
+    (out in the inputs' type; f32 with TF32 off, a full f32 product). Not
+    the kernel's function, so not its library_ms."""
+    if a.dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 yardstick needs TF32 off")
+    op = torch._int_mm if a.dtype == torch.int8 else torch.matmul
     total = 0.0
     for r0 in range(0, rows.shape[0], chunk):
         bt = rows[r0:r0 + chunk].T
-        total += cuda_ms(lambda: torch._int_mm(a, bt), reps=3)
+        total += cuda_ms(lambda: op(a, bt), reps=3)
     return total
 
 
@@ -466,7 +494,7 @@ def phase_kernels(dev, vs, ceiling=None):
             ctypes.byref(ns))
         if err:
             raise AssertionError(f"tensor-map encode probe: CUDA error {err}")
-        yard = int_mm_ms(qv8, i8["v"])
+        yard = gemm_ms(qv8, i8["v"])
         log("kernels", f"B1 yardstick: torch._int_mm over one stream's operands ((1,000, 256) "
             f"x (2,269,696, 256) int8 -> s32, in row chunks: half of B1's products, written "
             f"out) {yard:.3f} ms = {rate_str(n_ops / 2, yard, torch.int8, None)}; B1's four "
@@ -501,6 +529,15 @@ def phase_kernels(dev, vs, ceiling=None):
             f"({rate_str(n_ops, ms, args[2].dtype, ceiling)}) vs plain {pms:.3f} ms; "
             f"{bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate")
     rec["B2"]["max_abs_err"] = b2_err
+    if ceiling is not None:     # this commit's yardsticks
+        for name, a, rows in (("bf16", qb["v"].T.contiguous(), bf["v"]),
+                              ("f32", qf["v"].T.contiguous(), flat["v"])):
+            yard = gemm_ms(a, rows)
+            log("kernels", f"B2 yardstick ({name}): torch.matmul over one stream's operands "
+                f"((1,000, 256) x (2,269,696, 256)^T -> {name}, in row chunks; "
+                f"{'TF32 off: full f32 products' if name == 'f32' else 'bf16 out'}: half of "
+                f"B2's products, written out, no max) {yard:.3f} ms = "
+                f"{rate_str(n_ops / 2, yard, rows.dtype, ceiling)}")
 
     # B3: scores and exact block maxima, int8 (bit-equal), bf16 and f32
     b3_err = 0.0
@@ -531,7 +568,8 @@ def phase_kernels(dev, vs, ceiling=None):
             rec["B3"][name] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bnd)
         log("kernels", f"B3 video_scores_flat_bmax ({name}): max |d| {err:.3e}"
             f"{' (bit-equal)' if exact else ''}, bmax exact, pads -inf; "
-            f"{ms:.3f} ms vs plain {pms:.3f} ms; {bound_str(bnd)}, "
+            f"{ms:.3f} ms ({rate_str(n_ops, ms, args[2].dtype, ceiling)}) vs plain "
+            f"{pms:.3f} ms; {bound_str(bnd)}, "
             f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate")
     rec["B3"]["max_abs_err"] = b3_err
     return rec
@@ -576,7 +614,7 @@ def phase_span_sim(dev, vs, ceiling=None):
     q_bf = qcat.to(torch.bfloat16)
     sweep_ms = cuda_ms(lambda: q_bf @ flat_bf.T, reps=3)
     del flat_bf, q_bf
-    yard = int_mm_ms(q8, f8) if ceiling is not None else float("nan")
+    yard = gemm_ms(q8, f8) if ceiling is not None else float("nan")
     log("kernels", f"B5 span_sim_cat_i8: Nq={nq} rows={f8.shape[0]} (Nv_pad={nv_pad} x "
         f"{SPAN_LP}) K={k}: bit-equal over {n_out} outputs, pads exactly zero; {ms:.3f} ms "
         f"({rate_str(2 * nq * f8.shape[0] * k, ms, torch.int8, ceiling)}) vs plain "
@@ -1521,7 +1559,7 @@ def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
             rec["B9"]["f32"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bnd)
         log("study", f"B9 video_scores_masked ({tag}): max |d| {err:.3e} <= {B2_ATOL}, "
             f"{len(dead)} fully masked videos exactly -1e10, top-100 identical outside "
-            f"near-ties; {ms:.3f} ms ({rate_str(n_ops, ms, dtype, ceiling)}) vs plain "
+            f"near-ties; {ms:.3f} ms ({rate_str(n_ops, ms, dtype, ceiling, False)}) vs plain "
             f"(video_scores_xla) {pms:.3f} ms; {bound_str(bnd)}, "
             f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate")
 
@@ -1562,8 +1600,8 @@ def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
                 (rec["B10"] if dtype == torch.bfloat16 else rec["B10"]["f32"])["max_abs_err"] = err
             log("study", f"B10 fused_video_scores_clip_major ({tag}, alpha={alpha}): {what} "
                 f"{err:.3e} <= {tol}, masked videos exactly {planted}; {ms:.3f} ms "
-                f"({rate_str(n_ops, ms, dtype, ceiling)}) vs plain (blocked f32 product + max) "
-                f"{pms:.3f} ms; {bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate")
+                f"({rate_str(n_ops, ms, dtype, ceiling, False)}) vs plain (blocked f32 product "
+                f"+ max) {pms:.3f} ms; {bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate")
         del fv, fv_t, qv, qs
     del f32, q32, mask, mask_t
     torch.cuda.empty_cache()

@@ -1,14 +1,15 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 edge shapes the full-size checks in chip_smoke.py do not reach.
 
-Video scores (B1-B3, csrc/video_score.cu): query and video counts off the
-block tiles (int8 on wgmma: 128 queries x a tile of whole videos, lp = 8
-to 264, d = 16 to 384, the streaming block and a shard's corpus, ties
-across the videos of a tile; 128 x 16 bf16 on the tensor cores, 64 x 32 f32),
-feature rows shorter than one 32-byte k-step or with a tail, bf16 rows of
-two and three 256-byte ring steps (D = 256, 384) and videos that cross a
-64-row ring step, lp = 8 to 256, int8 bytes all +-127, and block maxima
-whose chunk is not a power of two or spans several warps. Byte-row
+Video scores (B1-B3, csrc/video_score.cu, all on wgmma: 128 queries x a
+tile of whole videos; f32 rows past 1,024 bytes 64 queries): query and
+video counts off the tiles (nq 1, 63, 65, 129, 130, 1,000), lp = 8 to 264
+(a video over segments), d = 16 to the widest row of each type (int8 384,
+bf16 512, f32 640), the streaming block and a shard's corpus, ties across
+the videos of a tile, feature rows shorter than one 32-byte k-step or
+with a tail, int8 bytes all +-127, f32 values exact in TF32 (bit-equal),
+and block maxima whose chunk is not a power of two or spans several
+tiles. Byte-row
 gather (B4, csrc/gather.cu): one index to a thousand, rows of one to
 nineteen 16 KiB segments, duplicate and boundary
 indices, a strided and an int64 index tensor, an index outside the table.
@@ -228,9 +229,9 @@ def test_wrappers_reject_what_the_kernel_does_not_take(dev):
 
 
 @pytest.mark.parametrize("nq,nv,L,d,lp,chunk_v", SHAPES + [
-    (70, 50, 20, 384, 24, 8),        # bf16 D = 384: three 256-byte ring steps a row block
-    (129, 33, 20, 256, 24, 16),      # D = 256 (unrolled path); 24-row videos cross the
-                                     # 64-row ring steps; a query past the 128-query tile
+    (70, 50, 20, 384, 24, 8),        # bf16 D = 384: three 128-byte K chunks a tile row
+    (129, 33, 20, 256, 24, 16),      # D = 256; ten 24-row videos a 256-row tile (16 rows
+                                     # unused); a query past the 128-query tile
 ])
 def test_b2_b3_bf16_tensor_cores(dev, nq, nv, L, d, lp, chunk_v):
     """B2 and B3 in bf16 (the tensor-core instance) within F32_ATOL of
@@ -273,12 +274,12 @@ def _flat_tf32_exact(dev, nq, nv_pad, lp, d, seed):
 
 @pytest.mark.parametrize("nq,nv,nv_pad,lp,d", [
     (5, 7, 8, 8, 8), (70, 37, 40, 16, 64), (130, 48, 48, 104, 256), (65, 20, 24, 24, 384),
-    (129, 20, 24, 16, 256)])
+    (129, 20, 24, 16, 256), (63, 9, 9, 264, 256), (65, 6, 6, 128, 128), (3, 5, 5, 8, 640)])
 def test_b2_b3_f32_fragment_layout_bit_equal(dev, nq, nv, nv_pad, lp, d):
-    """The fragment-layout claim of csrc/s8_mma.cuh for the TF32 product:
-    on values exact in TF32 the kernel's sums are exact, so B2 and B3-f32
-    equal their plain versions bit for bit, which a wrong pairing of A and
-    B elements (or rows and queries) would not."""
+    """The fragment-layout claim of csrc/s8_wgmma.cuh for the TF32 product
+    with A from registers: on values exact in TF32 the kernel's sums are
+    exact, so B2 and B3-f32 equal their plain versions bit for bit, which a
+    wrong pairing of A and B elements (or rows and queries) would not."""
     qv, qs, fv, fs = _flat_tf32_exact(dev, nq, nv_pad, lp, d, seed=nq + d)
     n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
     out = vs.video_scores_flat(qv, qs, fv, fs, nv, lp=lp)
@@ -292,11 +293,11 @@ def test_b2_b3_f32_fragment_layout_bit_equal(dev, nq, nv, nv_pad, lp, d):
 
 
 @pytest.mark.parametrize("nq,nv,L,d,lp,chunk_v", SHAPES + [
-    (70, 50, 20, 384, 24, 8),        # f32 D = 384: the 64-query tile, twelve 128-byte ring
-                                     # steps a row block
-    (65, 33, 20, 320, 24, 16),       # D = 320 (unrolled, 64-query tile); one query past it;
-                                     # 24-row videos cross the 128-row ring steps
-    (129, 33, 20, 256, 24, 16),      # D = 256 (unrolled, 128-query tile); one query past it
+    (70, 50, 20, 384, 24, 8),        # f32 D = 384: the 64-query tile, twelve 128-byte K
+                                     # chunks a tile row
+    (65, 33, 20, 320, 24, 16),       # D = 320 (64-query tile); one query past it; five
+                                     # 24-row videos a 128-row tile (8 rows unused)
+    (129, 33, 20, 256, 24, 16),      # D = 256 (128-query tile); one query past it
     (127, 17, 9, 256, 104, 16),      # one query short of the tile; a video past 16
     (3, 5, 4, 640, 8, 4),            # the widest f32 row the kernel takes
 ])
@@ -452,6 +453,82 @@ def test_b1_b3_wgmma_ties_across_the_videos_of_a_tile(dev, lp):
     scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv_pad, lp=lp, chunk_v=2)
     ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv_pad, lp, 2)
     assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+
+# nq, nv_pad, n_videos, lp, d, chunk_v: the bf16 / f32 wgmma kernel's
+# edges (d None: the widest row of the type, BF16_MAX_D / F32_MAX_D). Query
+# counts around its warpgroups and its 128-query tile (64 for f32 rows past
+# 1,024 bytes: D = 384, 512, 640); lp = 8 (bf16 32 / f32 16 videos a tile),
+# 104 (the compile-time fold: bf16 N = 208 two videos, f32 N = 104 one), 128,
+# 264 (a video over two / three segments); d = 16 (one 32-byte k-step, the
+# rest TMA's zero fill), 256, 384; pad videos; the streaming block (50 x
+# 2,048) and one of 4 shards of the engine's corpus (21,824 / 4 videos);
+# chunks of 3, 7 and 16 videos across tile ranges.
+WGMMA_B2_SHAPES = [
+    (1, 40, 37, 8, 16, 8),
+    (63, 33, 30, 104, 256, 16),
+    (65, 20, 20, 128, 384, 4),
+    (130, 9, 7, 264, 256, 3),
+    (129, 7, 5, 16, 16, 7),
+    (64, 17, 16, 104, 384, 16),
+    (50, 2048, 2048, 104, 256, 16),
+    (1000, 5456, 5450, 104, 256, 16),
+    (3, 6, 5, 8, None, 2),
+    (70, 12, 10, 24, None, 4),
+]
+
+
+def _flat_float(dev, nq, nv_pad, lp, d, dtype, seed):
+    """Unit query and flat rows drawn in f32 (full 24-bit mantissas), cast."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    unit = lambda *s: torch.nn.functional.normalize(
+        torch.randn(*s, generator=g, device=dev), dim=-1).to(dtype)
+    return unit(nq, d).T, unit(nq, d).T, unit(nv_pad * lp, d), unit(nv_pad * lp, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,nv_pad,n_videos,lp,d,chunk_v", WGMMA_B2_SHAPES)
+def test_b2_b3_wgmma_edges_close(dev, dtype, nq, nv_pad, n_videos, lp, d, chunk_v):
+    """B2 and B3 in bf16 / f32 within F32_ATOL of their plain versions, B3's
+    scores equal to B2's, pads -inf, block maxima the max of the kernel's
+    own scores; one launch each."""
+    if d is None:
+        d = vs.BF16_MAX_D if dtype == torch.bfloat16 else vs.F32_MAX_D
+    qv, qs, fv, fs = _flat_float(dev, nq, nv_pad, lp, d, dtype, seed=nq + nv_pad + lp + d)
+    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    out = vs.video_scores_flat(qv, qs, fv, fs, n_videos, lp=lp)
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, n_videos, lp=lp, chunk_v=chunk_v)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    ref = vs.video_scores_flat_plain(qv, qs, fv, fs, n_videos, lp)
+    assert out.shape == ref.shape == (nq, n_videos)
+    assert (out - ref).abs().max().item() <= F32_ATOL
+    chunk = math.gcd(nv_pad, chunk_v)
+    assert scores.shape == (nq, nv_pad) and bmax.shape == (nq, nv_pad // chunk)
+    assert torch.equal(scores[:, :n_videos], out)
+    assert bool((scores[:, n_videos:] == -math.inf).all())
+    assert torch.equal(bmax, scores.view(nq, -1, chunk).amax(dim=2))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lp", [8, 104, 128])
+def test_b2_b3_wgmma_ties_across_the_videos_of_a_tile(dev, dtype, lp):
+    """Every pair of neighbouring videos holds the same rows, of values
+    exact in bf16 and TF32 (sums exact in any order), so each query's
+    maxima tie across the videos of a tile and the kernel equals its plain
+    version bit for bit."""
+    nq, nv_pad, d = 70, 24, 256
+    qv, qs, fv, fs = (t.to(dtype) for t in _flat_tf32_exact(dev, nq, nv_pad, lp, d, seed=lp))
+    for f in (fv, fs):
+        f3 = f.view(nv_pad, lp, d)
+        f3[1::2] = f3[0::2]
+    out = vs.video_scores_flat(qv, qs, fv, fs, nv_pad, lp=lp)
+    assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, nv_pad, lp))
+    assert torch.equal(out[:, 0::2], out[:, 1::2])
+    scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv_pad, lp=lp, chunk_v=2)
+    ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv_pad, lp, 2)
+    assert torch.equal(scores, ps) and torch.equal(bmax, pb)
+
 
 # ------------------------------------------------------------------ B5
 @pytest.mark.parametrize("nq,nv,L,k,lp,chunk_v", [

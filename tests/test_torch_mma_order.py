@@ -1,10 +1,11 @@
 """The tolerance arguments of the tensor-core video scores on the CPU: B2 /
-B3 in bf16 and in f32 (csrc/video_score.cu; the f32 kind's 3xTF32 split,
-csrc/s8_mma.cuh, is shared by the masked scores B9 / B10).
+B3 in bf16 and in f32 (csrc/video_score.cu on wgmma; the 3xTF32 split of
+csrc/s8_mma.cuh is shared by the masked scores B9 / B10 on mma.sync).
 
-The kernel multiplies bf16 by bf16 on the tensor cores (mma.sync m16n8k16)
-and sums in f32: each k16 step forms an f32 partial sum of its 16 exact
-products, folded into the accumulator in k order. ``tc_order_dots`` models
+The kernels multiply bf16 by bf16 on the tensor cores (wgmma m64nNk16, and
+mma.sync m16n8k16 in B9 / B10) and sum in f32: each k16 step forms an f32
+partial sum of its 16 exact products, folded into the accumulator in k
+order. ``tc_order_dots`` models
 that order in torch. On unit-norm bf16 inputs, at D = 16 and 256 and on
 adversarial rows (products of equal magnitude and alternating sign, and
 rows whose partial sums cancel), the model's video scores are held to:
@@ -28,6 +29,15 @@ top-k, to the exact dot within the worst case of its summation plus the
 split's 3 2^-22 sum |q_i f_i|, and to the JAX kernel in interpret mode;
 and, the negative control, one TF32 product alone (hi.hi) exceeds 1e-5 on
 the same inputs, so the bound catches a lost split.
+
+``wgmma_dots`` models B2 / B3's own walk (video_score_float_kernel): the
+feature axis in 128-byte chunks, zero-filled past D as TMA fills them, four
+32-byte k-steps a chunk (m64nNk16 bf16, m64nNk8 tf32 with the three
+products), the row's first product overwriting the accumulator. It is the
+order above bit for bit (so the argument moved with the kernel), within
+1e-5 of the plain version at D = 256 and at D = 384 (the f32 64-query
+tile), against the JAX kernel in interpret mode, and its single TF32
+product breaks the bound there too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -264,3 +274,103 @@ def test_tf32x3_against_the_pallas_kernel():
     model = tf32x3_scores(qvt, qst, fv, fs, nv, lp).numpy()
     assert pal.shape == model.shape == (4, nv)
     np.testing.assert_allclose(model, pal, rtol=0, atol=ATOL)
+
+
+# ------------------------------------------- B2 / B3's wgmma walk (both kinds)
+CHUNK_BYTES = 128           # K bytes of a ring stage: 64 bf16, 32 f32
+STEP_BYTES = 32             # K bytes of one wgmma k-step: 16 bf16, 8 tf32
+
+
+def wgmma_dots(q: torch.Tensor, f: torch.Tensor, terms=("lo_hi", "hi_lo", "hi_hi")):
+    """(Nq, D) x (R, D) bf16 or f32 -> (Nq, R) f32 dots in the order of
+    video_score_float_kernel: D zero-padded to whole 128-byte chunks, each
+    chunk's four k-steps in order; bf16: a k-step's 16 exact products
+    summed in f32, then added; f32: per k-step the given products of the
+    operands' rna TF32 halves (lo.hi, hi.lo, hi.hi), each an f32 sum of 8
+    exact terms added in turn. The first product of the row overwrites the
+    accumulator (wgmma's scale-d 0)."""
+    size = q.element_size()
+    d_pad = -(-q.shape[1] * size // CHUNK_BYTES) * CHUNK_BYTES // size
+    pad = lambda x: torch.nn.functional.pad(x.float(), (0, d_pad - x.shape[1]))
+    if q.dtype == torch.bfloat16:
+        pairs = {"bf16": (pad(q), pad(f))}
+        terms = ("bf16",)
+    else:
+        (qh, ql), (fh, fl) = split_tf32(pad(q)), split_tf32(pad(f))
+        pairs = {"lo_hi": (ql, fh), "hi_lo": (qh, fl), "hi_hi": (qh, fh)}
+    step = STEP_BYTES // size
+    acc = None
+    for k0 in range(0, d_pad, step):
+        for t in terms:
+            a, b = pairs[t]
+            prods = a[:, None, k0:k0 + step] * b[None, :, k0:k0 + step]
+            part = prods[..., 0]
+            for i in range(1, step):
+                part = part + prods[..., i]
+            acc = part if acc is None else acc + part
+    return acc
+
+
+def wgmma_scores(qvt, qst, fv, fs, n_videos: int, lp: int, terms=("lo_hi", "hi_lo", "hi_hi")):
+    mv, ms = (wgmma_dots(q.T, f, terms).view(q.shape[1], -1, lp).amax(dim=2)
+              for q, f in ((qvt, fv), (qst, fs)))
+    return ((mv + ms) / 2)[:, :n_videos]
+
+
+def _case_kind(kind, d, seed, **kw):
+    return (_case if kind == "bf16" else _case_f32)(d, seed, **kw)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [16, 256, 272, 384])
+def test_wgmma_walk_is_the_tensor_core_order(kind, d):
+    """The chunked walk sums what the k-step models sum, in their order:
+    bit for bit, at one k-step, the model's width, a tail past a chunk and
+    the widest feature axis in use."""
+    qvt, _, fv, _, _, _ = _case_kind(kind, d, seed=d + 7)
+    q, f = qvt.T, fv
+    want = tc_order_dots(q, f) if kind == "bf16" else tf32x3_dots(q, f)
+    assert torch.equal(wgmma_dots(q, f), want)
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [256, 384])
+def test_wgmma_walk_within_the_bound(kind, d, adversarial):
+    qvt, qst, fv, fs, nv, lp = _case_kind(kind, d, seed=d + adversarial + 200,
+                                          adversarial=adversarial)
+    model = wgmma_scores(qvt, qst, fv, fs, nv, lp)
+    plain = vs.video_scores_flat_plain(qvt, qst, fv, fs, nv, lp)
+    assert model.shape == plain.shape == (qvt.shape[1], nv)
+    assert (model - plain).abs().max().item() <= ATOL
+    pv, pi = topk_stable(plain, 10)
+    _, mi = topk_stable(model, 10)
+    assert rank_mismatches(pi.numpy(), pv.numpy(), mi.numpy(), atol=2 * ATOL) == 0
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_wgmma_walk_against_the_pallas_kernel(kind):
+    """The smallest shape crossing the TPU kernel's video tile: 24 videos in
+    tiles of 8, D = 16 (one k-step of bf16, two of tf32, in one chunk),
+    lp = 8."""
+    qvt, qst, fv, fs, nv, lp = _case_kind(kind, 16, seed=5, nq=4, nv=24, lp=8)
+    if kind == "bf16":
+        j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    else:
+        j = lambda t: jnp.asarray(t.numpy())
+    pal = np.asarray(jp.video_scores_pallas_flat(j(qvt), j(qst), j(fv), j(fs), nv, lp=lp,
+                                                 chunk_v=8, interpret=True))
+    model = wgmma_scores(qvt, qst, fv, fs, nv, lp).numpy()
+    assert pal.shape == model.shape == (4, nv)
+    np.testing.assert_allclose(model, pal, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("d", [256, 384])
+def test_one_tf32_wgmma_product_breaks_the_bound(d):
+    """The negative control on the kernel's walk: hi.hi alone is off by
+    more than 1e-5 on the f32 inputs the split holds within it."""
+    qvt, qst, fv, fs, nv, lp = _case_f32(d, seed=d + 300)
+    plain = vs.video_scores_flat_plain(qvt, qst, fv, fs, nv, lp)
+    assert (wgmma_scores(qvt, qst, fv, fs, nv, lp) - plain).abs().max().item() <= ATOL
+    one = wgmma_scores(qvt, qst, fv, fs, nv, lp, terms=("hi_hi",))
+    assert (one - plain).abs().max().item() > ATOL

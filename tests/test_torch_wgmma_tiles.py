@@ -1,10 +1,12 @@
-"""CPU model of the int8 kernels' wgmma tiling (csrc/s8_wgmma.cuh,
-csrc/video_score.cu::video_score_wgmma_kernel for B1 / B3-int8,
+"""CPU model of the video scores' and the span sweep's wgmma tiling
+(csrc/s8_wgmma.cuh; csrc/video_score.cu::video_score_wgmma_kernel for B1 /
+B3-int8 and ::video_score_float_kernel for B2 / B3 in bf16 and f32;
 csrc/span_sim.cu::span_sim_wgmma_kernel for B5), in numpy.
 
-- ``acc_map``: the s8 wgmma m64nNk32 accumulator layout, (thread,
-  register) -> (row, column) of the 64 x N tile, as in the PTX ISA's
-  figure for D; a bijection for every N the kernels use.
+- ``acc_map``: the wgmma m64nNk* accumulator layout, (thread, register) ->
+  (row, column) of the 64 x N tile, as in the PTX ISA's figure for D (the
+  same for s32 sums and f32 sums); a bijection for every N the kernels use
+  (104, 128, 208, 256).
 - B1's per-video fold run through that map on the s32 dots of random int8
   caches: each thread's three-way maxima over its columns of each video,
   the two quad shuffles, stream v's maxima then stream s's, one f32
@@ -12,11 +14,20 @@ csrc/span_sim.cu::span_sim_wgmma_kernel for B5), in numpy.
   compile-time fold), 128 and 264 (a video over two segments), with ties
   planted across the two videos of a tile; B3's block maxima folded across
   a block's consecutive tiles equal the plain version's.
+- B2's fold, the same map on the f32 dots of bf16 and f32 caches (values
+  exact in both, so every order sums them exactly): the tile of each kind
+  (bf16 N = 208 / 256, f32 N = 104 / 128), the stream-by-stream walk (the
+  first pass writes each max to out, the second reads it back into (mv +
+  ms) / 2), the 64-query tile of f32 rows past 1,024 bytes; equal to the
+  plain version at lp = 8, 104, 128 and 264 with ties planted, and B3's
+  block maxima and -inf pads.
 - The persistent tile walk (``tile_range`` and the launch's grid) covers
   every (query, video) and every (query, flat row) exactly once at the
   engine's shapes (1,000 x 21,818), the streaming block (50 x 2,048), a
-  4-way shard, and nq in {1, 63, 65}; B5's row tiles cover every (query,
-  row) once.
+  4-way shard, and nq in {1, 63, 65}, for the int8 tiles and for both float
+  kinds, whose every (query, video) of out is written by one lane in the
+  first pass and read back by that lane in the second; B5's row tiles
+  cover every (query, row) once.
 - B5's epilogue: the staging tile's 128-byte swizzle is a bijection onto
   the four TMA boxes, each word lands where the TMA store reads that
   (query, column), a warp's writes hit 32 different banks, and the row
@@ -71,14 +82,14 @@ def tile_range(n_tiles: int, groups: int, g: int):
     return g * base + min(g, rem), base + (1 if g < rem else 0)
 
 
-def grid(nq: int, n_tiles: int):
-    """The launch: query tiles x ranges, one block an SM."""
-    n_qtiles = -(-nq // QUERIES)
+def grid(nq: int, n_tiles: int, qt: int = QUERIES):
+    """The launch: query tiles of qt queries x ranges, one block an SM."""
+    n_qtiles = -(-nq // qt)
     return n_qtiles, max(1, min(N_SM // n_qtiles, n_tiles))
 
 
 # ------------------------------------------------------------ the layout
-@pytest.mark.parametrize("n", [208, 256])
+@pytest.mark.parametrize("n", [104, 128, 208, 256])
 def test_accumulator_map_is_a_bijection(n):
     row, col = acc_map(n)
     assert row.min() == 0 and row.max() == 63 and col.min() == 0 and col.max() == n - 1
@@ -95,25 +106,28 @@ def test_accumulator_map_is_a_bijection(n):
 
 
 # ------------------------------------------------------- B1's per-video fold
-def fold_tile(blocks, lp, v_local, cols_valid):
-    """One warpgroup's fold of a tile's segments (each a (64, N) s32 block
-    of one stream) through the accumulator map: per thread and register
-    half (row ra or ra + 8), the max of its columns of each video, then the
-    max over the quad. Returns (64 rows, v_local videos) maxima."""
+def fold_tile(blocks, lp, v_local, cols_valid, seg_rows=SEG):
+    """One warpgroup's fold of a tile's segments (each a (64, N) block of
+    one stream: s32, or f32 for the float kinds) through the accumulator
+    map: per thread and register half (row ra or ra + 8), the max of its
+    columns of each video, then the max over the quad. Segment seg starts
+    at tile column seg_rows * seg. Returns (64 rows, v_local videos)
+    maxima."""
     n = blocks[0].shape[1]
     row, col = acc_map(n)
     half = (np.arange(n // 2) // 2) % 2                    # 0: row ra, 1: ra + 8
-    run = np.full((128, 2, v_local), np.iinfo(np.int32).min, dtype=np.int64)
+    low = -np.inf if blocks[0].dtype.kind == "f" else np.iinfo(np.int32).min
+    run = np.full((128, 2, v_local), low, dtype=blocks[0].dtype)
     for seg, block in enumerate(blocks):
         held = block[row, col]                             # (128 threads, n / 2)
         for i in range(n // 2):
-            c = SEG * seg + 8 * (i // 4)                   # register i's eight-column group
+            c = seg_rows * seg + 8 * (i // 4)              # register i's eight-column group
             if c >= cols_valid:                            # past the tile's videos
                 continue
             v = c // lp                                    # the same for every thread
             run[:, half[i], v] = np.maximum(run[:, half[i], v], held[:, i])
     quad = run.reshape(32, 4, 2, v_local).max(axis=1)      # the two shuffles
-    out = np.empty((64, v_local), dtype=np.int64)
+    out = np.empty((64, v_local), dtype=run.dtype)
     for qd in range(32):
         w, g = divmod(qd, 8)
         out[16 * w + g] = quad[qd, 0]
@@ -241,18 +255,163 @@ def test_b3_block_maxima_folded_across_tiles(lp, nv_pad, chunk):
     assert np.array_equal(scores, ps.numpy()) and np.array_equal(bmax, pb.numpy())
 
 
+# ------------------------------------------------- B2's fold (bf16, f32)
+def float_tile(kind: str, lp: int):
+    """video_score_float_kernel's tile: (N, videos a tile, segments a video,
+    rows a tile). bf16: N = 208 at lp = 104, else 256; f32 (whose ring
+    stage also holds the rows' low halves): 104, else 128."""
+    n = {"bf16": 208 if lp == 104 else 256, "f32": 104 if lp == 104 else 128}[kind]
+    vpt = n // lp if lp <= n else 1
+    return n, vpt, -(-lp // n), vpt * lp
+
+
+def float_queries(kind: str, d: int) -> int:
+    """The query tile: 128 queries (two consumer warpgroups), or 64 (one)
+    for f32 rows wider than 1,024 bytes."""
+    return 64 if kind == "f32" and 4 * d > 1024 else 128
+
+
+def model_b2(qv, qs, fv, fs, n_videos, lp, kind, chunk=None):
+    """B2 (chunk None) or B3 in bf16 / f32 through the modelled tiling and
+    walk: each block walks its range twice, the first pass writing stream
+    v's max of each (query, video < n_videos) to out, the second reading it
+    back into (mv + ms) / 2 in f32 (B3: pads -inf, block maxima over the
+    block's consecutive videos in the second pass)."""
+    nq, d = qv.shape
+    nv_pad = fv.shape[0] // lp
+    n, vpt, n_seg, span = float_tile(kind, lp)
+    qt = float_queries(kind, d)
+    dots = [q.astype(np.float32) @ f.astype(np.float32).T for q, f in ((qv, fv), (qs, fs))]
+    n_vtiles = -(-nv_pad // vpt)
+    n_qtiles, groups = grid(nq, n_vtiles, qt)
+    out = np.full((nq, nv_pad), np.nan, dtype=np.float32)
+    bmax = None if chunk is None else np.full((nq, nv_pad // chunk), -np.inf, np.float32)
+    for x in range(n_qtiles):
+        q_lo, q_hi = x * qt, min(nq, x * qt + qt)
+        for y in range(groups):
+            first, count = tile_range(n_vtiles, groups, y)
+            run_chunk = np.full(qt, -1)
+            run_max = np.full(qt, -np.inf, dtype=np.float32)
+            for st in range(2):                            # stream v, then stream s
+                q_rows = np.zeros((qt, dots[st].shape[1]), dtype=np.float32)
+                q_rows[:q_hi - q_lo] = dots[st][q_lo:q_hi]  # TMA's zero rows past nq
+                for t in range(first, first + count):
+                    wg = []
+                    for half in range(qt // 64):           # the consumer warpgroups
+                        blocks = []
+                        for seg in range(n_seg):
+                            r0 = t * span + seg * n
+                            block = np.zeros((64, n), dtype=np.float32)
+                            got = q_rows[64 * half:64 * half + 64, r0:r0 + n]
+                            block[:, :got.shape[1]] = got  # rows past the cache: zeros
+                            blocks.append(block)
+                        wg.append(fold_tile(blocks, lp, vpt, span, seg_rows=n))
+                    maxima = np.concatenate(wg)[:q_hi - q_lo]
+                    for vl in range(vpt):
+                        v = t * vpt + vl
+                        if v >= nv_pad:
+                            continue
+                        if st == 0:
+                            if v < n_videos:
+                                out[q_lo:q_hi, v] = maxima[:, vl]
+                            continue
+                        if v >= n_videos:
+                            score = np.full(q_hi - q_lo, -np.inf, dtype=np.float32)
+                        else:
+                            score = (out[q_lo:q_hi, v] + maxima[:, vl]) / np.float32(2)
+                        out[q_lo:q_hi, v] = score
+                        if chunk is None:
+                            continue
+                        c = v // chunk                     # the running block maximum
+                        for q in range(q_hi - q_lo):
+                            if c != run_chunk[q]:
+                                if run_chunk[q] >= 0:
+                                    bmax[q_lo + q, run_chunk[q]] = max(
+                                        bmax[q_lo + q, run_chunk[q]], run_max[q])
+                                run_chunk[q], run_max[q] = c, -np.inf
+                            run_max[q] = max(run_max[q], score[q])
+            for q in range(q_hi - q_lo):
+                if chunk is not None and run_chunk[q] >= 0:
+                    bmax[q_lo + q, run_chunk[q]] = max(bmax[q_lo + q, run_chunk[q]], run_max[q])
+    if chunk is None:
+        assert not np.isnan(out[:, :n_videos]).any()
+        return out[:, :n_videos]
+    assert not np.isnan(out).any()
+    return out, bmax
+
+
+def _float_caches(nq, nv_pad, lp, d, seed, tie=False):
+    """Values k / 16, |k| <= 8: exact in bf16 and TF32, and every sum of D
+    of their products a multiple of 2^-8 below 2^10, exact in f32 in any
+    order, so the model's dots equal the plain version's bit for bit."""
+    rng = np.random.default_rng(seed)
+    draw = lambda *s: rng.integers(-8, 9, s).astype(np.float32) / 16
+    qv, qs = draw(nq, d), draw(nq, d)
+    fv, fs = draw(nv_pad * lp, d), draw(nv_pad * lp, d)
+    if tie:
+        for f in (fv, fs):
+            f3 = f.reshape(nv_pad, lp, d)
+            f3[1::2] = f3[0::2][:f3[1::2].shape[0]]
+            f3[:, -1] = f3[:, 0]
+    return qv, qs, fv, fs
+
+
+def _float_plain(kind, qv, qs, fv, fs, n_videos, lp, chunk=None):
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    t = lambda a: torch.from_numpy(a).to(dt)
+    if chunk is None:
+        return vs.video_scores_flat_plain(t(qv).T, t(qs).T, t(fv), t(fs), n_videos, lp).numpy()
+    s, b = vs.video_scores_flat_bmax_plain(t(qv).T, t(qs).T, t(fv), t(fs), n_videos, lp, chunk)
+    return s.numpy(), b.numpy()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("lp,nq,nv_pad,n_videos,d", [
+    (8, 70, 70, 67, 32),      # bf16 32 / f32 16 videos a tile, the last tile short
+    (104, 130, 9, 8, 32),     # the compile-time fold: bf16 two videos a tile, f32 one
+    (128, 65, 6, 6, 32),      # bf16 two videos of 128 rows, f32 one
+    (264, 1, 3, 2, 32),       # bf16 a video over two segments, f32 over three
+    (24, 70, 7, 7, 320)])     # f32 rows of 1,280 bytes: the 64-query tile
+def test_b2_fold_through_the_map_equals_the_plain_version(kind, lp, nq, nv_pad, n_videos, d):
+    qv, qs, fv, fs = _float_caches(nq, nv_pad, lp, d, seed=lp + nq + d)
+    got = model_b2(qv, qs, fv, fs, n_videos, lp, kind)
+    assert np.array_equal(got, _float_plain(kind, qv, qs, fv, fs, n_videos, lp))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("lp", [8, 104, 128])
+def test_b2_fold_with_ties_across_the_videos_of_a_tile(kind, lp):
+    nq, nv_pad, n_videos = 66, 10, 10
+    qv, qs, fv, fs = _float_caches(nq, nv_pad, lp, 16, seed=lp, tie=True)
+    got = model_b2(qv, qs, fv, fs, n_videos, lp, kind)
+    ref = _float_plain(kind, qv, qs, fv, fs, n_videos, lp)
+    assert np.array_equal(got, ref)
+    assert np.array_equal(ref[:, 0::2], ref[:, 1::2])     # the planted ties hold
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("lp,nv_pad,chunk", [(104, 16, 16), (8, 40, 8), (104, 12, 4), (264, 6, 3)])
+def test_b3_float_block_maxima_folded_across_tiles(kind, lp, nv_pad, chunk):
+    nq, n_videos = 70, nv_pad - 3
+    qv, qs, fv, fs = _float_caches(nq, nv_pad, lp, 32, seed=nv_pad)
+    scores, bmax = model_b2(qv, qs, fv, fs, n_videos, lp, kind, chunk=chunk)
+    ps, pb = _float_plain(kind, qv, qs, fv, fs, n_videos, lp, chunk)
+    assert np.array_equal(scores, ps) and np.array_equal(bmax, pb)
+    assert (scores[:, n_videos:] == -np.inf).all()
+
+
 # ---------------------------------------------------------- the tile walk
-def _coverage(nq, n_units, n_tiles, units_of_tile):
+def _coverage(nq, n_units, n_tiles, units_of_tile, qt=QUERIES):
     """(nq, n_units) counts of the walk: every block (x, y) takes its query
     tile and its range's tiles; units_of_tile(t) -> the units tile t covers."""
-    n_qtiles, groups = grid(nq, n_tiles)
+    n_qtiles, groups = grid(nq, n_tiles, qt)
     counts = np.zeros((n_qtiles, n_units), dtype=np.int32)
     for y in range(groups):
         first, count = tile_range(n_tiles, groups, y)
         for t in range(first, first + count):
             lo, hi = units_of_tile(t)
             counts[:, lo:min(hi, n_units)] += 1
-    assert n_qtiles * QUERIES >= nq > (n_qtiles - 1) * QUERIES
+    assert n_qtiles * qt >= nq > (n_qtiles - 1) * qt
     return counts, groups
 
 
@@ -278,6 +437,69 @@ def test_b1_walk_covers_every_query_video_and_row_once(nq, nv_pad, lp):
     assert (rows == 1).all()
     if nq == 1000 and nv_pad == 21824:
         assert groups == 16 and -(-nq // QUERIES) * groups == 128   # 128 of the 132 SMs
+
+
+def float_lanes(kind: str, lp: int, qt: int):
+    """Per consumer thread of a block, the (query offset, tile video) of out
+    its lane writes in the first pass and reads back in the second, or -1:
+    at lp = 104 lane quad < 2 VPT of a quad owns row h = quad / VPT, video
+    quad % VPT of the tile; otherwise lanes 0 and 1 own rows ra and ra + 8
+    of every video of the tile (one video at a time, at its flush)."""
+    _, vpt, _, _ = float_tile(kind, lp)
+    thr = np.arange(2 * qt)
+    wg, t = thr // 128, thr % 128
+    warp, lane = t // 32, t % 32
+    quad = lane % 4
+    ra = 64 * wg + 16 * warp + lane // 4
+    if lp == 104:
+        own = quad < 2 * vpt
+        q = np.where(own, ra + 8 * (quad // vpt), -1)
+        v = np.where(own, quad % vpt, -1)
+        return q[:, None], v[:, None]
+    own = quad < 2
+    q = np.where(own, ra + 8 * quad, -1)
+    return np.repeat(q[:, None], vpt, 1), np.where(own[:, None], np.arange(vpt)[None], -1)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("nq,nv_pad,lp,d", [
+    (1000, 21824, 104, 256),          # the engine: 21,818 videos padded to 16
+    (50, 2048, 104, 256),             # a streaming block
+    (1000, 5456, 104, 256),           # one of 4 shards (21,824 / 4)
+    (1, 37, 8, 256), (63, 40, 264, 256), (65, 9, 128, 256),
+    (70, 30, 104, 384)])              # f32 D = 384: the 64-query tile
+def test_b2_walk_writes_and_reads_back_every_query_video_once(kind, nq, nv_pad, lp, d):
+    """One lane owns each (query, video) of out: it writes the first pass's
+    max there and reads it back in the second (B3's pads: writes -inf in
+    the second); the ranges cover every video tile once per query tile,
+    and the segments every flat row once."""
+    n, vpt, n_seg, span = float_tile(kind, lp)
+    qt = float_queries(kind, d)
+    n_vtiles = -(-nv_pad // vpt)
+    counts, groups = _coverage(nq, nv_pad, n_vtiles, lambda t: (t * vpt, t * vpt + vpt), qt)
+    assert (counts == 1).all()
+    q_off, v_off = float_lanes(kind, lp, qt)
+    n_qtiles = -(-nq // qt)
+    tiles = np.arange(n_vtiles)
+    for x in range(n_qtiles):
+        q = np.broadcast_to(x * qt + q_off[:, :, None], q_off.shape + (n_vtiles,))
+        v = tiles[None, None] * vpt + v_off[:, :, None]
+        ok = (q_off[:, :, None] >= 0) & (q < nq) & (v < nv_pad)
+        seen = np.bincount((q[ok] - x * qt) * nv_pad + v[ok], minlength=qt * nv_pad)
+        seen = seen.reshape(qt, nv_pad)[:min(qt, nq - x * qt)]
+        # one lane for each (query, video): the writer of the first pass is
+        # the reader of the second, the lane mapping being the same in both
+        assert (seen == 1).all()
+    # the rows: segment seg of tile t covers flat rows t * span + seg * N ..
+    # + N, of which the columns below span count
+    rows = np.zeros(nv_pad * lp, dtype=np.int32)
+    for t in range(n_vtiles):
+        for seg in range(n_seg):
+            lo = t * span + seg * n
+            rows[lo:min(lo + n, t * span + span, nv_pad * lp)] += 1
+    assert (rows == 1).all()
+    if nq == 1000 and nv_pad == 21824:
+        assert n_qtiles * groups == 128                     # 128 of the 132 SMs
 
 
 @pytest.mark.parametrize("nq,rows", [(1000, 2793472), (50, 2048 * 128), (1, 148), (63, 888),

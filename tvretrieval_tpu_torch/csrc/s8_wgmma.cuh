@@ -2,34 +2,48 @@
 // tensor maps (cuTensorMapEncodeTiled reached through
 // cudaGetDriverEntryPoint, so no library links -lcuda), the mbarrier ring
 // that a producer thread fills with TMA loads and consumer warpgroups
-// drain, TMA stores from shared memory, and the s8 x s8 -> s32
-// wgmma.mma_async m64nNk32 products from shared memory with their
-// descriptors. Shared by the int8 video scores (csrc/video_score.cu, B1 /
-// B3-int8) and the int8 span sweep (csrc/span_sim.cu, B5); the bf16 and
-// f32 kinds stay on mma.sync (s8_mma.cuh).
+// drain, TMA stores from shared memory, and the wgmma.mma_async products
+// with their descriptors: s8 x s8 -> s32 m64nNk32 and bf16 x bf16 -> f32
+// m64nNk16 with both operands in shared memory, and tf32 x tf32 -> f32
+// m64nNk8 with A in registers. Shared by the video scores
+// (csrc/video_score.cu: B1 / B3-int8 on s8, B2 / B3 on bf16 and on three
+// tf32 products), the int8 span sweep (csrc/span_sim.cu, B5) and the
+// ceiling probe (csrc/mma_probe.cu). Only the masked scores B9 / B10 stay
+// on mma.sync (s8_mma.cuh).
 //
-// Tiles. Both operands of an s8 wgmma are K-major: rows of int8 with K
+// Tiles. Every operand in shared memory is K-major: rows with K
 // contiguous, which the queries (Nq, D) and the flat caches (rows, D)
-// already are. A TMA box is 128 bytes of K by up to 256 rows, loaded with
-// the 128-byte swizzle: 16-byte chunk c of tile row r lands at chunk
-// c ^ (r % 8) of the row, rows 128 bytes apart, eight-row groups 1,024
-// bytes apart. Every tile starts on a 1,024-byte boundary, so the pattern
-// is the same in every tile. K past the tensor's end and rows past its
-// last row arrive as zeros (the box may be larger than the tensor).
+// already are. A TMA box is 128 bytes of K (128 int8, 64 bf16 or 32 f32)
+// by up to 256 rows, loaded with the 128-byte swizzle: 16-byte chunk c of
+// tile row r lands at chunk c ^ (r % 8) of the row, rows 128 bytes apart,
+// eight-row groups 1,024 bytes apart. Every tile starts on a 1,024-byte
+// boundary, so the pattern is the same in every tile. K past the tensor's
+// end and rows past its last row arrive as zeros (the box may be larger
+// than the tensor).
 //
 // Descriptors. A wgmma operand in shared memory is a 64-bit descriptor:
 // start address >> 4 (bits 0-13), leading byte offset >> 4 (16-29; unused
 // by K-major swizzled tiles, 1), stride byte offset >> 4 (32-45: 1,024,
 // the eight-row group), layout 1 = 128-byte swizzle (62-63). One k-step is
-// 32 bytes of K, so k-step kk of a 128-byte chunk tile starts 32 kk bytes
-// past its base: the hardware applies the swizzle to the address bits.
+// 32 bytes of K in all three types (32 int8, 16 bf16, 8 tf32), so k-step
+// kk of a 128-byte chunk tile starts 32 kk bytes past its base: the
+// hardware applies the swizzle to the address bits.
 //
-// Accumulators. m64nNk32 with s32 sums leaves N / 2 registers a thread of
-// the warpgroup: thread t (warp w = t / 32, lane l) holds in register i the
-// sum at tile row 16 w + 8 ((i / 2) % 2) + l / 4, column 8 (i / 4) + 2 (l %
-// 4) + i % 2 (the PTX ISA's fragment figure for D; modelled in
-// tests/test_torch_wgmma_tiles.py). So the four lanes of a quad hold the
-// eight columns of each eight-column group of two rows.
+// A from registers (tf32). Warp w of the warpgroup holds rows 16 w .. 16 w
+// + 15 of the 64 x 8 A tile as mma.sync m16n8k8 does: lane l (g = l / 4,
+// t = l % 4) holds a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 =
+// A[g + 8][t + 4], which one ldmatrix.x4 of the swizzled tile gives
+// (s8_mma.cuh::a_frag_addr with 128-byte rows). The registers must not
+// change until the product has read them: the kernels wait for their
+// products (wgmma_wait) before they write them again.
+//
+// Accumulators. m64nNk32 with s32 sums, and m64nNk16 / m64nNk8 with f32
+// sums, leave N / 2 registers a thread of the warpgroup: thread t (warp w =
+// t / 32, lane l) holds in register i the sum at tile row 16 w + 8 ((i / 2)
+// % 2) + l / 4, column 8 (i / 4) + 2 (l % 4) + i % 2 (the PTX ISA's
+// fragment figure for D; modelled in tests/test_torch_wgmma_tiles.py). So
+// the four lanes of a quad hold the eight columns of each eight-column
+// group of two rows.
 //
 // The ring. Stage s has a full barrier (one arrival, the producer's
 // expect_tx, plus the TMA's bytes) and an empty barrier (one arrival from
@@ -86,13 +100,19 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// an int8 K-major operand: boxes of 128 bytes of K by `box_rows` rows
+constexpr int kChunk = 128;             // bytes of K a tile row holds
+
+// a K-major operand of `k` elements of `elem_bytes` bytes a row: boxes of
+// 128 bytes of K by `box_rows` rows
+inline int encode_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                       const void* base, uint64_t k, uint64_t rows, uint32_t box_rows) {
+  return encode_2d(map, type, elem_bytes, base, k, rows, kChunk / elem_bytes, box_rows);
+}
+// an int8 K-major operand
 inline int encode_s8_rows(CUtensorMap* map, const void* base, uint64_t k, uint64_t rows,
                           uint32_t box_rows) {
-  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, k, rows, 128, box_rows);
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, k, rows, box_rows);
 }
-
-constexpr int kChunk = 128;             // bytes of K a tile row holds
 constexpr int kGroupBytes = 1024;       // eight swizzled rows
 constexpr int kMaxSmem = 232448;        // 227 KiB: a block's dynamic shared memory
 
@@ -211,6 +231,11 @@ __device__ __forceinline__ void fence_acc(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
 
 // d (+)= A . B over one k-step of 32 bytes: A 64 rows, B N rows, both
 // K-major tiles given by their descriptors; acc == 0 overwrites d
@@ -284,6 +309,140 @@ struct Wgmma<208> {
           "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
           "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103])
         : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+
+// d (+)= A . B over one k-step of 16 bf16, f32 sums: A 64 rows, B N rows,
+// both K-major tiles given by their descriptors; acc == 0 overwrites d
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<256> {
+  static constexpr int kRegs = 128;
+  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaBf16<208> {
+  static constexpr int kRegs = 104;
+  __device__ static __forceinline__ void mma(float (&d)[104], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %106, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103"
+        "}, %104, %105, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
+// d (+)= A . B over one k-step of 8 tf32, f32 sums: A 64 x 8 from
+// registers (the fragment above; the tensor core reads 19 bits of each
+// register, so A and the tile of B hold values already rounded to TF32), B
+// N rows given by its descriptor; acc == 0 overwrites d
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<128> {
+  static constexpr int kRegs = 64;
+  __device__ static __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<104> {
+  static constexpr int kRegs = 52;
+  __device__ static __forceinline__ void mma(float (&d)[52], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %57, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n104k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51"
+        "}, {%52, %53, %54, %55}, %56, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };
 

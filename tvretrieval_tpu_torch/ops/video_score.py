@@ -25,10 +25,9 @@ wrapper (plain runs are not counted).
 
 What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
 * lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000) on the tensor
-cores: int8 through ``wgmma`` fed by TMA (csrc/s8_wgmma.cuh), bf16 and f32
-through ``mma.sync``, f32 as three TF32 products (a 3xTF32 split that keeps
-f32 accuracy); the (Nq, Nv_pad * lp) dot matrix never reaches device
-memory. B9 does the same on the unflattened caches, the mask applied per
+cores through ``wgmma`` fed by TMA (csrc/s8_wgmma.cuh): int8, bf16, and f32
+as three TF32 products (a 3xTF32 split that keeps f32 accuracy); the (Nq,
+Nv_pad * lp) dot matrix never reaches device memory. B9 does the same on the unflattened caches, the mask applied per
 clip. B5 does Nv_pad * 128 x 2D x Nq MACs through s8 ``wgmma`` and writes
 the rescaled similarity as bf16 by TMA stores (bound by those bytes); its
 s32 dots never reach device memory. See the sources for the tiling.
@@ -54,7 +53,7 @@ SPAN_LP = 128
 
 # the longest feature rows the tensor-core kernels take: query tiles stay
 # in the block's shared memory (csrc/video_score.cu::kI8MaxRowBytes,
-# Bf16Mma / Tf32x3MmaWide::kMaxRowBytes; csrc/masked_score.cu::kMaxD)
+# Bf16Wg / Tf32x3Wg::kMaxRowBytes; csrc/masked_score.cu::kMaxD)
 I8_MAX_D = 384
 BF16_MAX_D = 512
 F32_MAX_D = 640
