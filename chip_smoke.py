@@ -9,10 +9,9 @@ Run from the repository root on a machine with one CUDA card. Phases:
    compiler per source, side by side; the SASS must hold IGMMA (s8 wgmma)
    and no IMMA, HMMA or HGMMA in the int8 video-score kernels (B1 /
    B3-int8) and in B5, HGMMA (wgmma) all of the BF16 form and no HMMA in
-   the bf16 video-score instances (B2 / B3), HGMMA all of the TF32 form and
-   no HMMA in the f32 ones (3xTF32), HMMA without .TF32 in the bf16
-   masked-score instances (B9 / B10) and HMMA all of the .TF32 form in
-   their f32 ones, no instance of those two libraries without tensor-core
+   the bf16 instances of the video scores (B2 / B3) and of the masked
+   scores (B9 / B10), HGMMA all of the TF32 form and no HMMA in their f32
+   ones (3xTF32), no instance of those two libraries without tensor-core
    instructions, and no IDP (dp4a); then the tensor-core ceilings: s8, bf16
    and tf32 mma.sync products from registers, wgmma s8 m64n256k32 and bf16
    m64n208k16 from shared memory and tf32 m64n104k8 with A from registers,
@@ -70,7 +69,9 @@ Run from the repository root on a machine with one CUDA card. Phases:
    clips, D=256, 100 + 1 selected rows, W=14, top_n=200): the masked video
    scores B9 and the one-stream fused scores B10 in bf16 and f32 (drawn in
    f32) within f32 summation slack, planted fully masked videos exactly
-   -1e10 (B9 / B10 as a share of the peak and of the probed ceiling); the fused
+   -1e10 (B9 / B10 as a share of the peak and of the probed wgmma and
+   mma.sync ceilings, beside ``torch.matmul`` over one stream's bf16 and
+   f32 operands, TF32 off, the GEMM alone); the fused
    gather + similarity B7 in bf16 and f32 within 1e-5 of the largest
    similarity; the fused banded top-N B8 equal in all four outputs on
    near-uniform, peaked, tied and all-equal probabilities, with the share
@@ -304,21 +305,19 @@ def check_tensor_cores(_build) -> str:
     wgmma) and no IMMA, HMMA or HGMMA; each bf16 instance of video_score
     holds HGMMA (wgmma), every one of the BF16 form, and no HMMA (mma.sync);
     each f32 instance of video_score holds HGMMA, every one of the TF32
-    form (the 3xTF32 products, TF32 by no other door), and no HMMA; each
-    bf16 instance of masked_score holds HMMA and none of the .TF32 form,
-    each f32 one HMMA, every one of the .TF32 form; no instance of
-    video_score or masked_score is without tensor-core instructions (no FMA
-    kernel is left); no library holds IDP (dp4a)."""
+    form (the 3xTF32 products, TF32 by no other door), and no HMMA; the
+    instances of masked_score the same by kind (every width the wrapper
+    takes runs on wgmma, so no mma.sync instance is left there); no
+    instance of video_score or masked_score is without tensor-core
+    instructions (no FMA kernel is left); no library holds IDP (dp4a)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     kinds = {"video_score": (("int8", "video_score_wgmma"), ("bf16 wgmma", "Bf16Wg"),
                              ("f32 wgmma", "Tf32x3Wg")),
-             "masked_score": (("bf16", "MaskedBf16"), ("f32", "MaskedTf32x3")),
+             "masked_score": (("bf16 wgmma", "MaskedBf16"), ("f32 wgmma", "MaskedTf32x3")),
              "span_sim": (("int8", "span_sim_wgmma"),)}
     # per instance: IGMMA, IMMA, HMMA, HMMA .TF32, HGMMA, HGMMA of the TF32
     # form, HGMMA of the BF16 form
     ok = {"int8": lambda g, i, h, t, w, wt, wb: g > 0 and i == h == w == 0,
-          "bf16": lambda g, i, h, t, w, wt, wb: h > 0 and t == i == g == w == 0,
-          "f32": lambda g, i, h, t, w, wt, wb: t > 0 and t == h and i == g == w == 0,
           "bf16 wgmma": lambda g, i, h, t, w, wt, wb: w > 0 and wb == w and i == g == h == 0,
           "f32 wgmma": lambda g, i, h, t, w, wt, wb: w > 0 and wt == w and i == g == h == 0}
     bad, lines, idp, forms = [], [], 0, set()
@@ -394,20 +393,18 @@ def probe_mma(dev, _build) -> dict:
     return ceiling
 
 
-def rate_str(n_ops: float, ms: float, dtype, ceiling, wgmma: bool = True) -> str:
+def rate_str(n_ops: float, ms: float, dtype, ceiling) -> str:
     """Operations/s of a kernel as a share of the data sheet's peak and of
-    the probed ceilings: of its wgmma probe (int8: s8 m64n256k32; with
-    ``wgmma``, bf16: m64n208k16, f32: tf32 m64n104k8) and of its mma.sync
-    probe (f32: TF32 operations, three a multiply-add)."""
+    the probed ceilings: of its wgmma probe (int8: s8 m64n256k32, bf16:
+    m64n208k16, f32: tf32 m64n104k8) and of its mma.sync probe (f32: TF32
+    operations, three a multiply-add)."""
     n_ops, dtype = tc_ops(n_ops, dtype)
     rate = n_ops / ms * 1e3
     probed = ""
     wg_key = {torch.int8: "wgmma_s8", torch.bfloat16: "wgmma_bf16", "tf32": "wgmma_tf32"}
-    if ceiling and (wgmma or dtype == torch.int8):
+    if ceiling:
         probed = (f", {100 * rate / ceiling[wg_key[dtype]]:.1f}% of the probed wgmma ceiling, "
                   f"{100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync one")
-    elif ceiling:
-        probed = f", {100 * rate / ceiling[dtype]:.1f}% of the probed mma.sync ceiling"
     return (f"{rate / 1e12:.1f} TOPS = {100 * rate / PEAK_OPS[dtype]:.1f}% of the "
             f"{PEAK_OPS[dtype] / 1e12:.1f} peak{probed}")
 
@@ -1497,8 +1494,10 @@ def phase_train(dev, gt, gather_rec, profile_dir):
 def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
     """Phase 8: B7-B10 against their plain versions at corpus scale.
     Returns their records for the kernels line (B9, B10 and B7 in bf16; B9
-    and B10 in f32 under "f32"). ``ceiling``: the probed mma.sync rates
-    (phase 2), for B9 / B10 as a share of them. ``parent_b8``: another
+    and B10 in f32 under "f32"). ``ceiling``: the probed tensor-core rates
+    (phase 2), for B9 / B10 as a share of the wgmma and mma.sync ones and
+    for their ``torch.matmul`` yardstick; None when a later commit's
+    ``--parent`` run calls this phase alone. ``parent_b8``: another
     commit's B8 (``load_parent_b8``), timed beside this one's."""
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt
@@ -1559,9 +1558,16 @@ def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
             rec["B9"]["f32"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, **bnd)
         log("study", f"B9 video_scores_masked ({tag}): max |d| {err:.3e} <= {B2_ATOL}, "
             f"{len(dead)} fully masked videos exactly -1e10, top-100 identical outside "
-            f"near-ties; {ms:.3f} ms ({rate_str(n_ops, ms, dtype, ceiling, False)}) vs plain "
+            f"near-ties; {ms:.3f} ms ({rate_str(n_ops, ms, dtype, ceiling)}) vs plain "
             f"(video_scores_xla) {pms:.3f} ms; {bound_str(bnd)}, "
             f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate")
+        if ceiling is not None:     # this commit's yardstick
+            yard = gemm_ms(qv, fv.view(-1, d))
+            log("study", f"B9 / B10 yardstick ({tag}): torch.matmul over one stream's "
+                f"operands ((1,000, 256) x (2,181,800, 256)^T -> {tag}, in row chunks; "
+                f"{'TF32 off: full f32 products' if tag == 'f32' else 'bf16 out'}: half of "
+                f"B9's products, all of B10's, written out, no mask, no max) {yard:.3f} ms = "
+                f"{rate_str(n_ops / 2, yard, dtype, ceiling)}")
 
         # B10: one stream, clip-major copy made once, exp fused and not
         fv_t = fv.transpose(0, 1).contiguous()
@@ -1600,7 +1606,7 @@ def phase_study_kernels(dev, vs, ceiling=None, parent_b8=None):
                 (rec["B10"] if dtype == torch.bfloat16 else rec["B10"]["f32"])["max_abs_err"] = err
             log("study", f"B10 fused_video_scores_clip_major ({tag}, alpha={alpha}): {what} "
                 f"{err:.3e} <= {tol}, masked videos exactly {planted}; {ms:.3f} ms "
-                f"({rate_str(n_ops, ms, dtype, ceiling, False)}) vs plain (blocked f32 product "
+                f"({rate_str(n_ops, ms, dtype, ceiling)}) vs plain (blocked f32 product "
                 f"+ max) {pms:.3f} ms; {bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate")
         del fv, fv_t, qv, qs
     del f32, q32, mask, mask_t

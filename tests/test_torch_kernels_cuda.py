@@ -23,9 +23,12 @@ and one below a power of two, k = 1, k = n - 1, k = n, k >= n, rows of one
 repeated value, ties across the cut with 0.0 and -0.0 mixed, the engine's
 five shapes with 65-value ties, rows with fewer than k finite values, rows
 past one launch's limit. Masked video
-scores (B9, B10, csrc/masked_score.cu): query, video and clip counts off the
-64 x 32 x 8 tile, fractional masks, fully masked videos exactly -1e10, the
-exp fused and not. Gathered similarity (B7, csrc/gathered_sim.cu): one
+scores (B9, B10, csrc/masked_score.cu on wgmma: 128 queries x 128 videos a
+tile; rows past 1,024 bytes 64 queries, f32 rows past 2,560 bytes 64
+videos): query and video counts one off each tile, clip counts 1, 7, 8,
+100, 129, D = 8 to 768 with a tail (72), 1,000 queries at L = 100,
+fractional masks, fully masked videos exactly -1e10, the exp fused and
+not, values exact in TF32 bit-equal in both layouts. Gathered similarity (B7, csrc/gathered_sim.cu): one
 selected row, clip counts off the 8 warps, one to eight 16-byte pieces a
 lane, indices outside the corpus. Banded top-N (B8, csrc/banded_topk.cu):
 one query, one video, L = 128 with W = 16 and top_n = 256, top_n above the
@@ -859,9 +862,9 @@ def _check_masked(out, ref, mask, full, tol=F32_ATOL, masked=-1e10):
 def test_b9_b10_tensor_cores_clip_counts(dev, L, dtype, d):
     """B9 (video-major caches, two streams) and B10 (clip-major, one
     stream, exp fused and not) on the tensor cores: clip counts on and off
-    8, 67 videos (off the 64-video tile), 65 queries (off the 64- and
-    128-query tiles), D with a k-step tail (72) and the unrolled width
-    (256), fractional and all-zero masks; one launch each."""
+    8, 67 videos (a part of one 128-video tile), 65 queries (off the
+    64-query warpgroup), D with a tail past a 128-byte chunk (72) and the
+    model's width (256), fractional and all-zero masks; one launch each."""
     nq, nv = 65, 67
     qv, qs, fv, fs, mask, full = _masked_mixed(dev, nq, nv, L, d, dtype, seed=L + d)
     n9 = vs.LAUNCHES["video_scores_masked"]
@@ -904,6 +907,42 @@ def test_b9_b10_tf32_exact_values_bit_equal(dev, dtype):
     assert bool((out[:, 3] == -1e10).all())
     assert vs.LAUNCHES["video_scores_masked"] == n9 + 1
     assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
+
+
+WGMMA_MASKED_SHAPES = [  # nq, nv, L, d
+    (127, 127, 5, 256), (129, 129, 5, 256), (128, 128, 3, 256),  # the 128 x 128 tile +-1
+    (63, 63, 4, 768), (65, 65, 4, 768), (64, 64, 2, 768),       # the 64-query tile, f32 N = 64
+    (65, 129, 3, 384), (130, 127, 3, 512), (1, 1, 7, 768),
+    (1000, 300, 100, 256)]                                       # the full query batch and L
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq,nv,L,d", WGMMA_MASKED_SHAPES)
+def test_b9_b10_wgmma_tiles_edges(dev, dtype, nq, nv, L, d):
+    """B9 and B10 (exp fused and not) on the wgmma kernel's edges: query
+    and video counts one off the 128 x 128 tile and the 64-query tile of
+    rows past 1,024 bytes, f32 rows past 2,560 bytes on 64-video tiles,
+    D = 384 / 512 / 768 in both kinds, and 1,000 queries at L = 100 on a
+    slice of the corpus; fractional and all-zero masks."""
+    qv, qs, fv, fs, mask, full = _masked_mixed(dev, nq, nv, L, d, dtype, seed=nq + nv + L + d)
+    n9 = vs.LAUNCHES["video_scores_masked"]
+    out = vs.video_scores_masked(qv, qs, fv, fs, mask)
+    torch.cuda.synchronize()
+    assert vs.LAUNCHES["video_scores_masked"] == n9 + 1
+    assert out.shape == (nq, nv) and out.dtype == torch.float32
+    _check_masked(out, vs.video_scores_xla(qv, qs, fv, fs, mask), mask, full)
+    fv_t, mask_t = fv.transpose(0, 1).contiguous(), mask.T[:, None, :].contiguous()
+    for alpha in (None, 20.0):
+        n10 = fsc.LAUNCHES["fused_video_scores_clip_major"]
+        out = fsc.fused_video_scores_clip_major(qv, fv_t, mask_t, alpha)
+        torch.cuda.synchronize()
+        assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
+        ref = fsc.fused_video_scores_xla(qv, fv, mask, alpha)
+        if alpha is None:
+            _check_masked(out, ref, mask, full)
+        else:
+            assert bool((out[:, ~(mask > 0).any(1)] == 0).all())
+            assert torch.allclose(out, ref, rtol=3e-4, atol=0)
 
 
 def test_b9_b10_wrappers_reject_what_the_kernel_does_not_take(dev):

@@ -1,9 +1,10 @@
 """The tolerance arguments of the tensor-core video scores on the CPU: B2 /
-B3 in bf16 and in f32 (csrc/video_score.cu on wgmma; the 3xTF32 split of
-csrc/s8_mma.cuh is shared by the masked scores B9 / B10 on mma.sync).
+B3 in bf16 and in f32 (csrc/video_score.cu) and the masked scores B9 / B10
+(csrc/masked_score.cu), all on wgmma, the f32 kinds through the 3xTF32
+split of csrc/s8_mma.cuh.
 
-The kernels multiply bf16 by bf16 on the tensor cores (wgmma m64nNk16, and
-mma.sync m16n8k16 in B9 / B10) and sum in f32: each k16 step forms an f32
+The kernels multiply bf16 by bf16 on the tensor cores (wgmma m64nNk16) and
+sum in f32: each k16 step forms an f32
 partial sum of its 16 exact products, folded into the accumulator in k
 order. ``tc_order_dots`` models
 that order in torch. On unit-norm bf16 inputs, at D = 16 and 256 and on
@@ -38,7 +39,19 @@ order above bit for bit (so the argument moved with the kernel), within
 1e-5 of the plain version at D = 256 and at D = 384 (the f32 64-query
 tile), against the JAX kernel in interpret mode, and its single TF32
 product breaks the bound there too.
+
+``masked_wgmma_scores`` / ``masked_wgmma_b10`` are B9 / B10 in the order of
+masked_score_kernel: each clip's dots by that chunked walk, then the fold
+(s * m + (1 - m) * -1e10, each operation rounded in f32) into a running
+max from -inf (B9, the two streams averaged) or -1e10 (B10, exp(alpha .)
+when asked). Within 1e-5 of video_scores_xla and fused_video_scores_xla at
+D = 72 (a tail past a chunk) and 256 with top-k identical outside
+near-ties and fully masked videos exactly -1e10, against the JAX kernels
+(video_scores_pallas, fused_video_scores_clip_major) in interpret mode,
+and one TF32 product alone breaks 1e-5 in both.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -374,3 +387,115 @@ def test_one_tf32_wgmma_product_breaks_the_bound(d):
     assert (wgmma_scores(qvt, qst, fv, fs, nv, lp) - plain).abs().max().item() <= ATOL
     one = wgmma_scores(qvt, qst, fv, fs, nv, lp, terms=("hi_hi",))
     assert (one - plain).abs().max().item() > ATOL
+
+
+# --------------------------------- B9 / B10's wgmma walk (both kinds)
+NEG = -1e10
+
+
+def _fold(s, mask, init):
+    """s: (Nq, Nv, L) f32 dots, mask (Nv, L): the kernel's fold, each
+    operation rounded in f32, the running max from ``init``."""
+    m = mask.float()[None]
+    folded = (s * m + (1.0 - m) * NEG).amax(dim=2)
+    return torch.maximum(folded, torch.tensor(init, dtype=torch.float32))
+
+
+def masked_wgmma_scores(qv, qs, fv, fs, mask, terms=("lo_hi", "hi_lo", "hi_hi")):
+    """B9 in the order of masked_score_kernel: each clip's dots by the
+    chunked walk of ``wgmma_dots`` (D in 128-byte chunks zero-filled past
+    D, four k-steps a chunk; f32 as the three products), folded from -inf,
+    the two streams' maxima averaged. qv / qs: (Nq, D); fv / fs: (Nv, L, D)."""
+    nv, n_clips, d = fv.shape
+    one = lambda q, f: _fold(wgmma_dots(q, f.reshape(-1, d), terms).view(q.shape[0], nv, n_clips),
+                             mask, -math.inf)
+    return (one(qv, fv) + one(qs, fs)) / 2
+
+
+def masked_wgmma_b10(q, f, mask, alpha=None, terms=("lo_hi", "hi_lo", "hi_hi")):
+    """B10 the same way on one stream (video-major f), from -1e10, exp(alpha .)."""
+    nv, n_clips, d = f.shape
+    s = _fold(wgmma_dots(q, f.reshape(-1, d), terms).view(q.shape[0], nv, n_clips), mask, NEG)
+    return torch.exp(alpha * s) if alpha is not None else s
+
+
+def _masked_case(kind, d, seed, nq=24, nv=40, n_clips=8, adversarial=False):
+    """The video-score cases' unit rows as (Nv, L, D) caches; 0/1 prefix
+    masks, video 3 fully masked."""
+    qvt, qst, fv, fs, _, _ = _case_kind(kind, d, seed, nq=nq, nv=nv, lp=n_clips,
+                                        adversarial=adversarial)
+    rng = np.random.default_rng(seed + 1)
+    lengths = torch.from_numpy(rng.integers(1, n_clips + 1, nv))
+    mask = (torch.arange(n_clips)[None] < lengths[:, None]).float()
+    mask[3] = 0.0
+    shape = (nv, n_clips, d)
+    return qvt.T.contiguous(), qst.T.contiguous(), fv.view(shape), fs.view(shape), mask
+
+
+@pytest.mark.parametrize("adversarial", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [72, 256])
+def test_masked_wgmma_walk_within_the_bound(kind, d, adversarial):
+    """B9 and B10 in the masked kernel's order within 1e-5 of their plain
+    versions (video_scores_xla, fused_video_scores_xla), top-10 identical
+    outside near-ties, the fully masked video exactly -1e10 in both."""
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+
+    qv, qs, fv, fs, mask = _masked_case(kind, d, seed=d + adversarial + 400,
+                                        adversarial=adversarial)
+    model = masked_wgmma_scores(qv, qs, fv, fs, mask)
+    plain = vs.video_scores_xla(qv, qs, fv, fs, mask)
+    assert model.shape == plain.shape == (qv.shape[0], fv.shape[0])
+    assert (model - plain).abs().max().item() <= ATOL
+    assert bool((model[:, 3] == NEG).all())
+    pv, pi = topk_stable(plain, 10)
+    _, mi = topk_stable(model, 10)
+    assert rank_mismatches(pi.numpy(), pv.numpy(), mi.numpy(), atol=2 * ATOL) == 0
+    one = masked_wgmma_b10(qv, fv, mask)
+    assert (one - fsc.fused_video_scores_xla(qv, fv, mask)).abs().max().item() <= ATOL
+    assert bool((one[:, 3] == NEG).all())
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_masked_wgmma_walk_against_the_pallas_kernels(kind):
+    """The smallest shape crossing the TPU kernels' video tiles: 24 videos
+    in tiles of 8, 8 clips, D = 16 (one k-step of bf16, two of tf32, in one
+    chunk); B9 against video_scores_pallas, B10 (exp and not) against
+    fused_video_scores_clip_major, both in interpret mode."""
+    from tvretrieval_tpu.ops import pallas_kernels as jk
+
+    qv, qs, fv, fs, mask = _masked_case(kind, 16, seed=9, nq=4, nv=24)
+    if kind == "bf16":
+        j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    else:
+        j = lambda t: jnp.asarray(t.numpy())
+    jm = jnp.asarray(mask.numpy())
+    pal = np.asarray(jp.video_scores_pallas(j(qv), j(qs), j(fv), j(fs), jm, chunk_v=8,
+                                            interpret=True))
+    np.testing.assert_allclose(masked_wgmma_scores(qv, qs, fv, fs, mask).numpy(), pal,
+                               rtol=0, atol=ATOL)
+    for alpha in (None, 20.0):
+        pal = np.asarray(jk.fused_video_scores_clip_major(
+            j(qv), j(fv.transpose(0, 1).contiguous()), jnp.asarray(mask.T[:, None].numpy()),
+            alpha=alpha, block_videos=8, interpret=True))
+        model = masked_wgmma_b10(qv, fv, mask, alpha).numpy()
+        if alpha is None:
+            np.testing.assert_allclose(model, pal, rtol=0, atol=ATOL)
+        else:
+            np.testing.assert_allclose(model, pal, rtol=3e-4, atol=0)
+
+
+@pytest.mark.parametrize("d", [72, 256])
+def test_one_tf32_masked_product_breaks_the_bound(d):
+    """The negative control on the masked kernel's walk: hi.hi alone is off
+    by more than 1e-5 on the f32 inputs the split holds within it, in B9
+    and in B10."""
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+
+    qv, qs, fv, fs, mask = _masked_case("f32", d, seed=d + 500)
+    plain = vs.video_scores_xla(qv, qs, fv, fs, mask)
+    assert (masked_wgmma_scores(qv, qs, fv, fs, mask) - plain).abs().max().item() <= ATOL
+    one = masked_wgmma_scores(qv, qs, fv, fs, mask, terms=("hi_hi",))
+    assert (one - plain).abs().max().item() > ATOL
+    plain10 = fsc.fused_video_scores_xla(qv, fv, mask)
+    assert (masked_wgmma_b10(qv, fv, mask, terms=("hi_hi",)) - plain10).abs().max().item() > ATOL

@@ -1,7 +1,8 @@
-"""CPU model of the video scores' and the span sweep's wgmma tiling
-(csrc/s8_wgmma.cuh; csrc/video_score.cu::video_score_wgmma_kernel for B1 /
-B3-int8 and ::video_score_float_kernel for B2 / B3 in bf16 and f32;
-csrc/span_sim.cu::span_sim_wgmma_kernel for B5), in numpy.
+"""CPU model of the video scores', the span sweep's and the masked scores'
+wgmma tiling (csrc/s8_wgmma.cuh; csrc/video_score.cu::video_score_wgmma_kernel
+for B1 / B3-int8 and ::video_score_float_kernel for B2 / B3 in bf16 and
+f32; csrc/span_sim.cu::span_sim_wgmma_kernel for B5;
+csrc/masked_score.cu::masked_score_kernel for B9 / B10), in numpy.
 
 - ``acc_map``: the wgmma m64nNk* accumulator layout, (thread, register) ->
   (row, column) of the 64 x N tile, as in the PTX ISA's figure for D (the
@@ -32,6 +33,18 @@ csrc/span_sim.cu::span_sim_wgmma_kernel for B5), in numpy.
   the four TMA boxes, each word lands where the TMA store reads that
   (query, column), a warp's writes hit 32 different banks, and the row
   scales reach every lane by the shuffle map.
+- B9 / B10 with the videos on N: the accumulator map is a bijection onto
+  queries x videos (N = 128 and 64) whose video pairs are a mask slot's
+  float2 reads; the 3-D tensor map's boxes (128 bytes of D x N videos x
+  one clip, the outer axes ordered by stride) hold the cache's rows in
+  both layouts, zeros past Nv and past D (D = 72, 256); the persistent walk
+  takes every (query tile, video tile) once, a range's query tiles side by
+  side (1,000 x 21,818, 65 x 67, 1 x 1); the modelled kernel (boxes,
+  per-clip dots, the fold through the map with the mask slot, stream v's
+  maxima read back by their writer, exp) equals video_scores_xla and
+  fused_video_scores_xla bit for bit on values exact in bf16 and TF32, at
+  L in {1, 7, 8, 100, 129} with fractional and all-zero masks and at the
+  wide tiles (D = 384, 768).
 
 The kernels themselves run on the card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py phase 3); these tests hold the index arithmetic they are
@@ -557,3 +570,260 @@ def test_b5_row_scales_reach_every_lane():
             src = 4 * (j & 7) + (l & 3)
             assert held[(src, j >> 3)] == 8 * j + 2 * (l & 3)
     assert sorted(held.values()) == list(range(0, 256, 2))
+
+
+# ------------------------------------------- B9 / B10: the videos on N
+MASKED_N = 128      # csrc/masked_score.cu: videos a tile (64 at f32 rows past 2,560 bytes)
+CHUNK = 128         # K bytes of a TMA box and a ring stage
+
+
+def masked_tiles(kind: str, d: int):
+    """masked_score_kernel's (query tile, videos a tile) for D features:
+    rows past 1,024 bytes take the 64-query tile, f32 rows past 2,560
+    bytes also N = 64."""
+    row = d * (2 if kind == "bf16" else 4)
+    qt = 64 if row > 1024 else 128
+    return qt, 64 if kind == "f32" and row > 2560 else MASKED_N
+
+
+@pytest.mark.parametrize("n", [128, 64])
+def test_masked_accumulator_map_is_a_bijection_onto_queries_x_videos(n):
+    """With the queries on M and the videos on N, register i of thread t is
+    one (query, video) of the warpgroup's 64 x N tile, each exactly once,
+    and the videos a thread holds are the pairs 8 j + 2 (t % 4), + 1 that
+    its float2 reads of a mask slot give (register 4 j + 2 h + e)."""
+    row, col = acc_map(n)
+    assert len(np.unique(row * n + col)) == 64 * n == 128 * (n // 2)
+    i = np.arange(n // 2)[None, :]
+    quad = (np.arange(128) % 4)[:, None]
+    assert np.array_equal(col, 8 * (i // 4) + 2 * quad + i % 2)
+    lane = np.arange(128) % 32
+    assert np.array_equal(row, 16 * (np.arange(128) // 32)[:, None]
+                          + 8 * ((i // 2) % 2) + (lane // 4)[:, None])
+    # two consumer warpgroups of 64 queries each: queries x videos of a block
+    q = np.concatenate([row, row + 64])
+    c = np.concatenate([col, col])
+    assert len(np.unique(q * n + c)) == 128 * n
+
+
+def box_read(buf, inner, dims, strides, elem, c0, c1, c2, box1, box2):
+    """A TMA box of the 3-D tensor map encode_3d makes, in numpy: ``buf``
+    the flat cache (elements), ``inner`` contiguous elements, outer axes of
+    ``dims`` = (outer1, outer2) entries ``strides`` elements apart; the box
+    at (c0, c1, c2) is 128 bytes of the inner axis x box1 x box2, zero
+    where any coordinate lies past its axis. Returns (box1 * box2, 128 /
+    elem) rows in shared-memory order (the inner axis fastest, then axis 1,
+    then axis 2)."""
+    w = CHUNK // elem
+    out = np.zeros((box2, box1, w), dtype=buf.dtype)
+    for b in range(box2):
+        for a in range(box1):
+            i1, i2 = c1 + a, c2 + b
+            if i1 >= dims[0] or i2 >= dims[1]:
+                continue
+            lo, hi = c0, min(c0 + w, inner)
+            if lo < hi:
+                base = i1 * strides[0] + i2 * strides[1]
+                out[b, a, :hi - lo] = buf[base + lo:base + hi]
+    return out.reshape(box1 * box2, w)
+
+
+def masked_map(layout: str, nv: int, n_clips: int, d: int):
+    """The launch's choice of axes: the two outer axes of the cache ordered
+    by stride, equal strides putting the axis of one entry first. B9's
+    (Nv, L, D) cache: strides (video L D, clip D); B10's (L, Nv, D): (video
+    D, clip Nv D). Returns (clip_inner, dims, strides) in elements."""
+    f_video, f_clip = (n_clips * d, d) if layout == "b9" else (d, nv * d)
+    clip_inner = f_clip < f_video or (f_clip == f_video and n_clips == 1)
+    if clip_inner:
+        return True, (n_clips, nv), (f_clip, f_video)
+    return False, (nv, n_clips), (f_video, f_clip)
+
+
+def read_clip_rows(cache, layout, nv, n_clips, d, elem, v0, l, n):
+    """N videos' rows of clip l from the first video v0, as the producer's
+    boxes of every 128-byte K chunk bring them: (N, whole chunks) with TMA's
+    zeros past Nv and past D."""
+    clip_inner, dims, strides = masked_map(layout, nv, n_clips, d)
+    w = CHUNK // elem
+    buf = cache.reshape(-1)
+    chunks = []
+    for kc in range(-(-d // w)):
+        if clip_inner:
+            chunks.append(box_read(buf, d, dims, strides, elem, kc * w, l, v0, 1, n))
+        else:
+            chunks.append(box_read(buf, d, dims, strides, elem, kc * w, v0, l, n, 1))
+    return np.concatenate(chunks, axis=1)
+
+
+@pytest.mark.parametrize("layout", ["b9", "b10"])
+@pytest.mark.parametrize("kind,d", [("bf16", 72), ("bf16", 256), ("f32", 72), ("f32", 256)])
+def test_masked_box_reads_equal_the_cache_rows(layout, kind, d):
+    """Every box the producer loads (128 bytes of D x N videos x one clip,
+    in both layouts) holds the cache's rows of those videos at that clip,
+    zeros past Nv (the last tile) and past D (D = 72: a tail of 8 bf16, or
+    of 8 f32 in the third chunk)."""
+    nv, n_clips = 67, 5
+    elem = 2 if kind == "bf16" else 4
+    _, n = masked_tiles(kind, d)
+    rng = np.random.default_rng(d + elem)
+    video_major = rng.normal(size=(nv, n_clips, d)).astype(np.float32)
+    cache = video_major if layout == "b9" else np.ascontiguousarray(video_major.transpose(1, 0, 2))
+    w = CHUNK // elem
+    d_pad = -(-d // w) * w
+    for v0 in range(0, nv, n):
+        for l in range(n_clips):
+            rows = read_clip_rows(cache, layout, nv, n_clips, d, elem, v0, l, n)
+            assert rows.shape == (n, d_pad)
+            real = min(n, nv - v0)
+            assert np.array_equal(rows[:real, :d], video_major[v0:v0 + real, l])
+            assert not rows[real:].any() and not rows[:, d:].any()
+    # B9 at L = 1 and B10 at Nv = 1: strides tie, the axis of one entry first
+    assert masked_map("b9", nv, 1, d)[0] and not masked_map("b10", 1, n_clips, d)[0]
+
+
+def masked_walk(nq: int, nv: int, qt: int, n: int):
+    """The launch's grid and each block's ordered video tiles: (n_qtiles,
+    groups, {(x, y): [tiles]})."""
+    n_vtiles = -(-nv // n)
+    n_qtiles, groups = grid(nq, n_vtiles, qt)
+    tiles = {}
+    for y in range(groups):
+        first, count = tile_range(n_vtiles, groups, y)
+        for x in range(n_qtiles):
+            tiles[(x, y)] = list(range(first, first + count))
+    return n_qtiles, groups, tiles
+
+
+@pytest.mark.parametrize("qt,n", [(128, 128), (64, 128), (64, 64)])
+@pytest.mark.parametrize("nq,nv", [(1000, 21818), (65, 67), (1, 1)])
+def test_masked_walk_covers_every_tile_pair_once_with_query_tiles_together(nq, nv, qt, n):
+    """Every (query tile, video tile) is walked by exactly one block, and
+    the blocks of one range (its query tiles) walk the same video tiles in
+    the same order: at each step the query tiles of a video tile run side
+    by side and share its rows through L2, so the cache crosses device
+    memory about once a stream."""
+    n_qtiles, groups, tiles = masked_walk(nq, nv, qt, n)
+    n_vtiles = -(-nv // n)
+    seen = np.zeros((n_qtiles, n_vtiles), dtype=np.int32)
+    for (x, _), ts in tiles.items():
+        seen[x, ts] += 1
+    assert (seen == 1).all()
+    for y in range(groups):
+        walks = [tiles[(x, y)] for x in range(n_qtiles)]
+        assert all(w == walks[0] for w in walks) and walks[0] == sorted(walks[0])
+    assert n_qtiles * groups <= N_SM and n_qtiles * qt >= nq
+    if (nq, nv, qt, n) == (1000, 21818, 128, 128):
+        assert (n_qtiles, groups, n_vtiles) == (8, 16, 171)       # 128 of the 132 SMs
+
+
+def masked_model(queries, caches, layout, mask_vl, init, alpha, kind, d):
+    """masked_score_kernel in numpy: the walk, the boxes, the per-clip dots
+    (values exact in bf16 and TF32, so every order sums them exactly), the
+    fold through the accumulator map with the helpers' mask slot (zeros past
+    Nv), the first stream's maxima waiting in out and read back by their
+    writer, then exp. queries: one or two (Nq, D) f32; caches the same
+    count in ``layout``; mask_vl: (Nv, L) f32."""
+    nq = queries[0].shape[0]
+    nv, n_clips = mask_vl.shape
+    elem = 2 if kind == "bf16" else 4
+    qt, n = masked_tiles(kind, d)
+    n_qtiles, groups, tiles = masked_walk(nq, nv, qt, n)
+    row, col = acc_map(n)
+    out = np.full((nq, nv), np.nan, dtype=np.float32)
+    neg = np.float32(-1e10)
+    for (x, y), ts in tiles.items():
+        for st, (q, cache) in enumerate(zip(queries, caches)):
+            q_tile = np.zeros((qt, d), dtype=np.float32)       # TMA's zero rows past nq
+            q_tile[:min(qt, nq - x * qt)] = q[x * qt:(x + 1) * qt]
+            for t in ts:
+                v0 = t * n
+                rows = np.stack([read_clip_rows(cache, layout, nv, n_clips, d, elem, v0, l, n)
+                                 [:, :d] for l in range(n_clips)])     # (L, N, D)
+                dots = np.einsum("qd,lnd->lqn", q_tile, rows).astype(np.float32)
+                slot = np.zeros((n_clips, n), dtype=np.float32)        # the helpers' loads
+                real = min(n, nv - v0)
+                slot[:, :real] = mask_vl[v0:v0 + real].T
+                for wg in range(qt // 64):
+                    held = dots[:, 64 * wg + row, col]                 # (L, thread, register)
+                    m = slot[:, col]
+                    off = (np.float32(1) - m) * neg
+                    best = np.full(held.shape[1:], init, dtype=np.float32)
+                    for l in range(n_clips):
+                        best = np.maximum(best, held[l] * m[l] + off[l])
+                    qq, vv = x * qt + 64 * wg + row, v0 + col
+                    ok = (qq < nq) & (vv < nv)
+                    if st == 0:
+                        out[qq[ok], vv[ok]] = best[ok]
+                    else:
+                        out[qq[ok], vv[ok]] = (out[qq[ok], vv[ok]] + best[ok]) / np.float32(2)
+    assert not np.isnan(out).any()
+    if alpha is not None:
+        out = torch.exp(alpha * torch.from_numpy(out)).numpy()
+    return out
+
+
+def _masked_inputs(nq, nv, n_clips, d, seed, frac=True):
+    """Values k / 16 (exact in bf16 and TF32; D * 64 / 256 < 2^10, so every
+    dot is exact in f32); prefix masks, some fractional, video 0 fully
+    masked and (nv > 2) video 1 at 0.5 on every clip."""
+    rng = np.random.default_rng(seed)
+    draw = lambda *s: rng.integers(-8, 9, s).astype(np.float32) / 16
+    lengths = rng.integers(1, n_clips + 1, nv)
+    mask = (np.arange(n_clips)[None] < lengths[:, None]).astype(np.float32)
+    if frac:
+        f = rng.random((nv, n_clips)).astype(np.float32)
+        mask = np.where(f < 0.2, mask * f * 5, mask).astype(np.float32)
+        if nv > 2:
+            mask[1] = 0.5
+    mask[0] = 0.0
+    return draw(nq, d), draw(nq, d), draw(nv, n_clips, d), draw(nv, n_clips, d), mask
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("n_clips", [1, 7, 8, 100, 129])
+def test_masked_fold_through_the_map_equals_the_plain_versions(kind, n_clips):
+    """B9 (two streams, video-major) and B10 (one stream, clip-major, the
+    running max from -1e10, exp and not) through the modelled kernel on 65
+    queries x 67 videos with fractional and all-zero masks: equal to
+    video_scores_xla and fused_video_scores_xla, the fully masked video
+    exactly -1e10 (0 after the exp)."""
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+
+    nq, nv, d = 65, 67, 16
+    qv, qs, fv, fs, mask = _masked_inputs(nq, nv, n_clips, d, seed=n_clips)
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    T = lambda a: torch.from_numpy(a).to(dt)
+    got = masked_model([qv, qs], [fv, fs], "b9", mask, -np.inf, None, kind, d)
+    ref = vs.video_scores_xla(T(qv), T(qs), T(fv), T(fs), torch.from_numpy(mask)).numpy()
+    assert np.array_equal(got, ref) and (got[:, 0] == -1e10).all()
+    fv_t = np.ascontiguousarray(fv.transpose(1, 0, 2))
+    for alpha in (None, 20.0):
+        got = masked_model([qv], [fv_t], "b10", mask, -1e10, alpha, kind, d)
+        ref = fsc.fused_video_scores_xla(T(qv), T(fv), torch.from_numpy(mask), alpha).numpy()
+        assert np.array_equal(got, ref)
+        assert (got[:, 0] == (-1e10 if alpha is None else 0.0)).all()
+
+
+@pytest.mark.parametrize("kind,d", [("bf16", 72), ("bf16", 768), ("f32", 72), ("f32", 384),
+                                    ("f32", 768)])
+def test_masked_fold_at_the_wide_and_ragged_widths(kind, d):
+    """D with a tail past a chunk (72) and the widest rows, on the 64-query
+    tile (bf16 768, f32 384) and N = 64 (f32 768): 130 queries cross two
+    64-query tiles, 67 videos two 64-video tiles."""
+    from tvretrieval_tpu_torch.ops import fused_score as fsc
+
+    nq, nv, n_clips = 130, 67, 3
+    qv, qs, fv, fs, mask = _masked_inputs(nq, nv, n_clips, d, seed=d, frac=False)
+    # k / 64 values: products are multiples of 2^-12 below 2^-6, so the
+    # dots of 768 stay below 2^4 and exact in f32 in any order
+    qv, qs, fv, fs = (a / 4 for a in (qv, qs, fv, fs))
+    dt = torch.bfloat16 if kind == "bf16" else torch.float32
+    T = lambda a: torch.from_numpy(a).to(dt)
+    got = masked_model([qv, qs], [fv, fs], "b9", mask, -np.inf, None, kind, d)
+    ref = vs.video_scores_xla(T(qv), T(qs), T(fv), T(fs), torch.from_numpy(mask)).numpy()
+    assert np.array_equal(got, ref)
+    fv_t = np.ascontiguousarray(fv.transpose(1, 0, 2))
+    got = masked_model([qv], [fv_t], "b10", mask, -1e10, None, kind, d)
+    assert np.array_equal(got, fsc.fused_video_scores_xla(T(qv), T(fv),
+                                                          torch.from_numpy(mask)).numpy())

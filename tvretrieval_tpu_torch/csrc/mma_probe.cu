@@ -5,9 +5,9 @@
 // with A from registers (B2's instructions at lp = 104), with no memory
 // traffic. It
 // ports no TPU kernel and no engine path runs it: chip_smoke.py (phase 2)
-// times it, so that the tensor-core kernels (B1 / B3-int8, B2 / B3 and B5
-// on wgmma; B9 / B10 on mma.sync) can be stated as a share of what their
-// instruction reaches on this card as well as of the data sheet's peak.
+// times it, so that the tensor-core kernels (B1 / B3-int8, B2 / B3, B5 and
+// B9 / B10, all on wgmma) can be stated as a share of what wgmma and
+// mma.sync reach on this card as well as of the data sheet's peak.
 //
 // mma.sync: each warp keeps kChains independent accumulators, so a
 // product's latency hides behind the next chains' issue; operands are

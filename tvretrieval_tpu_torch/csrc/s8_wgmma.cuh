@@ -1,25 +1,29 @@
-// Tensor-core tiles for Hopper (sm_90a) through wgmma and TMA: 2-D
+// Tensor-core tiles for Hopper (sm_90a) through wgmma and TMA: 2-D and 3-D
 // tensor maps (cuTensorMapEncodeTiled reached through
 // cudaGetDriverEntryPoint, so no library links -lcuda), the mbarrier ring
 // that a producer thread fills with TMA loads and consumer warpgroups
 // drain, TMA stores from shared memory, and the wgmma.mma_async products
 // with their descriptors: s8 x s8 -> s32 m64nNk32 and bf16 x bf16 -> f32
 // m64nNk16 with both operands in shared memory, and tf32 x tf32 -> f32
-// m64nNk8 with A in registers. Shared by the video scores
-// (csrc/video_score.cu: B1 / B3-int8 on s8, B2 / B3 on bf16 and on three
-// tf32 products), the int8 span sweep (csrc/span_sim.cu, B5) and the
-// ceiling probe (csrc/mma_probe.cu). Only the masked scores B9 / B10 stay
-// on mma.sync (s8_mma.cuh).
+// m64nNk8 with A in registers. Shared by every tensor-core kernel: the
+// video scores (csrc/video_score.cu: B1 / B3-int8 on s8, B2 / B3 on bf16
+// and on three tf32 products), the int8 span sweep (csrc/span_sim.cu, B5),
+// the masked scores (csrc/masked_score.cu: B9 / B10 on bf16 and on three
+// tf32 products, the cache read through a 3-D map) and the ceiling probe
+// (csrc/mma_probe.cu, which alone also issues mma.sync, s8_mma.cuh).
 //
 // Tiles. Every operand in shared memory is K-major: rows with K
-// contiguous, which the queries (Nq, D) and the flat caches (rows, D)
-// already are. A TMA box is 128 bytes of K (128 int8, 64 bf16 or 32 f32)
-// by up to 256 rows, loaded with the 128-byte swizzle: 16-byte chunk c of
-// tile row r lands at chunk c ^ (r % 8) of the row, rows 128 bytes apart,
-// eight-row groups 1,024 bytes apart. Every tile starts on a 1,024-byte
-// boundary, so the pattern is the same in every tile. K past the tensor's
-// end and rows past its last row arrive as zeros (the box may be larger
-// than the tensor).
+// contiguous, which the queries (Nq, D), the flat caches (rows, D) and a
+// clip's rows of the masked scores' caches already are. A TMA box is 128
+// bytes of K (128 int8, 64 bf16 or 32 f32) by up to 256 rows, loaded with
+// the 128-byte swizzle: 16-byte chunk c of tile row r lands at chunk c ^ (r
+// % 8) of the row, rows 128 bytes apart, eight-row groups 1,024 bytes
+// apart. A 3-D box of 128 bytes x R x 1 (or x 1 x R) lands the same way,
+// as R rows, whatever multiple of 16 bytes the rows lie apart in device
+// memory (B9: a clip's rows of successive videos L D e bytes apart). Every
+// tile starts on a 1,024-byte boundary, so the pattern is the same in
+// every tile. K past the tensor's end and rows past its last row arrive as
+// zeros (the box may be larger than the tensor).
 //
 // Descriptors. A wgmma operand in shared memory is a 64-bit descriptor:
 // start address >> 4 (bits 0-13), leading byte offset >> 4 (16-29; unused
@@ -32,10 +36,11 @@
 // A from registers (tf32). Warp w of the warpgroup holds rows 16 w .. 16 w
 // + 15 of the 64 x 8 A tile as mma.sync m16n8k8 does: lane l (g = l / 4,
 // t = l % 4) holds a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 =
-// A[g + 8][t + 4], which one ldmatrix.x4 of the swizzled tile gives
-// (s8_mma.cuh::a_frag_addr with 128-byte rows). The registers must not
-// change until the product has read them: the kernels wait for their
-// products (wgmma_wait) before they write them again.
+// A[g + 8][t + 4], which one ldmatrix.x4 of the swizzled tile gives (lane l
+// addresses tile row 16 w + l % 16 at chunk 2 kk + l / 16, placed by
+// s8_mma.cuh's swizzle with 128-byte rows). The registers must not change
+// until the product has read them: the kernels wait for their products
+// (wgmma_wait) before they write them again.
 //
 // Accumulators. m64nNk32 with s32 sums, and m64nNk16 / m64nNk8 with f32
 // sums, leave N / 2 registers a thread of the warpgroup: thread t (warp w =
@@ -43,14 +48,17 @@
 // % 2) + l / 4, column 8 (i / 4) + 2 (l % 4) + i % 2 (the PTX ISA's
 // fragment figure for D; modelled in tests/test_torch_wgmma_tiles.py). So
 // the four lanes of a quad hold the eight columns of each eight-column
-// group of two rows.
+// group of two rows; with videos as the columns (the masked scores) each
+// register is one (query, video).
 //
 // The ring. Stage s has a full barrier (one arrival, the producer's
 // expect_tx, plus the TMA's bytes) and an empty barrier (one arrival from
-// every consumer thread). The producer waits on empty with the flipped
-// parity, so its first pass finds every stage free; consumers wait on
-// full. Accumulators are fenced (fence_acc) after wgmma.wait_group, so the
-// compiler cannot read them before the products have landed.
+// every consumer thread); kernels whose helper warps work on a landed
+// stage (the f32 split, the masked scores' mask slot) add a ready barrier
+// that the helpers arrive on. The producer waits on empty with the flipped
+// parity, so its first pass finds every stage free; consumers wait on full
+// (or ready). Accumulators are fenced (fence_acc) after wgmma.wait_group,
+// so the compiler cannot read them before the products have landed.
 #pragma once
 
 #include <cuda.h>
@@ -101,6 +109,28 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
 }
 
 constexpr int kChunk = 128;             // bytes of K a tile row holds
+
+// A tensor of `elem_bytes`-byte elements at `base` with `inner` contiguous
+// elements and two outer axes: `outer1` entries `stride1` bytes apart and
+// `outer2` entries `stride2` bytes apart (multiples of 16 below 2^40; the
+// callers give stride1 <= stride2). Read in boxes of 128 bytes of the
+// inner axis by box1 x box2 with the 128-byte swizzle, so a box with one
+// of them 1 lands as box1 * box2 rows of 128 bytes, as a 2-D box does.
+// Returns a cudaError_t.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                     const void* base, uint64_t inner, uint64_t outer1, uint64_t stride1,
+                     uint64_t outer2, uint64_t stride2, uint32_t box1, uint32_t box2) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {inner, outer1, outer2};
+  const cuuint64_t strides[2] = {stride1, stride2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kChunk / elem_bytes), box1, box2};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
 
 // a K-major operand of `k` elements of `elem_bytes` bytes a row: boxes of
 // 128 bytes of K by `box_rows` rows
@@ -171,6 +201,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// the box at (c0, c1, c2) of a 3-D `map` (encode_3d)
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 // shared memory at src into the box at (c0, c1); parts past the tensor are
@@ -388,6 +427,31 @@ struct WgmmaBf16<208> {
   }
 };
 
+template <>
+struct WgmmaBf16<128> {
+  static constexpr int kRegs = 64;
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
+};
+
 // d (+)= A . B over one k-step of 8 tf32, f32 sums: A 64 x 8 from
 // registers (the fragment above; the tensor core reads 19 bits of each
 // register, so A and the tile of B hold values already rounded to TF32), B
@@ -442,6 +506,26 @@ struct WgmmaTf32<104> {
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static constexpr int kRegs = 32;
+  __device__ static __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
   }
 };

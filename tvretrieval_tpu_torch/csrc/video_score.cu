@@ -89,8 +89,8 @@
 //   warpgroup round each landed chunk to its TF32 high halves in place and
 //   write its low halves beside it (the same swizzled offsets; then
 //   fence.proxy.async and a third barrier a stage, "ready", that the
-//   consumers wait on instead of "full"). Products in the order of
-//   mma_tf32x3: lo.hi, hi.lo, hi.hi into the one f32 accumulator. A stage is
+//   consumers wait on instead of "full"). Products in the 3xTF32 order of
+//   s8_mma.cuh: lo.hi, hi.lo, hi.hi into the one f32 accumulator. A stage is
 //   twice the rows' bytes, so N = 104 at lp = 104 (one video a tile; a 208-row
 //   stage of 52 KiB would leave one stage beside the 128 KiB query tile),
 //   else 128. Shared memory at D = 256: the query tile 8 x 16 KiB, three
