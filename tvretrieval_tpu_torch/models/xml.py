@@ -40,6 +40,7 @@ from tvretrieval_tpu_torch.models.components import (
 from tvretrieval_tpu_torch.models.rnn import RNNEncoder
 from tvretrieval_tpu_torch.ops.masking import mask_logits
 from tvretrieval_tpu_torch.ops.video_score import quantize_rows_i8, span_sim_cat_i8
+from tvretrieval_tpu_torch.utils import trace
 
 
 class RNNEncoderLayer(nn.Module):
@@ -349,19 +350,22 @@ class XML(nn.Module):
         sq = self.sub_query_linear(sub_query).to(sub_feat2_g.dtype)
         sim_v = torch.einsum("qd,qvld->qvl", vq.float(), video_feat2_g.float())
         sim_s = torch.einsum("qd,qvld->qvl", sq.float(), sub_feat2_g.float())
-        st, ed = self._merged_span_conv((sim_v + sim_s) / 2)
-        return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+        with trace.span("span_head"):
+            st, ed = self._merged_span_conv((sim_v + sim_s) / 2)
+            return mask_logits(st, mask_g), mask_logits(ed, mask_g)
 
     def _finish_span_logits(self, sim, context_mask, gather_idx):
         """Gather each query's rows ``gather_idx`` of a corpus-wide
         (Nq, Nv, >= L) similarity, cut the clip axis to the mask's L, and
-        run the ConvSE conv and the mask on the (Nq, V, L) f32 rows."""
-        rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
-        L = context_mask.shape[1]
-        similarity = sim[rows, gather_idx][:, :, :L].float()
-        mask_g = context_mask[gather_idx]
-        st, ed = self._merged_span_conv(similarity)
-        return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+        run the ConvSE conv and the mask on the (Nq, V, L) f32 rows: the
+        span "span_head" (utils/trace.py)."""
+        with trace.span("span_head"):
+            rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
+            L = context_mask.shape[1]
+            similarity = sim[rows, gather_idx][:, :, :L].float()
+            mask_g = context_mask[gather_idx]
+            st, ed = self._merged_span_conv(similarity)
+            return mask_logits(st, mask_g), mask_logits(ed, mask_g)
 
     def merged_st_ed_scores_simgather(self, video_query, video_feat2, sub_query,
                                       sub_feat2, context_mask, gather_idx):
@@ -380,9 +384,10 @@ class XML(nn.Module):
             sim = _blocked_sweep(q.to(feat2.dtype).float(), feat2.reshape(nv * L, d), L)
             rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
             sims.append(sim.view(-1, nv, L)[rows, gather_idx])          # (Nq, V, L)
-        mask_g = context_mask[gather_idx]
-        st, ed = self._merged_span_conv((sims[0] + sims[1]) / 2)
-        return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+        with trace.span("span_head"):
+            mask_g = context_mask[gather_idx]
+            st, ed = self._merged_span_conv((sims[0] + sims[1]) / 2)
+            return mask_logits(st, mask_g), mask_logits(ed, mask_g)
 
     def merged_st_ed_scores_simgather_cat(self, video_query, sub_query, feat2_cat,
                                           context_mask, gather_idx,
@@ -449,12 +454,13 @@ class XML(nn.Module):
         if k * 127 * 127 >= 2 ** 24:
             raise ValueError(f"2D={k}: the integer dots are exact in f32 only for 2D <= 1040")
         sim = _blocked_sweep(q8.float(), feat2_cat_i8.reshape(nv * L, k), L)
-        rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
-        g = sim.view(-1, nv, L)[rows, gather_idx]                      # (Nq, V, L)
-        similarity = g * (q_scale[:, None] * feat2_scale[gather_idx])
-        mask_g = context_mask[gather_idx]
-        st, ed = self._merged_span_conv(similarity)
-        return mask_logits(st, mask_g), mask_logits(ed, mask_g)
+        with trace.span("span_head"):
+            rows = torch.arange(sim.shape[0], device=sim.device)[:, None]
+            g = sim.view(-1, nv, L)[rows, gather_idx]                  # (Nq, V, L)
+            similarity = g * (q_scale[:, None] * feat2_scale[gather_idx])
+            mask_g = context_mask[gather_idx]
+            st, ed = self._merged_span_conv(similarity)
+            return mask_logits(st, mask_g), mask_logits(ed, mask_g)
 
     def merged_st_ed_scores_pallas_cat_i8(self, video_query, sub_query, f8_flat,
                                           f_scales, context_mask, gather_idx):

@@ -73,6 +73,7 @@ from tvretrieval_tpu_torch.ops.span import (
     topk_stable_blocked_psort,
 )
 from tvretrieval_tpu_torch.retrieval.streaming import streaming_score_query_batch
+from tvretrieval_tpu_torch.utils import trace
 from tvretrieval_tpu_torch.utils.io import load_json
 from tvretrieval_tpu_torch.ops.video_score import (
     build_flat_feat1,
@@ -365,122 +366,143 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
     per row (inference.py:308-374). Other configurations: span
     probabilities for every video, then the top-V rows (JAX
     engine.py:658-676). Returns device tensors keyed like the JAX engine's
-    output."""
+    output.
+
+    Under ``torch.profiler`` the call is the span "score_query_batch"
+    (utils/trace.py), whose counter ``out_bytes`` sums the returned
+    tensors' bytes, and each stage its own span inside it: "encode_query",
+    "video_scores", "video_topk", "span_sweep" (with "span_head" inside),
+    "span_head", "span_topk", "svmr". No device work is issued between two
+    stages: a stage's span starts at the exit event of the one before it."""
     check_supported(cfg)
-    f32 = torch.float32
-    nv, L = ctx_mask.shape
-    V = min(cfg.max_vcmr_video, nv)
-    alpha = cfg.q2c_alpha
+    with trace.span("score_query_batch", query_feat.device) as root:
+        f32 = torch.float32
+        nv, L = ctx_mask.shape
+        V = min(cfg.max_vcmr_video, nv)
+        alpha = cfg.q2c_alpha
 
-    if model.cfg.merged_spans:
-        vq, sq = model.encode_query(query_feat, query_mask)          # (Nq, D) x2
-        fused_bmax = None
-        if cfg.video_score_mode in ("pallas", "pallas_int8"):
-            lp = flat_lp(L)
-            if cfg.video_score_mode == "pallas_int8":
-                qvt, qst = (quantize_unit_i8(l2_normalize(q)).T for q in (vq, sq))
-            else:
-                qvt = l2_normalize(vq).to(video_feat1.dtype).T
-                qst = l2_normalize(sq).to(sub_feat1.dtype).T
-            if cfg.video_topk_fused:
-                scores_pad, fused_bmax = video_scores_flat_bmax(
-                    qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp,
-                    chunk_v=cfg.video_chunk_v)
-                q2c = scores_pad[:, :nv]
-            else:
-                score = (video_scores_flat_i8 if cfg.video_score_mode == "pallas_int8"
-                         else video_scores_flat)
-                q2c = score(qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp)
-        else:
-            q2c = video_scores_xla(l2_normalize(vq).to(video_feat1.dtype),
-                                   l2_normalize(sq).to(sub_feat1.dtype),
-                                   video_feat1, sub_feat1, ctx_mask)
+        if model.cfg.merged_spans:
+            with trace.span("encode_query"):
+                vq, sq = model.encode_query(query_feat, query_mask)      # (Nq, D) x2
+            with trace.span("video_scores"):
+                fused_bmax = None
+                if cfg.video_score_mode in ("pallas", "pallas_int8"):
+                    lp = flat_lp(L)
+                    if cfg.video_score_mode == "pallas_int8":
+                        qvt, qst = (quantize_unit_i8(l2_normalize(q)).T for q in (vq, sq))
+                    else:
+                        qvt = l2_normalize(vq).to(video_feat1.dtype).T
+                        qst = l2_normalize(sq).to(sub_feat1.dtype).T
+                    if cfg.video_topk_fused:
+                        scores_pad, fused_bmax = video_scores_flat_bmax(
+                            qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp,
+                            chunk_v=cfg.video_chunk_v)
+                        q2c = scores_pad[:, :nv]
+                    else:
+                        score = (video_scores_flat_i8 if cfg.video_score_mode == "pallas_int8"
+                                 else video_scores_flat)
+                        q2c = score(qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp)
+                else:
+                    q2c = video_scores_xla(l2_normalize(vq).to(video_feat1.dtype),
+                                           l2_normalize(sq).to(sub_feat1.dtype),
+                                           video_feat1, sub_feat1, ctx_mask)
 
-        if use_external_vr:
-            # an external VR result replaces the internal video ranking
-            # (reference inference.py:346-355)
-            topv_idx = external_idx
-            topv_scores = torch.exp(alpha * external_scores)
-        elif cfg.video_topk_approx:
-            # the approximate top-k on the pre-exp scores, exp on the V selected
-            topv_q2c, topv_idx = approx_topk.approx_max_k(q2c.to(f32), V, cfg.topk_approx_recall)
-            topv_scores = torch.exp(alpha * topv_q2c)
-        elif fused_bmax is not None:
-            # kernel-emitted block maxima; pre-exp ranking (exp is monotone)
-            topv_q2c, topv_idx = topk_from_block_max(
-                scores_pad, fused_bmax, V,
-                block=scores_pad.shape[1] // fused_bmax.shape[1])
-            topv_scores = torch.exp(alpha * topv_q2c)
-        elif cfg.video_topk_pre_exp:
-            topv_q2c, topv_idx = _video_sel(cfg)(q2c.to(f32), V)
-            topv_scores = torch.exp(alpha * topv_q2c)
+            with trace.span("video_topk"):
+                if use_external_vr:
+                    # an external VR result replaces the internal video ranking
+                    # (reference inference.py:346-355)
+                    topv_idx = external_idx
+                    topv_scores = torch.exp(alpha * external_scores)
+                elif cfg.video_topk_approx:
+                    # the approximate top-k on the pre-exp scores, exp on the V selected
+                    topv_q2c, topv_idx = approx_topk.approx_max_k(q2c.to(f32), V,
+                                                                  cfg.topk_approx_recall)
+                    topv_scores = torch.exp(alpha * topv_q2c)
+                elif fused_bmax is not None:
+                    # kernel-emitted block maxima; pre-exp ranking (exp is monotone)
+                    topv_q2c, topv_idx = topk_from_block_max(
+                        scores_pad, fused_bmax, V,
+                        block=scores_pad.shape[1] // fused_bmax.shape[1])
+                    topv_scores = torch.exp(alpha * topv_q2c)
+                elif cfg.video_topk_pre_exp:
+                    topv_q2c, topv_idx = _video_sel(cfg)(q2c.to(f32), V)
+                    topv_scores = torch.exp(alpha * topv_q2c)
+                else:
+                    topv_scores, topv_idx = _video_sel(cfg)(torch.exp(alpha * q2c.to(f32)), V)
+                topv_idx = topv_idx.long()
+                gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
+                              if do_svmr else topv_idx)                  # (Nq, V[+1])
+            with trace.span("span_sweep"):
+                if cfg.span_score_mode == "simsweep_cat_int8":
+                    st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat_i8(
+                        vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
+                elif cfg.span_score_mode == "simsweep_cat_int8_flat":
+                    st_logits, ed_logits = model.merged_st_ed_scores_pallas_cat_i8(
+                        vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
+                elif cfg.cat_mode:
+                    st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
+                        vq, sq, feat2_cat, ctx_mask, gather_idx,
+                        sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
+                                   else None))
+                elif cfg.span_score_mode == "simsweep":
+                    st_logits, ed_logits = model.merged_st_ed_scores_simgather(
+                        vq, video_feat2, sq, sub_feat2, ctx_mask, gather_idx)
+                else:
+                    # gathered rows stay at the cache dtype: (Nq, V[+1], L, D) per stream
+                    st_logits, ed_logits = model.merged_st_ed_scores_gathered(
+                        vq, video_feat2[gather_idx], sq, sub_feat2[gather_idx],
+                        ctx_mask[gather_idx])
+            with trace.span("span_head"):
+                st_probs = torch.softmax(st_logits.to(f32), dim=-1)
+                ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
+                st_top, ed_top = st_probs[:, :V], ed_probs[:, :V]
+                if do_svmr:
+                    st_gt, ed_gt = st_probs[:, V], ed_probs[:, V]      # the gathered GT row
         else:
-            topv_scores, topv_idx = _video_sel(cfg)(torch.exp(alpha * q2c.to(f32)), V)
-        topv_idx = topv_idx.long()
-        gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
-                      if do_svmr else topv_idx)                      # (Nq, V[+1])
-        if cfg.span_score_mode == "simsweep_cat_int8":
-            st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat_i8(
-                vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
-        elif cfg.span_score_mode == "simsweep_cat_int8_flat":
-            st_logits, ed_logits = model.merged_st_ed_scores_pallas_cat_i8(
-                vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
-        elif cfg.cat_mode:
-            st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
-                vq, sq, feat2_cat, ctx_mask, gather_idx,
-                sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
-                           else None))
-        elif cfg.span_score_mode == "simsweep":
-            st_logits, ed_logits = model.merged_st_ed_scores_simgather(
-                vq, video_feat2, sq, sub_feat2, ctx_mask, gather_idx)
-        else:
-            # gathered rows stay at the cache dtype: (Nq, V[+1], L, D) per stream
-            st_logits, ed_logits = model.merged_st_ed_scores_gathered(
-                vq, video_feat2[gather_idx], sq, sub_feat2[gather_idx],
-                ctx_mask[gather_idx])
-        st_probs = torch.softmax(st_logits.to(f32), dim=-1)
-        ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
-        st_top, ed_top = st_probs[:, :V], ed_probs[:, :V]
+            up = lambda x: None if x is None else x.to(f32)
+            q2c, st_logits, ed_logits = model.get_pred_from_raw_query(
+                query_feat, query_mask, up(video_feat1), up(video_feat2), ctx_mask,
+                up(sub_feat1), up(sub_feat2), ctx_mask, cross=True)  # (Nq, Nv), (Nq, Nv, L)
+            with trace.span("span_head"):
+                st_probs = torch.softmax(st_logits.to(f32), dim=-1)
+                del st_logits
+                ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
+                del ed_logits
+            with trace.span("video_topk"):
+                if use_external_vr:
+                    topv_idx = external_idx
+                    topv_scores = torch.exp(alpha * external_scores)
+                elif cfg.video_topk_pre_exp:
+                    topv_q2c, topv_idx = topk_stable(q2c.to(f32), V)
+                    topv_scores = torch.exp(alpha * topv_q2c)
+                else:
+                    topv_scores, topv_idx = topk_stable(torch.exp(alpha * q2c.to(f32)), V)
+                topv_idx = topv_idx.long()
+                rows = torch.arange(topv_idx.shape[0], device=topv_idx.device)
+                st_top = st_probs[rows[:, None], topv_idx]
+                ed_top = ed_probs[rows[:, None], topv_idx]
+                if do_svmr:
+                    # the GT row of the full probabilities (JAX engine.py:718-723)
+                    gt = gt_meta_idx.long()
+                    st_gt, ed_gt = st_probs[rows, gt], ed_probs[rows, gt]
+
+        with trace.span("span_topk"):
+            span_topk = SPAN_TOPK[cfg.span_topk_mode]
+            if cfg.span_topk_mode == "grouped_shift_approx":
+                span_topk = functools.partial(span_topk, recall=cfg.topk_approx_recall)
+            vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = span_topk(
+                st_top, ed_top, topv_scores, cfg.min_pred_l, cfg.max_pred_l, cfg.max_before_nms)
+            out = dict(topv_scores=topv_scores, topv_idx=topv_idx.to(torch.int32),
+                       vcmr_vid_local=vcmr_vid_local, vcmr_st=vcmr_st, vcmr_ed=vcmr_ed,
+                       vcmr_scores=vcmr_scores)
         if do_svmr:
-            st_gt, ed_gt = st_probs[:, V], ed_probs[:, V]          # the gathered GT row
-    else:
-        up = lambda x: None if x is None else x.to(f32)
-        q2c, st_logits, ed_logits = model.get_pred_from_raw_query(
-            query_feat, query_mask, up(video_feat1), up(video_feat2), ctx_mask,
-            up(sub_feat1), up(sub_feat2), ctx_mask, cross=True)  # (Nq, Nv), (Nq, Nv, L)
-        st_probs = torch.softmax(st_logits.to(f32), dim=-1)
-        del st_logits
-        ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
-        del ed_logits
-        if use_external_vr:
-            topv_idx = external_idx
-            topv_scores = torch.exp(alpha * external_scores)
-        elif cfg.video_topk_pre_exp:
-            topv_q2c, topv_idx = topk_stable(q2c.to(f32), V)
-            topv_scores = torch.exp(alpha * topv_q2c)
-        else:
-            topv_scores, topv_idx = topk_stable(torch.exp(alpha * q2c.to(f32)), V)
-        topv_idx = topv_idx.long()
-        rows = torch.arange(topv_idx.shape[0], device=topv_idx.device)
-        st_top, ed_top = st_probs[rows[:, None], topv_idx], ed_probs[rows[:, None], topv_idx]
-        if do_svmr:
-            # the GT row of the full probabilities (JAX engine.py:718-723)
-            gt = gt_meta_idx.long()
-            st_gt, ed_gt = st_probs[rows, gt], ed_probs[rows, gt]
-
-    span_topk = SPAN_TOPK[cfg.span_topk_mode]
-    if cfg.span_topk_mode == "grouped_shift_approx":
-        span_topk = functools.partial(span_topk, recall=cfg.topk_approx_recall)
-    vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = span_topk(
-        st_top, ed_top, topv_scores, cfg.min_pred_l, cfg.max_pred_l, cfg.max_before_nms)
-    out = dict(topv_scores=topv_scores, topv_idx=topv_idx.to(torch.int32),
-               vcmr_vid_local=vcmr_vid_local, vcmr_st=vcmr_st, vcmr_ed=vcmr_ed,
-               vcmr_scores=vcmr_scores)
-    if do_svmr:
-        svmr_st, svmr_ed, svmr_scores = banded_top_spans_from_probs(
-            st_gt, ed_gt, cfg.min_pred_l, cfg.max_pred_l, cfg.max_before_nms)
-        out.update(svmr_st=svmr_st, svmr_ed=svmr_ed, svmr_scores=svmr_scores)
-    return out
+            with trace.span("svmr"):
+                svmr_st, svmr_ed, svmr_scores = banded_top_spans_from_probs(
+                    st_gt, ed_gt, cfg.min_pred_l, cfg.max_pred_l, cfg.max_before_nms)
+            out.update(svmr_st=svmr_st, svmr_ed=svmr_ed, svmr_scores=svmr_scores)
+        if root is not None:
+            root.count(out_bytes=sum(v.nbytes for v in out.values()))
+        return out
 
 
 def load_external_vr_submission(path: str, corpus: CorpusIndex,
