@@ -213,7 +213,7 @@ E2E_VIDEOS, E2E_QUERIES = 320, 300     # phase 4, kept small for its CPU side
 HIDDEN = 256
 N_CLIPS = 100
 LP = 104
-SPAN_LP = 128       # rows per video of the flat int8 feat2 cache
+SPAN_LP = 128       # rows per video of the JAX package's flat int8 feat2 cache
 CHUNK_V = 16
 # the row shapes the engine's psort modes sort at Nv=21,818, V=100, L=100,
 # top_n=200: video block maxima, video pool, group block maxima, group
@@ -574,59 +574,76 @@ def phase_kernels(dev, vs, ceiling=None):
 
 def phase_span_sim(dev, vs, ceiling=None):
     """Phase 3, B5: the int8 span sweep at the full corpus against its plain
-    version, bit for bit, block of videos by block."""
+    version, bit for bit, block of videos by block, in the engine's layout
+    (lp = flat_lp(L) = 104 rows a video) and in the JAX package's (lp =
+    128)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     nv, nq, k = N_VIDEOS_FULL, N_QUERIES, 2 * HIDDEN
     feat2_cat = torch.randn((nv, N_CLIPS, k), generator=gen, device=dev).to(torch.bfloat16)
-    f8, fs = vs.build_flat_feat2_i8(feat2_cat, lp=SPAN_LP, chunk_v=CHUNK_V)
     qcat = torch.randn((nq, k), generator=gen, device=dev) * 0.5
     q8, qs = vs.quantize_rows_i8(qcat)
     qs = qs[:, None].contiguous()
-    nv_pad = fs.shape[0]
-    if f8.shape != (nv_pad * SPAN_LP, k) or nv_pad % CHUNK_V or nv_pad < nv:
-        raise AssertionError(f"flat feat2 cache {tuple(f8.shape)} {tuple(fs.shape)}")
-    out = vs.span_sim_cat_i8(q8, qs, f8, fs, lp=SPAN_LP)
-    torch.cuda.synchronize()
-    if out.shape != (nq, nv_pad, SPAN_LP) or out.dtype != torch.bfloat16:
-        raise AssertionError(f"B5 output {tuple(out.shape)} {out.dtype}")
-    block, bad = 512, 0
-    for v0 in range(0, nv_pad, block):
-        ref = vs.span_sim_int8_xla(q8, qs, f8[v0 * SPAN_LP:(v0 + block) * SPAN_LP],
-                                   fs[v0:v0 + block], lp=SPAN_LP)
-        bad += int((out[:, v0:v0 + block].view(torch.int16) != ref.view(torch.int16)).sum())
-    if bad:
-        raise AssertionError(f"B5 differs from its plain version at {bad} of {out.numel()} outputs")
-    if bool(out[:, :, N_CLIPS:].any()) or bool(out[:, nv:].any()):
-        raise AssertionError("B5: a pad row or a pad video is not exactly zero")
-    if not bool(out[:, :nv, :N_CLIPS].float().abs().amax() > 0):
-        raise AssertionError("B5: the similarity is all zero")
-    del out, ref
-    ms, pms = alternate_ms(lambda: vs.span_sim_int8_xla(q8, qs, f8, fs, lp=SPAN_LP),
-                           lambda: vs.span_sim_cat_i8(q8, qs, f8, fs, lp=SPAN_LP), reps=3)
-    n_out = nq * nv_pad * SPAN_LP
-    bnd = bound(q8.numel() + f8.numel() + 4 * (qs.numel() + fs.numel()) + 2 * n_out,
-                2 * nq * f8.shape[0] * k, torch.int8)
+    rec = {}
+    for lp in (vs.flat_lp(N_CLIPS), SPAN_LP):
+        f8, fs = vs.build_flat_feat2_i8(feat2_cat, lp=lp, chunk_v=CHUNK_V)
+        nv_pad = fs.shape[0]
+        if f8.shape != (nv_pad * lp, k) or nv_pad % CHUNK_V or nv_pad < nv:
+            raise AssertionError(f"flat feat2 cache {tuple(f8.shape)} {tuple(fs.shape)}")
+        out = vs.span_sim_cat_i8(q8, qs, f8, fs, lp=lp)
+        torch.cuda.synchronize()
+        if out.shape != (nq, nv_pad, lp) or out.dtype != torch.bfloat16:
+            raise AssertionError(f"B5 output {tuple(out.shape)} {out.dtype}")
+        block, bad = 512, 0
+        for v0 in range(0, nv_pad, block):
+            ref = vs.span_sim_int8_xla(q8, qs, f8[v0 * lp:(v0 + block) * lp],
+                                       fs[v0:v0 + block], lp=lp)
+            bad += int((out[:, v0:v0 + block].view(torch.int16) != ref.view(torch.int16)).sum())
+        if bad:
+            raise AssertionError(f"B5 (lp={lp}) differs from its plain version at {bad} of "
+                                 f"{out.numel()} outputs")
+        if bool(out[:, :, N_CLIPS:].any()) or bool(out[:, nv:].any()):
+            raise AssertionError(f"B5 (lp={lp}): a pad row or a pad video is not exactly zero")
+        if not bool(out[:, :nv, :N_CLIPS].float().abs().amax() > 0):
+            raise AssertionError(f"B5 (lp={lp}): the similarity is all zero")
+        del out, ref
+        kernel = lambda: vs.span_sim_cat_i8(q8, qs, f8, fs, lp=lp)
+        if not rec:
+            ms, pms = alternate_ms(lambda: vs.span_sim_int8_xla(q8, qs, f8, fs, lp=lp),
+                                   kernel, reps=3)
+        else:
+            ms, pms = cuda_ms(kernel, reps=10), None
+        n_out = nq * nv_pad * lp
+        n_ops = 2 * nq * f8.shape[0] * k
+        bnd = bound(q8.numel() + f8.numel() + 4 * (qs.numel() + fs.numel()) + 2 * n_out,
+                    n_ops, torch.int8)
+        r = dict(ms=ms, **bnd)
+        log("kernels", f"B5 span_sim_cat_i8: Nq={nq} rows={f8.shape[0]} (Nv_pad={nv_pad} x "
+            f"{lp}, {100 * (1 - nv * N_CLIPS / f8.shape[0]):.1f}% pad) K={k}: bit-equal over "
+            f"{n_out} outputs, pads exactly zero; {ms:.3f} ms "
+            f"({rate_str(n_ops, ms, torch.int8, ceiling)})"
+            f"{f' vs plain {pms:.3f} ms' if pms is not None else ''}; {bound_str(bnd)}, "
+            f"{100 * bnd['bound_ms'] / ms:.1f}% of its rate, "
+            f"{2 * n_out / ms / 1e9:.2f} TB/s of bf16 output; caches int8 flat "
+            f"{f8.numel() / 1e9:.3f} GB + scales {fs.numel() * 4 / 1e6:.1f} MB")
+        if not rec:
+            yard = gemm_ms(q8, f8) if ceiling is not None else float("nan")
+            if ceiling is not None:
+                log("kernels", f"B5 yardstick: torch._int_mm over its operands ((1,000, 512) "
+                    f"x ({f8.shape[0]:,}, 512) int8 -> s32, in row chunks: its products, no "
+                    f"rescale, 4 bytes an output) {yard:.3f} ms = "
+                    f"{rate_str(n_ops, yard, torch.int8, None)}")
+            rec = dict(max_abs_err=0.0, plain_ms=pms, library_ms=None, **r)
+        else:
+            rec[f"lp{lp}"] = r
+        del f8, fs
     # the path it replaces: the bf16 sweep of simsweep_cat_bf16 on the same corpus
     flat_bf = torch.nn.functional.pad(feat2_cat, (0, 0, 0, SPAN_LP - N_CLIPS)).reshape(-1, k)
     q_bf = qcat.to(torch.bfloat16)
-    sweep_ms = cuda_ms(lambda: q_bf @ flat_bf.T, reps=3)
-    del flat_bf, q_bf
-    yard = gemm_ms(q8, f8) if ceiling is not None else float("nan")
-    log("kernels", f"B5 span_sim_cat_i8: Nq={nq} rows={f8.shape[0]} (Nv_pad={nv_pad} x "
-        f"{SPAN_LP}) K={k}: bit-equal over {n_out} outputs, pads exactly zero; {ms:.3f} ms "
-        f"({rate_str(2 * nq * f8.shape[0] * k, ms, torch.int8, ceiling)}) vs plain "
-        f"{pms:.3f} ms; {bound_str(bnd)}, {100 * bnd['bound_ms'] / ms:.1f}% of its rate, "
-        f"{2 * n_out / ms / 1e9:.2f} TB/s of bf16 output; the bf16 torch.matmul sweep of "
-        f"simsweep_cat_bf16 on this corpus {sweep_ms:.3f} ms; caches int8 flat "
-        f"{f8.numel() / 1e9:.3f} GB + scales {fs.numel() * 4 / 1e6:.1f} MB vs bf16 "
-        f"{2 * f8.numel() / 1e9:.3f} GB")
-    if ceiling is not None:
-        log("kernels", f"B5 yardstick: torch._int_mm over its operands ((1,000, 512) x "
-            f"({f8.shape[0]:,}, 512) int8 -> s32, in row chunks: its products, no rescale, "
-            f"4 bytes an output) {yard:.3f} ms = "
-            f"{rate_str(2 * nq * f8.shape[0] * k, yard, torch.int8, None)}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=None,
-                replaced_bf16_sweep_ms=sweep_ms, **bnd)
+    rec["replaced_bf16_sweep_ms"] = cuda_ms(lambda: q_bf @ flat_bf.T, reps=3)
+    log("kernels", f"B5: the bf16 torch.matmul sweep of simsweep_cat_bf16 on this corpus "
+        f"(128 rows a video) {rec['replaced_bf16_sweep_ms']:.3f} ms; its bf16 cache "
+        f"{flat_bf.numel() * 2 / 1e9:.3f} GB")
+    return rec
 
 
 def phase_topk_sort(dev, tsort):
@@ -1144,7 +1161,8 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     total, kept = {}, {}
     for name, rcfg, want in configs:
         if rcfg.span_score_mode == "simsweep_cat_int8_flat":
-            feat2_cat, feat2_scale = vs.build_flat_feat2_i8(feat2_raw, chunk_v=CHUNK_V)
+            feat2_cat, feat2_scale = vs.build_flat_feat2_i8(
+                feat2_raw, lp=vs.flat_lp(feat2_raw.shape[1]), chunk_v=CHUNK_V)
             feat2_bytes = feat2_cat.numel() + 4 * feat2_scale.numel()
         else:
             # at the cache dtype, as encode_corpus leaves it
@@ -1248,7 +1266,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         del feat2_cat, feat2_scale, out, run
     log("throughput", f"B1 at this shape {kernel_rec['B1']['ms']:.3f} ms, B2-bf16 "
         f"{kernel_rec['B2']['ms']:.3f} ms, B2-f32 {kernel_rec['B2']['f32']['ms']:.3f} ms, B5 "
-        f"{kernel_rec['B5']['ms']:.3f} ms, B6's five "
+        f"{kernel_rec['B5']['ms']:.3f} ms (lp = {vs.flat_lp(N_CLIPS)}), B6's five "
         f"launches {kernel_rec['B6']['ms']:.3f} ms"
         + (f", B11's three {kernel_rec['B11']['ms']:.3f} ms" if "B11" in kernel_rec else "")
         + f" (phase 3); launches over the {len(configs)} configurations {total}")
@@ -3625,7 +3643,8 @@ def phase_sharded(dev, dp_env=None):
         f1 = [vs.build_flat_feat1(f, mask, chunk_v=CHUNK_V) for f in (vf1, sf1)]
         f1 = [vs.quantize_unit_i8(f) for f in f1]
         if cfg.span_score_mode == "simsweep_cat_int8_flat":
-            f2, f2s = vs.build_flat_feat2_i8(feat2_raw, chunk_v=CHUNK_V)
+            f2, f2s = vs.build_flat_feat2_i8(feat2_raw, lp=vs.flat_lp(feat2_raw.shape[1]),
+                                           chunk_v=CHUNK_V)
         else:
             f2, f2s = _maybe_pad_clip_axis(feat2_raw, cfg), None
         return lambda: _score_query_batch(model, cfg, q_feat, q_mask, f1[0], None, f1[1], None,
@@ -4043,8 +4062,8 @@ def main() -> int:
          "launches_streaming": launches_stream[name],
          "launches_sharded": launches_sharded[name],
          **{k: rec[b][k] for k in keys},
-         **{kind: rec[b][kind] for kind in ("bf16", "f32", "library_call", "per_site")
-            if kind in rec[b]}}
+         **{kind: rec[b][kind] for kind in ("bf16", "f32", "library_call", "per_site",
+                                            "lp128") if kind in rec[b]}}
         for b, name, src, where in table]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

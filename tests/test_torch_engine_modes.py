@@ -170,10 +170,11 @@ def test_int8_span_modes(setup, dtype):
     nv, L = c8.mask.shape
     assert c8.feat2_cat.dtype == torch.int8 and c8.feat2_cat.shape == (nv, L, 64)
     assert c8.feat2_cat_scale.shape == (nv, L) and c8.feat2_cat_scale.dtype == torch.float32
-    assert cf.feat2_cat.dtype == torch.int8 and cf.feat2_cat.shape == (32 * 128, 64)
-    assert cf.feat2_cat_scale.shape == (32, 128)
+    lp = vs.flat_lp(L)                      # the engine's rows a video: 16 at L = 14
+    assert cf.feat2_cat.dtype == torch.int8 and cf.feat2_cat.shape == (32 * lp, 64)
+    assert cf.feat2_cat_scale.shape == (32, lp)
     assert c8.video_feat2 is None and cf.sub_feat2 is None
-    assert torch.equal(cf.feat2_cat.view(32, 128, 64)[:nv, :L], c8.feat2_cat)
+    assert torch.equal(cf.feat2_cat.view(32, lp, 64)[:nv, :L], c8.feat2_cat)
     assert torch.equal(cf.feat2_cat_scale[:nv, :L], c8.feat2_cat_scale)
 
     # the video stage is untouched; span scores within the JAX tests' bounds
@@ -187,19 +188,52 @@ def test_int8_span_modes(setup, dtype):
     for mode, tcache, tout in (("simsweep_cat_int8", c8, i8),
                                ("simsweep_cat_int8_flat", cf, flat)):
         jcache, jout = _jax_run(setup, span_score_mode=mode, **base)
-        assert tcache.feat2_cat.shape == jcache.feat2_cat.shape
-        assert tcache.feat2_cat_scale.shape == jcache.feat2_cat_scale.shape
-        d = np.abs(tcache.feat2_cat.numpy().astype(np.int32)
-                   - np.asarray(jcache.feat2_cat).astype(np.int32))
+        tf, ts_ = tcache.feat2_cat.numpy(), tcache.feat2_cat_scale.numpy()
+        jf, js_ = np.asarray(jcache.feat2_cat), np.asarray(jcache.feat2_cat_scale)
+        if mode == "simsweep_cat_int8_flat":
+            # the port's flat rows at flat_lp(L), the JAX package's at 128:
+            # the real rows [:nv, :L] compared, the pad rows zeros either way
+            k = tf.shape[1]
+            tf, jf = tf.reshape(-1, lp, k), jf.reshape(-1, 128, k)
+            assert tf.shape[0] == jf.shape[0] == js_.shape[0] == ts_.shape[0]
+            assert not tf[:, L:].any() and not ts_[:, L:].any() and not tf[nv:].any()
+            assert not jf[:, L:].any() and not js_[:, L:].any()
+            tf, jf, ts_, js_ = tf[:nv, :L], jf[:nv, :L], ts_[:nv, :L], js_[:nv, :L]
+        assert tf.shape == jf.shape and ts_.shape == js_.shape
+        d = np.abs(tf.astype(np.int32) - jf.astype(np.int32))
         assert d.max() <= 1 and d.mean() < 0.01          # encoder round-off: rare one-step flips
-        np.testing.assert_allclose(tcache.feat2_cat_scale.numpy(),
-                                   np.asarray(jcache.feat2_cat_scale), rtol=1e-4, atol=1e-12)
+        np.testing.assert_allclose(ts_, js_, rtol=1e-4, atol=1e-12)
         jq = np.log(np.asarray(jout["VR"][2], np.float64)) / ALPHA
         tq = np.log(np.asarray(tout["VR"][2], np.float64)) / ALPHA
         tol = Q2C_F32 if dtype == "float32" else 5e-3
         assert within(jq, tq, atol=tol)
         assert rank_mismatches(np.asarray(jout["VR"][0]), jq, tout["VR"][0], atol=2 * tol) == 0
         _scores_close(jout, tout, 0.2 + np.expm1(ALPHA * tol), 1e-5)
+
+
+@pytest.mark.parametrize("lp", ["flat_lp", 128])
+def test_int8_flat_engine_answers_alike_in_both_layouts(setup, lp):
+    """The engine builds its int8 flat feat2 cache at flat_lp(L) rows a
+    video (16 at L = 14); given the JAX package's 128-row layout of the same
+    rows instead, every output of retrieve is the same."""
+    world, builder, _, _, tm = setup
+    mode = dict(video_score_mode="pallas_int8", span_score_mode="simsweep_cat_int8_flat",
+                span_topk_mode="grouped_shift_psort", video_topk_psort=True,
+                cache_dtype_str="bfloat16")
+    cache, ref = _torch_run(setup, **mode)
+    nv, L = cache.mask.shape
+    assert cache.feat2_cat.shape == (32 * vs.flat_lp(L), 64)
+    if lp == 128:
+        # the same rows, 128 - 16 more zero rows a video with scale zero
+        pad, k = 128 - vs.flat_lp(L), cache.feat2_cat.shape[1]
+        f8 = torch.nn.functional.pad(cache.feat2_cat.view(32, -1, k), (0, 0, 0, pad))
+        fs = torch.nn.functional.pad(cache.feat2_cat_scale, (0, pad))
+        cache = dataclasses.replace(cache, feat2_cat=f8.reshape(32 * 128, k),
+                                    feat2_cat_scale=fs)
+    cfg = te.RetrievalConfig(**COMMON, **mode)
+    out = te.retrieve(tm, builder, cache, world.annotations, world.corpus, cfg,
+                      return_arrays=True)
+    _assert_equal_arrays(ref, out)
 
 
 def test_int8_and_psort_together_the_all_int8_engine(setup):

@@ -17,7 +17,8 @@ Span similarity (B5, csrc/span_sim.cu, on wgmma): query counts on and off
 the 64-query warpgroups and the 128-query tile, 1,000 queries, row counts
 off the 256-row tile and not a multiple of 8 (8-byte stores instead of the
 TMA store), K with a tail inside and past one 128-byte chunk, K = 16, 512
-and past 512 (query chunks streamed), lp = 4 to 256, bytes all +-127,
+and past 512 (query chunks streamed), lp = 4 to 256, the engine's layout
+at lp = 104 with rows ending inside a tile, bytes all +-127,
 bit-equal. Sorting top-k (B6, csrc/topk_sort.cu): n one above
 and one below a power of two, k = 1, k = n - 1, k = n, k >= n, rows of one
 repeated value, ties across the cut with 0.0 and -0.0 mixed, the engine's
@@ -628,6 +629,21 @@ def test_b5_wgmma_edges_bit_equal(dev, nq, nv, lp, k):
     the ring), on and off its 256-row tiles and 64-query warpgroups."""
     q8, qs, f8, fs = _span_sim_case(dev, nq, nv, max(1, lp - 3), k, lp, 1, seed=nq + nv + k)
     _span_equal(q8, qs, f8, fs, lp)
+
+
+@pytest.mark.parametrize("k", [512, 528])
+@pytest.mark.parametrize("nq", [100, 1000])
+@pytest.mark.parametrize("lp", [104, 128, 16, 40])
+def test_b5_layouts_bit_equal(dev, lp, nq, k):
+    """The engine's layout at L = 100 (lp = flat_lp(L) = 104: 256-row
+    tiles that cut videos), the JAX package's (128: two videos a tile), 16
+    (sixteen) and 40 (cut videos); 21 videos, so the rows end inside a
+    tile, L = lp - 4 clips; query counts off the 64-query warpgroups; the
+    query tile resident and streamed."""
+    L = lp - 4
+    q8, qs, f8, fs = _span_sim_case(dev, nq, 21, L, k, lp, 1, seed=lp * nq + k)
+    out = _span_equal(q8, qs, f8, fs, lp)
+    assert not out[:, :, L:].any() and out[:, :, :L].any()
 
 
 def test_b5_wrapper_rejects_what_the_kernel_does_not_take(dev):

@@ -278,7 +278,8 @@ def test_shard_corpus_cache_layouts(setup, planted):
     assert sc.video_feat1[0].shape == (nvl * lp, KW["hidden_size"])
     assert torch.equal(sc.video_feat1[0], single.video_feat1[:nvl * lp])
     assert torch.equal(sc.video_feat1[1][:3 * lp], single.video_feat1[nvl * lp:19 * lp])
-    assert torch.equal(sc.feat2_cat[0], single.feat2_cat[:nvl * 128])
+    assert sc.feat2_cat[0].shape == (nvl * lp, 2 * KW["hidden_size"])      # flat_lp(12) rows
+    assert torch.equal(sc.feat2_cat[0], single.feat2_cat[:nvl * lp])
     assert torch.equal(sc.feat2_cat_scale[1][:3], single.feat2_cat_scale[nvl:19])
     assert not bool(sc.mask[1][3:].any()) and sc.n_videos == N_VIDEOS
     with pytest.raises(ValueError, match="FLAT"):

@@ -11,8 +11,11 @@
   the benchmark's two deployments (*shipped*: int8 video scores, bf16
   sweep, approximate selections; *int8 exact*: int8 video scores and span
   sweep, exact selections), is one root span with the stages inside in
-  order; its ``out_bytes`` is the outputs' bytes; the outputs are bit-equal
-  with and without the profiler.
+  order; its ``out_bytes`` is the outputs' bytes, the span sweep's
+  ``sweep_rows`` / ``pad_rows`` the rows of the sweep and the pad among
+  them (*int8 exact*'s flat cache at flat_lp(L) and at 128 rows a video,
+  with equal outputs); the outputs are bit-equal with and without the
+  profiler.
 - On a card (``cuda`` marker), each span's events lie inside its parent's
   and after its previous sibling's on the device clock (read from the
   call's first event), and each stage's device self time is at least 0.
@@ -28,6 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+from tvretrieval_tpu_torch.ops import video_score as vs
 from tvretrieval_tpu_torch.retrieval import engine as te
 from tvretrieval_tpu_torch.utils import trace
 
@@ -43,6 +47,11 @@ MODES = {
     "int8exact": dict(COMMON, span_score_mode="simsweep_cat_int8_flat",
                       span_topk_mode="grouped_shift_psort", video_topk_psort=True),
 }
+# the span sweep's counters at NV = 120 videos of L = 24 clips: *shipped*'s
+# bf16 cache padded to 32 clips; *int8exact*'s flat rows at flat_lp(24) =
+# 24 a video, 128 videos (120 padded to video_chunk_v = 16)
+SWEEP_ROWS = {"shipped": {"sweep_rows": 120 * 32, "pad_rows": 120 * 8},
+              "int8exact": {"sweep_rows": 128 * 24, "pad_rows": 8 * 24}}
 # one call's spans in the order they open, and each one's parent (an index
 # relative to the root): the span head runs inside the sweep, then once more
 # around the softmaxes
@@ -211,13 +220,53 @@ def test_engine_call_is_one_root_with_its_stages(mode):
         assert [None if r.parent is None else r.parent - root for r in one] == PARENTS
         assert len({r.call for r in one}) == 1
         assert one[0].counters == {"out_bytes": sum(v.nbytes for v in out.values())}
-        assert all(r.counters == {} for r in one[1:])
+        assert one[4].counters == SWEEP_ROWS[mode]
+        assert all(r.counters == {} for i, r in enumerate(one[1:], 1) if i != 4)
         assert all(s >= 0 for s in _self_times(one, root, lambda r: r.end_ns - r.start_ns))
         assert set(out) == set(want)
         for k in want:
             assert out[k].dtype == want[k].dtype and torch.equal(out[k], want[k]), k
     assert records[0].call != records[len(STAGES)].call
     assert trace.take() == []
+
+
+@pytest.mark.parametrize("lp_of", ["flat_lp", "jax_128"])
+def test_span_sweep_counts_the_rows_b5_walks(lp_of):
+    """*int8exact*'s cache built as the engine builds it (flat_lp(L) rows a
+    video) and at the JAX package's 128: the span sweep counts the flat
+    rows B5 walks and the pad rows among them, past L or past Nv; the
+    engine's outputs are equal in both layouts."""
+    cfg = te.RetrievalConfig(**MODES["int8exact"])
+    model = XML(XMLConfig(**MODEL)).eval().init_weights(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    nv, L, d = 40, MODEL["max_ctx_l"], MODEL["hidden_size"]
+    unit = lambda *s: torch.nn.functional.normalize(torch.randn(*s, generator=g), dim=-1)
+    bufs = {"vf1": unit(nv, L, d).bfloat16(), "sf1": unit(nv, L, d).bfloat16(),
+            "feat2_cat": torch.randn(nv, L, 2 * d, generator=g).bfloat16(),
+            "mask": (torch.arange(L)[None] < torch.randint(4, L + 1, (nv, 1), generator=g))
+            .float()}
+    cache = te._finish_cache(model, cfg, _Names(nv), dict(bufs))
+    lp = 24                                               # flat_lp(24)
+    assert cache.feat2_cat.shape == (48 * lp, 2 * d) and cache.feat2_cat_scale.shape == (48, lp)
+    f8, fs = cache.feat2_cat, cache.feat2_cat_scale
+    if lp_of == "jax_128":
+        lp = 128
+        f8, fs = vs.build_flat_feat2_i8(bufs["feat2_cat"], lp=lp)
+    q_feat = torch.randn(6, MODEL["max_desc_l"], MODEL["query_input_size"], generator=g)
+    q_mask = torch.ones(6, MODEL["max_desc_l"])
+    gt = torch.arange(6)
+    call = lambda f, s: te._score_query_batch(
+        model, cfg, q_feat, q_mask, cache.video_feat1, None, cache.sub_feat1, None,
+        cache.mask, gt, True, feat2_cat=f, feat2_cat_scale=s)
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = call(f8, fs)
+    sweep = [r for r in trace.take() if r.name == "span_sweep"]
+    assert len(sweep) == 1
+    assert sweep[0].counters == {"sweep_rows": 48 * lp, "pad_rows": 48 * lp - nv * L}
+    ref = call(cache.feat2_cat, cache.feat2_cat_scale)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
 
 
 @pytest.mark.cuda

@@ -516,7 +516,10 @@ def test_b2_walk_writes_and_reads_back_every_query_video_once(kind, nq, nv_pad, 
 
 
 @pytest.mark.parametrize("nq,rows", [(1000, 2793472), (50, 2048 * 128), (1, 148), (63, 888),
-                                     (65, 4736), (1000, 698368)])
+                                     (65, 4736), (1000, 698368),
+                                     # the engine's layout at L = 100 (flat_lp = 104 rows a
+                                     # video): whole, one of four shards, 21 videos
+                                     (1000, 21824 * 104), (1000, 5456 * 104), (65, 21 * 104)])
 def test_b5_walk_covers_every_query_row_once(nq, rows):
     n_rtiles = -(-rows // SEG)
     counts, _ = _coverage(nq, rows, n_rtiles, lambda t: (t * SEG, t * SEG + SEG))

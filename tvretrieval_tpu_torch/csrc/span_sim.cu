@@ -14,20 +14,26 @@
 // What bounds it on this card. At the full corpus (1,000 queries x 2.79M
 // rows x K = 512) the work is 2.86e12 int8 operations (1.45 ms at the
 // 1,979 TOPS peak) and 7.03 GB of traffic, 5.59 GB of it the bf16 output
-// (2.10 ms at 3.35 TB/s): bound by bytes. The TPU kernel exists so that the
-// s32 similarity never reaches device memory, and so does this one. So the
-// design keeps device memory writing without a break, and the products
-// and the epilogue out of its way.
+// (2.10 ms at 3.35 TB/s): bound by bytes. The engines build the cache at
+// flat_lp(L) rows a video (104 at L = 100, 2.27M rows: 5.71 GB, 4.54 GB
+// of it output, 1.70 ms), so that 3.9% of the rows are pad, not 21.9%:
+// every row, pad or not, is loaded, multiplied, rescaled and stored. The
+// TPU kernel exists so that the s32 similarity never reaches device
+// memory, and so does this one. So the design keeps device memory writing
+// without a break, and the products and the epilogue out of its way.
 //
 // The design (shared pieces in s8_wgmma.cuh). A persistent block of three
 // warpgroups owns 128 queries and walks a contiguous range of row tiles of
-// 256 flat rows (two videos at lp = 128). Warpgroup 2 is the producer: one
-// thread keeps TMA loads of 128-byte K chunks of the row tiles in an
-// mbarrier ring (the query tile, K <= 512, loads once and stays resident;
-// past that its chunks ride in the ring beside the rows'). Warpgroups 0 and
-// 1 each own 64 queries and multiply with wgmma m64n256k32 (s8 x s8 -> s32,
-// both operands from shared memory): four k-steps a chunk, a stage handed
-// back as soon as the products of the next chunk are in flight. Both
+// 256 flat rows (two videos at lp = 128; at lp = 104 a tile cuts videos,
+// which costs nothing, every row having its own scale: tiles of two whole
+// videos, N = 208, measured the same, 2.386 ms against 2.380 at the full
+// corpus). Warpgroup 2 is the producer: one thread keeps TMA loads of
+// 128-byte K chunks of the row tiles in an mbarrier ring (the query tile,
+// K <= 512, loads once and stays resident; past that its chunks ride in
+// the ring beside the rows'). Warpgroups 0 and 1 each own 64 queries and
+// multiply with wgmma m64n256k32 (s8 x s8 -> s32, both operands from
+// shared memory): four k-steps a chunk, a stage handed back as soon as the
+// products of the next chunk are in flight. Both
 // issue their products even where their 64 queries lie past nq (TMA's zero
 // rows): a branch around wgmma makes ptxas serialize every product (its
 // C7518 warning), which cost 10-24% of the kernel's time on the H100.
@@ -50,13 +56,15 @@
 // not a multiple of 16 bytes (rows % 8 != 0), which a TMA store cannot
 // address, leave the staging tile by 8-byte stores instead.
 //
-// Where its time goes (H100 80GB HBM3, 700 W, 2.89 ms at the full corpus):
-// the products alone (no epilogue, no store) take 1.56 ms, the loads,
-// epilogue and stores without the products 2.80 ms, so the epilogue and
-// store path bounds it at 1.9 TB/s of output. Two variants measured no
-// faster: consumers taking 128-query x 128-row tiles in turn, one's
-// epilogue under the other's products (ping-pong, 2.83-2.95 ms), and a
-// strided walk, the groups' tiles adjacent at any moment (2.95-2.98 ms).
+// Where its time goes (H100 80GB HBM3, 700 W, 2.89 ms at the full corpus
+// at lp = 128, 2.38-2.45 ms at lp = 104): the products alone (no
+// epilogue, no store) take 1.56 ms, the loads, epilogue and stores without
+// the products 2.80 ms (at lp = 104, with N = 208 tiles: 1.32 and 2.31),
+// so the epilogue and store path bounds it at 1.9-2.0 TB/s of output.
+// Two variants measured no faster: consumers taking 128-query x 128-row
+// tiles in turn, one's epilogue under the other's products (ping-pong,
+// 2.83-2.95 ms), and a strided walk, the groups' tiles adjacent at any
+// moment (2.95-2.98 ms).
 //
 // Exactness. The s32 dot is exact in any order (|s| <= K * 127^2); the
 // epilogue converts it to f32 (round to nearest), multiplies by the query

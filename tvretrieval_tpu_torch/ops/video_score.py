@@ -28,9 +28,10 @@ What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
 cores through ``wgmma`` fed by TMA (csrc/s8_wgmma.cuh): int8, bf16, and f32
 as three TF32 products (a 3xTF32 split that keeps f32 accuracy); the (Nq,
 Nv_pad * lp) dot matrix never reaches device memory. B9 does the same on the unflattened caches, the mask applied per
-clip. B5 does Nv_pad * 128 x 2D x Nq MACs through s8 ``wgmma`` and writes
-the rescaled similarity as bf16 by TMA stores (bound by those bytes); its
-s32 dots never reach device memory. See the sources for the tiling.
+clip. B5 does Nv_pad * lp x 2D x Nq MACs through s8 ``wgmma`` (lp =
+flat_lp(L) in the engine's cache) and writes the rescaled similarity as
+bf16 by TMA stores (bound by those bytes); its s32 dots never reach device
+memory. See the sources for the tiling.
 """
 from __future__ import annotations
 
@@ -47,8 +48,11 @@ from tvretrieval_tpu_torch.ops.masking import NEG_INF
 I8_SCALE = float(np.float32(0.5 / (127.0 * 127.0)))
 _INV_127 = float(np.float32(1.0 / 127.0))
 
-# rows per video in the flat int8 feat2 cache: the JAX package's value (its
-# kernel needs lp % 128 == 0), kept so that cache bytes are equal
+# rows per video of the flat int8 feat2 cache in the JAX package (its
+# kernel needs lp % 128 == 0): the default of ``build_flat_feat2_i8`` and
+# the plain version, so that the parity tests build the JAX cache's bytes.
+# The engines build theirs at flat_lp(L) rows a video (104 at L = 100: 3.9%
+# pad rows against 21.9% at 128), which B5 sweeps as flat rows.
 SPAN_LP = 128
 
 # the longest feature rows the tensor-core kernels take: query tiles stay
@@ -346,7 +350,9 @@ def build_flat_feat2_i8(feat2_cat: torch.Tensor, lp: int = SPAN_LP,
     clips keep their encoder outputs, as in every other sweep mode: the
     conv runs over them and the mask is applied afterwards. ``lp`` must be
     a multiple of 4 (``span_sim_cat_i8`` stores four similarities at a
-    time); the default equals the JAX package's."""
+    time). The default, ``SPAN_LP``, builds the JAX package's bytes; the
+    engines pass ``flat_lp(L)``, the fewest pad rows B5 takes (every row,
+    pad or not, is loaded, multiplied, rescaled and stored)."""
     nv, L, k = feat2_cat.shape
     if lp % 4:
         raise ValueError(f"lp={lp} must be a multiple of 4: span_sim_cat_i8 stores "
@@ -411,9 +417,11 @@ def span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp: int = SPAN_LP) -> torch.
     q8: (Nq, K) int8 quantized halved concatenated query vectors; q_scale:
     (Nq, 1) f32; f8_flat: (Nv_pad * lp, K) int8 and f_scales: (Nv_pad, lp)
     f32 from ``build_flat_feat2_i8``. The layout serves the engine's top-V
-    row gather, which reads contiguous lp-runs. The kernel's TMA loads need
-    rows of a multiple of 16 bytes and its stores at least four bf16 at a
-    time, so K must be a multiple of 16 and lp of 4. (The TPU wrapper's chunk_v and q_tile only
+    row gather, which reads contiguous lp-runs; the kernel tiles the flat
+    rows 256 at a time, whatever lp is (a tile may cut a video: every row
+    carries its own scale). The kernel's TMA loads need rows of a multiple
+    of 16 bytes and its stores at least four bf16 at a time, so K must be a
+    multiple of 16 and lp of 4. (The TPU wrapper's chunk_v and q_tile only
     tile its grid, so they have no counterpart here.) Replaces
     pallas_score.span_sim_pallas_cat_i8."""
     name = "span_sim_cat_i8"

@@ -112,7 +112,8 @@ def shard_corpus_cache(cache: CorpusCache, mesh: Mesh, cfg=None,
     that every shard holds whole chunk_v blocks; each shard then builds its
     own video-major flat feat1 rows (the rows of ``build_flat_feat1``, int8
     under "pallas_int8") and, under "simsweep_cat_int8_flat", its int8
-    flat feat2 (``build_flat_feat2_i8``) from a ``simsweep_cat`` cache. A
+    flat feat2 (``build_flat_feat2_i8`` at flat_lp(L) rows a video, as the
+    single-device engine builds it) from a ``simsweep_cat`` cache. A
     flat layout is video-major, so building it per shard gives the same
     rows as building it whole and splitting it at video boundaries. Pad
     videos are fully masked; ``score_query_batch_sharded`` restores their
@@ -154,7 +155,8 @@ def shard_corpus_cache(cache: CorpusCache, mesh: Mesh, cfg=None,
         if shards["feat2_cat"][0].dtype == torch.int8:
             raise ValueError("simsweep_cat_int8_flat shards a simsweep_cat cache (float "
                              "feat2_cat); got an int8 one")
-        built = [build_flat_feat2_i8(f, chunk_v=chunk_v) for f in shards["feat2_cat"]]
+        built = [build_flat_feat2_i8(f, lp=flat_lp(f.shape[1]), chunk_v=chunk_v)
+                 for f in shards["feat2_cat"]]
         shards["feat2_cat"] = tuple(b[0] for b in built)
         shards["feat2_cat_scale"] = tuple(b[1] for b in built)
     return dataclasses.replace(cache, **shards)

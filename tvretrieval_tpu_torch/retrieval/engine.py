@@ -192,7 +192,7 @@ class CorpusCache:
     pallas_int8); under the cat span modes feat2_cat = [vf2 ; sf2]
     replaces the two feat2 streams: (Nv, L, 2D) at the cache dtype, int8
     under "simsweep_cat_int8", and the video-major flat (Nv_pad * lp, 2D)
-    int8 layout under "simsweep_cat_int8_flat"."""
+    int8 layout, lp = flat_lp(L), under "simsweep_cat_int8_flat"."""
 
     video_feat1: Optional[torch.Tensor]
     video_feat2: Optional[torch.Tensor]
@@ -218,7 +218,7 @@ def _maybe_pad_clip_axis(feat2_cat, cfg: RetrievalConfig):
         raise ValueError(
             "span_sim_pad_l only composes with span_score_mode="
             "'simsweep_cat'/'simsweep_cat_bf16' (the int8 flat layout has its "
-            f"own SPAN_LP pad), got {cfg.span_score_mode!r}")
+            f"own flat_lp(L) pad), got {cfg.span_score_mode!r}")
     if feat2_cat is None:
         return feat2_cat
     L = feat2_cat.shape[1]
@@ -307,7 +307,8 @@ def _finish_cache(model: XML, cfg: RetrievalConfig, corpus: CorpusIndex,
         # per-(video, clip) rows; feat2 is not unit-norm, so scales are kept
         feat2_cat, feat2_cat_scale = quantize_rows_i8(feat2_cat)
     elif feat2_cat is not None and cfg.span_score_mode == "simsweep_cat_int8_flat":
-        feat2_cat, feat2_cat_scale = build_flat_feat2_i8(feat2_cat)
+        feat2_cat, feat2_cat_scale = build_flat_feat2_i8(feat2_cat,
+                                                         lp=flat_lp(feat2_cat.shape[1]))
     vf1_all, sf1_all, mask_all = bufs.pop("vf1", None), bufs.pop("sf1", None), bufs["mask"]
     if cfg.video_score_mode in ("pallas", "pallas_int8") and model.cfg.merged_spans:
         vf1_all = build_flat_feat1(vf1_all, mask_all, chunk_v=cfg.video_chunk_v)
@@ -373,7 +374,10 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
     tensors' bytes, and each stage its own span inside it: "encode_query",
     "video_scores", "video_topk", "span_sweep" (with "span_head" inside),
     "span_head", "span_topk", "svmr". No device work is issued between two
-    stages: a stage's span starts at the exit event of the one before it."""
+    stages: a stage's span starts at the exit event of the one before it.
+    Under the cat span modes "span_sweep" counts ``sweep_rows``, the flat
+    rows of the corpus-wide sweep, and ``pad_rows``, those of them past a
+    video's L clips or past the Nv videos."""
     check_supported(cfg)
     with trace.span("score_query_batch", query_feat.device) as root:
         f32 = torch.float32
@@ -432,7 +436,12 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
                 topv_idx = topv_idx.long()
                 gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
                               if do_svmr else topv_idx)                  # (Nq, V[+1])
-            with trace.span("span_sweep"):
+            with trace.span("span_sweep") as sweep:
+                if sweep is not None and feat2_cat is not None:
+                    # the corpus-wide sweep's rows, and those past a video's
+                    # L clips or past the Nv videos (zeros that score 0)
+                    rows = feat2_cat.numel() // feat2_cat.shape[-1]
+                    sweep.count(sweep_rows=rows, pad_rows=rows - nv * L)
                 if cfg.span_score_mode == "simsweep_cat_int8":
                     st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat_i8(
                         vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
