@@ -1,5 +1,6 @@
-"""The comparison that decides ``correct``: the program's answers against the
-plain reference (``benchmarks.reference.xml_ref``) at the timed sizes.
+"""XML's comparison that decides ``correct`` (the XML program's ``judge``):
+the program's answers against the plain reference
+(``benchmarks.reference.xml_ref``) at the timed sizes.
 
 Every number is a worst case over the checked queries, larger is worse:
 
@@ -21,13 +22,13 @@ Every number is a worst case over the checked queries, larger is worse:
 
 A returned index out of range, a repeated video or moment, a span outside
 the band or a non-finite score reads ``inf``. The configuration's
-``limits`` name the numbers compared and their limits. Beside them the
-check gives the share of the reference's exact top-N moments (over its own
-exact top-V) that the program returned, the ``moment_recall_pct`` metric.
+``limits`` name the numbers compared and their limits
+(``harness.verdict``). Beside them the check gives the share of the
+reference's exact top-N moments (over its own exact top-V) that the
+program returned, the ``moment_recall_pct`` metric.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import numpy as np
@@ -128,10 +129,3 @@ def judge(ref: Reference, feat, mask, gt, prog: Dict[str, np.ndarray],
     out["svmr_gap"] = _worst(torch.cat(svmr_gap)) if not bad_svmr else INF
     out["moment_recall_pct"] = 100.0 * float(torch.cat(recall).mean())
     return out
-
-
-def verdict(numbers: Dict[str, float], limits: Dict[str, float]):
-    """(correct, [(name, value, limit)]) over the numbers ``limits`` names."""
-    rows = [(k, numbers.get(k, INF), float(lim)) for k, lim in limits.items()]
-    ok = all(math.isfinite(v) and v <= lim for _, v, lim in rows)
-    return ok, rows

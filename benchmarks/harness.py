@@ -3,17 +3,42 @@
 Everything a cell needs is found by name. ``BENCHMARK.json`` names the
 cell's configuration and traffic mix and lists the metrics; the
 configuration is the file its entry names (``benchmarks/configs/``), the
-traffic mix ``benchmarks/traffic/<traffic>.json``, and each metric
+traffic mix ``benchmarks/traffic/<traffic>.json``, each metric
 ``benchmarks/metrics/<metric>.py``, a module whose ``read(run)`` returns
 the metric's value or None where it has nothing to read (and whose optional
-``describe(run)`` returns lines printed before the result). A new
-configuration, traffic mix or metric is a new file and a new entry: no
-file here changes.
+``describe(run)`` returns lines printed before the result), and the
+configuration's program ``benchmarks/programs/<program>.py``, where
+``<program>`` is the configuration's key ``"program"``, or ``xml`` without
+it. A new configuration, traffic mix, metric or program is a new file and
+a new entry: no file here changes.
 
-The window drives the engine's per-batch entry,
-``tvretrieval_tpu_torch.retrieval.engine._score_query_batch``, in a closed
-loop with one caller; every call is followed by the copy of all its
-outputs to the host, as the engine's ``retrieve`` does.
+A program is the system under test's side of a cell. Its module defines:
+
+- ``build(config, device, seed) -> state``: the model with the seed's
+  weights and its resident corpus, made by the port's own entry points.
+  Called once, first thing in set-up.
+- ``queries(traffic, config, n_videos, device, seed, i) -> tuple``: one
+  call's inputs, drawn from the seed; ``i`` is the call's number in the
+  window, or ``("warmup", w)``. Called before each warm-up call, before
+  each call of the window (span ``queries``), and again after the window
+  for the calls the check samples.
+- ``call(state, queries) -> {name: tensor}``: one call of the port's
+  per-batch entry, on ``queries``'s tuple. Called for each warm-up call
+  and in the window (span ``score_query_batch``); the harness then copies
+  every output to the host (span ``copy_out``). A program whose ``call``
+  takes ``score_fn`` lets ``run_cell(score_fn=...)`` stand in for its
+  entry (the tests plant faults and the control through it).
+- ``judge(config, traffic, device, seed, queries, outputs) -> {name:
+  number}``: builds the program's own plain reference and returns the
+  numbers that the configuration's ``limits`` hold (larger is worse);
+  ``queries`` is the list of the sampled calls' tuples in call order,
+  ``outputs`` their host outputs concatenated by rows. Called once, after
+  the window, with ``state`` dropped and the CUDA cache emptied.
+- optionally ``token_lengths(traffic, device, seed, calls)``: each call's
+  query token lengths, which ``Run.token_lens`` holds in a traced run.
+
+The window drives ``call`` in a closed loop with one caller; every call
+is followed by the copy of all its outputs to the host.
 """
 from __future__ import annotations
 
@@ -32,13 +57,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmarks import check, synth
-from benchmarks.reference.xml_ref import Reference
+from benchmarks import synth
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tvretrieval_tpu")
 WARMUP_CALLS = 3
+DEFAULT_PROGRAM = "xml"
 
 
 def load_spec(root: Path = ROOT) -> dict:
@@ -73,16 +98,37 @@ def cell_metrics(spec: dict, cell_name: str, trace: bool) -> List[dict]:
             if (cell_name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
 
 
-def load_metric(name: str, root: Path = ROOT):
-    path = root / "benchmarks" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmarks.metrics.{name}", path)
+def _load(module_name: str, path: Path):
+    """The module at ``path``, registered in ``sys.modules`` as
+    ``module_name`` while it loads, as an import would."""
+    spec = importlib.util.spec_from_file_location(module_name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = module
     spec.loader.exec_module(module)
     return module
 
 
+def load_metric(name: str, root: Path = ROOT):
+    return _load(f"benchmarks.metrics.{name}", root / "benchmarks" / "metrics" / f"{name}.py")
+
+
+def load_program(config: dict, root: Path = ROOT):
+    """The configuration's program, ``benchmarks/programs/<name>.py``."""
+    name = config.get("program", DEFAULT_PROGRAM)
+    return _load(f"benchmarks.programs.{name}",
+                 root / "benchmarks" / "programs" / f"{name}.py")
+
+
 def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def verdict(numbers: Dict[str, float], limits: Dict[str, float]):
+    """(correct, [(name, value, limit)]) over the numbers ``limits`` names;
+    a number the program's judge did not give reads inf."""
+    rows = [(k, numbers.get(k, math.inf), float(lim)) for k, lim in limits.items()]
+    ok = all(math.isfinite(v) and v <= lim for _, v, lim in rows)
+    return ok, rows
 
 
 @dataclass
@@ -121,66 +167,33 @@ class Run:
         return self.config["semantics"]
 
 
-def _port():
-    """The system under test: the port's model and engine entry points."""
-    from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
-    from tvretrieval_tpu_torch.retrieval.engine import (
-        RetrievalConfig, _finish_cache, _score_query_batch)
-    return XML, XMLConfig, RetrievalConfig, _finish_cache, _score_query_batch
-
-
-def build_program(config: dict, device, seed: int):
-    """Set-up of the system under test: the model with the seed's weights,
-    and the corpus cache made by the engine's own ``_finish_cache`` from the
-    seed's encoder outputs. Returns (model, retrieval config, cache)."""
-    XML, XMLConfig, RetrievalConfig, finish_cache, _ = _port()
-    model = XML(XMLConfig(**config["model"])).eval().to(device)
-    weights = synth.make_weights(config["model"], device, seed)
-    missing, unexpected = model.load_state_dict(weights, strict=False)
-    context_side = ("video_input_proj", "sub_input_proj", "video_encoder", "sub_encoder",
-                    "video_cross", "sub_cross", "ctx_pos_embed")
-    if unexpected or any(not k.startswith(context_side) for k in missing):
-        raise RuntimeError(f"weights do not fit the model: missing {missing}, "
-                           f"unexpected {unexpected}")
-    rcfg = RetrievalConfig(**config["retrieval"])
-    corpus = config["corpus"]
-    bufs = synth.make_corpus(corpus, config["model"], device, seed)
-    cache = finish_cache(model, rcfg, synth.CorpusNames(
-        corpus["n_videos"], corpus["n_clips"] * corpus["clip_length"]), bufs)
-    del bufs
-    return model, rcfg, cache
-
-
 def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
              t_start: float, root: Path = ROOT,
              score_fn: Optional[Callable] = None, log=print) -> dict:
     """One run; returns the result object (the last line's JSON) with
     the compared numbers under ``checks``. ``score_fn`` stands in for the
-    engine's ``_score_query_batch`` (the tests plant faults through it)."""
+    program's per-batch entry (the tests plant faults through it)."""
     spec = load_spec(root)
     cell, config, traffic = resolve(spec, cell_name, root)
     if traffic.get("loop") != "closed" or traffic.get("callers") != 1:
         raise ValueError(f"traffic {cell['traffic']}: only a closed loop with one caller")
     device = torch.device(device)
     on_card = device.type == "cuda"
-    if score_fn is None:
-        score_fn = _port()[4]
+    program = load_program(config, root)
+    stand_in = {} if score_fn is None else {"score_fn": score_fn}
     nq = traffic["queries_per_call"]
     run = Run(cell=cell_name, config=config, traffic=traffic, seed=seed, nq=nq)
     nv = config["corpus"]["n_videos"]
 
     # ---------------------------------------------------------------- set-up
-    model, rcfg, cache = build_program(config, device, seed)
+    state = program.build(config, device, seed)
 
-    def call(q_feat, q_mask, gt):
-        return score_fn(model, rcfg, q_feat, q_mask, cache.video_feat1, cache.video_feat2,
-                        cache.sub_feat1, cache.sub_feat2, cache.mask, gt, True,
-                        feat2_cat=cache.feat2_cat, feat2_cat_scale=cache.feat2_cat_scale)
+    def call(queries):
+        return program.call(state, queries, **stand_in)
 
     for w in range(WARMUP_CALLS):
-        q_feat, q_mask, gt = synth.make_queries(traffic, config["model"], nv, device, seed,
-                                                ("warmup", w))
-        {k: v.cpu().numpy() for k, v in call(q_feat, q_mask, gt).items()}
+        queries = program.queries(traffic, config, nv, device, seed, ("warmup", w))
+        {k: v.cpu().numpy() for k, v in call(queries).items()}
     if on_card:
         torch.cuda.synchronize(device)
     run.setup_s = time.perf_counter() - t_start
@@ -213,11 +226,10 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
         i = 0
         while i == 0 or time.perf_counter() < deadline:
             with span("queries"):
-                q_feat, q_mask, gt = synth.make_queries(
-                    traffic, config["model"], nv, device, seed, i)
+                queries = program.queries(traffic, config, nv, device, seed, i)
             t0 = time.perf_counter()
             with span("score_query_batch"):
-                out = call(q_feat, q_mask, gt)
+                out = call(queries)
             t1 = time.perf_counter()
             with span("copy_out"):
                 host = {k: v.cpu().numpy() for k, v in out.items()}
@@ -248,29 +260,26 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device,
         from benchmarks.timeline import Trace
         run.trace = Trace(prof, spans, w0, w1)
         del prof
-        run.token_lens = synth.token_lengths(traffic, device, seed, i)
+        if hasattr(program, "token_lengths"):
+            run.token_lens = program.token_lengths(traffic, device, seed, i)
 
     # ------------------------------------------------- the program's state goes
-    del model, cache, call, out
+    del state, call, queries, out
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- the check
     t_check = time.perf_counter()
-    ref = Reference(synth.make_weights(config["model"], device, seed),
-                    synth.make_corpus(config["corpus"], config["model"], device, seed),
-                    config["model"], config["retrieval"], config["semantics"])
     kept.sort(key=lambda t: t[0])
-    qs = [synth.make_queries(traffic, config["model"], nv, device, seed, i) for i, _ in kept]
-    prog = {k: np.concatenate([h[k] for _, h in kept]) for k in kept[0][1]}
-    run.numbers = check.judge(ref, torch.cat([q[0] for q in qs]), torch.cat([q[1] for q in qs]),
-                              torch.cat([q[2] for q in qs]), prog)
-    correct, rows = check.verdict(run.numbers, config["limits"])
+    qs = [program.queries(traffic, config, nv, device, seed, i) for i, _ in kept]
+    outputs = {k: np.concatenate([h[k] for _, h in kept]) for k in kept[0][1]}
+    run.numbers = program.judge(config, traffic, device, seed, qs, outputs)
+    correct, rows = verdict(run.numbers, config["limits"])
     log(f"[check] {len(kept)} calls ({', '.join(str(i) for i, _ in kept)}), "
-        f"{sum(len(q[2]) for q in qs)} queries against the reference in "
+        f"{len(kept) * nq} queries against the reference in "
         f"{time.perf_counter() - t_check:.2f} s")
-    del ref, qs, prog, kept
+    del qs, outputs, kept
     gc.collect()
 
     # ------------------------------------------------------------- metrics

@@ -8,6 +8,14 @@ with one JSON line on standard output: ``correct``, ``attempted``,
 ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``. Exits 1 and prints no result without a
 CUDA card, or if JAX or the JAX package got loaded.
+
+The system under test is the program that the cell's configuration names
+(key ``"program"``, ``xml`` without it): ``benchmarks/programs/<name>.py``,
+which defines ``build`` (called once in set-up), ``queries`` and ``call``
+(each warm-up call and each call of the window; ``queries`` again after
+the window for the sampled calls), ``judge`` (once, after the window, with
+the program's state freed) and optionally ``token_lengths`` (traced runs).
+``harness.py``'s docstring gives their signatures.
 """
 import time
 
