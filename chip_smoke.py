@@ -113,9 +113,10 @@ Run from the repository root on a machine with one CUDA card. Phases:
    flat_int8 B11's recall at both span sites; then the flagship forward
    entry point (``tvretrieval_tpu_torch.entry``) on the card against the
    CPU, within 2e-4;
-12. the baselines (MEE, CAL / MCN, ExCL; no hand kernel lies on their
-   paths: every launch count is set to 0 before the phase and must read 0
-   after) at the JAX CLIs' full widths with seeded weights: (a) card
+12. the baselines (MEE, CAL / MCN, ExCL; every launch count is set to 0
+   before the phase; after (a)-(d) B6 must read twice the card's calls of
+   ExCL's span stage ``excl_vcmr_batch`` and every other count 0) at the
+   JAX CLIs' full widths with seeded weights: (a) card
    against CPU on phase 4's corpus: ``mee_retrieve_vr`` (phase 4's f32
    bound), ``encode_proposal_corpus`` + ``cal_retrieve`` (VCMR, SVMR) for
    CAL on 16 videos and MCN on 32 (the cached means, and the distances
@@ -133,7 +134,13 @@ Run from the repository root on a machine with one CUDA card. Phases:
    (ExCL without dropout), finite and falling step losses, ms a step; (d)
    ``inference_baselines`` on each run directory on the card (``--nms_thd
    0.5``; ExCL with MEE's submission as its external VR), its metrics equal
-   to the run's own;
+   to the run's own; (e) MEE + ExCL over 21,818 videos of 100 clips
+   through ``score_mee_excl_batch``, the served two-stage path: the cache
+   built a block at a time, then calls of 50 queries with their GT videos,
+   five B6 launches a call (counted from 0), each equal to
+   ``topk_transposed_plain`` on the same inputs, the returned VR scores
+   equal to MEE's scores of the returned videos, the outputs' shapes,
+   order and per-video cap; ms a call, cache bytes, peak memory;
 13. the offline feature pipelines and the profiling suite (no hand kernel
    lies on their paths: every launch count is set to 0 before the phase and
    must read 0 after): (a) ResNet-152 (3, 8, 36, 3) on 224 x 224 frames and
@@ -2435,14 +2442,14 @@ def phase_streaming(dev):
 BASE_CAL_VIDEOS, BASE_MCN_VIDEOS = 16, 32   # (a) proposal corpora: a CAL video's 170
 #                                             proposals x 24 clips x 7,684 features are
 #                                             125 MB of host-built moment features
-BASE_VCMR_CPU_QUERIES = 5          # (a) ExCL VCMR card vs CPU: 100 videos re-encoded a query
+BASE_VCMR_CPU_QUERIES = 5          # (a) ExCL VCMR card vs CPU: 100 videos fused with a query
 BASE_PROPS = 170                   # proposals of a 150 s TVR video (data/proposals.py)
 BASE_OUT = 100                     # CAL's output width
 BASE_BSZ = 100                     # query batch of (b)
 BASE_SVMR_QUERIES, BASE_VCMR_QUERIES = 1000, 100
 BASE_TRAIN_CAL_EVAL_VIDEOS = 16    # (c) CAL's evaluation corpus, cut as in (a)
-BASE_TRAIN_EXCL_EVAL = 10          # (c) ExCL's evaluation queries (its VCMR re-encodes 100
-#                                    videos a query)
+BASE_TRAIN_EXCL_EVAL = 10          # (c) ExCL's evaluation queries (its VCMR fuses 100
+#                                    videos with each)
 # (c) each trainer CLI's own flags: MEE two epochs at 1e-3 (at its default
 # 1e-4 the loss moves by 1e-4 in 24 steps); ExCL at TVR's 3,074 / 770
 # widths, [features; TEF]
@@ -2454,6 +2461,8 @@ BASE_TRAIN_FLAGS = {"mee": ["--n_epoch", "2", "--lr", "1e-3"], "cal": ["--n_epoc
 #   distance between unit vectors moves by 2 |d(q.m)|);
 # - ExCL: phase 10's recurrent span rtol (five LSTMs, then two softmaxes).
 MEE_ATOL = 1e-6
+BASE_MEE_EXCL_BSZ = 50             # (e) the cell meeexcl-b50's batch: 5,050 pairs a call
+BASE_MEE_EXCL_REPS = 5             # (e) timed calls
 CAL_ATOL = 2 * VARIANT_TOL["lstm"][0]
 EXCL_RTOL = VARIANT_TOL["lstm"][1]
 
@@ -2833,10 +2842,108 @@ def baselines_train_and_cli(dev, train_world, train_builder, tmpdir):
             module.setup_world = fn
 
 
+def baselines_mee_excl(dev, tsort):
+    """12e: MEE + ExCL at published widths over 21,818 videos of 100 clips
+    through ``score_mee_excl_batch``, 50 queries a call with their GT
+    videos: five B6 launches a call (MEE's blocked top 100 two, each
+    video's top 50, the merge to 200, the GT video's SVMR row), each equal
+    to ``topk_transposed_plain`` on the same inputs; the outputs checked;
+    ms a call, cache bytes, peak memory."""
+    from tvretrieval_tpu_torch.models.excl import ExCL
+    from tvretrieval_tpu_torch.models.mee import MEE
+    from tvretrieval_tpu_torch.retrieval import excl_engine as ee
+
+    nv, L, bsz, lq = N_VIDEOS_FULL, N_CLIPS, BASE_MEE_EXCL_BSZ, 30
+    gen = torch.Generator(device=dev).manual_seed(26)
+    unit = lambda *shape: torch.nn.functional.normalize(
+        torch.randn(shape, device=dev, generator=gen), dim=-1)
+    mee = MEE(mee_config()).init_weights(torch.Generator().manual_seed(0)).to(dev).eval()
+    excl = ExCL(excl_config()).init_weights(torch.Generator().manual_seed(0)).to(dev).eval()
+    start = torch.arange(L, device=dev, dtype=torch.float32) / L
+    tef = torch.stack([start, start + np.float32(1.0 / L)], dim=-1)
+
+    def blocks(bv=512):
+        for i in range(0, nv, bv):
+            n = min(bv, nv - i)
+            video, sub = unit(n, L, 3072), unit(n, L, 768)
+            yield dict(video_feat=torch.cat([video, tef.expand(n, L, 2)], dim=-1),
+                       sub_feat=torch.cat([sub, tef.expand(n, L, 2)], dim=-1),
+                       mask=torch.ones((n, L), device=dev),
+                       mee_video=torch.nn.functional.normalize(video.mean(1), dim=-1),
+                       mee_sub=torch.nn.functional.normalize(sub.mean(1), dim=-1))
+
+    t0 = time.perf_counter()
+    cache = ee.encode_mee_excl_corpus(mee, excl, blocks(), nv)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    cfg = ee.MEEExCLConfig()
+    lens = torch.randint(8, lq + 1, (bsz,), device=dev, generator=gen)
+    q_mask = (torch.arange(lq, device=dev)[None] < lens[:, None]).float()
+    q_feat = unit(bsz, lq, 768) * q_mask[:, :, None]
+    gt = torch.randint(0, nv, (bsz,), device=dev, generator=gen)
+    call = lambda: ee.score_mee_excl_batch(mee, excl, cache, q_feat, q_mask, cfg, gt)
+    call()                                                  # warm-up
+    torch.cuda.synchronize()
+
+    seen, launch = [], tsort._launch
+
+    def recording(x, k):
+        vals, idx = launch(x, k)
+        seen.append((x.clone(), k, vals, idx))
+        return vals, idx
+
+    tsort.reset_launch_counts()
+    tsort._launch = recording
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    finally:
+        tsort._launch = launch
+    n_launch = tsort.LAUNCHES["topk_transposed"]
+    if n_launch != 5 or len(seen) != 5:
+        raise AssertionError(f"MEE + ExCL: {n_launch} B6 launches a call, not 5")
+    shapes = []
+    for x, k, vals, idx in seen:
+        pv, pi = tsort.topk_transposed_plain(x, k)
+        if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
+            raise AssertionError(f"MEE + ExCL: B6 on {tuple(x.shape)} k={k} differs from its "
+                                 "plain version")
+        shapes.append(f"{tuple(x.shape)} k={k}")
+    del seen
+    V, K = cfg.top_n_videos, cfg.max_before_nms
+    want = {"vr_idx": (bsz, V), "vr_scores": (bsz, V), "moments": (bsz, K, 3),
+            "moment_scores": (bsz, K), "svmr": (bsz, K, 2), "svmr_scores": (bsz, K)}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    with torch.no_grad():
+        scores = mee.scores(mee.pool_query(q_feat), cache.mee_video, cache.mee_sub)
+    per_video = torch.zeros((bsz, V), dtype=torch.long, device=dev).scatter_add_(
+        1, out["moments"][..., 0].long(), torch.ones_like(out["moments"][..., 0].long()))
+    ordered = all(bool((out[k][:, 1:] <= out[k][:, :-1]).all())
+                  for k in ("vr_scores", "moment_scores", "svmr_scores"))
+    span = out["moments"][..., 2] - out["moments"][..., 1]
+    if not (got == want and ordered
+            and torch.equal(scores.gather(1, out["vr_idx"].long()), out["vr_scores"])
+            and int(per_video.max()) <= cfg.top_n_per_video
+            and bool(((span >= cfg.min_pred_l) & (span < cfg.max_pred_l)).all())
+            and all(bool(torch.isfinite(out[k]).all()) for k in out)):
+        raise AssertionError(f"MEE + ExCL: bad outputs (shapes {got}, ordered {ordered})")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(call, reps=BASE_MEE_EXCL_REPS)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    c = cache.excl
+    log("baselines", f"MEE + ExCL at {nv} videos x {L} clips through score_mee_excl_batch: "
+        f"cache {nbytes(cache.mee_video, cache.mee_sub, c.ctx1_video, c.ctx1_sub, c.mask) / 1e9:.2f}"
+        f" GB encoded in {t_enc:.1f} s (host clock); {bsz} queries a call with their GT videos "
+        f"({bsz * (V + 1)} pairs): {ms:.2f} ms a call = {bsz / ms * 1e3:.0f} q/s; 5 B6 launches "
+        f"a call, each equal to its plain version: {'; '.join(shapes)}; outputs checked; peak "
+        f"{peak:.2f} GiB")
+
+
 def phase_baselines(dev, e2e_world, train_world, train_builder):
-    """Phase 12: the baselines (see the module docstring). No hand kernel
-    lies on their paths: every count is set to 0 before and must read 0
-    after."""
+    """Phase 12: the baselines (see the module docstring). Every count is
+    set to 0 before (a)-(d); after them B6 reads twice the card's calls of
+    ExCL's span stage (each video's top spans, the merge) and every other
+    count 0. (e) counts its own."""
     import tempfile
 
     from tvretrieval_tpu_torch.ops import approx_topk as apx
@@ -2846,24 +2953,42 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
     from tvretrieval_tpu_torch.ops import topk as ttopk
     from tvretrieval_tpu_torch.ops import video_score as vs
 
+    from tvretrieval_tpu_torch.retrieval import excl_engine as ee
+
     counters = (vs, gt_ops, tsort, apx, fsc, ttopk)
     for ops in counters:
         ops.reset_launch_counts()
+    stage, card_calls = ee.excl_vcmr_batch, [0]
+
+    def counted(excl, ctx, *args, **kw):
+        card_calls[0] += int(ctx.mask.is_cuda)
+        return stage(excl, ctx, *args, **kw)
+
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmpdir:
-        vr_path = baselines_card_vs_cpu(dev, e2e_world, tmpdir)
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        baselines_corpus(dev, e2e_world, vr_path)
-        torch.cuda.empty_cache()
-        t2 = time.perf_counter()
-        baselines_train_and_cli(dev, train_world, train_builder, tmpdir)
+    ee.excl_vcmr_batch = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmpdir:
+            vr_path = baselines_card_vs_cpu(dev, e2e_world, tmpdir)
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            baselines_corpus(dev, e2e_world, vr_path)
+            torch.cuda.empty_cache()
+            t2 = time.perf_counter()
+            baselines_train_and_cli(dev, train_world, train_builder, tmpdir)
+    finally:
+        ee.excl_vcmr_batch = stage
+    t3 = time.perf_counter()
     launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
-    log("baselines", f"phase 12 took {time.perf_counter() - t0:.1f} s (12a {t1 - t0:.1f} s, "
-        f"12b {t2 - t1:.1f} s, 12c + 12d {time.perf_counter() - t2:.1f} s); hand-kernel "
-        f"launches {launches}")
-    if any(launches.values()):
-        raise AssertionError(f"a hand kernel launched on a baseline path: {launches}")
+    want = {**{k: 0 for k in launches}, "topk_transposed": 2 * card_calls[0]}
+    log("baselines", f"12a-d took {t3 - t0:.1f} s (12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, "
+        f"12c + 12d {t3 - t2:.1f} s); hand-kernel launches {launches}, B6 for "
+        f"{card_calls[0]} card calls of ExCL's span stage")
+    if launches != want or not card_calls[0]:
+        raise AssertionError(f"hand-kernel launches on the baseline paths {launches}, "
+                             f"expected {want}")
+    torch.cuda.empty_cache()
+    baselines_mee_excl(dev, tsort)
+    log("baselines", f"12e took {time.perf_counter() - t3:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 13

@@ -14,6 +14,14 @@ eval mode. Compute dtype: under ``dtype_str="bfloat16"`` the LSTMs and the
 predictors' Dense layers compute at bf16 (the LSTM outputs stay float32,
 flax's carry dtype), and the masked logits are float32.
 
+In eval mode (no dropout) each stream's first context LSTM does not see
+the query, so ``encode_context`` gives its outputs (``ctx1``) once per
+video and ``fused_span_logits`` runs the query-dependent rest (the second
+LSTM over ``[ctx1; query]``, the heads, the mask) for any pairing of
+queries with encoded videos: together they are ``span_logits`` in eval
+mode. Under ``torch.profiler`` the second LSTMs are the span "excl_lstm"
+and the heads the span "excl_head" (utils/trace.py).
+
 Data-parallel training (``shard``, a ``training.data_parallel.Shard`` of
 world k > 1; the rank holds its rows of the global batch): each dropout
 mask is drawn for the global batch from the generator, which holds the
@@ -33,6 +41,7 @@ from tvretrieval_tpu_torch.models.components import Dense, init_like_flax
 from tvretrieval_tpu_torch.models.rnn import RNNEncoder
 from tvretrieval_tpu_torch.models.xml import _cross_entropy
 from tvretrieval_tpu_torch.ops.masking import mask_logits
+from tvretrieval_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -135,6 +144,52 @@ class ExCL(nn.Module):
                     if c.use_sub else (0, 0))
         n = int(c.use_video) + int(c.use_sub)
         return (vst + sst) / n, (ved + sed) / n
+
+    def _streams(self):
+        c = self.cfg
+        return [s for s, used in (("video", c.use_video), ("sub", c.use_sub)) if used]
+
+    def _eval_only(self, name: str) -> None:
+        if self.training:
+            raise RuntimeError(f"ExCL.{name} is for eval mode: in training, dropout draws "
+                               "make each stream's first LSTM depend on the pairing")
+
+    def encode_context(self, video_feat, video_mask, sub_feat, sub_mask):
+        """Eval mode: each stream's first context LSTM, which the query does
+        not reach, over its (N, Lc, D) features: (video ctx1, sub ctx1),
+        each (N, Lc, hidden_size), None for a stream the model lacks."""
+        self._eval_only("encode_context")
+        inputs = {"video": (video_feat, video_mask), "sub": (sub_feat, sub_mask)}
+        out = {s: getattr(self, f"{s}_encoder")(inputs[s][0], inputs[s][1].sum(dim=1).int())[0]
+               for s in self._streams()}
+        return out.get("video"), out.get("sub")
+
+    def fused_span_logits(self, q_hidden, ctx1s, masks):
+        """Eval mode: (st_logits, ed_logits), each (N, Lc), of N pairs of a
+        query's final hidden (``q_hidden``, (N, hidden_size)) with a video's
+        ``encode_context`` outputs ``ctx1s`` = (video ctx1, sub ctx1) under
+        ``masks`` = (video mask, sub mask): each stream's second LSTM over
+        [ctx1; query], the start / end heads over [ctx2; ctx1; query], the
+        mask, the streams' mean. Equal to ``span_logits`` in eval mode."""
+        self._eval_only("fused_span_logits")
+        streams = [(s, ctx1, mask) for s, ctx1, mask in zip(("video", "sub"), ctx1s, masks)
+                   if s in self._streams()]
+        reps, ctx2s = [], []
+        with trace.span("excl_lstm"):
+            for stream, ctx1, mask in streams:
+                q_rep = q_hidden[:, None, :].expand(q_hidden.shape[0], ctx1.shape[1],
+                                                    q_hidden.shape[-1])
+                ctx2, _ = getattr(self, f"{stream}_encoder2")(torch.cat([ctx1, q_rep], dim=-1),
+                                                              mask.sum(dim=1).int())
+                reps.append(q_rep)
+                ctx2s.append(ctx2)
+        st = ed = 0
+        with trace.span("excl_head"):
+            for (stream, ctx1, mask), q_rep, ctx2 in zip(streams, reps, ctx2s):
+                feat3 = torch.cat([ctx2, ctx1, q_rep], dim=-1)
+                st = st + mask_logits(getattr(self, f"{stream}_st_predictor")(feat3), mask)
+                ed = ed + mask_logits(getattr(self, f"{stream}_ed_predictor")(feat3), mask)
+        return st / len(streams), ed / len(streams)
 
     def forward(self, query_feat, query_mask, video_feat, video_mask, sub_feat, sub_mask,
                 st_ed_indices, generator: Optional[torch.Generator] = None, shard=None):

@@ -245,22 +245,51 @@ def banded_topk_spans_grouped(st_probs: torch.Tensor, ed_probs: torch.Tensor,
 
 
 def banded_top_spans_from_probs(st_probs: torch.Tensor, ed_probs: torch.Tensor,
-                                min_l: int, max_l: int, top_n: int):
+                                min_l: int, max_l: int, top_n: int, select=topk_stable):
     """Top-N banded spans of single videos, (N, L) probs -> (st, ed,
-    scores), each (N, top_n) (span.py:720-734; the SVMR row)."""
+    scores), each (N, top_n) (span.py:720-734; the SVMR row), in
+    ``lax.top_k``'s order over the flat (start, end) band: score
+    descending, then start, then end ascending; where the band holds fewer
+    than ``top_n`` spans, zero scores fill the rest. ``select`` is the
+    stable top-k (``topk_transposed``: B6)."""
     n_rows, L = st_probs.shape
     W = max_l - min_l
     idx, valid = _band_tables(L, min_l, max_l, st_probs.device)
     ed_band = ed_probs[:, idx]                                          # (N, L, W)
     joint = st_probs[:, :, None] * ed_band * valid[None]
     k = min(top_n, L * W)
-    scores, flat = topk_stable(joint.reshape(n_rows, L * W), k)
+    scores, flat = select(joint.reshape(n_rows, L * W), k)
+    flat = flat.long()
     if k < top_n:
         scores = F.pad(scores, (0, top_n - k))
         flat = F.pad(flat, (0, top_n - k))
     m = flat // W
     n = m + min_l + flat % W
     return m.to(torch.int32), n.to(torch.int32), scores
+
+
+def banded_topk_spans_per_video(st_probs: torch.Tensor, ed_probs: torch.Tensor, min_l: int,
+                                max_l: int, per_video: int, top_n: int, select=topk_stable):
+    """Two-level span selection of early-fusion VCMR (reference
+    excl/inference_with_vcmr.py:72-97): each video's own top ``per_video``
+    banded spans (``banded_top_spans_from_probs``), then the stable top
+    ``top_n`` of those, in the order of Python's stable sort over the list
+    built video by video: score descending, then the video's position,
+    then the span's rank within the video. A video keeps at most
+    ``per_video`` spans, whatever its rivals score.
+
+    (Nq, V, L) probs, the start probabilities already weighted by their
+    video's score -> (video position, st, ed) int32 and scores, each
+    (Nq, min(top_n, V * k)) with k = min(per_video, L * W)."""
+    nq, v, L = st_probs.shape
+    st, ed, sc = banded_top_spans_from_probs(
+        st_probs.reshape(nq * v, L), ed_probs.reshape(nq * v, L), min_l, max_l,
+        min(per_video, L * (max_l - min_l)), select)
+    k = sc.shape[1]
+    scores, pos = select(sc.reshape(nq, v * k), min(top_n, v * k))
+    pos = pos.long()
+    pick = lambda t: torch.gather(t.reshape(nq, v * k), 1, pos)
+    return (pos // k).to(torch.int32), pick(st), pick(ed), scores
 
 
 def _pad_top_n(scores: torch.Tensor, idx: torch.Tensor, top_n: int):
