@@ -140,7 +140,14 @@ Run from the repository root on a machine with one CUDA card. Phases:
    five B6 launches a call (counted from 0), each equal to
    ``topk_transposed_plain`` on the same inputs, the returned VR scores
    equal to MEE's scores of the returned videos, the outputs' shapes,
-   order and per-video cap; ms a call, cache bytes, peak memory;
+   order and per-video cap; one launch a call of the second-LSTM kernel;
+   ms a call, cache bytes, peak memory; (f) that kernel
+   (``ops/lstm.py::excl_lstm``, csrc/excl_lstm.cu) against its plain
+   version (the concatenation and cuDNN) at the cell's call (5,050 pairs
+   x 100 clips, both streams) and the external-VR path's (1,000 pairs,
+   lengths 1-100, some 0): one launch, the outputs' and the span logits'
+   largest differences, its ms beside its bound, the plain version's and
+   cuDNN's bidirectional nn.LSTM's;
 13. the offline feature pipelines and the profiling suite (no hand kernel
    lies on their paths: every launch count is set to 0 before the phase and
    must read 0 after): (a) ResNet-152 (3, 8, 36, 3) on 224 x 224 frames and
@@ -316,17 +323,21 @@ def check_tensor_cores(_build) -> str:
     instances of masked_score the same by kind (every width the wrapper
     takes runs on wgmma, so no mma.sync instance is left there); no
     instance of video_score or masked_score is without tensor-core
-    instructions (no FMA kernel is left); no library holds IDP (dp4a)."""
+    instructions (no FMA kernel is left); the instance of excl_lstm holds
+    HMMA (mma.sync), every one of the TF32 form, and no wgmma; no library
+    holds IDP (dp4a)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     kinds = {"video_score": (("int8", "video_score_wgmma"), ("bf16 wgmma", "Bf16Wg"),
                              ("f32 wgmma", "Tf32x3Wg")),
              "masked_score": (("bf16 wgmma", "MaskedBf16"), ("f32 wgmma", "MaskedTf32x3")),
-             "span_sim": (("int8", "span_sim_wgmma"),)}
+             "span_sim": (("int8", "span_sim_wgmma"),),
+             "excl_lstm": (("f32 mma.sync", "excl_lstm"),)}
     # per instance: IGMMA, IMMA, HMMA, HMMA .TF32, HGMMA, HGMMA of the TF32
     # form, HGMMA of the BF16 form
     ok = {"int8": lambda g, i, h, t, w, wt, wb: g > 0 and i == h == w == 0,
           "bf16 wgmma": lambda g, i, h, t, w, wt, wb: w > 0 and wb == w and i == g == h == 0,
-          "f32 wgmma": lambda g, i, h, t, w, wt, wb: w > 0 and wt == w and i == g == h == 0}
+          "f32 wgmma": lambda g, i, h, t, w, wt, wb: w > 0 and wt == w and i == g == h == 0,
+          "f32 mma.sync": lambda g, i, h, t, w, wt, wb: h > 0 and t == h and i == g == w == 0}
     bad, lines, idp, forms = [], [], 0, set()
     for lib, want in kinds.items():
         sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
@@ -2463,6 +2474,15 @@ BASE_TRAIN_FLAGS = {"mee": ["--n_epoch", "2", "--lr", "1e-3"], "cal": ["--n_epoc
 MEE_ATOL = 1e-6
 BASE_MEE_EXCL_BSZ = 50             # (e) the cell meeexcl-b50's batch: 5,050 pairs a call
 BASE_MEE_EXCL_REPS = 5             # (e) timed calls
+# (f) ExCL's second-LSTM kernel: (name, pairs, ragged lengths): the cell's
+# call (5,050 pairs of 100 clips) and the external-VR path's (1,000 pairs,
+# lengths 1-100, every seventh 0)
+BASE_EXCL_LSTM_SHAPES = (("meeexcl-b50's call", 5050, False), ("external VR", 1000, True))
+BASE_EXCL_LSTM_REPS = 5
+# (f) the kernel's span logits against the plain version's: max |difference|
+# (to first order a span probability's relative error) at most a quarter
+# of mee_excl_tvr.json's span_err limit (2e-5)
+BASE_EXCL_LSTM_LOGIT_ATOL = 5e-6
 CAL_ATOL = 2 * VARIANT_TOL["lstm"][0]
 EXCL_RTOL = VARIANT_TOL["lstm"][1]
 
@@ -2847,10 +2867,12 @@ def baselines_mee_excl(dev, tsort):
     through ``score_mee_excl_batch``, 50 queries a call with their GT
     videos: five B6 launches a call (MEE's blocked top 100 two, each
     video's top 50, the merge to 200, the GT video's SVMR row), each equal
-    to ``topk_transposed_plain`` on the same inputs; the outputs checked;
+    to ``topk_transposed_plain`` on the same inputs, and one of the
+    second-LSTM kernel (csrc/excl_lstm.cu); the outputs checked;
     ms a call, cache bytes, peak memory."""
     from tvretrieval_tpu_torch.models.excl import ExCL
     from tvretrieval_tpu_torch.models.mee import MEE
+    from tvretrieval_tpu_torch.ops import lstm
     from tvretrieval_tpu_torch.retrieval import excl_engine as ee
 
     nv, L, bsz, lq = N_VIDEOS_FULL, N_CLIPS, BASE_MEE_EXCL_BSZ, 30
@@ -2893,6 +2915,7 @@ def baselines_mee_excl(dev, tsort):
         return vals, idx
 
     tsort.reset_launch_counts()
+    lstm.reset_launch_counts()
     tsort._launch = recording
     try:
         out = call()
@@ -2902,6 +2925,9 @@ def baselines_mee_excl(dev, tsort):
     n_launch = tsort.LAUNCHES["topk_transposed"]
     if n_launch != 5 or len(seen) != 5:
         raise AssertionError(f"MEE + ExCL: {n_launch} B6 launches a call, not 5")
+    if lstm.LAUNCHES["excl_lstm"] != 1:
+        raise AssertionError(f"MEE + ExCL: {lstm.LAUNCHES['excl_lstm']} launches of the "
+                             "second-LSTM kernel a call, not 1")
     shapes = []
     for x, k, vals, idx in seen:
         pv, pi = tsort.topk_transposed_plain(x, k)
@@ -2935,27 +2961,149 @@ def baselines_mee_excl(dev, tsort):
         f"cache {nbytes(cache.mee_video, cache.mee_sub, c.ctx1_video, c.ctx1_sub, c.mask) / 1e9:.2f}"
         f" GB encoded in {t_enc:.1f} s (host clock); {bsz} queries a call with their GT videos "
         f"({bsz * (V + 1)} pairs): {ms:.2f} ms a call = {bsz / ms * 1e3:.0f} q/s; 5 B6 launches "
-        f"a call, each equal to its plain version: {'; '.join(shapes)}; outputs checked; peak "
+        f"a call, each equal to its plain version: {'; '.join(shapes)}; 1 second-LSTM kernel "
+        f"launch a call; outputs checked; peak "
         f"{peak:.2f} GiB")
+
+
+def lstm_f64(enc, ctx1, q, n):
+    """``enc(cat([ctx1, q_rep]), n)``'s outputs computed in f64 step by
+    step (flax's order: the backward direction over the valid prefix
+    reversed; zero past each row's length)."""
+    P, L, _ = ctx1.shape
+    H = enc.hidden_size
+    x = torch.cat([ctx1, q[:, None].expand(P, L, q.shape[-1])], dim=-1).double()
+    out = torch.zeros((P, L, 2 * H), dtype=torch.float64, device=ctx1.device)
+    rows, n = torch.arange(P, device=ctx1.device), n.long()
+    for d, cell in enumerate((enc.fwd_cell, enc.bwd_cell)):
+        xp = x @ cell.weight_ih_l0.double().T + (cell.bias_ih_l0 + cell.bias_hh_l0).double()
+        w_hh = cell.weight_hh_l0.double().T
+        h = torch.zeros((P, H), dtype=torch.float64, device=ctx1.device)
+        c = torch.zeros_like(h)
+        for t in range(L):
+            clip = torch.full_like(n, t) if d == 0 else (L - 1 - t + n) % L
+            i, f, g, o = (xp[rows, clip] + h @ w_hh).split(H, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            valid = t < n
+            out[rows[valid], clip[valid], d * H:(d + 1) * H] = h[valid]
+    return out
+
+
+@torch.no_grad()
+def baselines_excl_lstm(dev):
+    """12f: ExCL's second-LSTM kernel (``ops/lstm.py::excl_lstm``,
+    csrc/excl_lstm.cu) at published widths against its plain version (the
+    concatenation and ``encoder2``: cuDNN) at BASE_EXCL_LSTM_SHAPES, both
+    streams, biases drawn away from zero: one launch a call; the max
+    absolute difference of the outputs and the same over the plain
+    outputs' largest magnitude, and the kernel's and the plain version's
+    largest difference from the same LSTM in f64 (``lstm_f64``; the
+    kernel's at most twice cuDNN's); the span logits of
+    ``fused_span_logits`` with the kernel against those with the plain
+    version (max |difference| over valid clips, at most
+    BASE_EXCL_LSTM_LOGIT_ATOL); the kernel's ms
+    beside its bound (3xTF32 products of the steps the lengths hold; ctx1
+    read by each direction, the outputs written), the plain version's ms
+    and cuDNN's bidirectional ``nn.LSTM`` over the same [ctx1; q]
+    (library_ms, the concatenation included; the same function where every
+    row is whole)."""
+    from tvretrieval_tpu_torch.models.excl import ExCL
+    from tvretrieval_tpu_torch.ops import lstm
+
+    g = torch.Generator().manual_seed(27)
+    excl = ExCL(excl_config()).init_weights(g)
+    for name, p in excl.named_parameters():
+        if "bias" in name:
+            p.normal_(0.0, 0.02, generator=g)
+    excl = excl.to(dev).eval()
+    encoders = [excl.video_encoder2, excl.sub_encoder2]
+    library = []
+    for enc in encoders:
+        cell = torch.nn.LSTM(enc.fwd_cell.input_size, enc.hidden_size, batch_first=True,
+                             bidirectional=True).to(dev)
+        for suffix, src in (("", enc.fwd_cell), ("_reverse", enc.bwd_cell)):
+            for key in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                getattr(cell, f"{key}_l0{suffix}").copy_(getattr(src, f"{key}_l0"))
+        library.append(cell)
+    gd = torch.Generator(device=dev).manual_seed(27)
+    L, H = N_CLIPS, lstm.HIDDEN
+    for name, P, ragged in BASE_EXCL_LSTM_SHAPES:
+        n = torch.full((P,), L, device=dev, dtype=torch.int32)
+        if ragged:
+            n = torch.randint(1, L + 1, (P,), device=dev, generator=gd, dtype=torch.int32)
+            n[::7] = 0
+        mask = (torch.arange(L, device=dev)[None] < n[:, None]).float()
+        ctx1s = [torch.tanh(torch.randn((P, L, 2 * H), device=dev, generator=gd))
+                 * mask[:, :, None] for _ in encoders]
+        q = torch.tanh(torch.randn((P, 2 * H), device=dev, generator=gd))
+        run = lambda: lstm.excl_lstm(encoders, ctx1s, q, [n, n])
+        plain = lambda: lstm.excl_lstm_plain(encoders, ctx1s, q, [n, n])
+        lstm.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launches = lstm.LAUNCHES["excl_lstm"]
+        want = plain()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        scale = max(b.abs().max().item() for b in want)
+        pad_zero = all(bool((a[mask == 0] == 0).all()) for a in got)
+        exact = [lstm_f64(enc, c, q, n) for enc, c in zip(encoders, ctx1s)]
+        err64 = max((a.double() - b).abs().max().item() for a, b in zip(got, exact))
+        plain_err64 = max((a.double() - b).abs().max().item() for a, b in zip(want, exact))
+        del got, want, exact
+        logits_k = excl.fused_span_logits(q, ctx1s, (mask, mask))
+        kernel, lstm.excl_lstm = lstm.excl_lstm, lstm.excl_lstm_plain
+        try:
+            logits_p = excl.fused_span_logits(q, ctx1s, (mask, mask))
+        finally:
+            lstm.excl_lstm = kernel
+        valid = mask > 0
+        logit_err = max((a - b)[valid].abs().max().item() for a, b in zip(logits_k, logits_p))
+        del logits_k, logits_p
+        q_rep = q[:, None, :].expand(P, L, 2 * H)
+        lib = lambda: [cell(torch.cat([c, q_rep], dim=-1)) for cell, c in zip(library, ctx1s)]
+        p1, k1, l1 = (cuda_ms(f, BASE_EXCL_LSTM_REPS) for f in (plain, run, lib))
+        k2, p2, l2 = (cuda_ms(f, BASE_EXCL_LSTM_REPS) for f in (run, plain, lib))
+        steps = 2 * 2 * int(n.sum())                  # streams x directions
+        ops, dt = tc_ops(steps * (3 * H) * (4 * H) * 2, torch.float32)
+        rec = dict(pairs=P, max_abs_err=err, f64_err=err64, plain_f64_err=plain_err64,
+                   logit_max_abs_err=logit_err, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                   library_ms=(l1 + l2) / 2, **bound(3 * nbytes(*ctx1s), ops, dt))
+        log("baselines", f"second-LSTM kernel, {name}: {P} pairs x {L} clips x 2 streams x 2 "
+            f"directions, {int(n.sum())} steps a stream and direction ({int((n == 0).sum())} "
+            f"empty rows): {launches} launch; max |kernel - plain| {err:.3e} ({err / scale:.3e} "
+            f"of the largest |plain|), padding zero {pad_zero}; from the f64 LSTM: kernel "
+            f"{err64:.3e}, plain (cuDNN, f32) {plain_err64:.3e}; span logits max |kernel - plain| "
+            f"{logit_err:.3e} (limit {BASE_EXCL_LSTM_LOGIT_ATOL:g}); kernel {rec['ms']:.3f} ms "
+            f"({k1:.3f} / {k2:.3f}), bound {rec['bound_ms']:.3f} ms by {rec['bound_by']} "
+            f"({100 * rec['bound_ms'] / rec['ms']:.1f}%); plain (cuDNN stage) "
+            f"{rec['plain_ms']:.3f} ms; library (nn.LSTM bidirectional over the concatenation) "
+            f"{rec['library_ms']:.3f} ms")
+        if (launches != 1 or not pad_zero or logit_err > BASE_EXCL_LSTM_LOGIT_ATOL
+                or err64 > 2 * plain_err64):
+            raise AssertionError(f"second-LSTM kernel, {name}: {rec}, padding zero {pad_zero}")
+        torch.cuda.empty_cache()
 
 
 def phase_baselines(dev, e2e_world, train_world, train_builder):
     """Phase 12: the baselines (see the module docstring). Every count is
     set to 0 before (a)-(d); after them B6 reads twice the card's calls of
-    ExCL's span stage (each video's top spans, the merge) and every other
-    count 0. (e) counts its own."""
+    ExCL's span stage (each video's top spans, the merge), the second-LSTM
+    kernel once each, and every other count 0. (e) and (f) count their
+    own."""
     import tempfile
 
     from tvretrieval_tpu_torch.ops import approx_topk as apx
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import lstm
     from tvretrieval_tpu_torch.ops import sort as tsort
     from tvretrieval_tpu_torch.ops import topk as ttopk
     from tvretrieval_tpu_torch.ops import video_score as vs
 
     from tvretrieval_tpu_torch.retrieval import excl_engine as ee
 
-    counters = (vs, gt_ops, tsort, apx, fsc, ttopk)
+    counters = (vs, gt_ops, tsort, apx, fsc, ttopk, lstm)
     for ops in counters:
         ops.reset_launch_counts()
     stage, card_calls = ee.excl_vcmr_batch, [0]
@@ -2979,7 +3127,8 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
         ee.excl_vcmr_batch = stage
     t3 = time.perf_counter()
     launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
-    want = {**{k: 0 for k in launches}, "topk_transposed": 2 * card_calls[0]}
+    want = {**{k: 0 for k in launches}, "topk_transposed": 2 * card_calls[0],
+            "excl_lstm": card_calls[0]}
     log("baselines", f"12a-d took {t3 - t0:.1f} s (12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, "
         f"12c + 12d {t3 - t2:.1f} s); hand-kernel launches {launches}, B6 for "
         f"{card_calls[0]} card calls of ExCL's span stage")
@@ -2988,7 +3137,11 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
                              f"expected {want}")
     torch.cuda.empty_cache()
     baselines_mee_excl(dev, tsort)
-    log("baselines", f"12e took {time.perf_counter() - t3:.1f} s")
+    t4 = time.perf_counter()
+    log("baselines", f"12e took {t4 - t3:.1f} s")
+    torch.cuda.empty_cache()
+    baselines_excl_lstm(dev)
+    log("baselines", f"12f took {time.perf_counter() - t4:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 13
@@ -3326,11 +3479,12 @@ def phase_features(dev):
     from tvretrieval_tpu_torch.ops import approx_topk as apx
     from tvretrieval_tpu_torch.ops import fused_score as fsc
     from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import lstm
     from tvretrieval_tpu_torch.ops import sort as tsort
     from tvretrieval_tpu_torch.ops import topk as ttopk
     from tvretrieval_tpu_torch.ops import video_score as vs
 
-    counters = (vs, gt_ops, tsort, apx, fsc, ttopk)
+    counters = (vs, gt_ops, tsort, apx, fsc, ttopk, lstm)
     for ops in counters:
         ops.reset_launch_counts()
     t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 // Tensor-core pieces for Hopper (sm_90a) from the mma.sync generation: the
 // s8 x s8 -> s32 m16n8k32, bf16 x bf16 -> f32 m16n8k16 and tf32 x tf32 ->
-// f32 m16n8k8 products, which only the ceiling probe (csrc/mma_probe.cu)
-// still issues, and what the wgmma kernels take from this file: the
+// f32 m16n8k8 products, which the ceiling probe (csrc/mma_probe.cu) and
+// ExCL's second LSTM (csrc/excl_lstm.cu, tf32) issue, and what the wgmma
+// kernels take from this file: the
 // XOR swizzle of a tile row's 16-byte chunks, ldmatrix fragment loads and
 // the 3xTF32 split that keeps f32 accuracy on the tensor cores (the f32
 // kinds of the video scores, csrc/video_score.cu B2 / B3, and of the

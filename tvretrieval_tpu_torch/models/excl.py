@@ -6,7 +6,8 @@ hidden, two stacked bidirectional context LSTMs per stream with the query
 vector concatenated between them, and MLP(tanh) start/end predictors over
 [ctx2; ctx1; query]. Cross-entropy span loss only (SVMR task).
 
-The five LSTMs are models.rnn.RNNEncoder (cuDNN under float32). Dropout
+The five LSTMs are models.rnn.RNNEncoder (cuDNN under float32; the
+served second LSTMs of ``fused_span_logits`` a kernel, below). Dropout
 is on in ``model.train()`` and draws from the ``generator`` passed to
 ``forward`` / ``span_logits`` (the global generator when None), never
 from JAX's PRNG: parity with the JAX model holds with ``drop=0`` or in
@@ -19,7 +20,13 @@ the query, so ``encode_context`` gives its outputs (``ctx1``) once per
 video and ``fused_span_logits`` runs the query-dependent rest (the second
 LSTM over ``[ctx1; query]``, the heads, the mask) for any pairing of
 queries with encoded videos: together they are ``span_logits`` in eval
-mode. Under ``torch.profiler`` the second LSTMs are the span "excl_lstm"
+mode. At float32 the second LSTMs of both streams are one call of
+``ops/lstm.py::excl_lstm`` (the query's part of their input products split
+off by linearity; on a card one kernel launch, on the CPU the plain
+concatenation and ``encoder2``); under bfloat16 compute each stream's
+``encoder2`` over the concatenation, as ``span_logits`` runs it. Under
+``torch.profiler`` the second LSTMs are the span "excl_lstm", counting
+``kernel_sequences`` (pairs x streams x 2 directions) when the kernel ran,
 and the heads the span "excl_head" (utils/trace.py).
 
 Data-parallel training (``shard``, a ``training.data_parallel.Shard`` of
@@ -40,6 +47,7 @@ from torch import nn
 from tvretrieval_tpu_torch.models.components import Dense, init_like_flax
 from tvretrieval_tpu_torch.models.rnn import RNNEncoder
 from tvretrieval_tpu_torch.models.xml import _cross_entropy
+from tvretrieval_tpu_torch.ops import lstm
 from tvretrieval_tpu_torch.ops.masking import mask_logits
 from tvretrieval_tpu_torch.utils import trace
 
@@ -174,18 +182,19 @@ class ExCL(nn.Module):
         self._eval_only("fused_span_logits")
         streams = [(s, ctx1, mask) for s, ctx1, mask in zip(("video", "sub"), ctx1s, masks)
                    if s in self._streams()]
-        reps, ctx2s = [], []
-        with trace.span("excl_lstm"):
-            for stream, ctx1, mask in streams:
-                q_rep = q_hidden[:, None, :].expand(q_hidden.shape[0], ctx1.shape[1],
-                                                    q_hidden.shape[-1])
-                ctx2, _ = getattr(self, f"{stream}_encoder2")(torch.cat([ctx1, q_rep], dim=-1),
-                                                              mask.sum(dim=1).int())
-                reps.append(q_rep)
-                ctx2s.append(ctx2)
+        kernel = self.cfg.dtype == torch.float32
+        with trace.span("excl_lstm") as span:
+            ctx2s = (lstm.excl_lstm if kernel else lstm.excl_lstm_plain)(
+                [getattr(self, f"{stream}_encoder2") for stream, _, _ in streams],
+                [ctx1 for _, ctx1, _ in streams], q_hidden,
+                [mask.sum(dim=1).int() for _, _, mask in streams])
+            if span is not None and kernel and q_hidden.is_cuda:
+                span.count(kernel_sequences=2 * len(streams) * q_hidden.shape[0])
         st = ed = 0
         with trace.span("excl_head"):
-            for (stream, ctx1, mask), q_rep, ctx2 in zip(streams, reps, ctx2s):
+            for (stream, ctx1, mask), ctx2 in zip(streams, ctx2s):
+                q_rep = q_hidden[:, None, :].expand(q_hidden.shape[0], ctx1.shape[1],
+                                                    q_hidden.shape[-1])
                 feat3 = torch.cat([ctx2, ctx1, q_rep], dim=-1)
                 st = st + mask_logits(getattr(self, f"{stream}_st_predictor")(feat3), mask)
                 ed = ed + mask_logits(getattr(self, f"{stream}_ed_predictor")(feat3), mask)

@@ -61,6 +61,10 @@ SOURCES: Dict[str, tuple] = {
     # tvr_approx_topk(x, nq, n, m, k, out_v, out_i, stream)
     "approx_topk": (_PKG / "csrc" / "approx_topk.cu", {
         "tvr_approx_topk": [_P, _I, _I, _I, _I, _P, _P, _P]}),
+    # tvr_excl_lstm(ctx1_0, ctx1_1, len_0, len_1, w, gq, gq_stride, out_0, out_1,
+    #               n_pairs, n_clips, n_streams, stream)
+    "excl_lstm": (_PKG / "csrc" / "excl_lstm.cu", {
+        "tvr_excl_lstm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]}),
     # tvr_mma_probe(kind, blocks, iters, out, stream): the mma.sync and the
     # s8 wgmma ceilings (chip_smoke.py phase 2; no engine path runs it)
     "mma_probe": (_PKG / "csrc" / "mma_probe.cu", {

@@ -26,8 +26,11 @@ the submission's videos; MEE + ExCL over a resident corpus
 (``encode_mee_excl_corpus``, ``score_mee_excl_batch``,
 ``mee_excl_retrieve_vcmr``) feeds it MEE's exact top N of the whole corpus.
 
-The five LSTMs are cuDNN's (float32, TF32 off); the selections are B6 on a
-card and a stable sort on the CPU.
+The query's and the first context LSTMs are cuDNN's (float32, TF32 off);
+in ``excl_vcmr_batch`` the second LSTMs of both streams are one launch of a
+hand-written kernel on a card (``ExCL.fused_span_logits`` through
+ops/lstm.py), the plain concatenation and LSTM on the CPU; the selections
+are B6 on a card and a stable sort on the CPU.
 """
 from __future__ import annotations
 
@@ -220,8 +223,9 @@ def excl_vcmr_batch(excl: ExCL, ctx: ExCLContextCache, query_feat: torch.Tensor,
 
     Under ``torch.profiler`` its spans are "excl_query", "excl_gather"
     (counting ``gathered_bytes``), "excl_lstm" and "excl_head"
-    (models/excl.py), "excl_topk". Its working memory is about 2 MB a
-    (query, video) pair at published widths."""
+    (models/excl.py), "excl_topk". Its working memory is about 1 MB a
+    (query, video) pair at published widths on a card, 2 MB on the CPU
+    (where the second LSTMs run over the concatenated input)."""
     with evaluating(excl):
         L = ctx.mask.shape[1]
         V = vr_idx.shape[1]
@@ -284,7 +288,7 @@ def score_mee_excl_batch(mee: MEE, excl: ExCL, cache: MEEExCLCache, query_feat: 
 
 
 # (query, video) pairs a call of ExCL's stage takes on the external-VR
-# path: about 2 GB of working memory at published widths
+# path: 1-2 GB of working memory at published widths
 EXTERNAL_VR_PAIRS = 1000
 
 
