@@ -224,6 +224,10 @@ import torch
 N_VIDEOS_FULL = 21818
 N_QUERIES = 1000
 E2E_VIDEOS, E2E_QUERIES = 320, 300     # phase 4, kept small for its CPU side
+# the kernels phase 4's card runs must each launch (the study kernels B7-B10
+# have their own path, phase 9; B4 and ExCL's kernel are not XML's query path)
+MAIN_PATH_KERNELS = ("video_scores_flat_i8", "video_scores_flat", "video_scores_flat_bmax",
+                     "span_sim_cat_i8", "topk_transposed", "approx_max_k")
 HIDDEN = 256
 N_CLIPS = 100
 LP = 104
@@ -1108,11 +1112,8 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     feat2 f32 as encode_corpus leaves it. Returns the kernel launches summed
     over the five."""
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import approx_topk as apx
-    from tvretrieval_tpu_torch.ops import fused_score as fsc
-    from tvretrieval_tpu_torch.ops import gather as gt_ops
-    from tvretrieval_tpu_torch.ops import sort as tsort
-    from tvretrieval_tpu_torch.ops import topk as ttopk
     from tvretrieval_tpu_torch.ops import video_score as vs
     from tvretrieval_tpu_torch.retrieval.engine import (
         RetrievalConfig, _maybe_pad_clip_axis, _score_query_batch)
@@ -1139,10 +1140,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
     q_mask = torch.ones((nq, 30), device=dev)
     gt = torch.zeros((nq,), dtype=torch.long, device=dev)
     n_runs = WARMUP_RUNS + TIMED_RUNS
-    no_launch = {"video_scores_flat": 0, "video_scores_flat_bmax": 0, "gather_byte_rows": 0,
-                 "video_scores_masked": 0, "gathered_similarity": 0,
-                 "fused_video_scores_clip_major": 0, "banded_topk_spans_fused": 0,
-                 "approx_max_k": 0}
+    no_launch = dict.fromkeys(_build.LAUNCHES, 0)
     configs = [
         ("bf16 flagship",
          RetrievalConfig(cache_dtype_str="bfloat16", span_score_mode="simsweep_cat_bf16",
@@ -1202,8 +1200,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
             for f in fs)
         held = (torch.cuda.memory_allocated(dev) - aside) / 2**30
         torch.cuda.reset_peak_memory_stats(dev)
-        for ops in (vs, gt_ops, tsort, fsc, ttopk, apx):
-            ops.reset_launch_counts()
+        _build.reset_launch_counts()
         for _ in range(WARMUP_RUNS):
             out = run()
         torch.cuda.synchronize()
@@ -1214,8 +1211,7 @@ def phase_throughput(dev, kernel_rec, profile_dir):
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / TIMED_RUNS
-        launches = {**vs.LAUNCHES, **gt_ops.LAUNCHES, **tsort.LAUNCHES, **fsc.LAUNCHES,
-                    **ttopk.LAUNCHES, **apx.LAUNCHES}
+        launches = dict(_build.LAUNCHES)
         if launches != {**no_launch, **want}:
             raise AssertionError(f"throughput run ({name}): kernel launches {launches}, "
                                  f"expected {({**no_launch, **want})}")
@@ -1356,7 +1352,7 @@ def phase_gather(dev, gt):
     return rec
 
 
-def phase_train(dev, gt, gather_rec, profile_dir):
+def phase_train(dev, gather_rec, profile_dir):
     """Phase 7: XMLTrainer on the GPU-resident float8 corpus at full width.
     Returns B4's launch count over the train and eval-loss epochs, and the
     resident world and the f32 step time for phase 10."""
@@ -1365,6 +1361,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
     from tvretrieval_tpu_torch.evaluation.metrics import eval_retrieval_arrays
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.retrieval.engine import (
         RetrievalConfig, encode_corpus_resident, retrieve)
     from tvretrieval_tpu_torch.training.xml_trainer import (
@@ -1418,14 +1415,14 @@ def phase_train(dev, gt, gather_rec, profile_dir):
                                      ("cpu", model_cpu, ctx_cpu, "cpu")):
         on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         akw = dd.assemble_kwargs
-        gt.reset_launch_counts()
+        _build.reset_launch_counts()
         with torch.no_grad():
             batch = assemble_batch(ctx, *map(on, chunk), max_desc_l=30, **akw)
             _, loss_dict = model(**batch, lw_st_ed=settings.lw_st_ed,
                                  neg_sample_upper=TRAIN_BSZ,
                                  neg_ranks=tuple(r.to(device) for r in ranks))
-        if gt.LAUNCHES["gather_byte_rows"] != (2 if name == "card" else 0):
-            raise AssertionError(f"first batch on the {name}: B4 launches {gt.LAUNCHES}")
+        if _build.LAUNCHES["gather_byte_rows"] != (2 if name == "card" else 0):
+            raise AssertionError(f"first batch on the {name}: B4 launches {_build.LAUNCHES}")
         losses[name] = {k: float(v) for k, v in loss_dict.items()}
     del ctx_cpu, model_cpu
     err = max(abs(losses["card"][k] - losses["cpu"][k]) for k in LOSS_KEYS)
@@ -1436,7 +1433,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
 
     # training: TRAIN_EPOCHS epochs of `steps` optimizer steps
     torch.cuda.reset_peak_memory_stats(dev)
-    gt.reset_launch_counts()
+    _build.reset_launch_counts()
     step_losses, epoch_ms = [], []
     for epoch in range(TRAIN_EPOCHS):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1449,7 +1446,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
             raise AssertionError(f"epoch {epoch} ran {out['steps']} of {steps} steps")
         step_losses += [ld["loss_overall"] for ld in trainer.last_step_losses]
     n_steps = TRAIN_EPOCHS * steps
-    launches_train = gt.LAUNCHES["gather_byte_rows"]
+    launches_train = _build.LAUNCHES["gather_byte_rows"]
     if launches_train != 2 * n_steps or trainer.global_step != n_steps:
         raise AssertionError(f"B4 launched {launches_train} times in {n_steps} train steps "
                              f"(global step {trainer.global_step}); expected 2 per step")
@@ -1472,7 +1469,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     # eval loss over every eval batch: two more launches per batch
     eval_losses = trainer.eval_loss_epoch(eval_rows, TRAIN_EPOCHS - 1)
     n_eval = -(-len(eval_rows) // TRAIN_BSZ)
-    launches = gt.LAUNCHES["gather_byte_rows"]
+    launches = _build.LAUNCHES["gather_byte_rows"]
     if launches - launches_train != 2 * n_eval:
         raise AssertionError(f"B4 launched {launches - launches_train} times in {n_eval} "
                              "eval-loss batches; expected 2 per batch")
@@ -1500,7 +1497,7 @@ def phase_train(dev, gt, gather_rec, profile_dir):
     log("train", f"encode_corpus_resident + retrieve ({len(eval_rows)} held-out queries x "
         f"{TRAIN_VIDEOS} videos) in {time.perf_counter() - t0:.2f} s; after {n_steps} steps: "
         + "; ".join(f"{t} {json.dumps(metrics[t])}" for t in ("VCMR", "SVMR", "VR")))
-    if gt.LAUNCHES["gather_byte_rows"] != launches:
+    if _build.LAUNCHES["gather_byte_rows"] != launches:
         raise AssertionError("retrieval from the resident corpus slices; it gathers nothing")
     if profile_dir:
         # one more epoch under the profiler (past t_total the learning rate is 0)
@@ -1886,8 +1883,8 @@ def phase_variants_corpus(dev, profile_dir=""):
     one warm-up batch; peak memory. ``profile_dir``: also a torch.profiler
     table and trace of one batch of the exact run."""
     from tvretrieval_tpu_torch.models.xml import XML
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import approx_topk as apx
-    from tvretrieval_tpu_torch.ops import sort as tsort
     from tvretrieval_tpu_torch.retrieval.engine import RetrievalConfig, _score_query_batch
     from tvretrieval_tpu_torch.testing import tie_aware_recall
 
@@ -1915,14 +1912,14 @@ def phase_variants_corpus(dev, profile_dir=""):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         held = torch.cuda.memory_allocated(dev) / 2**30
-        before = {**tsort.LAUNCHES, **apx.LAUNCHES}
+        before = dict(_build.LAUNCHES)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         res = [run(b) for b in batches]
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end)
-        launches = {k: v - before[k] for k, v in {**tsort.LAUNCHES, **apx.LAUNCHES}.items()}
+        launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         out[topk] = {k: torch.cat([r[k] for r in res]) for k in res[0]}
         for k, v in out[topk].items():
@@ -1978,7 +1975,7 @@ def phase_variants_train(dev, env):
     a step), ms a step in the second beside phase 7's f32 step."""
     from tvretrieval_tpu_torch.data.device_corpus import assemble_batch
     from tvretrieval_tpu_torch.models.xml import XML
-    from tvretrieval_tpu_torch.ops import gather as gt
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.training.xml_trainer import LOSS_KEYS, XMLTrainer
 
     dd, builder, rows = env["dd"], env["builder"], env["train_rows"]
@@ -2015,7 +2012,7 @@ def phase_variants_train(dev, env):
         if not err <= tol:
             raise AssertionError(f"{name}: first-batch loss card {losses['card']} vs CPU "
                                  f"{losses['cpu']}: {err} > {tol}")
-        b4_before = gt.LAUNCHES["gather_byte_rows"]
+        b4_before = _build.LAUNCHES["gather_byte_rows"]
         trainer.train_epoch(0)                  # the first epoch warms up; the second is timed
         step_losses = [ld["loss_overall"] for ld in trainer.last_step_losses]
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2028,7 +2025,7 @@ def phase_variants_train(dev, env):
         first, last = float(np.mean(step_losses[:4])), float(np.mean(step_losses[-4:]))
         if not (np.isfinite(step_losses).all() and last < first):
             raise AssertionError(f"{name}: losses {step_losses}")
-        b4 = gt.LAUNCHES["gather_byte_rows"] - b4_before
+        b4 = _build.LAUNCHES["gather_byte_rows"] - b4_before
         if b4 != 4 * VARIANT_STEPS:
             raise AssertionError(f"{name}: B4 launched {b4} times in {2 * VARIANT_STEPS} steps")
         log("variants", f"train {name}: first batch card vs CPU max |d| {err:.3e} (bound "
@@ -2043,14 +2040,9 @@ def phase_variants_train(dev, env):
 def phase_variants(dev, e2e_world, train_env, profile_dir=""):
     """Phase 10: the XML variants; returns the kernel launches it made
     (counts set to 0 before it, read after it)."""
-    from tvretrieval_tpu_torch.ops import approx_topk as apx
-    from tvretrieval_tpu_torch.ops import gather as gt
-    from tvretrieval_tpu_torch.ops import sort as tsort
-    from tvretrieval_tpu_torch.ops import video_score as vs
+    from tvretrieval_tpu_torch.ops import _build
 
-    counters = (vs, gt, tsort, apx)
-    for ops in counters:
-        ops.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     phase_variants_e2e(dev, e2e_world)
     torch.cuda.empty_cache()
@@ -2059,7 +2051,7 @@ def phase_variants(dev, e2e_world, train_env, profile_dir=""):
     torch.cuda.empty_cache()
     t2 = time.perf_counter()
     phase_variants_train(dev, train_env)
-    launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+    launches = dict(_build.LAUNCHES)
     log("variants", f"phase 10 took {time.perf_counter() - t0:.1f} s (10a {t1 - t0:.1f} s, "
         f"10b {t2 - t1:.1f} s, 10c {time.perf_counter() - t2:.1f} s); kernel launches "
         f"{({k: v for k, v in launches.items() if v})}")
@@ -2192,11 +2184,8 @@ def phase_streaming(dev):
     the kernel launches of the timed runs."""
     from tvretrieval_tpu_torch.entry import entry
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig, l2_normalize
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import approx_topk as apx
-    from tvretrieval_tpu_torch.ops import fused_score as fsc
-    from tvretrieval_tpu_torch.ops import gather as gt_ops
-    from tvretrieval_tpu_torch.ops import sort as tsort
-    from tvretrieval_tpu_torch.ops import topk as ttopk
     from tvretrieval_tpu_torch.ops import video_score as vs
     from tvretrieval_tpu_torch.retrieval import streaming as st
     from tvretrieval_tpu_torch.retrieval.engine import RetrievalConfig, _score_query_batch
@@ -2243,8 +2232,7 @@ def phase_streaming(dev):
     # this corpus (held below: it is in no top-V)
     flat_mask = cache.mask.clone()
     flat_mask[STREAM_MASKED, 0] = 1
-    counters = (vs, gt_ops, tsort, fsc, ttopk, apx)
-    no_launch = {k: 0 for ops in counters for k in ops.LAUNCHES}
+    no_launch = dict.fromkeys(_build.LAUNCHES, 0)
     kernel = {"flat": "video_scores_flat", "flat_int8": "video_scores_flat_i8"}
     total = dict(no_launch)
     for mode in ("einsum", "flat", "flat_int8"):
@@ -2314,8 +2302,7 @@ def phase_streaming(dev):
         del pairs
 
         # the timed run: counts from 0, the shipped span selection
-        for ops in counters:
-            ops.reset_launch_counts()
+        _build.reset_launch_counts()
         times = []
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
@@ -2329,7 +2316,7 @@ def phase_streaming(dev):
         end.record()
         end.synchronize()
         stream_ms = start.elapsed_time(end)
-        launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+        launches = dict(_build.LAUNCHES)
         want = dict(no_launch, approx_max_k=2 * len(batches))
         if flat:
             want[kernel[mode]] = n_blocks * len(batches)
@@ -2872,7 +2859,7 @@ def baselines_mee_excl(dev, tsort):
     ms a call, cache bytes, peak memory."""
     from tvretrieval_tpu_torch.models.excl import ExCL
     from tvretrieval_tpu_torch.models.mee import MEE
-    from tvretrieval_tpu_torch.ops import lstm
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.retrieval import excl_engine as ee
 
     nv, L, bsz, lq = N_VIDEOS_FULL, N_CLIPS, BASE_MEE_EXCL_BSZ, 30
@@ -2914,19 +2901,18 @@ def baselines_mee_excl(dev, tsort):
         seen.append((x.clone(), k, vals, idx))
         return vals, idx
 
-    tsort.reset_launch_counts()
-    lstm.reset_launch_counts()
+    _build.reset_launch_counts()
     tsort._launch = recording
     try:
         out = call()
         torch.cuda.synchronize()
     finally:
         tsort._launch = launch
-    n_launch = tsort.LAUNCHES["topk_transposed"]
+    n_launch = _build.LAUNCHES["topk_transposed"]
     if n_launch != 5 or len(seen) != 5:
         raise AssertionError(f"MEE + ExCL: {n_launch} B6 launches a call, not 5")
-    if lstm.LAUNCHES["excl_lstm"] != 1:
-        raise AssertionError(f"MEE + ExCL: {lstm.LAUNCHES['excl_lstm']} launches of the "
+    if _build.LAUNCHES["excl_lstm"] != 1:
+        raise AssertionError(f"MEE + ExCL: {_build.LAUNCHES['excl_lstm']} launches of the "
                              "second-LSTM kernel a call, not 1")
     shapes = []
     for x, k, vals, idx in seen:
@@ -3009,6 +2995,7 @@ def baselines_excl_lstm(dev):
     (library_ms, the concatenation included; the same function where every
     row is whole)."""
     from tvretrieval_tpu_torch.models.excl import ExCL
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import lstm
 
     g = torch.Generator().manual_seed(27)
@@ -3039,10 +3026,10 @@ def baselines_excl_lstm(dev):
         q = torch.tanh(torch.randn((P, 2 * H), device=dev, generator=gd))
         run = lambda: lstm.excl_lstm(encoders, ctx1s, q, [n, n])
         plain = lambda: lstm.excl_lstm_plain(encoders, ctx1s, q, [n, n])
-        lstm.reset_launch_counts()
+        _build.reset_launch_counts()
         got = run()
         torch.cuda.synchronize()
-        launches = lstm.LAUNCHES["excl_lstm"]
+        launches = _build.LAUNCHES["excl_lstm"]
         want = plain()
         err = max((a - b).abs().max().item() for a, b in zip(got, want))
         scale = max(b.abs().max().item() for b in want)
@@ -3093,19 +3080,12 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
     own."""
     import tempfile
 
-    from tvretrieval_tpu_torch.ops import approx_topk as apx
-    from tvretrieval_tpu_torch.ops import fused_score as fsc
-    from tvretrieval_tpu_torch.ops import gather as gt_ops
-    from tvretrieval_tpu_torch.ops import lstm
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import sort as tsort
-    from tvretrieval_tpu_torch.ops import topk as ttopk
-    from tvretrieval_tpu_torch.ops import video_score as vs
 
     from tvretrieval_tpu_torch.retrieval import excl_engine as ee
 
-    counters = (vs, gt_ops, tsort, apx, fsc, ttopk, lstm)
-    for ops in counters:
-        ops.reset_launch_counts()
+    _build.reset_launch_counts()
     stage, card_calls = ee.excl_vcmr_batch, [0]
 
     def counted(excl, ctx, *args, **kw):
@@ -3126,7 +3106,7 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
     finally:
         ee.excl_vcmr_batch = stage
     t3 = time.perf_counter()
-    launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+    launches = dict(_build.LAUNCHES)
     want = {**{k: 0 for k in launches}, "topk_transposed": 2 * card_calls[0],
             "excl_lstm": card_calls[0]}
     log("baselines", f"12a-d took {t3 - t0:.1f} s (12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, "
@@ -3476,17 +3456,9 @@ def phase_features(dev):
     """Phase 13: the offline feature pipelines and the profiling suite (see
     the module docstring). No hand kernel lies on their paths: every count
     is set to 0 before and must read 0 after."""
-    from tvretrieval_tpu_torch.ops import approx_topk as apx
-    from tvretrieval_tpu_torch.ops import fused_score as fsc
-    from tvretrieval_tpu_torch.ops import gather as gt_ops
-    from tvretrieval_tpu_torch.ops import lstm
-    from tvretrieval_tpu_torch.ops import sort as tsort
-    from tvretrieval_tpu_torch.ops import topk as ttopk
-    from tvretrieval_tpu_torch.ops import video_score as vs
+    from tvretrieval_tpu_torch.ops import _build
 
-    counters = (vs, gt_ops, tsort, apx, fsc, ttopk, lstm)
-    for ops in counters:
-        ops.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     models = features_backbones(dev)
     t1 = time.perf_counter()
@@ -3498,7 +3470,7 @@ def phase_features(dev):
     torch.cuda.empty_cache()
     t3 = time.perf_counter()
     features_profilers(dev)
-    launches = {k: v for ops in counters for k, v in ops.LAUNCHES.items()}
+    launches = dict(_build.LAUNCHES)
     log("features", f"phase 13 took {time.perf_counter() - t0:.1f} s (13a {t1 - t0:.1f} s, "
         f"13b {t2 - t1:.1f} s, 13c {t3 - t2:.1f} s, 13d {time.perf_counter() - t3:.1f} s); "
         f"hand-kernel launches {launches}")
@@ -3574,6 +3546,7 @@ def load_b11(checkout: str):
 def phase_study_path(dev):
     """Phase 9: the stage-study entry point at full width. Returns the
     launches of B7-B10 counted over its second call."""
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.profiling import engine_modes
 
     def check(records, what):
@@ -3597,8 +3570,7 @@ def phase_study_path(dev):
         raise AssertionError(f"flagship combos: {exact}")
     torch.cuda.empty_cache()
 
-    for ops in engine_modes.vs, engine_modes.fused_score, engine_modes.gather, engine_modes.topk:
-        ops.reset_launch_counts()
+    _build.reset_launch_counts()
     records = engine_modes.run(parse(common + ["--modes", "gather/einsum/grouped",
                                                "gather/einsum/grouped_shift"]))
     launches = engine_modes.launch_counts()
@@ -3691,7 +3663,7 @@ def dp_rank(rank: int, port: int, tables_path: str, out_dir: str) -> None:
 
     import torch.distributed as dist
 
-    from tvretrieval_tpu_torch.ops import gather as gt_ops
+    from tvretrieval_tpu_torch.ops import _build
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     with open(tables_path, "rb") as f:
@@ -3699,10 +3671,10 @@ def dp_rank(rank: int, port: int, tables_path: str, out_dir: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=DP_RANKS, rank=rank)
     try:
-        gt_ops.reset_launch_counts()
+        _build.reset_launch_counts()
         losses, ms = dp_train(torch.device("cuda", 0), DP_RANKS, tables)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(dict(losses=losses, ms=ms, b4=gt_ops.LAUNCHES["gather_byte_rows"]), f)
+            json.dump(dict(losses=losses, ms=ms, b4=_build.LAUNCHES["gather_byte_rows"]), f)
     finally:
         dist.destroy_process_group()
 
@@ -3759,9 +3731,8 @@ def dpb_train(kind: str, dev, n_devices: int, env):
 
 def hand_kernel_counts():
     """Every wrapper's launch count, by kernel."""
-    from tvretrieval_tpu_torch.ops import approx_topk, fused_score, gather, sort, topk, video_score
-    return {k: n for ops in (video_score, gather, sort, approx_topk, fused_score, topk)
-            for k, n in ops.LAUNCHES.items()}
+    from tvretrieval_tpu_torch.ops import _build
+    return dict(_build.LAUNCHES)
 
 
 def dpb_rank(rank: int, port: int, out_dir: str) -> None:
@@ -3866,11 +3837,8 @@ def phase_sharded(dev, dp_env=None):
     import torch.multiprocessing as mp
 
     from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+    from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import approx_topk as apx
-    from tvretrieval_tpu_torch.ops import fused_score as fsc
-    from tvretrieval_tpu_torch.ops import gather as gt_ops
-    from tvretrieval_tpu_torch.ops import sort as tsort
-    from tvretrieval_tpu_torch.ops import topk as ttopk
     from tvretrieval_tpu_torch.ops import video_score as vs
     from tvretrieval_tpu_torch.parallel.mesh import make_mesh
     from tvretrieval_tpu_torch.parallel import sharded_retrieval as sr
@@ -3880,9 +3848,7 @@ def phase_sharded(dev, dp_env=None):
     from tvretrieval_tpu_torch.testing import rank_mismatches, tie_aware_recall, within
 
     t_phase = time.perf_counter()
-    counters = (vs, gt_ops, tsort, fsc, ttopk, apx)
-    reset = lambda: [ops.reset_launch_counts() for ops in counters]
-    read = lambda: {k: n for ops in counters for k, n in ops.LAUNCHES.items()}
+    reset, read = _build.reset_launch_counts, lambda: dict(_build.LAUNCHES)
     total = {k: 0 for k in read()}
 
     # ---- (a) sharded serving at the full corpus
@@ -4263,12 +4229,9 @@ def main() -> int:
         dev, apx, {"parent": load_b11(args.parent)} if args.parent else None)
     torch.cuda.empty_cache()
 
-    for ops in (vs, tsort, apx):
-        ops.reset_launch_counts()
+    _build.reset_launch_counts()
     metrics, e2e_world = phase_end_to_end(dev, args.int8_repeats)
-    # the study kernel of ops.video_score (B9) has its own path, phase 9
-    launches = {k: n for k, n in {**vs.LAUNCHES, **tsort.LAUNCHES, **apx.LAUNCHES}.items()
-                if k != "video_scores_masked"}
+    launches = {k: _build.LAUNCHES[k] for k in MAIN_PATH_KERNELS}
     log("e2e", f"kernel launches on the main path: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
@@ -4281,7 +4244,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rec["B4"] = phase_gather(dev, gt)
-    launches["gather_byte_rows"], train_env = phase_train(dev, gt, rec["B4"], args.profile)
+    launches["gather_byte_rows"], train_env = phase_train(dev, rec["B4"], args.profile)
     torch.cuda.empty_cache()
 
     rec.update(phase_study_kernels(dev, vs, ceiling,

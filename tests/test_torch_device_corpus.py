@@ -143,12 +143,12 @@ def test_gather_rows_kernel_flag_follows_the_device():
     """No flag chooses between the gather kernel and its plain version: the
     table's device does. A CPU table takes the plain version (no launch is
     counted) and the assembly functions take no ``use_kernel``."""
-    from tvretrieval_tpu_torch.ops import gather as gt
+    from tvretrieval_tpu_torch.ops import _build
     table = torch.arange(4 * 8 * 128, dtype=torch.int32).to(torch.int8).view(4, 8, 128)
     idx = torch.tensor([1, 3], dtype=torch.int32)
-    gt.reset_launch_counts()
+    _build.reset_launch_counts()
     assert torch.equal(tdc.gather_byte_rows(table, idx), table[idx.long()])
-    assert gt.LAUNCHES["gather_byte_rows"] == 0
+    assert _build.LAUNCHES["gather_byte_rows"] == 0
     with pytest.raises(ValueError, match="cpu or cuda"):
         tdc.gather_byte_rows(table.to("meta"), idx.to("meta"))
     with pytest.raises(TypeError, match="use_kernel"):

@@ -35,6 +35,7 @@ from tvretrieval_tpu.ops.pallas_score import quantize_unit_i8 as j_quantize
 from tvretrieval_tpu.retrieval import engine as je
 from tvretrieval_tpu_torch.convert import flax_params_to_state_dict
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops import video_score as vs
 from tvretrieval_tpu_torch.retrieval import engine as te
 from tvretrieval_tpu_torch.testing import rank_mismatches, within
@@ -106,7 +107,7 @@ def _compare(ja, ta, q2c_tol, span_rtol, clip):
 def test_engine_pallas_f32_matches_jax(setup):
     """video_score_mode='pallas' (B2's plain version) on f32 caches with
     the f32 concatenated sweep: caches, selections and scores agree."""
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     jcache, tcache, ja, ta = _run_both(setup, video_score_mode="pallas",
                                        span_score_mode="simsweep_cat",
                                        cache_dtype_str="float32")
@@ -117,7 +118,7 @@ def test_engine_pallas_f32_matches_jax(setup):
     assert tcache.feat2_cat.shape == jcache.feat2_cat.shape            # padded to 16
     np.testing.assert_array_equal(tcache.mask.numpy(), np.asarray(jcache.mask))
     _compare(ja, ta, Q2C_F32, SPAN_F32, setup[0].clip_length)
-    assert all(v == 0 for v in vs.LAUNCHES.values())                  # CPU: plain only
+    assert all(v == 0 for v in _build.LAUNCHES.values())                  # CPU: plain only
 
 
 def test_engine_pallas_int8_fused_matches_jax(setup):

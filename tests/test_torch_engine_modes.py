@@ -35,7 +35,7 @@ from tvretrieval_tpu.retrieval import engine as je
 from tvretrieval_tpu_torch.convert import flax_params_to_state_dict
 from tvretrieval_tpu_torch.data.device_corpus import build_device_data
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
-from tvretrieval_tpu_torch.ops import sort as tsort
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops import video_score as vs
 from tvretrieval_tpu_torch.retrieval import engine as te
 from tvretrieval_tpu_torch.retrieval import inference_xml
@@ -129,10 +129,10 @@ def test_parity_selection_modes_equal_grouped_shift_and_jax(setup, name):
     ref_mode = dict(span_topk_mode="grouped_shift",
                     video_topk_pre_exp=mode.get("video_topk_pre_exp", False))
     _, ref = _torch_run(setup, **base, **ref_mode)
-    tsort.reset_launch_counts()
+    _build.reset_launch_counts()
     _, out = _torch_run(setup, **base, **mode)
     _assert_equal_arrays(ref, out)
-    assert tsort.LAUNCHES["topk_transposed"] == 0                  # CPU: plain only
+    assert _build.LAUNCHES["topk_transposed"] == 0                  # CPU: plain only
     _, ja = _jax_run(setup, **base, **mode)
     _compare(ja, out, Q2C_F32, SPAN_F32, setup[0].clip_length)
 
@@ -162,9 +162,9 @@ def test_int8_span_modes(setup, dtype):
                 cache_dtype_str=dtype)
     _, cat = _torch_run(setup, span_score_mode="simsweep_cat", **base)
     c8, i8 = _torch_run(setup, span_score_mode="simsweep_cat_int8", **base)
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     cf, flat = _torch_run(setup, span_score_mode="simsweep_cat_int8_flat", **base)
-    assert vs.LAUNCHES["span_sim_cat_i8"] == 0                      # CPU: plain only
+    assert _build.LAUNCHES["span_sim_cat_i8"] == 0                      # CPU: plain only
 
     # caches: int8 bytes + f32 scales, the two feat2 streams dropped
     nv, L = c8.mask.shape

@@ -13,13 +13,13 @@ On the CPU, with no JAX:
   that drops the query's term, or walks the backward direction over the
   whole row, does not;
 - routing: CPU tensors take the plain version (bit-equal, nothing
-  launched, no ``kernel_sequences`` on the span "excl_lstm"), and a
-  bfloat16 ExCL keeps its step loop (``rnn._loop``).
+  launched, no counter on the span "excl_lstm"), and a bfloat16 ExCL
+  keeps its step loop (``rnn._loop``).
 
 On a card (marker ``cuda``; the ``dev`` fixture skips without one): the
 kernel against the plain version at shapes off its 64-sequence blocks,
-ragged lengths with zeros, one and two streams, one launch a call, the
-span's ``kernel_sequences`` (pairs x streams x 2); and the refusals of
+ragged lengths with zeros, one and two streams, one launch a call (also
+inside the span "excl_lstm", which counts nothing); and the refusals of
 what it does not take. On the card machine, with no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_excl_lstm.py
@@ -30,7 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tvretrieval_tpu_torch.models import rnn
 from tvretrieval_tpu_torch.models.excl import ExCL, ExCLConfig
-from tvretrieval_tpu_torch.ops import lstm
+from tvretrieval_tpu_torch.ops import _build, lstm
 from tvretrieval_tpu_torch.utils import trace
 
 H = lstm.HIDDEN
@@ -170,12 +170,12 @@ def test_cpu_takes_the_plain_version_and_bf16_its_step_loop(monkeypatch):
     excl = _excl()
     ctx1s, q_query, pair_query, n = _pairs(excl)
     q = q_query[pair_query]
-    lstm.reset_launch_counts()
+    _build.reset_launch_counts()
     with torch.no_grad():
         got = lstm.excl_lstm(_encoders(excl), ctx1s, q, [n, n])
         want = lstm.excl_lstm_plain(_encoders(excl), ctx1s, q, [n, n])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert lstm.LAUNCHES["excl_lstm"] == 0
+    assert _build.LAUNCHES["excl_lstm"] == 0
 
     bf16 = _excl(dtype_str="bfloat16")
     steps = []
@@ -201,9 +201,13 @@ def _traced_lstm_counters(excl, ctx1s, q, n):
 
 
 def test_span_counts_no_kernel_sequences_on_the_plain_path():
+    """The plain path inside the span launches nothing, and the span
+    counts nothing."""
     excl = _excl()
     ctx1s, q_query, pair_query, n = _pairs(excl)
+    _build.reset_launch_counts()
     assert _traced_lstm_counters(excl, ctx1s, q_query[pair_query], n) == {}
+    assert not any(_build.LAUNCHES.values())
 
 
 # ---------------------------------------------------------------- on a card
@@ -242,14 +246,14 @@ def test_kernel_equals_plain_version(dev, P, L, streams):
     excl = _excl().to(dev)
     ctx1s, q, n = _card_pairs(dev, P, L, seed=P + L)
     encoders = _encoders(excl)[:streams]
-    lstm.reset_launch_counts()
+    _build.reset_launch_counts()
     with torch.no_grad():
         got = lstm.excl_lstm(encoders, ctx1s[:streams], q, [n] * streams)
         torch.cuda.synchronize()
         want = lstm.excl_lstm_plain(encoders, ctx1s[:streams], q, [n] * streams)
         exact = _split_walk(encoders, ctx1s[:streams], q, torch.arange(P, device=dev), n,
                             dtype=torch.float64)
-    assert lstm.LAUNCHES["excl_lstm"] == 1
+    assert _build.LAUNCHES["excl_lstm"] == 1
     pad = torch.arange(L, device=dev)[None] >= n[:, None]
     for a, b, e in zip(got, want, exact):
         assert a.shape == b.shape and torch.isfinite(a).all()
@@ -262,9 +266,9 @@ def test_kernel_equals_plain_version(dev, P, L, streams):
 def test_span_counts_the_kernels_sequences(dev):
     excl = _excl().to(dev)
     ctx1s, q, n = _card_pairs(dev, 70, 9, seed=5)
-    lstm.reset_launch_counts()
+    _build.reset_launch_counts()
     counters = _traced_lstm_counters(excl, ctx1s, q, n)
-    assert counters == {"kernel_sequences": 2 * 2 * 70} and lstm.LAUNCHES["excl_lstm"] == 1
+    assert counters == {} and _build.LAUNCHES["excl_lstm"] == 1
 
 
 @pytest.mark.cuda

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from tvretrieval_tpu.ops.pallas_gather import gather_byte_rows as j_gather_byte_rows
-from tvretrieval_tpu_torch.ops import gather
+from tvretrieval_tpu_torch.ops import _build, gather
 
 
 @pytest.mark.parametrize("b", [1, 7, 8, 13])
@@ -23,12 +23,12 @@ def test_gather_plain_matches_pallas_interpret(b):
     want = np.asarray(j_gather_byte_rows(jnp.asarray(src), jnp.asarray(idx),
                                          interpret=True))
     np.testing.assert_array_equal(want, src[idx])
-    gather.reset_launch_counts()
+    _build.reset_launch_counts()
     for fn in (gather.gather_byte_rows_plain, gather.gather_byte_rows):
         got = fn(torch.from_numpy(src), torch.from_numpy(idx))
         assert got.dtype == torch.int8 and got.shape == (b, 8, 256)
         np.testing.assert_array_equal(got.numpy(), want)
-    assert gather.LAUNCHES["gather_byte_rows"] == 0          # CPU: plain only
+    assert _build.LAUNCHES["gather_byte_rows"] == 0          # CPU: plain only
 
 
 def test_gather_accepts_int64_and_strided_indices():

@@ -58,6 +58,7 @@ import math
 import pytest
 import torch
 
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops import approx_topk as apx
 from tvretrieval_tpu_torch.ops import fused_score as fsc
 from tvretrieval_tpu_torch.ops import gather as gt
@@ -110,10 +111,10 @@ SHAPES = [  # nq, nv, L, d, lp, chunk_v
 @pytest.mark.parametrize("nq,nv,L,d,lp,chunk_v", SHAPES)
 def test_b1_int8_bit_equal(dev, nq, nv, L, d, lp, chunk_v):
     qv, qs, fv, fs = _caches(dev, nq, nv, L, d, lp, chunk_v, torch.int8)
-    n0 = vs.LAUNCHES["video_scores_flat_i8"]
+    n0 = _build.LAUNCHES["video_scores_flat_i8"]
     out = vs.video_scores_flat_i8(qv, qs, fv, fs, nv, lp=lp)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_flat_i8"] == n0 + 1
+    assert _build.LAUNCHES["video_scores_flat_i8"] == n0 + 1
     assert out.shape == (nq, nv) and out.dtype == torch.float32
     assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp))
 
@@ -242,12 +243,12 @@ def test_b2_b3_bf16_tensor_cores(dev, nq, nv, L, d, lp, chunk_v):
     their plain versions, pads -inf, block maxima the max of the kernel's
     own scores; one launch each."""
     qv, qs, fv, fs = _caches(dev, nq, nv, L, d, lp, chunk_v, torch.bfloat16, seed=d + lp)
-    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    n2, n3 = _build.LAUNCHES["video_scores_flat"], _build.LAUNCHES["video_scores_flat_bmax"]
     out = vs.video_scores_flat(qv, qs, fv, fs, nv, lp=lp)
     scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=chunk_v)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
-    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    assert _build.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert _build.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
     ref = vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp)
     assert out.shape == ref.shape == (nq, nv)
     assert (out - ref).abs().max().item() <= F32_ATOL
@@ -285,12 +286,12 @@ def test_b2_b3_f32_fragment_layout_bit_equal(dev, nq, nv, nv_pad, lp, d):
     exact, so B2 and B3-f32 equal their plain versions bit for bit, which a
     wrong pairing of A and B elements (or rows and queries) would not."""
     qv, qs, fv, fs = _flat_tf32_exact(dev, nq, nv_pad, lp, d, seed=nq + d)
-    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    n2, n3 = _build.LAUNCHES["video_scores_flat"], _build.LAUNCHES["video_scores_flat_bmax"]
     out = vs.video_scores_flat(qv, qs, fv, fs, nv, lp=lp)
     scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=8)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
-    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    assert _build.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert _build.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
     assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp))
     ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, nv, lp, 8)
     assert torch.equal(scores, ps) and torch.equal(bmax, pb)
@@ -310,12 +311,12 @@ def test_b2_b3_f32_tensor_cores(dev, nq, nv, L, d, lp, chunk_v):
     their plain versions on unit rows of full 24-bit mantissas, pads -inf,
     block maxima the max of the kernel's own scores; one launch each."""
     qv, qs, fv, fs = _caches(dev, nq, nv, L, d, lp, chunk_v, torch.float32, seed=d + lp + nq)
-    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    n2, n3 = _build.LAUNCHES["video_scores_flat"], _build.LAUNCHES["video_scores_flat_bmax"]
     out = vs.video_scores_flat(qv, qs, fv, fs, nv, lp=lp)
     scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, nv, lp=lp, chunk_v=chunk_v)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
-    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    assert _build.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert _build.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
     ref = vs.video_scores_flat_plain(qv, qs, fv, fs, nv, lp)
     assert out.shape == ref.shape == (nq, nv)
     assert (out - ref).abs().max().item() <= F32_ATOL
@@ -328,10 +329,10 @@ def test_b2_b3_f32_tensor_cores(dev, nq, nv, L, d, lp, chunk_v):
 
 def test_b2_f32_rejects_rows_past_the_tile(dev):
     wide = _caches(dev, 4, 4, 3, vs.F32_MAX_D + 16, 8, 4, torch.float32)
-    n0 = vs.LAUNCHES["video_scores_flat"]
+    n0 = _build.LAUNCHES["video_scores_flat"]
     with pytest.raises(ValueError, match=str(vs.F32_MAX_D)):
         vs.video_scores_flat(*wide, 4, lp=8)
-    assert vs.LAUNCHES["video_scores_flat"] == n0
+    assert _build.LAUNCHES["video_scores_flat"] == n0
 
 
 def _table(dev, n, w, seed=0):
@@ -348,10 +349,10 @@ def test_b4_gather_equals_index_select(dev, b, w):
     idx[0] = n - 1                                  # boundary rows, and duplicates
     if b >= 5:
         idx[1], idx[2], idx[3] = 0, n - 1, 0
-    n0 = gt.LAUNCHES["gather_byte_rows"]
+    n0 = _build.LAUNCHES["gather_byte_rows"]
     out = gt.gather_byte_rows(table, idx)
     torch.cuda.synchronize()
-    assert gt.LAUNCHES["gather_byte_rows"] == n0 + 1
+    assert _build.LAUNCHES["gather_byte_rows"] == n0 + 1
     assert out.shape == (b, 8, w) and out.dtype == torch.int8
     assert torch.equal(out, gt.gather_byte_rows_plain(table, idx))
     gt.check_indices(dev)
@@ -432,10 +433,10 @@ WGMMA_B1_SHAPES = [
 @pytest.mark.parametrize("nq,nv_pad,n_videos,lp,d,chunk_v", WGMMA_B1_SHAPES)
 def test_b1_b3_wgmma_edges_bit_equal(dev, nq, nv_pad, n_videos, lp, d, chunk_v):
     qv, qs, fv, fs = _flat_i8(dev, nq, nv_pad, lp, d, seed=nq + nv_pad + lp + d)
-    n0 = vs.LAUNCHES["video_scores_flat_i8"]
+    n0 = _build.LAUNCHES["video_scores_flat_i8"]
     out = vs.video_scores_flat_i8(qv, qs, fv, fs, n_videos, lp=lp)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_flat_i8"] == n0 + 1
+    assert _build.LAUNCHES["video_scores_flat_i8"] == n0 + 1
     assert torch.equal(out, vs.video_scores_flat_plain(qv, qs, fv, fs, n_videos, lp))
     scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, n_videos, lp=lp, chunk_v=chunk_v)
     ps, pb = vs.video_scores_flat_bmax_plain(qv, qs, fv, fs, n_videos, lp, chunk_v)
@@ -498,12 +499,12 @@ def test_b2_b3_wgmma_edges_close(dev, dtype, nq, nv_pad, n_videos, lp, d, chunk_
     if d is None:
         d = vs.BF16_MAX_D if dtype == torch.bfloat16 else vs.F32_MAX_D
     qv, qs, fv, fs = _flat_float(dev, nq, nv_pad, lp, d, dtype, seed=nq + nv_pad + lp + d)
-    n2, n3 = vs.LAUNCHES["video_scores_flat"], vs.LAUNCHES["video_scores_flat_bmax"]
+    n2, n3 = _build.LAUNCHES["video_scores_flat"], _build.LAUNCHES["video_scores_flat_bmax"]
     out = vs.video_scores_flat(qv, qs, fv, fs, n_videos, lp=lp)
     scores, bmax = vs.video_scores_flat_bmax(qv, qs, fv, fs, n_videos, lp=lp, chunk_v=chunk_v)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_flat"] == n2 + 1
-    assert vs.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
+    assert _build.LAUNCHES["video_scores_flat"] == n2 + 1
+    assert _build.LAUNCHES["video_scores_flat_bmax"] == n3 + 1
     ref = vs.video_scores_flat_plain(qv, qs, fv, fs, n_videos, lp)
     assert out.shape == ref.shape == (nq, n_videos)
     assert (out - ref).abs().max().item() <= F32_ATOL
@@ -549,10 +550,10 @@ def test_b5_span_sim_bit_equal(dev, nq, nv, L, k, lp, chunk_v):
     feat2[nv // 2, L // 2] = 0.0                       # an all-zero row
     f8, fs = vs.build_flat_feat2_i8(feat2, lp=lp, chunk_v=chunk_v)
     q8, qs = vs.quantize_rows_i8(torch.randn(nq, k, generator=g, device=dev))
-    n0 = vs.LAUNCHES["span_sim_cat_i8"]
+    n0 = _build.LAUNCHES["span_sim_cat_i8"]
     out = vs.span_sim_cat_i8(q8, qs[:, None], f8, fs, lp=lp)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["span_sim_cat_i8"] == n0 + 1
+    assert _build.LAUNCHES["span_sim_cat_i8"] == n0 + 1
     ref = vs.span_sim_int8_xla(q8, qs[:, None], f8, fs, lp=lp)
     assert out.shape == ref.shape == (nq, f8.shape[0] // lp, lp) and out.dtype == torch.bfloat16
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
@@ -574,10 +575,10 @@ def _span_sim_case(dev, nq, nv, L, k, lp, chunk_v, seed):
 
 
 def _span_equal(q8, qs, f8, fs, lp):
-    n0 = vs.LAUNCHES["span_sim_cat_i8"]
+    n0 = _build.LAUNCHES["span_sim_cat_i8"]
     out = vs.span_sim_cat_i8(q8, qs, f8, fs, lp=lp)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["span_sim_cat_i8"] == n0 + 1
+    assert _build.LAUNCHES["span_sim_cat_i8"] == n0 + 1
     ref = vs.span_sim_int8_xla(q8, qs, f8, fs, lp=lp)
     assert out.shape == ref.shape == (q8.shape[0], f8.shape[0] // lp, lp)
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
@@ -673,10 +674,10 @@ def _rows(dev, nq, n, seed, ties):
 
 
 def _same(x, k):
-    n0 = tsort.LAUNCHES["topk_transposed"]
+    n0 = _build.LAUNCHES["topk_transposed"]
     kv, ki = tsort.topk_transposed(x, k)
     torch.cuda.synchronize()
-    assert tsort.LAUNCHES["topk_transposed"] > n0
+    assert _build.LAUNCHES["topk_transposed"] > n0
     pv, pi = tsort.topk_transposed_plain(x, k)
     assert kv.dtype == torch.float32 and ki.dtype == torch.int32
     assert kv.shape == ki.shape == (x.shape[0], min(k, x.shape[1]))
@@ -750,9 +751,9 @@ def test_b6_rows_longer_than_one_launch(dev, n, k):
     """Chunks of MAX_ROW, then a second launch over the survivors."""
     x = _rows(dev, 3, n, n, True)
     x[0, n - 5:] = -math.inf
-    n0 = tsort.LAUNCHES["topk_transposed"]
+    n0 = _build.LAUNCHES["topk_transposed"]
     _same(x, k)
-    assert tsort.LAUNCHES["topk_transposed"] >= n0 + 2
+    assert _build.LAUNCHES["topk_transposed"] >= n0 + 2
     with pytest.raises(ValueError, match=str(tsort.MAX_ROW // 2)):
         tsort.topk_transposed(x, tsort.MAX_ROW // 2 + 1)
 
@@ -760,9 +761,9 @@ def test_b6_rows_longer_than_one_launch(dev, n, k):
 def test_b6_psort_span_ops_equal_the_plain_selections(dev):
     from tvretrieval_tpu_torch.ops import span as ts
     x = _rows(dev, 50, 21818, 1, True)
-    n0 = tsort.LAUNCHES["topk_transposed"]
+    n0 = _build.LAUNCHES["topk_transposed"]
     kv, ki = ts.topk_stable_blocked_psort(x, 100, block=16)
-    assert tsort.LAUNCHES["topk_transposed"] == n0 + 2
+    assert _build.LAUNCHES["topk_transposed"] == n0 + 2
     pv, pi = ts.topk_stable_blocked(x, 100, block=16)
     assert torch.equal(kv, pv) and torch.equal(ki, pi)
     g = torch.Generator(device=dev).manual_seed(2)
@@ -771,9 +772,9 @@ def test_b6_psort_span_ops_equal_the_plain_selections(dev):
     vsc = torch.exp(torch.round(torch.rand(20, 100, generator=g, device=dev) * 8) / 4)
     keep = (torch.rand(20, 100, generator=g, device=dev) < 0.7).float()
     for km in (None, keep):
-        n0 = tsort.LAUNCHES["topk_transposed"]
+        n0 = _build.LAUNCHES["topk_transposed"]
         a = ts.banded_topk_spans_grouped_shift_psort(st, ed, vsc, 2, 16, 200, keep_mask=km)
-        assert tsort.LAUNCHES["topk_transposed"] == n0 + 3
+        assert _build.LAUNCHES["topk_transposed"] == n0 + 3
         b = ts.banded_topk_spans_grouped_shift(st, ed, vsc, 2, 16, 200, keep_mask=km)
         for u, v in zip(a, b):
             assert torch.equal(u, v)
@@ -800,10 +801,10 @@ MASKED_SHAPES = [  # nq, nv, L, d
 @pytest.mark.parametrize("nq,nv,L,d", MASKED_SHAPES)
 def test_b9_masked_scores_close(dev, dtype, nq, nv, L, d):
     qv, qs, fv, fs, mask = _masked_case(dev, nq, nv, L, d, dtype, nq + nv)
-    n0 = vs.LAUNCHES["video_scores_masked"]
+    n0 = _build.LAUNCHES["video_scores_masked"]
     out = vs.video_scores_masked(qv, qs, fv, fs, mask)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_masked"] == n0 + 1
+    assert _build.LAUNCHES["video_scores_masked"] == n0 + 1
     ref = vs.video_scores_xla(qv, qs, fv, fs, mask)
     assert out.shape == ref.shape == (nq, nv) and out.dtype == torch.float32
     assert bool((out[:, nv // 2] == -1e10).all())
@@ -827,10 +828,10 @@ def test_b9_masked_scores_close(dev, dtype, nq, nv, L, d):
 def test_b10_fused_scores_close(dev, dtype, alpha, nq, nv, L, d):
     q, _, f, _, mask = _masked_case(dev, nq, nv, L, d, dtype, nq + nv + 1)
     mask = (mask > 0.5).float()
-    n0 = fsc.LAUNCHES["fused_video_scores_clip_major"]
+    n0 = _build.LAUNCHES["fused_video_scores_clip_major"]
     out = fsc.fused_video_scores(q, f, mask, alpha)
     torch.cuda.synchronize()
-    assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n0 + 1
+    assert _build.LAUNCHES["fused_video_scores_clip_major"] == n0 + 1
     ref = fsc.fused_video_scores_xla(q, f, mask, alpha)
     assert out.shape == ref.shape == (nq, nv)
     if alpha is None:
@@ -883,18 +884,18 @@ def test_b9_b10_tensor_cores_clip_counts(dev, L, dtype, d):
     model's width (256), fractional and all-zero masks; one launch each."""
     nq, nv = 65, 67
     qv, qs, fv, fs, mask, full = _masked_mixed(dev, nq, nv, L, d, dtype, seed=L + d)
-    n9 = vs.LAUNCHES["video_scores_masked"]
+    n9 = _build.LAUNCHES["video_scores_masked"]
     out = vs.video_scores_masked(qv, qs, fv, fs, mask)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_masked"] == n9 + 1
+    assert _build.LAUNCHES["video_scores_masked"] == n9 + 1
     assert out.shape == (nq, nv) and out.dtype == torch.float32
     _check_masked(out, vs.video_scores_xla(qv, qs, fv, fs, mask), mask, full)
     fv_t, mask_t = fv.transpose(0, 1).contiguous(), mask.T[:, None, :].contiguous()
     for alpha in (None, 20.0):
-        n10 = fsc.LAUNCHES["fused_video_scores_clip_major"]
+        n10 = _build.LAUNCHES["fused_video_scores_clip_major"]
         out = fsc.fused_video_scores_clip_major(qv, fv_t, mask_t, alpha)
         torch.cuda.synchronize()
-        assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
+        assert _build.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
         ref = fsc.fused_video_scores_xla(qv, fv, mask, alpha)
         if alpha is None:
             _check_masked(out, ref, mask, full)
@@ -915,14 +916,15 @@ def test_b9_b10_tf32_exact_values_bit_equal(dev, dtype):
     qv, qs, fv, fs = draw(nq, d), draw(nq, d), draw(nv, L, d), draw(nv, L, d)
     mask = (torch.rand((nv, L), generator=g, device=dev) < 0.7).float()
     mask[3] = 0.0
-    n9, n10 = vs.LAUNCHES["video_scores_masked"], fsc.LAUNCHES["fused_video_scores_clip_major"]
+    n9 = _build.LAUNCHES["video_scores_masked"]
+    n10 = _build.LAUNCHES["fused_video_scores_clip_major"]
     assert torch.equal(vs.video_scores_masked(qv, qs, fv, fs, mask),
                        vs.video_scores_xla(qv, qs, fv, fs, mask))
     out = fsc.fused_video_scores(qv, fv, mask)
     assert torch.equal(out, fsc.fused_video_scores_xla(qv, fv, mask))
     assert bool((out[:, 3] == -1e10).all())
-    assert vs.LAUNCHES["video_scores_masked"] == n9 + 1
-    assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
+    assert _build.LAUNCHES["video_scores_masked"] == n9 + 1
+    assert _build.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
 
 
 WGMMA_MASKED_SHAPES = [  # nq, nv, L, d
@@ -941,18 +943,18 @@ def test_b9_b10_wgmma_tiles_edges(dev, dtype, nq, nv, L, d):
     D = 384 / 512 / 768 in both kinds, and 1,000 queries at L = 100 on a
     slice of the corpus; fractional and all-zero masks."""
     qv, qs, fv, fs, mask, full = _masked_mixed(dev, nq, nv, L, d, dtype, seed=nq + nv + L + d)
-    n9 = vs.LAUNCHES["video_scores_masked"]
+    n9 = _build.LAUNCHES["video_scores_masked"]
     out = vs.video_scores_masked(qv, qs, fv, fs, mask)
     torch.cuda.synchronize()
-    assert vs.LAUNCHES["video_scores_masked"] == n9 + 1
+    assert _build.LAUNCHES["video_scores_masked"] == n9 + 1
     assert out.shape == (nq, nv) and out.dtype == torch.float32
     _check_masked(out, vs.video_scores_xla(qv, qs, fv, fs, mask), mask, full)
     fv_t, mask_t = fv.transpose(0, 1).contiguous(), mask.T[:, None, :].contiguous()
     for alpha in (None, 20.0):
-        n10 = fsc.LAUNCHES["fused_video_scores_clip_major"]
+        n10 = _build.LAUNCHES["fused_video_scores_clip_major"]
         out = fsc.fused_video_scores_clip_major(qv, fv_t, mask_t, alpha)
         torch.cuda.synchronize()
-        assert fsc.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
+        assert _build.LAUNCHES["fused_video_scores_clip_major"] == n10 + 1
         ref = fsc.fused_video_scores_xla(qv, fv, mask, alpha)
         if alpha is None:
             _check_masked(out, ref, mask, full)
@@ -997,10 +999,10 @@ def test_b7_gathered_similarity_close(dev, dtype, n, L, nq, v1, d):
     vq, sq = (torch.randn(nq, d, generator=g, device=dev) for _ in range(2))
     idx = torch.randint(0, n, (nq, v1), generator=g, device=dev, dtype=torch.int32)
     idx[0, 0] = n - 1
-    n0 = gt.LAUNCHES["gathered_similarity"]
+    n0 = _build.LAUNCHES["gathered_similarity"]
     out = gt.gathered_similarity(vq, sq, vf2, sf2, idx)
     torch.cuda.synchronize()
-    assert gt.LAUNCHES["gathered_similarity"] == n0 + 1
+    assert _build.LAUNCHES["gathered_similarity"] == n0 + 1
     ref = gt.gathered_similarity_plain(vq, sq, vf2, sf2, idx)
     assert out.shape == ref.shape == (nq, v1, L) and out.dtype == torch.float32
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-5
@@ -1061,10 +1063,10 @@ def _span_case(dev, nq, v, L, seed, masked_tail=0, levels=0, peaked=False):
 ])
 def test_b8_banded_topk_equals_plain(dev, nq, v, L, min_l, max_l, top_n, kw):
     st, ed, vsc = _span_case(dev, nq, v, L, nq * 100 + v, **kw)
-    n0 = ttopk.LAUNCHES["banded_topk_spans_fused"]
+    n0 = _build.LAUNCHES["banded_topk_spans_fused"]
     got = ttopk.banded_topk_spans_fused(st, ed, vsc, min_l, max_l, top_n, return_sorted=True)
     torch.cuda.synchronize()
-    assert ttopk.LAUNCHES["banded_topk_spans_fused"] == n0 + 1
+    assert _build.LAUNCHES["banded_topk_spans_fused"] == n0 + 1
     ref = tspan.banded_topk_spans(st, ed, vsc, min_l, max_l, top_n)
     for name, r, k in zip(("vid", "st", "ed", "scores"), ref, got):
         assert k.shape == (nq, top_n) and k.dtype == r.dtype, name
@@ -1120,10 +1122,10 @@ def _b8_case(dev, kind, nq, v, L, seed):
 ])
 def test_b8_banded_topk_edges_equal_plain(dev, kind, nq, v, L, min_l, max_l, top_n):
     st, ed, vsc = _b8_case(dev, kind, nq, v, L, nq + v + L)
-    n0 = ttopk.LAUNCHES["banded_topk_spans_fused"]
+    n0 = _build.LAUNCHES["banded_topk_spans_fused"]
     got = ttopk.banded_topk_spans_fused(st, ed, vsc, min_l, max_l, top_n, return_sorted=True)
     torch.cuda.synchronize()
-    assert ttopk.LAUNCHES["banded_topk_spans_fused"] == n0 + 1
+    assert _build.LAUNCHES["banded_topk_spans_fused"] == n0 + 1
     for i in range(0, nq, 500):                     # the plain version materializes the joint
         ref = tspan.banded_topk_spans(st[i:i + 500], ed[i:i + 500], vsc[i:i + 500], min_l,
                                       max_l, top_n)
@@ -1138,10 +1140,10 @@ def test_b8_banded_topk_edges_equal_plain(dev, kind, nq, v, L, min_l, max_l, top
 
 
 def _b11_same(x, k, recall):
-    n0 = apx.LAUNCHES["approx_max_k"]
+    n0 = _build.LAUNCHES["approx_max_k"]
     kv, ki = apx.approx_max_k(x, k, recall)
     torch.cuda.synchronize()
-    assert apx.LAUNCHES["approx_max_k"] == n0 + 1
+    assert _build.LAUNCHES["approx_max_k"] == n0 + 1
     pv, pi = apx.approx_max_k_plain(x, k, recall)
     assert kv.dtype == torch.float32 and ki.dtype == torch.int32 and kv.shape == (x.shape[0], k)
     assert torch.equal(ki, pi) and torch.equal(kv.view(torch.int32), pv.view(torch.int32))

@@ -17,6 +17,7 @@ import torch
 
 from tvretrieval_tpu.ops import span as js
 from tvretrieval_tpu.ops.pallas_sort import topk_transposed as j_topk_transposed
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops import sort as tsort
 from tvretrieval_tpu_torch.ops import span as ts
 
@@ -41,7 +42,7 @@ def _scores(seed, shape, ties):
 def test_topk_transposed_matches_jax(n, k, ties):
     x = _scores(n + k, (5, n), ties)
     jv, ji = j_topk_transposed(jnp.asarray(x), k, interpret=True)
-    tsort.reset_launch_counts()
+    _build.reset_launch_counts()
     tv, ti = tsort.topk_transposed(T(x), k)
     assert tv.dtype == torch.float32 and ti.dtype == torch.int32
     assert tv.shape == ti.shape == (5, min(k, n))
@@ -50,7 +51,7 @@ def test_topk_transposed_matches_jax(n, k, ties):
     lv, li = jax.lax.top_k(jnp.asarray(x), min(k, n))
     _eq(lv, tv)
     _eq(li, ti)
-    assert tsort.LAUNCHES["topk_transposed"] == 0       # CPU: the plain version
+    assert _build.LAUNCHES["topk_transposed"] == 0       # CPU: the plain version
 
 
 @pytest.mark.parametrize("n,k", [(17, 2), (5, 3), (9, 9), (3, 1)])

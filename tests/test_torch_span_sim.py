@@ -27,6 +27,7 @@ from tvretrieval_tpu.models.xml import XMLConfig as JXMLConfig
 from tvretrieval_tpu.ops import pallas_score as jps
 from tvretrieval_tpu_torch.convert import flax_params_to_state_dict
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops import video_score as vs
 
 T = torch.from_numpy
@@ -98,7 +99,7 @@ def test_span_sim_plain_bits_equal_jax_kernel(nq, nv, L, k, lp, chunk_v):
     tq8, tqs = vs.quantize_rows_i8(T(qcat))
     np.testing.assert_array_equal(tq8.numpy(), np.asarray(jq8))
     np.testing.assert_array_equal(tqs.numpy(), np.asarray(jqs))
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     bits = lambda a: np.asarray(a).view(np.uint16) if not isinstance(a, torch.Tensor) \
         else a.view(torch.int16).numpy().view(np.uint16)
     for block in (64, 4):
@@ -108,7 +109,7 @@ def test_span_sim_plain_bits_equal_jax_kernel(nq, nv, L, k, lp, chunk_v):
     np.testing.assert_array_equal(bits(plain), bits(ref_xla))
     out = vs.span_sim_cat_i8(tq8, tqs[:, None], tf, tsc, lp=lp)
     assert torch.equal(out.view(torch.int16), plain.view(torch.int16))
-    assert vs.LAUNCHES["span_sim_cat_i8"] == 0             # CPU: the plain version
+    assert _build.LAUNCHES["span_sim_cat_i8"] == 0             # CPU: the plain version
     assert not out[:, :, L:].any() and not out[:, nv:].any()
 
 

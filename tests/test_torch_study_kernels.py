@@ -47,10 +47,10 @@ def _gather_case(N, L, Nq, V1, D=128):
 @pytest.mark.parametrize("N,L,Nq,V1", [(17, 16, 5, 7), (40, 24, 9, 12)])
 def test_gathered_similarity_matches_jax_kernel_and_einsum(N, L, Nq, V1):
     vf2, sf2, vq, sq, idx = _gather_case(N, L, Nq, V1)
-    gather.reset_launch_counts()
+    _build.reset_launch_counts()
     got = gather.gathered_similarity(T(vq), T(sq), T(vf2), T(sf2), T(idx))
     assert got.shape == (Nq, V1, L) and got.dtype == torch.float32
-    assert gather.LAUNCHES["gathered_similarity"] == 0          # CPU: the plain version
+    assert _build.LAUNCHES["gathered_similarity"] == 0          # CPU: the plain version
     jk = j_gathered_similarity(*map(jnp.asarray, (vq, sq, vf2, sf2, idx)), interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(jk), rtol=1e-5, atol=1e-5)
     ref = (jnp.einsum("qd,qvld->qvl", vq, jnp.asarray(vf2)[idx])
@@ -112,11 +112,11 @@ def _score_case(nq, nv, L, d, seed):
 def test_video_scores_masked_matches_jax_kernel(dtype, nq, nv, L, d, chunk_v):
     qv, qs, fv, fs, mask = _score_case(nq, nv, L, d, seed=nq + nv)
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     got = vs.video_scores_masked(T(qv).to(tdt), T(qs).to(tdt), T(fv).to(tdt), T(fs).to(tdt),
                                  T(mask))
     assert got.shape == (nq, nv) and got.dtype == torch.float32
-    assert vs.LAUNCHES["video_scores_masked"] == 0               # CPU: the plain version
+    assert _build.LAUNCHES["video_scores_masked"] == 0               # CPU: the plain version
     jargs = [jnp.asarray(a, jdt) for a in (qv, qs, fv, fs)] + [jnp.asarray(mask)]
     jk = j_video_scores_pallas(*jargs, chunk_v=chunk_v, interpret=True)
     jx = j_video_scores_xla(*jargs)
@@ -133,9 +133,9 @@ def test_fused_video_scores_matches_jax_kernel(dtype, alpha):
     mask[3, 7:] = 0.0
     mask[-1] = 0.0                                               # a second fully masked video
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
-    fused_score.reset_launch_counts()
+    _build.reset_launch_counts()
     got = fused_score.fused_video_scores(T(q).to(tdt), T(f).to(tdt), T(mask), alpha)
-    assert fused_score.LAUNCHES["fused_video_scores_clip_major"] == 0
+    assert _build.LAUNCHES["fused_video_scores_clip_major"] == 0
     jq, jf = jnp.asarray(q, jdt), jnp.asarray(f, jdt)
     jk = jpk.fused_video_scores(jq, jf, jnp.asarray(mask), alpha=alpha, block_videos=BV,
                                 interpret=True)

@@ -17,7 +17,7 @@ import torch
 from tvretrieval_tpu.ops import span as jspan
 from tvretrieval_tpu.ops.pallas_topk import banded_topk_spans_pallas as j_banded_topk
 from tvretrieval_tpu_torch.ops import span as tspan
-from tvretrieval_tpu_torch.ops import topk
+from tvretrieval_tpu_torch.ops import _build, topk
 
 T = torch.from_numpy
 
@@ -48,9 +48,9 @@ SPAN_CASES = [
 @pytest.mark.parametrize("nq,V,L,min_l,max_l,top_n,kw", SPAN_CASES)
 def test_banded_topk_spans_fused_equals_jax_kernel_exactly(nq, V, L, min_l, max_l, top_n, kw):
     st, ed, vsc = _span_case(nq, V, L, seed=nq * 100 + V, **kw)
-    topk.reset_launch_counts()
+    _build.reset_launch_counts()
     got = topk.banded_topk_spans_fused(T(st), T(ed), T(vsc), min_l, max_l, top_n)
-    assert topk.LAUNCHES["banded_topk_spans_fused"] == 0         # CPU: the plain version
+    assert _build.LAUNCHES["banded_topk_spans_fused"] == 0         # CPU: the plain version
     jk = j_banded_topk(*map(jnp.asarray, (st, ed, vsc)), min_l, max_l, top_n, interpret=True)
     jr = jspan.banded_topk_spans(*map(jnp.asarray, (st, ed, vsc)), min_l, max_l, top_n)
     for name, g, k, r in zip(("vid", "st", "ed", "scores"), got, jk, jr):

@@ -11,11 +11,10 @@
   the benchmark's two deployments (*shipped*: int8 video scores, bf16
   sweep, approximate selections; *int8 exact*: int8 video scores and span
   sweep, exact selections), is one root span with the stages inside in
-  order; its ``out_bytes`` is the outputs' bytes, the span sweep's
-  ``sweep_rows`` / ``pad_rows`` the rows of the sweep and the pad among
-  them (*int8 exact*'s flat cache at flat_lp(L) and at 128 rows a video,
-  with equal outputs); the outputs are bit-equal with and without the
-  profiler.
+  order; its ``out_bytes`` is the outputs' bytes and no other span counts
+  (*int8 exact*'s span sweep also over its flat cache at 128 rows a
+  video, with outputs equal to those at flat_lp(L)); the outputs are
+  bit-equal with and without the profiler.
 - On a card (``cuda`` marker), each span's events lie inside its parent's
   and after its previous sibling's on the device clock (read from the
   call's first event), and each stage's device self time is at least 0.
@@ -47,11 +46,6 @@ MODES = {
     "int8exact": dict(COMMON, span_score_mode="simsweep_cat_int8_flat",
                       span_topk_mode="grouped_shift_psort", video_topk_psort=True),
 }
-# the span sweep's counters at NV = 120 videos of L = 24 clips: *shipped*'s
-# bf16 cache padded to 32 clips; *int8exact*'s flat rows at flat_lp(24) =
-# 24 a video, 128 videos (120 padded to video_chunk_v = 16)
-SWEEP_ROWS = {"shipped": {"sweep_rows": 120 * 32, "pad_rows": 120 * 8},
-              "int8exact": {"sweep_rows": 128 * 24, "pad_rows": 8 * 24}}
 # one call's spans in the order they open, and each one's parent (an index
 # relative to the root): the span head runs inside the sweep, then once more
 # around the softmaxes
@@ -220,8 +214,7 @@ def test_engine_call_is_one_root_with_its_stages(mode):
         assert [None if r.parent is None else r.parent - root for r in one] == PARENTS
         assert len({r.call for r in one}) == 1
         assert one[0].counters == {"out_bytes": sum(v.nbytes for v in out.values())}
-        assert one[4].counters == SWEEP_ROWS[mode]
-        assert all(r.counters == {} for i, r in enumerate(one[1:], 1) if i != 4)
+        assert all(r.counters == {} for r in one[1:])
         assert all(s >= 0 for s in _self_times(one, root, lambda r: r.end_ns - r.start_ns))
         assert set(out) == set(want)
         for k in want:
@@ -233,9 +226,8 @@ def test_engine_call_is_one_root_with_its_stages(mode):
 @pytest.mark.parametrize("lp_of", ["flat_lp", "jax_128"])
 def test_span_sweep_counts_the_rows_b5_walks(lp_of):
     """*int8exact*'s cache built as the engine builds it (flat_lp(L) rows a
-    video) and at the JAX package's 128: the span sweep counts the flat
-    rows B5 walks and the pad rows among them, past L or past Nv; the
-    engine's outputs are equal in both layouts."""
+    video) and at the JAX package's 128: the span sweep B5 walks counts
+    nothing, and the engine's outputs are equal in both layouts."""
     cfg = te.RetrievalConfig(**MODES["int8exact"])
     model = XML(XMLConfig(**MODEL)).eval().init_weights(torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(3)
@@ -263,7 +255,7 @@ def test_span_sweep_counts_the_rows_b5_walks(lp_of):
         out = call(f8, fs)
     sweep = [r for r in trace.take() if r.name == "span_sweep"]
     assert len(sweep) == 1
-    assert sweep[0].counters == {"sweep_rows": 48 * lp, "pad_rows": 48 * lp - nv * L}
+    assert sweep[0].counters == {}
     ref = call(cache.feat2_cat, cache.feat2_cat_scale)
     for k in ref:
         assert torch.equal(out[k], ref[k]), k

@@ -28,7 +28,7 @@ from tvretrieval_tpu_torch.data.device_corpus import (
 )
 from tvretrieval_tpu_torch.data.synthetic import make_synthetic_world
 from tvretrieval_tpu_torch.models.xml import XMLConfig
-from tvretrieval_tpu_torch.ops import gather
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.retrieval import inference_xml
 from tvretrieval_tpu_torch.retrieval.engine import (
     RetrievalConfig,
@@ -106,7 +106,7 @@ def test_device_path_equals_host_path_f32(scan_steps):
     dev = XMLTrainer(cfg, TrainSettings(n_epoch=2, bsz=8, seed=7, scan_steps=scan_steps,
                                         flush_every_steps=2),
                      builder, w.annotations, device_data=dd, device="cpu")
-    gather.reset_launch_counts()
+    _build.reset_launch_counts()
     for epoch in range(2):
         torch.manual_seed(100 + epoch)
         lh = host.train_epoch(epoch)
@@ -117,7 +117,7 @@ def test_device_path_equals_host_path_f32(scan_steps):
         assert lh["loss_overall"] == ld["loss_overall"]
     for (k, a), (_, b) in zip(host.model.named_parameters(), dev.model.named_parameters()):
         assert torch.equal(a, b), k
-    assert gather.LAUNCHES["gather_byte_rows"] == 0           # CPU: the plain version
+    assert _build.LAUNCHES["gather_byte_rows"] == 0           # CPU: the plain version
 
 
 def test_device_epoch_checks_its_step_count():

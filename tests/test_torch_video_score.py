@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from tvretrieval_tpu.ops import pallas_score as jp
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops import video_score as vs
 
 T = torch.from_numpy
@@ -193,23 +194,21 @@ def test_wrappers_on_cpu_run_plain_and_count_nothing():
     fvf = vs.quantize_unit_i8(vs.build_flat_feat1(T(fv), T(mask), chunk_v=8))
     fsf = vs.quantize_unit_i8(vs.build_flat_feat1(T(fs), T(mask), chunk_v=8))
     q8 = [vs.quantize_unit_i8(T(q)).T for q in (qv, qs)]
-    vs.reset_launch_counts()
+    _build.reset_launch_counts()
     vs.video_scores_flat_i8(q8[0], q8[1], fvf, fsf, 20, lp=16)
     vs.video_scores_flat_bmax(q8[0], q8[1], fvf, fsf, 20, lp=16)
     vs.video_scores_flat(q8[0].float(), q8[1].float(), fvf.float(), fsf.float(), 20, lp=16)
-    assert all(v == 0 for v in vs.LAUNCHES.values())
+    assert all(v == 0 for v in _build.LAUNCHES.values())
     # the launch path refuses tensors that are not on a CUDA device
     with pytest.raises(ValueError, match="CUDA device"):
         vs._launch("video_scores_flat_i8", q8[0], q8[1], fvf, fsf, 20, 16)
-    assert all(v == 0 for v in vs.LAUNCHES.values())
+    assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
 def test_library_names_hash_the_included_headers(tmp_path, monkeypatch):
     """A kernel library is keyed on its source and the csrc/ headers it
     includes, so an edited header builds anew instead of reusing a stale
     library."""
-    from tvretrieval_tpu_torch.ops import _build
-
     assert [p.name for p in _build.sources_of("video_score")] == ["video_score.cu",
                                                                    "s8_mma.cuh",
                                                                    "s8_wgmma.cuh"]

@@ -38,7 +38,7 @@ from tvretrieval_tpu.data.synthetic import make_synthetic_world
 from tvretrieval_tpu.models import xml as jx
 from tvretrieval_tpu.retrieval import engine as je
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig
-from tvretrieval_tpu_torch.ops import sort
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.retrieval import engine as te
 from tvretrieval_tpu_torch.retrieval import inference_xml
 from tvretrieval_tpu_torch.training import train_xml
@@ -146,7 +146,7 @@ def test_engine_without_merged_head_matches_jax(world):
     the JAX grouped run; the JAX package holds its psort mode bit-equal
     to grouped (tests/test_pallas_sort.py). The caches keep both streams'
     feat1 and feat2, unflattened, whatever the span score mode."""
-    sort.reset_launch_counts()
+    _build.reset_launch_counts()
     jcache, want, got = _engine_pair(
         world, dict(merge_two_stream=False),
         grouped=dict(span_topk_mode="grouped"),
@@ -157,7 +157,7 @@ def test_engine_without_merged_head_matches_jax(world):
         np.testing.assert_allclose(tcache.video_feat2.numpy(), np.asarray(jcache.video_feat2),
                                    rtol=0, atol=1e-5)
         _assert_same_selections(want, arrays)
-    assert all(v == 0 for v in sort.LAUNCHES.values())          # CPU: plain only
+    assert all(v == 0 for v in _build.LAUNCHES.values())          # CPU: plain only
 
 
 def test_engine_stacked_conv_matches_jax(world):

@@ -25,9 +25,8 @@ mode. At float32 the second LSTMs of both streams are one call of
 off by linearity; on a card one kernel launch, on the CPU the plain
 concatenation and ``encoder2``); under bfloat16 compute each stream's
 ``encoder2`` over the concatenation, as ``span_logits`` runs it. Under
-``torch.profiler`` the second LSTMs are the span "excl_lstm", counting
-``kernel_sequences`` (pairs x streams x 2 directions) when the kernel ran,
-and the heads the span "excl_head" (utils/trace.py).
+``torch.profiler`` the second LSTMs are the span "excl_lstm" and the heads
+the span "excl_head" (utils/trace.py).
 
 Data-parallel training (``shard``, a ``training.data_parallel.Shard`` of
 world k > 1; the rank holds its rows of the global batch): each dropout
@@ -183,13 +182,11 @@ class ExCL(nn.Module):
         streams = [(s, ctx1, mask) for s, ctx1, mask in zip(("video", "sub"), ctx1s, masks)
                    if s in self._streams()]
         kernel = self.cfg.dtype == torch.float32
-        with trace.span("excl_lstm") as span:
+        with trace.span("excl_lstm"):
             ctx2s = (lstm.excl_lstm if kernel else lstm.excl_lstm_plain)(
                 [getattr(self, f"{stream}_encoder2") for stream, _, _ in streams],
                 [ctx1 for _, ctx1, _ in streams], q_hidden,
                 [mask.sum(dim=1).int() for _, _, mask in streams])
-            if span is not None and kernel and q_hidden.is_cuda:
-                span.count(kernel_sequences=2 * len(streams) * q_hidden.shape[0])
         st = ed = 0
         with trace.span("excl_head"):
             for (stream, ctx1, mask), ctx2 in zip(streams, ctx2s):

@@ -7,6 +7,11 @@ under a name keyed on a hash of its source, the headers it includes from
 ``csrc/`` and the flags, so an edited source or header rebuilds and an
 unchanged one is reused. Nothing compiles at import: ``load(name)`` builds
 on first use.
+
+Every kernel wrapper in ``ops/`` launches through ``launch``, which takes
+the current stream, raises on a CUDA error and counts the launch in
+``LAUNCHES`` by kernel name (plain runs are not counted; ``KERNELS`` names
+each counted kernel's library and entry point).
 """
 from __future__ import annotations
 
@@ -19,7 +24,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
@@ -70,6 +77,31 @@ SOURCES: Dict[str, tuple] = {
     "mma_probe": (_PKG / "csrc" / "mma_probe.cu", {
         "tvr_mma_probe": [_I, _I, _I, _P, _P]}),
 }
+
+
+# counted kernel -> (library, entry point)
+KERNELS: Dict[str, Tuple[str, str]] = {
+    "video_scores_flat_i8": ("video_score", "tvr_video_scores"),                  # B1
+    "video_scores_flat": ("video_score", "tvr_video_scores"),                     # B2
+    "video_scores_flat_bmax": ("video_score", "tvr_video_scores"),                # B3
+    "gather_byte_rows": ("gather", "tvr_gather_byte_rows"),                       # B4
+    "span_sim_cat_i8": ("span_sim", "tvr_span_sim_i8"),                           # B5
+    "topk_transposed": ("topk_sort", "tvr_topk_sort"),                            # B6
+    "gathered_similarity": ("gathered_sim", "tvr_gathered_similarity"),           # B7
+    "banded_topk_spans_fused": ("banded_topk", "tvr_banded_topk"),                # B8
+    "video_scores_masked": ("masked_score", "tvr_masked_scores"),                 # B9
+    "fused_video_scores_clip_major": ("masked_score", "tvr_masked_scores"),       # B10
+    "approx_max_k": ("approx_topk", "tvr_approx_topk"),                           # B11
+    "excl_lstm": ("excl_lstm", "tvr_excl_lstm"),
+}
+
+# launches of each counted kernel since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -140,3 +172,16 @@ def load(name: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel ``name`` of ``KERNELS`` on ``device``'s current stream:
+    its entry point takes ``args`` and then the stream. Raises RuntimeError
+    if the launch returns a CUDA error; counts it otherwise."""
+    lib, entry = KERNELS[name]
+    fn = getattr(load(lib), entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1

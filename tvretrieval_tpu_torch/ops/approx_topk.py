@@ -29,26 +29,21 @@ is the exact stable top-k (``lax.top_k`` and B6, element for element,
 except that ``lax.top_k`` puts +0.0 before -0.0).
 
 The wrapper given a CPU tensor runs the plain version; given a CUDA tensor
-it launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+it launches the kernel or raises (``ops._build.launch`` counts the launch).
 """
 from __future__ import annotations
 
 import math
 import struct
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-LAUNCHES: Dict[str, int] = {"approx_max_k": 0}
+from tvretrieval_tpu_torch.ops import _build
 
 # the largest k one launch takes (csrc/approx_topk.cu::kMaxK)
 MAX_K = 1024
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def reduction_output_size(n: int, rank: int, k: int, recall: float) -> Tuple[int, int]:
@@ -145,8 +140,6 @@ def approx_max_k(x: torch.Tensor, k: int,
         raise ValueError(f"{name}: x on {x.device}; expected cpu or cuda")
     if k > MAX_K:
         raise ValueError(f"{name}: k={k} > {MAX_K}, the most one launch selects")
-    from tvretrieval_tpu_torch.ops import _build
-
     nq, n = x.shape
     m = bins(n, k, recall)
     x = x.float().contiguous()
@@ -154,11 +147,5 @@ def approx_max_k(x: torch.Tensor, k: int,
     idx = torch.empty((nq, k), dtype=torch.int32, device=x.device)
     if nq == 0:
         return vals, idx
-    fn = _build.load("approx_topk").tvr_approx_topk
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), nq, n, m, k, vals.data_ptr(), idx.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _build.launch(name, x.device, x.data_ptr(), nq, n, m, k, vals.data_ptr(), idx.data_ptr())
     return vals, idx

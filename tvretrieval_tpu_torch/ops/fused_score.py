@@ -13,10 +13,9 @@ mask[l, v] + (1 - mask[l, v]) * -1e10)``, optionally through ``exp(alpha *
 - ``fused_video_scores_xla`` is the plain version.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches (plain
-runs are not counted). No engine mode runs this function: it is a measured
-alternative to the einsum video-score stage, run beside it by
-``profiling.engine_modes``.
+launches the kernel or raises (``ops._build.launch`` counts the launch).
+No engine mode runs this function: it is a measured alternative to the
+einsum video-score stage, run beside it by ``profiling.engine_modes``.
 
 The bound on the H100 is arithmetic (Nv * L x D x M multiply-adds, half of
 the two-stream stage's), on the tensor cores (bf16 products, or f32 as
@@ -24,7 +23,7 @@ three TF32 products); see the source for the tiling.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -33,14 +32,6 @@ from tvretrieval_tpu_torch.ops.video_score import launch_masked_scores
 # this function's own fill value (pallas_kernels.py:34); equal to
 # ops.masking.NEG_INF
 NEG_INF = -1e10
-
-LAUNCHES: Dict[str, int] = {"fused_video_scores_clip_major": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def fused_video_scores_xla(queries: torch.Tensor, feat1: torch.Tensor, mask: torch.Tensor,
                            alpha: Optional[float] = None,
@@ -79,10 +70,8 @@ def fused_video_scores_clip_major(queries: torch.Tensor, feat1_t: torch.Tensor,
         return fused_video_scores_xla(queries, feat1_t.transpose(0, 1),
                                       mask_t[:, 0].T, alpha)
     L, nv, d = feat1_t.shape
-    out = launch_masked_scores(name, (queries,), (feat1_t,), mask_t, nv, L,
-                               (d, nv * d), (1, nv), NEG_INF, alpha)
-    LAUNCHES[name] += 1
-    return out
+    return launch_masked_scores(name, (queries,), (feat1_t,), mask_t, nv, L,
+                                (d, nv * d), (1, nv), NEG_INF, alpha)
 
 
 def fused_video_scores(queries: torch.Tensor, feat1: torch.Tensor, mask: torch.Tensor,

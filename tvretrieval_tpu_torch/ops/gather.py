@@ -10,8 +10,7 @@ no gradient.
 
 ``gather_byte_rows_plain`` is its plain version (``index_select``). The
 wrapper given a CPU table runs the plain version; given a CUDA table it
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches (plain
-runs are not counted).
+launches the kernel or raises (``ops._build.launch`` counts the launch).
 
 ``gathered_similarity`` (B7, csrc/gathered_sim.cu) replaces
 tvretrieval_tpu/ops/pallas_gather.py::gathered_similarity: the merged span
@@ -33,7 +32,7 @@ from typing import Dict
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"gather_byte_rows": 0, "gathered_similarity": 0}
+from tvretrieval_tpu_torch.ops import _build
 
 # the longest clip feature row B7 holds in a lane's registers
 # (csrc/gathered_sim.cu: 8 x 16-byte pieces a lane)
@@ -42,11 +41,6 @@ _KIND = {torch.bfloat16: 1, torch.float32: 2}
 
 # per-device int32 counter of out-of-range indices seen by the kernel
 _BAD: Dict[torch.device, torch.Tensor] = {}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _check_operands(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
@@ -79,8 +73,6 @@ def gather_byte_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return table.index_select(0, idx)
     if table.device.type != "cuda":
         raise ValueError(f"{name}: table on {table.device}; expected cpu or cuda")
-    from tvretrieval_tpu_torch.ops import _build
-
     n, _, w = table.shape
     if n == 0 or w == 0 or w % 16:
         raise ValueError(f"{name}: table {tuple(table.shape)} needs N > 0 and W a "
@@ -99,15 +91,8 @@ def gather_byte_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: table and output must be 16-byte aligned")
     if idx32.shape[0] == 0:
         return out
-    bad = _bad_counter(dev)
-    fn = _build.load("gather").tvr_gather_byte_rows
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(table.data_ptr(), idx32.data_ptr(), out.data_ptr(), n,
-                 idx32.shape[0], 8 * w, bad.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _build.launch(name, dev, table.data_ptr(), idx32.data_ptr(), out.data_ptr(), n,
+                  idx32.shape[0], 8 * w, _bad_counter(dev).data_ptr())
     return out
 
 
@@ -185,8 +170,6 @@ def gathered_similarity(video_query: torch.Tensor, sub_query: torch.Tensor,
     if n == 0 or L == 0 or n >= 2 ** 31:
         raise ValueError(f"{name}: corpus {tuple(video_feat2.shape)} needs 0 < N < 2^31 "
                          "and L > 0")
-    from tvretrieval_tpu_torch.ops import _build
-
     nq, v1 = gather_idx.shape
     if gather_idx.dtype == torch.int64:
         gather_idx = gather_idx.clamp(-1, n)     # what lies outside stays outside
@@ -197,15 +180,9 @@ def gathered_similarity(video_query: torch.Tensor, sub_query: torch.Tensor,
         return out
     if any(t.data_ptr() % 16 for t in (qv, qs, video_feat2, sub_feat2)):
         raise ValueError(f"{name}: operands must be 16-byte aligned")
-    fn = _build.load("gathered_sim").tvr_gathered_similarity
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_KIND[dt], qv.data_ptr(), qs.data_ptr(), video_feat2.data_ptr(),
-                 sub_feat2.data_ptr(), idx32.data_ptr(), n, nq, v1, L, clip_bytes,
-                 out.data_ptr(), _bad_counter(dev).data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _build.launch(name, dev, _KIND[dt], qv.data_ptr(), qs.data_ptr(), video_feat2.data_ptr(),
+                  sub_feat2.data_ptr(), idx32.data_ptr(), n, nq, v1, L, clip_bytes,
+                  out.data_ptr(), _bad_counter(dev).data_ptr())
     return out
 
 

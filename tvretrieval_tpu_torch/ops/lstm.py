@@ -16,8 +16,8 @@ package's RNNs are a ``lax.scan``); its source note says why it was added.
 ``encoder2`` (cuDNN on a card). The wrapper given CPU tensors runs it; given
 CUDA tensors it launches the kernel or raises: it takes f32, bidirectional
 LSTM encoders of 128 units a direction over ctx1 rows of 256 and query rows
-of 256, the published ExCL widths. ``LAUNCHES`` counts kernel launches
-(plain runs are not counted).
+of 256, the published ExCL widths (``ops._build.launch`` counts the
+launch).
 
 The kernel's weights are prepared once per model and kept until a parameter
 changes (its storage or its version counter, which ``load_state_dict`` and
@@ -29,21 +29,16 @@ TF32 halves as it loads them: stored split, twice the bytes, ran slower),
 from __future__ import annotations
 
 import weakref
-from typing import Dict, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
 
-LAUNCHES: Dict[str, int] = {"excl_lstm": 0}
+from tvretrieval_tpu_torch.ops import _build
 
 HIDDEN = 128            # units a direction the kernel takes (csrc/excl_lstm.cu::kH)
 CTX = 2 * HIDDEN        # ctx1's width: the first LSTM's two directions
 WARPS = HIDDEN // 8     # the kernel's warps: 8 units each
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def excl_lstm_plain(encoders: Sequence[nn.Module], ctx1s: Sequence[torch.Tensor],
@@ -146,8 +141,6 @@ def excl_lstm(encoders: Sequence[nn.Module], ctx1s: Sequence[torch.Tensor],
     if q_hidden.device.type != "cuda":
         raise ValueError(f"excl_lstm: tensors on {q_hidden.device}; expected cpu or cuda")
     _check(encoders, ctx1s, q_hidden, lengths)
-    from tvretrieval_tpu_torch.ops import _build
-
     P, L = ctx1s[0].shape[:2]
     dev = q_hidden.device
     outs = [torch.empty((P, L, CTX), dtype=torch.float32, device=dev) for _ in ctx1s]
@@ -158,13 +151,7 @@ def excl_lstm(encoders: Sequence[nn.Module], ctx1s: Sequence[torch.Tensor],
     ctx1s = [c.contiguous() for c in ctx1s]
     lens = [n.to(torch.int32).contiguous() for n in lengths]
     second = lambda xs: xs[-1].data_ptr()
-    fn = _build.load("excl_lstm").tvr_excl_lstm
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctx1s[0].data_ptr(), second(ctx1s), lens[0].data_ptr(), second(lens),
-                 w.data_ptr(), gq.data_ptr(), gq.shape[1], outs[0].data_ptr(), second(outs),
-                 P, L, len(ctx1s), stream)
-    if err:
-        raise RuntimeError(f"excl_lstm: kernel launch failed with CUDA error {err}")
-    LAUNCHES["excl_lstm"] += 1
+    _build.launch("excl_lstm", dev, ctx1s[0].data_ptr(), second(ctx1s), lens[0].data_ptr(),
+                  second(lens), w.data_ptr(), gq.data_ptr(), gq.shape[1], outs[0].data_ptr(),
+                  second(outs), P, L, len(ctx1s))
     return outs

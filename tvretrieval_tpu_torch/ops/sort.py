@@ -11,8 +11,7 @@ ops.span.banded_topk_spans_grouped_shift_psort).
 ``topk_transposed_plain`` is its plain version, a stable descending
 ``torch.sort`` (``torch.topk`` leaves the order of ties open). The wrapper
 given a CPU tensor runs the plain version; given a CUDA tensor it launches
-the kernel or raises. ``LAUNCHES`` counts kernel launches (plain runs are
-not counted).
+the kernel or raises (``ops._build.launch`` counts the launch).
 
 The name keeps the TPU kernel's, whose layout is transposed (queries along
 the lanes); here one thread block takes one row and nothing is transposed:
@@ -25,22 +24,17 @@ kernel has no 8-row alignment and serves both.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-LAUNCHES: Dict[str, int] = {"topk_transposed": 0}
+from tvretrieval_tpu_torch.ops import _build
 
 # the longest row one launch takes: 16,384 u32 keys (64 KiB) beside up to
 # 16,384 survivors (128 KiB) in a block's shared memory
 # (csrc/topk_sort.cu::kMaxRow)
 MAX_ROW = 16384
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _check(name: str, x: torch.Tensor, k: int) -> None:
@@ -62,20 +56,13 @@ def topk_transposed_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.
 
 def _launch(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch over contiguous f32 rows of at most MAX_ROW elements, on
-    the current stream; counts it."""
-    from tvretrieval_tpu_torch.ops import _build
-
+    the current stream."""
     nq, n = x.shape
     dev = x.device
     vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
     idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    fn = _build.load("topk_sort").tvr_topk_sort
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), nq, n, k, vals.data_ptr(), idx.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"topk_transposed: kernel launch failed with CUDA error {err}")
-    LAUNCHES["topk_transposed"] += 1
+    _build.launch("topk_transposed", dev, x.data_ptr(), nq, n, k, vals.data_ptr(),
+                  idx.data_ptr())
     return vals, idx
 
 

@@ -13,8 +13,8 @@ outputs are equal to the plain version's, ties included: the order is
 (value descending, flat index ``v * L * W + st * W + w`` ascending).
 
 The wrapper given CPU tensors runs the plain version; given CUDA tensors
-it launches the kernel or raises. ``LAUNCHES`` counts kernel launches
-(plain runs are not counted). No engine mode runs it: it is a measured
+it launches the kernel or raises (``ops._build.launch`` counts the
+launch). No engine mode runs it: it is a measured
 alternative to the span top-N stage, run beside it by
 ``profiling.engine_modes``.
 
@@ -24,20 +24,12 @@ them, so that the function is the same function everywhere.
 """
 from __future__ import annotations
 
-from typing import Dict
-
 import torch
 
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops.span import banded_topk_spans
 
-LAUNCHES: Dict[str, int] = {"banded_topk_spans_fused": 0}
-
 MAX_W, MAX_L, MAX_TOP_N = 16, 128, 256     # csrc/banded_topk.cu: kMaxW, kMaxL, kMaxTop
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def banded_topk_spans_fused(st_probs: torch.Tensor, ed_probs: torch.Tensor,
@@ -77,21 +69,13 @@ def banded_topk_spans_fused(st_probs: torch.Tensor, ed_probs: torch.Tensor,
     if dev.type != "cuda" or any(t.device != dev for t in ts):
         raise ValueError(f"{name}: all operands must be on one CUDA device, got "
                          f"{[str(t.device) for t in ts]}")
-    from tvretrieval_tpu_torch.ops import _build
-
     st, ed, vs = (t.float().contiguous() for t in ts)
     vid, st_idx, ed_idx, videos = (
         torch.empty(shape, dtype=torch.int32, device=dev)
         for shape in ((nq, top_n), (nq, top_n), (nq, top_n), (nq,)))
     scores = torch.empty((nq, top_n), dtype=torch.float32, device=dev)
-    fn = _build.load("banded_topk").tvr_banded_topk
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(st.data_ptr(), ed.data_ptr(), vs.data_ptr(), nq, v, L, min_l, max_l, top_n,
-                 vid.data_ptr(), st_idx.data_ptr(), ed_idx.data_ptr(), scores.data_ptr(),
-                 videos.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _build.launch(name, dev, st.data_ptr(), ed.data_ptr(), vs.data_ptr(), nq, v, L, min_l,
+                  max_l, top_n, vid.data_ptr(), st_idx.data_ptr(), ed_idx.data_ptr(),
+                  scores.data_ptr(), videos.data_ptr())
     out = (vid, st_idx, ed_idx, scores)
     return (*out, videos) if return_sorted else out

@@ -20,8 +20,8 @@ B1-B3 are csrc/video_score.cu, B5 is csrc/span_sim.cu, B9 is
 csrc/masked_score.cu (which ops.fused_score shares for B10).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches per
-wrapper (plain runs are not counted).
+launches the kernel or raises (``ops._build.launch`` counts the launch
+by wrapper name).
 
 What bounds the video-score kernels on the H100 is arithmetic: 2 x Nv_pad
 * lp x D x Nq MACs (1.16e12 at the full corpus, Nq=1000) on the tensor
@@ -36,11 +36,12 @@ memory. See the sources for the tiling.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from tvretrieval_tpu_torch.ops import _build
 from tvretrieval_tpu_torch.ops.masking import NEG_INF
 
 # f32(0.5 / 127^2), rounded once from double like JAX's weak-typed
@@ -62,16 +63,6 @@ I8_MAX_D = 384
 BF16_MAX_D = 512
 F32_MAX_D = 640
 MASKED_MAX_D = 768
-
-LAUNCHES: Dict[str, int] = {"video_scores_flat_i8": 0, "video_scores_flat": 0,
-                            "video_scores_flat_bmax": 0, "span_sim_cat_i8": 0,
-                            "video_scores_masked": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def flat_lp(L: int) -> int:
     """Rows per video in the flat cache: L rounded up to a multiple of 8."""
@@ -222,8 +213,6 @@ def _launch(name: str, qvt, qst, fv_flat, fs_flat, n_videos: int, lp: int,
     """Check the operands, allocate the outputs, launch on the current
     stream, count the launch. chunk=None: scores only (B1, B2); else B3
     with ``chunk`` videos per block maximum."""
-    from tvretrieval_tpu_torch.ops import _build
-
     ts = (qvt, qst, fv_flat, fs_flat)
     dev = fv_flat.device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
@@ -269,16 +258,10 @@ def _launch(name: str, qvt, qst, fv_flat, fs_flat, n_videos: int, lp: int,
         # the kernel folds block maxima in with atomics: start from -inf
         bmax = torch.full((nq, nv_pad // chunk), -math.inf, dtype=torch.float32,
                           device=dev)
-    fn = _build.load("video_score").tvr_video_scores
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_KIND[fv_flat.dtype], qv.data_ptr(), qs.data_ptr(),
-                 fv_flat.data_ptr(), fs_flat.data_ptr(), nq, nv_pad, lp,
-                 row_bytes // 4, n_videos, out.data_ptr(), out.shape[1],
-                 None if bmax is None else bmax.data_ptr(), chunk or 1, stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _build.launch(name, dev, _KIND[fv_flat.dtype], qv.data_ptr(), qs.data_ptr(),
+                  fv_flat.data_ptr(), fs_flat.data_ptr(), nq, nv_pad, lp, row_bytes // 4,
+                  n_videos, out.data_ptr(), out.shape[1],
+                  None if bmax is None else bmax.data_ptr(), chunk or 1)
     return out if bmax is None else (out, bmax)
 
 
@@ -428,8 +411,6 @@ def span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp: int = SPAN_LP) -> torch.
     _check_span_sim(name, q8, q_scale, f8_flat, f_scales, lp)
     if f8_flat.device.type == "cpu":
         return span_sim_int8_xla(q8, q_scale, f8_flat, f_scales, lp)
-    from tvretrieval_tpu_torch.ops import _build
-
     ts = (q8, q_scale, f8_flat, f_scales)
     dev = f8_flat.device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
@@ -449,14 +430,8 @@ def span_sim_cat_i8(q8, q_scale, f8_flat, f_scales, lp: int = SPAN_LP) -> torch.
     out = torch.empty((nq, rows // lp, lp), dtype=torch.bfloat16, device=dev)
     if any(t.data_ptr() % 16 for t in (q8, f8_flat, f_scales, out)):
         raise ValueError(f"{name}: operands must be 16-byte aligned")
-    fn = _build.load("span_sim").tvr_span_sim_i8
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(q8.data_ptr(), q_scale.data_ptr(), f8_flat.data_ptr(),
-                 f_scales.data_ptr(), nq, rows, k // 4, out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _build.launch(name, dev, q8.data_ptr(), q_scale.data_ptr(), f8_flat.data_ptr(),
+                  f_scales.data_ptr(), nq, rows, k // 4, out.data_ptr())
     return out
 
 
@@ -469,9 +444,7 @@ def launch_masked_scores(name: str, queries, feats, mask, nv: int, n_clips: int,
     against ``feats`` whose video and clip axes have ``f_strides`` (in
     elements), ``mask`` with ``m_strides``; the running max starts at
     ``init``; ``alpha`` not None applies exp(alpha * score). Returns
-    (Nq, nv) f32. The caller counts the launch."""
-    from tvretrieval_tpu_torch.ops import _build
-
+    (Nq, nv) f32; the launch is counted under ``name``."""
     ts = (*queries, *feats)
     dev = feats[0].device
     if dev.type != "cuda" or any(t.device != dev for t in (*ts, mask)):
@@ -503,16 +476,11 @@ def launch_masked_scores(name: str, queries, feats, mask, nv: int, n_clips: int,
         raise ValueError(f"{name}: operands must be 16-byte aligned")
     per_word = 4 // feats[0].element_size()
     out = torch.empty((nq, nv), dtype=torch.float32, device=dev)
-    fn = _build.load("masked_score").tvr_masked_scores
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_KIND[dt], queries[0].data_ptr(), queries[-1].data_ptr(),
-                 feats[0].data_ptr(), feats[-1].data_ptr(), mask.data_ptr(), nq, nv,
-                 n_clips, row_bytes // 4, f_strides[0] // per_word, f_strides[1] // per_word,
-                 m_strides[0], m_strides[1], len(feats), init,
-                 int(alpha is not None), float(alpha or 0.0), out.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    _build.launch(name, dev, _KIND[dt], queries[0].data_ptr(), queries[-1].data_ptr(),
+                  feats[0].data_ptr(), feats[-1].data_ptr(), mask.data_ptr(), nq, nv,
+                  n_clips, row_bytes // 4, f_strides[0] // per_word, f_strides[1] // per_word,
+                  m_strides[0], m_strides[1], len(feats), init,
+                  int(alpha is not None), float(alpha or 0.0), out.data_ptr())
     return out
 
 
@@ -537,7 +505,5 @@ def video_scores_masked(qv, qs, feat1_v, feat1_s, mask) -> torch.Tensor:
         raise ValueError(f"{name}: caches must be (Nv, L, D) and mask (Nv, L), got "
                          f"{tuple(feat1_v.shape)}, {tuple(mask.shape)}")
     nv, L, d = feat1_v.shape
-    out = launch_masked_scores(name, (qv, qs), (feat1_v, feat1_s), mask, nv, L,
-                               (L * d, d), (L, 1), -math.inf, None)
-    LAUNCHES[name] += 1
-    return out
+    return launch_masked_scores(name, (qv, qs), (feat1_v, feat1_s), mask, nv, L,
+                                (L * d, d), (L, 1), -math.inf, None)

@@ -26,12 +26,12 @@ All shards run from one process, in one loop that never waits for a
 device (no ``.item()``, no ``.cpu()``, no shape read from data), so on k
 cards the shards' kernels overlap; on one card with logical shards
 (``make_mesh(k, devices=["cuda:0"] * k)``) they queue on one stream. Each
-shard launches the same kernel wrappers as the resident engine
-(``retrieval.engine``) on its own slice, so a wrapper's launch count grows
-by k per batch where the engine's grows by 1: B1 / B2 / B3 on the shard's
-flat feat1 rows, B11 under ``video_topk_approx`` and
-"grouped_shift_approx", B6 under ``video_topk_psort`` and
-"grouped_shift_psort", B5 under "simsweep_cat_int8_flat".
+shard runs the resident engine's stages (``retrieval.stages``) on its own
+slice, so a wrapper's launch count grows by k per batch where the engine's
+grows by 1: B1 / B2 / B3 on the shard's flat feat1 rows, B11 under
+``video_topk_approx`` and "grouped_shift_approx", B6 under
+``video_topk_psort`` and "grouped_shift_psort", B5 under
+"simsweep_cat_int8_flat".
 
 Exactness: selection, merge and tie-break are exact. Score values can
 differ from the single-device engine only by the f32 summation order of
@@ -48,41 +48,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from tvretrieval_tpu_torch.models.xml import XML, l2_normalize
-from tvretrieval_tpu_torch.ops import approx_topk
+from tvretrieval_tpu_torch.models.xml import XML
 from tvretrieval_tpu_torch.ops.masking import NEG_INF
-from tvretrieval_tpu_torch.ops.span import (
-    banded_top_spans_from_probs,
-    banded_topk_spans,
-    banded_topk_spans_grouped_shift,
-    banded_topk_spans_grouped_shift8,
-    banded_topk_spans_grouped_shift_approx,
-    banded_topk_spans_grouped_shift_psort,
-    topk_from_block_max,
-)
-from tvretrieval_tpu_torch.ops.video_score import (
-    build_flat_feat2_i8,
-    flat_lp,
-    flat_rows,
-    quantize_unit_i8,
-    video_scores_flat,
-    video_scores_flat_bmax,
-    video_scores_flat_i8,
-    video_scores_xla,
-)
+from tvretrieval_tpu_torch.ops.span import banded_top_spans_from_probs, banded_topk_spans
 from tvretrieval_tpu_torch.parallel.mesh import Mesh, batch_sharding
-from tvretrieval_tpu_torch.retrieval.engine import CorpusCache, _video_sel
+from tvretrieval_tpu_torch.retrieval import stages
+from tvretrieval_tpu_torch.retrieval.engine import CorpusCache
 
 Sharded = Tuple[torch.Tensor, ...]
-
-# span top-k mode -> the selection that takes keep_mask. "grouped" has no
-# keep_mask in the port (ops/span.py::banded_topk_spans_grouped), so it
-# runs the flat selection, as the JAX program does; the others are
-# bit-equal to it and keep their kernels (B6, B11)
-_SPAN_TOPK = {"grouped_shift": banded_topk_spans_grouped_shift,
-              "grouped_shift8": banded_topk_spans_grouped_shift8,
-              "grouped_shift_psort": banded_topk_spans_grouped_shift_psort,
-              "grouped_shift_approx": banded_topk_spans_grouped_shift_approx}
+# stages.flat_layout's keys -> CorpusCache fields
+_LAYOUT_FIELDS = {"vf1": "video_feat1", "sf1": "sub_feat1", "mask": "mask",
+                  "feat2_cat": "feat2_cat", "feat2_cat_scale": "feat2_cat_scale"}
 
 
 def pad_videos_to_multiple(arrs: Sequence[Optional[torch.Tensor]], n_videos: int,
@@ -110,14 +86,14 @@ def shard_corpus_cache(cache: CorpusCache, mesh: Mesh, cfg=None,
     to a multiple of mesh.size, or of mesh.size * chunk_v under the kernel
     video modes ("pallas", "pallas_int8") and "simsweep_cat_int8_flat", so
     that every shard holds whole chunk_v blocks; each shard then builds its
-    own video-major flat feat1 rows (the rows of ``build_flat_feat1``, int8
-    under "pallas_int8") and, under "simsweep_cat_int8_flat", its int8
-    flat feat2 (``build_flat_feat2_i8`` at flat_lp(L) rows a video, as the
-    single-device engine builds it) from a ``simsweep_cat`` cache. A
-    flat layout is video-major, so building it per shard gives the same
-    rows as building it whole and splitting it at video boundaries. Pad
-    videos are fully masked; ``score_query_batch_sharded`` restores their
-    exact -1e10 einsum-path score from the mask."""
+    own flat layouts as the single-device engine builds them
+    (``stages.flat_layout``: the flat feat1 rows, int8 under "pallas_int8",
+    and under "simsweep_cat_int8_flat" the int8 flat feat2 from a
+    ``simsweep_cat`` cache). A flat layout is video-major, so building it
+    per shard gives the same rows as building it whole and splitting it at
+    video boundaries. Pad videos are fully masked;
+    ``score_query_batch_sharded`` restores their exact -1e10 einsum-path
+    score from the mask."""
     if cache.video_feat1 is not None and cache.video_feat1.dim() == 2:
         raise ValueError(
             "cache holds the FLAT single-device feat1 layout; pass the (Nv, L, D) "
@@ -135,30 +111,22 @@ def shard_corpus_cache(cache: CorpusCache, mesh: Mesh, cfg=None,
     arrs = [getattr(cache, n) for n in names]
     pallas = flat2 = False
     if cfg is not None:
-        pallas = (cfg.video_score_mode in ("pallas", "pallas_int8")
+        pallas = (cfg.video_score_mode in stages.KERNEL_VIDEO_MODES
                   and cache.video_feat1 is not None and cache.sub_feat1 is not None)
         flat2 = cfg.span_score_mode == "simsweep_cat_int8_flat" and cache.feat2_cat is not None
         mult = mesh.size * (chunk_v if (pallas or flat2) else 1)
         arrs, _ = pad_videos_to_multiple(arrs, cache.mask.shape[0], mult)
+    if flat2 and cache.feat2_cat.dtype == torch.int8:
+        raise ValueError("simsweep_cat_int8_flat shards a simsweep_cat cache (float "
+                         "feat2_cat); got an int8 one")
     put = batch_sharding(mesh).put
     shards = {n: None if a is None else put(a) for n, a in zip(names, arrs)}
-    if pallas:
-        lp = flat_lp(cache.mask.shape[1])
-        for n in ("video_feat1", "sub_feat1"):
-            rows = [flat_rows(f, m, lp) for f, m in zip(shards[n], shards["mask"])]
-            if cfg.video_score_mode == "pallas_int8":
-                # halves each shard's feat1; the shard program dispatches
-                # the s8 kernel on the int8 dtype
-                rows = [quantize_unit_i8(r) for r in rows]
-            shards[n] = tuple(rows)
-    if flat2:
-        if shards["feat2_cat"][0].dtype == torch.int8:
-            raise ValueError("simsweep_cat_int8_flat shards a simsweep_cat cache (float "
-                             "feat2_cat); got an int8 one")
-        built = [build_flat_feat2_i8(f, lp=flat_lp(f.shape[1]), chunk_v=chunk_v)
-                 for f in shards["feat2_cat"]]
-        shards["feat2_cat"] = tuple(b[0] for b in built)
-        shards["feat2_cat_scale"] = tuple(b[1] for b in built)
+    if pallas or flat2:
+        built = [stages.flat_layout(cfg, {k: None if shards[n] is None else shards[n][s]
+                                          for k, n in _LAYOUT_FIELDS.items()},
+                                    chunk_v, shard=True) for s in range(mesh.size)]
+        shards.update({n: None if built[0][k] is None else tuple(b[k] for b in built)
+                       for k, n in _LAYOUT_FIELDS.items()})
     return dataclasses.replace(cache, **shards)
 
 
@@ -242,9 +210,6 @@ def score_query_batch_sharded(model: XML, cfg, query_feat, query_mask,
     home = mesh.devices[0]
     nv_local = ctx_mask[0].shape[0]
     v_local = min(V, nv_local)
-    vapprox = cfg.video_topk_approx
-    fused = (fast and cfg.video_topk_fused and video_feat1[0].dim() == 2)
-    pre_exp = cfg.video_topk_pre_exp or fused or vapprox
     gt = torch.as_tensor(gt_meta_idx).to(home, torch.int64) if do_svmr else None
     up = lambda x: None if x is None else x.to(f32)
     at = lambda t, s: None if t is None else t[s]
@@ -260,31 +225,25 @@ def score_query_batch_sharded(model: XML, cfg, query_feat, query_mask,
         m = models[dev]
         vf1, sf1, cmask = at(video_feat1, s), at(sub_feat1, s), ctx_mask[s]
         st = dict(dev=dev, base=s * nv_local, cmask=cmask)
+        fused = None
         if fast:
             vq, sq = _to(vq0, dev), _to(sq0, dev)
             st.update(vq=vq, sq=sq)
-            fused_blocks = None
+            # per-shard flat kernel (B1 / B2 / B3) over the shard's own rows,
+            # or the einsum
+            q2c, fused = stages.video_scores(cfg, vq, sq, vf1, sf1, cmask)
             if vf1.dim() == 2:
-                # per-shard flat kernel (B1 / B2 / B3) over the shard's own
-                # rows; the kernels ignore the mask, so a pad video scores 0
-                # and is put back to the einsum path's exact -1e10 from it
-                lp = flat_lp(cmask.shape[1])
-                if vf1.dtype == torch.int8:
-                    qvt, qst = (quantize_unit_i8(l2_normalize(q)).T for q in (vq, sq))
-                else:
-                    qvt = l2_normalize(vq).to(vf1.dtype).T
-                    qst = l2_normalize(sq).to(sf1.dtype).T
+                # the kernels ignore the mask, so a pad video scores 0 and
+                # is put back to the einsum path's exact -1e10 from it
                 has_clip = cmask.amax(dim=1) > 0                             # (nv_local,)
-                if fused:
-                    # B3, then the JAX program's four steps: the trailing
+                if fused is not None:
+                    # B3's, then the JAX program's four steps: the trailing
                     # pad videos (validity is a prefix by construction) to
                     # -1e10, the block maxima of all-pad blocks to -1e10 (or
                     # -inf past the shard), and the one block straddling the
                     # valid count re-maxed from the corrected scores; every
                     # other block's kernel maximum is exact
-                    scores_pad, bmax = video_scores_flat_bmax(
-                        qvt, qst, vf1, sf1, n_videos=nv_local, lp=lp,
-                        chunk_v=cfg.video_chunk_v)
+                    scores_pad, bmax = fused
                     nvp, nb = scores_pad.shape[1], bmax.shape[1]
                     chunk = nvp // nb
                     n_valid = has_clip.sum()
@@ -302,34 +261,19 @@ def score_query_batch_sharded(model: XML, cfg, query_feat, query_mask,
                         1, b * chunk + torch.arange(chunk, device=dev)).amax(dim=1)
                     bmax = bmax.scatter(1, b.view(1, 1).expand(bmax.shape[0], 1),
                                         straddle[:, None])
-                    fused_blocks = (scores_pad, bmax, chunk)
+                    fused = (scores_pad, bmax)
                     q2c = scores_pad[:, :nv_local]
                 else:
-                    score = video_scores_flat_i8 if vf1.dtype == torch.int8 else video_scores_flat
-                    q2c = score(qvt, qst, vf1, sf1, n_videos=nv_local, lp=lp)
                     q2c = torch.where(has_clip[None, :], q2c, NEG_INF)
-            else:
-                q2c = video_scores_xla(l2_normalize(vq).to(vf1.dtype),
-                                       l2_normalize(sq).to(sf1.dtype), vf1, sf1, cmask)
-            st["fused_blocks"] = fused_blocks
         else:
             q2c, st_logits, ed_logits = m.get_pred_from_raw_query(
                 _to(query_feat, dev), _to(query_mask, dev), up(vf1), up(at(video_feat2, s)),
                 cmask, up(sf1), up(at(sub_feat2, s)), cmask, cross=True)
             st["st_probs_all"] = torch.softmax(st_logits.to(f32), dim=-1)
             st["ed_probs_all"] = torch.softmax(ed_logits.to(f32), dim=-1)
-            st["fused_blocks"] = None
 
-        # the local selection, in the JAX program's precedence: approximate
-        # (B11), fused block maxima (B3's), then exact (B6 under psort)
-        if vapprox:
-            sel, idx = approx_topk.approx_max_k(q2c.to(f32), v_local, cfg.topk_approx_recall)
-        elif st["fused_blocks"] is not None:
-            scores_pad, bmax, chunk = st["fused_blocks"]
-            sel, idx = topk_from_block_max(scores_pad, bmax, v_local, block=chunk)
-        else:
-            sel, idx = _video_sel(cfg)(q2c.to(f32) if pre_exp
-                                       else torch.exp(alpha * q2c.to(f32)), v_local)
+        # the local selection, in the JAX program's precedence
+        sel, idx, pre_exp = stages.select_videos(cfg, q2c, v_local, fused)
         idx = idx.long()
         st.update(sel=sel, idx=idx, gidx=idx + st["base"],
                   top=torch.exp(alpha * sel) if pre_exp else sel)
@@ -356,26 +300,10 @@ def score_query_batch_sharded(model: XML, cfg, query_feat, query_mask,
         if fast:
             gather_idx = (torch.cat([st["idx"], local_gt.clamp(0, nv_local - 1)[:, None]], 1)
                           if do_svmr else st["idx"])
-            mode = cfg.span_score_mode
-            vq, sq, vf2, sf2 = st["vq"], st["sq"], video_feat2[s], sub_feat2[s]
-            if mode == "simsweep_cat_int8":
-                st_logits, ed_logits = m.merged_st_ed_scores_simgather_cat_i8(
-                    vq, sq, vf2, sf2, cmask, gather_idx)
-            elif mode == "simsweep_cat_int8_flat":
-                # B5 on the shard's own int8 flat rows: the same integer
-                # dots, rescale and bf16 store as the single-device engine
-                st_logits, ed_logits = m.merged_st_ed_scores_pallas_cat_i8(
-                    vq, sq, vf2, sf2, cmask, gather_idx)
-            elif mode.startswith("simsweep_cat"):
-                st_logits, ed_logits = m.merged_st_ed_scores_simgather_cat(
-                    vq, sq, vf2, cmask, gather_idx,
-                    sim_dtype=torch.bfloat16 if mode == "simsweep_cat_bf16" else None)
-            elif mode == "simsweep":
-                st_logits, ed_logits = m.merged_st_ed_scores_simgather(
-                    vq, vf2, sq, sf2, cmask, gather_idx)
-            else:
-                st_logits, ed_logits = m.merged_st_ed_scores_gathered(
-                    vq, vf2[gather_idx], sq, sf2[gather_idx], cmask[gather_idx])
+            # the cat modes' feat2 slots hold (feat2_cat, scales): cat_mode_feat2_args
+            st_logits, ed_logits = stages.span_logits(
+                m, cfg.span_score_mode, st["vq"], st["sq"], (video_feat2[s], sub_feat2[s]),
+                cmask, gather_idx)
             st_probs = torch.softmax(st_logits.to(f32), dim=-1)
             ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
             st_top, ed_top = st_probs[:, :v_local], ed_probs[:, :v_local]
@@ -394,9 +322,10 @@ def score_query_batch_sharded(model: XML, cfg, query_feat, query_mask,
 
         L = st_top.shape[-1]
         n_local = min(N, v_local * L * W)
-        span_topk = _SPAN_TOPK.get(cfg.span_topk_mode, banded_topk_spans)
-        if cfg.span_topk_mode == "grouped_shift_approx":
-            span_topk = functools.partial(span_topk, recall=cfg.topk_approx_recall)
+        # "grouped" has no keep_mask in the port: it runs as the flat
+        # selection, as the JAX program does (bit-equal; the others keep B6, B11)
+        span_topk = (banded_topk_spans if cfg.span_topk_mode == "grouped"
+                     else stages.span_topk(cfg))
         vid_loc, st_i, ed_i, scores = span_topk(st_top, ed_top, st["top"], cfg.min_pred_l,
                                                 cfg.max_pred_l, n_local, keep_mask=keep)
         vid_loc = vid_loc.long()

@@ -64,7 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from tvretrieval_tpu_torch.models.xml import XML, XMLConfig, l2_normalize
-from tvretrieval_tpu_torch.ops import fused_score, gather, topk
+from tvretrieval_tpu_torch.ops import _build, fused_score, gather, topk
 from tvretrieval_tpu_torch.ops import video_score as vs
 from tvretrieval_tpu_torch.ops.masking import mask_logits
 from tvretrieval_tpu_torch.ops.span import (
@@ -175,8 +175,7 @@ def in_query_blocks(fn, n: int, block: int):
 
 def launch_counts() -> Dict[str, int]:
     """Launches of the four study kernels since the last reset."""
-    counts = {**vs.LAUNCHES, **fused_score.LAUNCHES, **gather.LAUNCHES, **topk.LAUNCHES}
-    return {k: counts[k] for k in STUDY_KERNELS}
+    return {k: _build.LAUNCHES[k] for k in STUDY_KERNELS}
 
 
 def plant_masked_videos(mask: torch.Tensor):

@@ -24,6 +24,9 @@ The corpus is encoded once (``encode_corpus``); each query batch then runs
    "grouped_shift_psort", through the approximate top-k under
    "grouped_shift_approx") and the SVMR row (ops.span).
 
+Steps 2-5 and the flat cache layouts are the stages the sharded engine
+shares (retrieval/stages.py).
+
 Configurations without the merged two-stream conv head (the XML variants:
 one stream, "w/o merge", ``cat_linear``) take the JAX engine's other
 branch (engine.py:658-676): ``XML.get_pred_from_raw_query(cross=True)``
@@ -46,7 +49,6 @@ JAX package is exact on the CPU only because XLA sorts there.
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -58,34 +60,13 @@ from tvretrieval_tpu_torch.data.device_corpus import (
     assemble_context_slice,
     assemble_queries,
 )
-from tvretrieval_tpu_torch.models.xml import XML, l2_normalize
-from tvretrieval_tpu_torch.ops import approx_topk
-from tvretrieval_tpu_torch.ops.span import (
-    banded_top_spans_from_probs,
-    banded_topk_spans_grouped,
-    banded_topk_spans_grouped_shift,
-    banded_topk_spans_grouped_shift8,
-    banded_topk_spans_grouped_shift_approx,
-    banded_topk_spans_grouped_shift_psort,
-    topk_from_block_max,
-    topk_stable,
-    topk_stable_blocked,
-    topk_stable_blocked_psort,
-)
+from tvretrieval_tpu_torch.models.xml import XML
+from tvretrieval_tpu_torch.ops.span import banded_top_spans_from_probs, topk_stable
+from tvretrieval_tpu_torch.ops.video_score import quantize_rows_i8
+from tvretrieval_tpu_torch.retrieval import stages
 from tvretrieval_tpu_torch.retrieval.streaming import streaming_score_query_batch
 from tvretrieval_tpu_torch.utils import trace
 from tvretrieval_tpu_torch.utils.io import load_json
-from tvretrieval_tpu_torch.ops.video_score import (
-    build_flat_feat1,
-    build_flat_feat2_i8,
-    flat_lp,
-    quantize_rows_i8,
-    quantize_unit_i8,
-    video_scores_flat,
-    video_scores_flat_bmax,
-    video_scores_flat_i8,
-    video_scores_xla,
-)
 
 
 @dataclass(frozen=True)
@@ -153,24 +134,18 @@ class RetrievalConfig:
 
 SPAN_SCORE_MODES = ("gather", "simsweep", "simsweep_cat", "simsweep_cat_bf16",
                     "simsweep_cat_int8", "simsweep_cat_int8_flat")
-SPAN_TOPK = {"grouped": banded_topk_spans_grouped,
-             "grouped_shift": banded_topk_spans_grouped_shift,
-             "grouped_shift8": banded_topk_spans_grouped_shift8,
-             "grouped_shift_psort": banded_topk_spans_grouped_shift_psort,
-             # bound to cfg.topk_approx_recall in _score_query_batch
-             "grouped_shift_approx": banded_topk_spans_grouped_shift_approx}
 
 
 def check_supported(cfg: RetrievalConfig) -> None:
     """Raise ValueError for a mode name nobody has."""
-    if cfg.video_score_mode not in ("einsum", "pallas", "pallas_int8"):
+    if cfg.video_score_mode not in ("einsum",) + stages.KERNEL_VIDEO_MODES:
         raise ValueError(f"video_score_mode={cfg.video_score_mode!r}")
     if cfg.span_score_mode not in SPAN_SCORE_MODES:
         raise ValueError(f"span_score_mode={cfg.span_score_mode!r}; one of "
                          f"{SPAN_SCORE_MODES}")
-    if cfg.span_topk_mode not in SPAN_TOPK:
+    if cfg.span_topk_mode not in stages.SPAN_TOPK:
         raise ValueError(f"span_topk_mode={cfg.span_topk_mode!r}; one of "
-                         f"{tuple(SPAN_TOPK)}")
+                         f"{tuple(stages.SPAN_TOPK)}")
 
 
 def auto_interpret(cfg: RetrievalConfig) -> RetrievalConfig:
@@ -227,14 +202,6 @@ def _maybe_pad_clip_axis(feat2_cat, cfg: RetrievalConfig):
     if pad_l == L:
         return feat2_cat
     return torch.nn.functional.pad(feat2_cat, (0, 0, 0, pad_l - L))
-
-
-def _video_sel(cfg: RetrievalConfig):
-    """The exact video top-V selector of the fast path: through the
-    sorting kernel under cfg.video_topk_psort, equal either way."""
-    if cfg.video_topk_psort:
-        return functools.partial(topk_stable_blocked_psort, block=16)
-    return topk_stable_blocked
 
 
 @torch.no_grad()
@@ -297,30 +264,22 @@ def _finish_cache(model: XML, cfg: RetrievalConfig, corpus: CorpusIndex,
                   bufs: Dict[str, torch.Tensor]) -> CorpusCache:
     """Whole-corpus buffers (mask, the model's streams of vf1 / sf1, and
     either vf2 / sf2 or feat2_cat) -> CorpusCache: the clip-axis pad or the
-    int8 layouts of feat2_cat and, on the fast path, the flat (int8) feat1
-    layout of the kernel video-score modes. A stream the model lacks stays
-    None, as in the JAX engine. Buffers are popped as they are replaced, so
-    a source frees once its copy exists."""
-    feat2_cat = _maybe_pad_clip_axis(bufs.pop("feat2_cat", None), cfg)
-    feat2_cat_scale = None
-    if feat2_cat is not None and cfg.span_score_mode == "simsweep_cat_int8":
+    int8 layouts of feat2_cat and, on the fast path, the flat layouts of
+    the kernel modes (``stages.flat_layout``). A stream the model lacks
+    stays None, as in the JAX engine. Buffers are popped as they are
+    replaced, so a source frees once its copy exists."""
+    bufs["feat2_cat"] = _maybe_pad_clip_axis(bufs.pop("feat2_cat", None), cfg)
+    if bufs["feat2_cat"] is not None and cfg.span_score_mode == "simsweep_cat_int8":
         # per-(video, clip) rows; feat2 is not unit-norm, so scales are kept
-        feat2_cat, feat2_cat_scale = quantize_rows_i8(feat2_cat)
-    elif feat2_cat is not None and cfg.span_score_mode == "simsweep_cat_int8_flat":
-        feat2_cat, feat2_cat_scale = build_flat_feat2_i8(feat2_cat,
-                                                         lp=flat_lp(feat2_cat.shape[1]))
-    vf1_all, sf1_all, mask_all = bufs.pop("vf1", None), bufs.pop("sf1", None), bufs["mask"]
-    if cfg.video_score_mode in ("pallas", "pallas_int8") and model.cfg.merged_spans:
-        vf1_all = build_flat_feat1(vf1_all, mask_all, chunk_v=cfg.video_chunk_v)
-        sf1_all = build_flat_feat1(sf1_all, mask_all, chunk_v=cfg.video_chunk_v)
-        if cfg.video_score_mode == "pallas_int8":
-            vf1_all, sf1_all = quantize_unit_i8(vf1_all), quantize_unit_i8(sf1_all)
+        bufs["feat2_cat"], bufs["feat2_cat_scale"] = quantize_rows_i8(bufs.pop("feat2_cat"))
+    if model.cfg.merged_spans:
+        stages.flat_layout(cfg, bufs, cfg.video_chunk_v)
     return CorpusCache(
-        video_feat1=vf1_all, video_feat2=bufs.get("vf2"), sub_feat1=sf1_all,
-        sub_feat2=bufs.get("sf2"), mask=mask_all, n_videos=len(corpus),
+        video_feat1=bufs.get("vf1"), video_feat2=bufs.get("vf2"), sub_feat1=bufs.get("sf1"),
+        sub_feat2=bufs.get("sf2"), mask=bufs["mask"], n_videos=len(corpus),
         metas=[{"vid_name": v, "duration": d}
                for v, d in zip(corpus.vid_names, corpus.durations)],
-        feat2_cat=feat2_cat, feat2_cat_scale=feat2_cat_scale)
+        feat2_cat=bufs.get("feat2_cat"), feat2_cat_scale=bufs.get("feat2_cat_scale"))
 
 
 @torch.no_grad()
@@ -375,92 +334,36 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
     "video_scores", "video_topk", "span_sweep" (with "span_head" inside),
     "span_head", "span_topk", "svmr". No device work is issued between two
     stages: a stage's span starts at the exit event of the one before it.
-    Under the cat span modes "span_sweep" counts ``sweep_rows``, the flat
-    rows of the corpus-wide sweep, and ``pad_rows``, those of them past a
-    video's L clips or past the Nv videos."""
+    The fast path's stages are those of ``retrieval.stages``; the video
+    score kernel is the one the cache's layout was built for."""
     check_supported(cfg)
     with trace.span("score_query_batch", query_feat.device) as root:
         f32 = torch.float32
-        nv, L = ctx_mask.shape
-        V = min(cfg.max_vcmr_video, nv)
+        V = min(cfg.max_vcmr_video, ctx_mask.shape[0])
         alpha = cfg.q2c_alpha
 
         if model.cfg.merged_spans:
             with trace.span("encode_query"):
                 vq, sq = model.encode_query(query_feat, query_mask)      # (Nq, D) x2
             with trace.span("video_scores"):
-                fused_bmax = None
-                if cfg.video_score_mode in ("pallas", "pallas_int8"):
-                    lp = flat_lp(L)
-                    if cfg.video_score_mode == "pallas_int8":
-                        qvt, qst = (quantize_unit_i8(l2_normalize(q)).T for q in (vq, sq))
-                    else:
-                        qvt = l2_normalize(vq).to(video_feat1.dtype).T
-                        qst = l2_normalize(sq).to(sub_feat1.dtype).T
-                    if cfg.video_topk_fused:
-                        scores_pad, fused_bmax = video_scores_flat_bmax(
-                            qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp,
-                            chunk_v=cfg.video_chunk_v)
-                        q2c = scores_pad[:, :nv]
-                    else:
-                        score = (video_scores_flat_i8 if cfg.video_score_mode == "pallas_int8"
-                                 else video_scores_flat)
-                        q2c = score(qvt, qst, video_feat1, sub_feat1, n_videos=nv, lp=lp)
-                else:
-                    q2c = video_scores_xla(l2_normalize(vq).to(video_feat1.dtype),
-                                           l2_normalize(sq).to(sub_feat1.dtype),
-                                           video_feat1, sub_feat1, ctx_mask)
-
+                q2c, fused = stages.video_scores(cfg, vq, sq, video_feat1, sub_feat1, ctx_mask)
             with trace.span("video_topk"):
                 if use_external_vr:
                     # an external VR result replaces the internal video ranking
                     # (reference inference.py:346-355)
                     topv_idx = external_idx
                     topv_scores = torch.exp(alpha * external_scores)
-                elif cfg.video_topk_approx:
-                    # the approximate top-k on the pre-exp scores, exp on the V selected
-                    topv_q2c, topv_idx = approx_topk.approx_max_k(q2c.to(f32), V,
-                                                                  cfg.topk_approx_recall)
-                    topv_scores = torch.exp(alpha * topv_q2c)
-                elif fused_bmax is not None:
-                    # kernel-emitted block maxima; pre-exp ranking (exp is monotone)
-                    topv_q2c, topv_idx = topk_from_block_max(
-                        scores_pad, fused_bmax, V,
-                        block=scores_pad.shape[1] // fused_bmax.shape[1])
-                    topv_scores = torch.exp(alpha * topv_q2c)
-                elif cfg.video_topk_pre_exp:
-                    topv_q2c, topv_idx = _video_sel(cfg)(q2c.to(f32), V)
-                    topv_scores = torch.exp(alpha * topv_q2c)
                 else:
-                    topv_scores, topv_idx = _video_sel(cfg)(torch.exp(alpha * q2c.to(f32)), V)
+                    sel, topv_idx, pre_exp = stages.select_videos(cfg, q2c, V, fused)
+                    topv_scores = torch.exp(alpha * sel) if pre_exp else sel
                 topv_idx = topv_idx.long()
                 gather_idx = (torch.cat([topv_idx, gt_meta_idx.long()[:, None]], dim=1)
                               if do_svmr else topv_idx)                  # (Nq, V[+1])
-            with trace.span("span_sweep") as sweep:
-                if sweep is not None and feat2_cat is not None:
-                    # the corpus-wide sweep's rows, and those past a video's
-                    # L clips or past the Nv videos (zeros that score 0)
-                    rows = feat2_cat.numel() // feat2_cat.shape[-1]
-                    sweep.count(sweep_rows=rows, pad_rows=rows - nv * L)
-                if cfg.span_score_mode == "simsweep_cat_int8":
-                    st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat_i8(
-                        vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
-                elif cfg.span_score_mode == "simsweep_cat_int8_flat":
-                    st_logits, ed_logits = model.merged_st_ed_scores_pallas_cat_i8(
-                        vq, sq, feat2_cat, feat2_cat_scale, ctx_mask, gather_idx)
-                elif cfg.cat_mode:
-                    st_logits, ed_logits = model.merged_st_ed_scores_simgather_cat(
-                        vq, sq, feat2_cat, ctx_mask, gather_idx,
-                        sim_dtype=(torch.bfloat16 if cfg.span_score_mode == "simsweep_cat_bf16"
-                                   else None))
-                elif cfg.span_score_mode == "simsweep":
-                    st_logits, ed_logits = model.merged_st_ed_scores_simgather(
-                        vq, video_feat2, sq, sub_feat2, ctx_mask, gather_idx)
-                else:
-                    # gathered rows stay at the cache dtype: (Nq, V[+1], L, D) per stream
-                    st_logits, ed_logits = model.merged_st_ed_scores_gathered(
-                        vq, video_feat2[gather_idx], sq, sub_feat2[gather_idx],
-                        ctx_mask[gather_idx])
+            with trace.span("span_sweep"):
+                feat2 = ((feat2_cat, feat2_cat_scale) if cfg.cat_mode
+                         else (video_feat2, sub_feat2))
+                st_logits, ed_logits = stages.span_logits(
+                    model, cfg.span_score_mode, vq, sq, feat2, ctx_mask, gather_idx)
             with trace.span("span_head"):
                 st_probs = torch.softmax(st_logits.to(f32), dim=-1)
                 ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
@@ -496,10 +399,7 @@ def _score_query_batch(model: XML, cfg: RetrievalConfig, query_feat, query_mask,
                     st_gt, ed_gt = st_probs[rows, gt], ed_probs[rows, gt]
 
         with trace.span("span_topk"):
-            span_topk = SPAN_TOPK[cfg.span_topk_mode]
-            if cfg.span_topk_mode == "grouped_shift_approx":
-                span_topk = functools.partial(span_topk, recall=cfg.topk_approx_recall)
-            vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = span_topk(
+            vcmr_vid_local, vcmr_st, vcmr_ed, vcmr_scores = stages.span_topk(cfg)(
                 st_top, ed_top, topv_scores, cfg.min_pred_l, cfg.max_pred_l, cfg.max_before_nms)
             out = dict(topv_scores=topv_scores, topv_idx=topv_idx.to(torch.int32),
                        vcmr_vid_local=vcmr_vid_local, vcmr_st=vcmr_st, vcmr_ed=vcmr_ed,

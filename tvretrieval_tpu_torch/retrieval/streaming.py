@@ -34,7 +34,6 @@ the video ranking is equal. Only the residency differs.
 from __future__ import annotations
 
 import contextlib
-import functools
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -43,14 +42,7 @@ import torch
 
 from tvretrieval_tpu_torch.models.xml import XML, _rows_dot, l2_normalize
 from tvretrieval_tpu_torch.ops.masking import NEG_INF, mask_logits
-from tvretrieval_tpu_torch.ops.span import (
-    banded_top_spans_from_probs,
-    banded_topk_spans_grouped,
-    banded_topk_spans_grouped_shift,
-    banded_topk_spans_grouped_shift8,
-    banded_topk_spans_grouped_shift_approx,
-    topk_stable,
-)
+from tvretrieval_tpu_torch.ops.span import banded_top_spans_from_probs, topk_stable
 from tvretrieval_tpu_torch.ops.video_score import (
     flat_lp,
     flat_rows,
@@ -58,6 +50,7 @@ from tvretrieval_tpu_torch.ops.video_score import (
     video_scores_flat,
     video_scores_flat_i8,
 )
+from tvretrieval_tpu_torch.retrieval import stages
 
 # videos converted and copied to the host at a time by host_cache_from_device
 HOST_CHUNK_VIDEOS = 1024
@@ -269,23 +262,6 @@ def _shard_blocks(host: HostCorpusCache, block_videos: int, devs, times: Optiona
                     times.blocks.append(ev)
 
 
-def _span_topk(cfg):
-    """The span top-k of the JAX streaming engine's span stage
-    (streaming.py:224-239): "grouped_shift8" and "grouped_shift" as named,
-    "grouped_shift_approx" at cfg.topk_approx_recall (B11 at both
-    selections), and "grouped" for every other mode, "grouped_shift_psort"
-    included (its results are bit-equal)."""
-    mode = cfg.span_topk_mode
-    if mode == "grouped_shift8":
-        return banded_topk_spans_grouped_shift8
-    if mode == "grouped_shift_approx":
-        return functools.partial(banded_topk_spans_grouped_shift_approx,
-                                 recall=cfg.topk_approx_recall)
-    if mode == "grouped_shift":
-        return banded_topk_spans_grouped_shift
-    return banded_topk_spans_grouped
-
-
 @torch.no_grad()
 def streaming_score_query_batch(model: XML, cfg, query_feat, query_mask,
                                 host: HostCorpusCache, gt_meta_idx=None,
@@ -381,7 +357,11 @@ def streaming_score_query_batch(model: XML, cfg, query_feat, query_mask,
     st_probs = torch.softmax(st_logits.to(f32), dim=-1)
     ed_probs = torch.softmax(ed_logits.to(f32), dim=-1)
     topv_scores = torch.exp(cfg.q2c_alpha * best_scores)
-    vid_local, st_i, ed_i, vcmr_scores = _span_topk(cfg)(
+    # "grouped_shift_psort" runs as "grouped" (bit-equal), as in the JAX
+    # streaming engine's span stage (streaming.py:224-239)
+    span_topk = stages.span_topk(
+        cfg, "grouped" if cfg.span_topk_mode == "grouped_shift_psort" else None)
+    vid_local, st_i, ed_i, vcmr_scores = span_topk(
         st_probs[:, :V], ed_probs[:, :V], topv_scores, cfg.min_pred_l, cfg.max_pred_l,
         cfg.max_before_nms)
     out = dict(topv_scores=topv_scores, topv_idx=top_idx.to(torch.int32),
