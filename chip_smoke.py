@@ -11,8 +11,9 @@ Run from the repository root on a machine with one CUDA card. Phases:
    B3-int8) and in B5, HGMMA (wgmma) all of the BF16 form and no HMMA in
    the bf16 instances of the video scores (B2 / B3) and of the masked
    scores (B9 / B10), HGMMA all of the TF32 form and no HMMA in their f32
-   ones (3xTF32), no instance of those two libraries without tensor-core
-   instructions, and no IDP (dp4a); then the tensor-core ceilings: s8, bf16
+   ones (3xTF32) and in ExCL's span heads (csrc/excl_head.cu), no instance
+   of those libraries without tensor-core instructions, and no IDP (dp4a);
+   then the tensor-core ceilings: s8, bf16
    and tf32 mma.sync products from registers, wgmma s8 m64n256k32 and bf16
    m64n208k16 from shared memory and tf32 m64n104k8 with A from registers,
    on every SM (csrc/mma_probe.cu), in TOPS beside the data sheet's peaks;
@@ -140,14 +141,21 @@ Run from the repository root on a machine with one CUDA card. Phases:
    five B6 launches a call (counted from 0), each equal to
    ``topk_transposed_plain`` on the same inputs, the returned VR scores
    equal to MEE's scores of the returned videos, the outputs' shapes,
-   order and per-video cap; one launch a call of the second-LSTM kernel;
-   ms a call, cache bytes, peak memory; (f) that kernel
+   order and per-video cap; one launch a call of the second-LSTM kernel
+   and one of the span-head kernel; ms a call, cache bytes, peak memory;
+   (f) the second-LSTM kernel
    (``ops/lstm.py::excl_lstm``, csrc/excl_lstm.cu) against its plain
    version (the concatenation and cuDNN) at the cell's call (5,050 pairs
    x 100 clips, both streams) and the external-VR path's (1,000 pairs,
    lengths 1-100, some 0): one launch, the outputs' and the span logits'
    largest differences, its ms beside its bound, the plain version's and
-   cuDNN's bidirectional nn.LSTM's;
+   cuDNN's bidirectional nn.LSTM's; (g) the span-head kernel
+   (``ops/excl_head.py::excl_heads``, csrc/excl_head.cu) against its plain
+   version (the concatenation, the SpanPredictors, the mask, the mean) and
+   the same heads in f64 at the same two shapes: one launch, masked clips
+   exactly -1e10, its ms beside its bound, the plain version's and the
+   library yardstick's (``F.linear`` heads over the concatenation, which
+   the port never calls);
 13. the offline feature pipelines and the profiling suite (no hand kernel
    lies on their paths: every launch count is set to 0 before the phase and
    must read 0 after): (a) ResNet-152 (3, 8, 36, 3) on 224 x 224 frames and
@@ -328,14 +336,16 @@ def check_tensor_cores(_build) -> str:
     takes runs on wgmma, so no mma.sync instance is left there); no
     instance of video_score or masked_score is without tensor-core
     instructions (no FMA kernel is left); the instance of excl_lstm holds
-    HMMA (mma.sync), every one of the TF32 form, and no wgmma; no library
+    HMMA (mma.sync), every one of the TF32 form, and no wgmma; that of
+    excl_head HGMMA, every one of the TF32 form, and no HMMA; no library
     holds IDP (dp4a)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     kinds = {"video_score": (("int8", "video_score_wgmma"), ("bf16 wgmma", "Bf16Wg"),
                              ("f32 wgmma", "Tf32x3Wg")),
              "masked_score": (("bf16 wgmma", "MaskedBf16"), ("f32 wgmma", "MaskedTf32x3")),
              "span_sim": (("int8", "span_sim_wgmma"),),
-             "excl_lstm": (("f32 mma.sync", "excl_lstm"),)}
+             "excl_lstm": (("f32 mma.sync", "excl_lstm"),),
+             "excl_head": (("f32 wgmma", "excl_head"),)}
     # per instance: IGMMA, IMMA, HMMA, HMMA .TF32, HGMMA, HGMMA of the TF32
     # form, HGMMA of the BF16 form
     ok = {"int8": lambda g, i, h, t, w, wt, wb: g > 0 and i == h == w == 0,
@@ -2466,6 +2476,13 @@ BASE_MEE_EXCL_REPS = 5             # (e) timed calls
 # lengths 1-100, every seventh 0)
 BASE_EXCL_LSTM_SHAPES = (("meeexcl-b50's call", 5050, False), ("external VR", 1000, True))
 BASE_EXCL_LSTM_REPS = 5
+# (g) ExCL's span-head kernel against its plain version and against the same
+# heads in f64: max |difference| of the logits over valid clips (f32 sums of
+# K = 512 + 256 and 256 terms in another order than cuBLAS's, each 3xTF32
+# product within ~3 2^-22 of f32, each k-step's sum rounded into the
+# accumulator toward zero by the tensor cores); the cuda tests' bounds
+# (tests/test_torch_excl_head.py)
+BASE_EXCL_HEAD_ATOL, BASE_EXCL_HEAD_F64_ATOL = 1e-5, 5e-6
 # (f) the kernel's span logits against the plain version's: max |difference|
 # (to first order a span probability's relative error) at most a quarter
 # of mee_excl_tvr.json's span_err limit (2e-5)
@@ -2855,7 +2872,8 @@ def baselines_mee_excl(dev, tsort):
     videos: five B6 launches a call (MEE's blocked top 100 two, each
     video's top 50, the merge to 200, the GT video's SVMR row), each equal
     to ``topk_transposed_plain`` on the same inputs, and one of the
-    second-LSTM kernel (csrc/excl_lstm.cu); the outputs checked;
+    second-LSTM kernel (csrc/excl_lstm.cu) and one of the span-head kernel
+    (csrc/excl_head.cu); the outputs checked;
     ms a call, cache bytes, peak memory."""
     from tvretrieval_tpu_torch.models.excl import ExCL
     from tvretrieval_tpu_torch.models.mee import MEE
@@ -2911,9 +2929,10 @@ def baselines_mee_excl(dev, tsort):
     n_launch = _build.LAUNCHES["topk_transposed"]
     if n_launch != 5 or len(seen) != 5:
         raise AssertionError(f"MEE + ExCL: {n_launch} B6 launches a call, not 5")
-    if _build.LAUNCHES["excl_lstm"] != 1:
-        raise AssertionError(f"MEE + ExCL: {_build.LAUNCHES['excl_lstm']} launches of the "
-                             "second-LSTM kernel a call, not 1")
+    for kernel, what in (("excl_lstm", "second-LSTM"), ("excl_head", "span-head")):
+        if _build.LAUNCHES[kernel] != 1:
+            raise AssertionError(f"MEE + ExCL: {_build.LAUNCHES[kernel]} launches of the "
+                                 f"{what} kernel a call, not 1")
     shapes = []
     for x, k, vals, idx in seen:
         pv, pi = tsort.topk_transposed_plain(x, k)
@@ -2947,8 +2966,8 @@ def baselines_mee_excl(dev, tsort):
         f"cache {nbytes(cache.mee_video, cache.mee_sub, c.ctx1_video, c.ctx1_sub, c.mask) / 1e9:.2f}"
         f" GB encoded in {t_enc:.1f} s (host clock); {bsz} queries a call with their GT videos "
         f"({bsz * (V + 1)} pairs): {ms:.2f} ms a call = {bsz / ms * 1e3:.0f} q/s; 5 B6 launches "
-        f"a call, each equal to its plain version: {'; '.join(shapes)}; 1 second-LSTM kernel "
-        f"launch a call; outputs checked; peak "
+        f"a call, each equal to its plain version: {'; '.join(shapes)}; 1 second-LSTM and 1 "
+        f"span-head kernel launch a call; outputs checked; peak "
         f"{peak:.2f} GiB")
 
 
@@ -3072,12 +3091,110 @@ def baselines_excl_lstm(dev):
         torch.cuda.empty_cache()
 
 
+def excl_heads_library(heads, ctx2s, ctx1s, q):
+    """12g's yardstick: each stream's two heads as ``F.linear`` over the
+    concatenation, tanh between (cuBLAS f32, TF32 off); no mask or mean.
+    The port never calls it."""
+    F = torch.nn.functional
+    out = []
+    for pair, ctx2, ctx1 in zip(heads, ctx2s, ctx1s):
+        feat3 = torch.cat([ctx2, ctx1, q[:, None].expand(-1, ctx1.shape[1], -1)], dim=-1)
+        out += [F.linear(torch.tanh(F.linear(feat3, p.Dense_0.weight, p.Dense_0.bias)),
+                         p.Dense_1.weight, p.Dense_1.bias) for p in pair]
+    return out
+
+
+@torch.no_grad()
+def baselines_excl_head(dev):
+    """12g: ExCL's span-head kernel (``ops/excl_head.py::excl_heads``,
+    csrc/excl_head.cu) at published widths against its plain version (the
+    concatenation, the SpanPredictors, ``mask_logits``, the streams' mean)
+    at BASE_EXCL_LSTM_SHAPES, both streams, biases drawn away from zero:
+    one launch a call; masked clips exactly -1e10; the largest difference
+    from the plain version over valid clips (at most BASE_EXCL_HEAD_ATOL)
+    and the kernel's and the plain version's from the same heads in f64
+    (the kernel's at most BASE_EXCL_HEAD_F64_ATOL);
+    the kernel's ms beside its bound (3xTF32 products of [ctx2 | ctx1] at
+    K = 512, N = 512 a stream; ctx2 and ctx1 read, the logits written), the
+    plain version's ms and the library yardstick's
+    (``excl_heads_library``)."""
+    from tvretrieval_tpu_torch.models.excl import ExCL
+    from tvretrieval_tpu_torch.ops import _build
+    from tvretrieval_tpu_torch.ops import excl_head
+
+    g = torch.Generator().manual_seed(29)
+    excl = ExCL(excl_config()).init_weights(g)
+    for name, p in excl.named_parameters():
+        if "bias" in name:
+            p.normal_(0.0, 0.02, generator=g)
+    excl = excl.to(dev).eval()
+    heads = [(excl.video_st_predictor, excl.video_ed_predictor),
+             (excl.sub_st_predictor, excl.sub_ed_predictor)]
+    gd = torch.Generator(device=dev).manual_seed(29)
+    L, H = N_CLIPS, excl_head.HIDDEN
+    for name, P, ragged in BASE_EXCL_LSTM_SHAPES:
+        n = torch.full((P,), L, device=dev, dtype=torch.int32)
+        if ragged:
+            n = torch.randint(1, L + 1, (P,), device=dev, generator=gd, dtype=torch.int32)
+            n[::7] = 0
+        mask = (torch.arange(L, device=dev)[None] < n[:, None]).float()
+        rows = lambda: torch.tanh(torch.randn((P, L, H), device=dev, generator=gd))
+        ctx2s = [rows() * mask[:, :, None] for _ in heads]
+        ctx1s = [rows() for _ in heads]
+        q = torch.tanh(torch.randn((P, H), device=dev, generator=gd))
+        masks = [mask, mask]
+        run = lambda: excl_head.excl_heads(heads, ctx2s, ctx1s, q, masks)
+        plain = lambda: excl_head.excl_heads_plain(heads, ctx2s, ctx1s, q, masks)
+        lib = lambda: excl_heads_library(heads, ctx2s, ctx1s, q)
+        _build.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launches = _build.LAUNCHES["excl_head"]
+        want = plain()
+        valid = mask > 0
+        err = max((a - b)[valid].abs().max().item() for a, b in zip(got, want))
+        masked = all(bool((a[~valid] == -1e10).all()) for a in got)
+        exact = [0, 0]
+        for pair, ctx2, ctx1 in zip(heads, ctx2s, ctx1s):
+            feat3 = torch.cat([ctx2, ctx1, q[:, None].expand(-1, L, -1)], dim=-1).double()
+            for i, p in enumerate(pair):
+                hid = torch.tanh(feat3 @ p.Dense_0.weight.double().T + p.Dense_0.bias.double())
+                exact[i] = exact[i] + (hid @ p.Dense_1.weight.double().T
+                                       + p.Dense_1.bias.double())[..., 0]
+            del feat3, hid
+        err64 = max((a.double() - e / 2)[valid].abs().max().item() for a, e in zip(got, exact))
+        plain_err64 = max((b.double() - e / 2)[valid].abs().max().item()
+                          for b, e in zip(want, exact))
+        del got, want, exact
+        torch.cuda.empty_cache()
+        p1, k1, l1 = (cuda_ms(f, BASE_EXCL_LSTM_REPS) for f in (plain, run, lib))
+        k2, p2, l2 = (cuda_ms(f, BASE_EXCL_LSTM_REPS) for f in (run, plain, lib))
+        ops, dt = tc_ops(len(heads) * P * L * excl_head.K * (2 * H) * 2, torch.float32)
+        rec = dict(pairs=P, max_abs_err=err, f64_err=err64, plain_f64_err=plain_err64,
+                   ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=(l1 + l2) / 2,
+                   **bound(nbytes(*ctx2s, *ctx1s) + 2 * 4 * P * L, ops, dt))
+        log("baselines", f"span-head kernel, {name}: {P} pairs x {L} clips x 2 streams x 2 "
+            f"heads ({int((n == 0).sum())} empty rows): {launches} launch; max |kernel - "
+            f"plain| over valid clips {err:.3e} (limit {BASE_EXCL_HEAD_ATOL:g}), masked clips "
+            f"-1e10 {masked}; from the f64 heads: kernel {err64:.3e} (limit "
+            f"{BASE_EXCL_HEAD_F64_ATOL:g}), plain (cuBLAS, f32) {plain_err64:.3e}; kernel "
+            f"{rec['ms']:.3f} ms ({k1:.3f} / {k2:.3f}), bound "
+            f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} "
+            f"({100 * rec['bound_ms'] / rec['ms']:.1f}%); plain {rec['plain_ms']:.3f} ms; "
+            f"library (F.linear heads over the concatenation) {rec['library_ms']:.3f} ms")
+        if (launches != 1 or not masked or err > BASE_EXCL_HEAD_ATOL
+                or err64 > BASE_EXCL_HEAD_F64_ATOL):
+            raise AssertionError(f"span-head kernel, {name}: {rec}, masked {masked}")
+        del ctx2s, ctx1s
+        torch.cuda.empty_cache()
+
+
 def phase_baselines(dev, e2e_world, train_world, train_builder):
     """Phase 12: the baselines (see the module docstring). Every count is
     set to 0 before (a)-(d); after them B6 reads twice the card's calls of
     ExCL's span stage (each video's top spans, the merge), the second-LSTM
-    kernel once each, and every other count 0. (e) and (f) count their
-    own."""
+    and the span-head kernels once each, and every other count 0. (e), (f)
+    and (g) count their own."""
     import tempfile
 
     from tvretrieval_tpu_torch.ops import _build
@@ -3108,7 +3225,7 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
     t3 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
     want = {**{k: 0 for k in launches}, "topk_transposed": 2 * card_calls[0],
-            "excl_lstm": card_calls[0]}
+            "excl_lstm": card_calls[0], "excl_head": card_calls[0]}
     log("baselines", f"12a-d took {t3 - t0:.1f} s (12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, "
         f"12c + 12d {t3 - t2:.1f} s); hand-kernel launches {launches}, B6 for "
         f"{card_calls[0]} card calls of ExCL's span stage")
@@ -3121,7 +3238,11 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
     log("baselines", f"12e took {t4 - t3:.1f} s")
     torch.cuda.empty_cache()
     baselines_excl_lstm(dev)
-    log("baselines", f"12f took {time.perf_counter() - t4:.1f} s")
+    t5 = time.perf_counter()
+    log("baselines", f"12f took {t5 - t4:.1f} s")
+    torch.cuda.empty_cache()
+    baselines_excl_head(dev)
+    log("baselines", f"12g took {time.perf_counter() - t5:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 13
@@ -3730,7 +3851,8 @@ def dpb_train(kind: str, dev, n_devices: int, env):
 
 
 def hand_kernel_counts():
-    """Every wrapper's launch count, by kernel."""
+    """Every wrapper's launch count, by kernel (``_build.KERNELS``: the
+    span-head kernel ``excl_head`` among them)."""
     from tvretrieval_tpu_torch.ops import _build
     return dict(_build.LAUNCHES)
 

@@ -24,9 +24,14 @@ mode. At float32 the second LSTMs of both streams are one call of
 ``ops/lstm.py::excl_lstm`` (the query's part of their input products split
 off by linearity; on a card one kernel launch, on the CPU the plain
 concatenation and ``encoder2``); under bfloat16 compute each stream's
-``encoder2`` over the concatenation, as ``span_logits`` runs it. Under
-``torch.profiler`` the second LSTMs are the span "excl_lstm" and the heads
-the span "excl_head" (utils/trace.py).
+``encoder2`` over the concatenation, as ``span_logits`` runs it. The heads
+(``Dense_0`` over [ctx2; ctx1; query], tanh, ``Dense_1``), the mask and the
+streams' mean follow the same rule: at float32 one call of
+``ops/excl_head.py::excl_heads`` (the query's part of ``Dense_0`` split off
+by linearity; on a card one kernel launch for both streams and heads, on
+the CPU the plain concatenation and ``SpanPredictor`` modules); under bfloat16
+the plain version. Under ``torch.profiler`` the second LSTMs are the span
+"excl_lstm" and the heads the span "excl_head" (utils/trace.py).
 
 Data-parallel training (``shard``, a ``training.data_parallel.Shard`` of
 world k > 1; the rank holds its rows of the global batch): each dropout
@@ -46,7 +51,7 @@ from torch import nn
 from tvretrieval_tpu_torch.models.components import Dense, init_like_flax
 from tvretrieval_tpu_torch.models.rnn import RNNEncoder
 from tvretrieval_tpu_torch.models.xml import _cross_entropy
-from tvretrieval_tpu_torch.ops import lstm
+from tvretrieval_tpu_torch.ops import excl_head, lstm
 from tvretrieval_tpu_torch.ops.masking import mask_logits
 from tvretrieval_tpu_torch.utils import trace
 
@@ -182,20 +187,16 @@ class ExCL(nn.Module):
         streams = [(s, ctx1, mask) for s, ctx1, mask in zip(("video", "sub"), ctx1s, masks)
                    if s in self._streams()]
         kernel = self.cfg.dtype == torch.float32
+        ctx1s = [ctx1 for _, ctx1, _ in streams]
         with trace.span("excl_lstm"):
             ctx2s = (lstm.excl_lstm if kernel else lstm.excl_lstm_plain)(
                 [getattr(self, f"{stream}_encoder2") for stream, _, _ in streams],
-                [ctx1 for _, ctx1, _ in streams], q_hidden,
-                [mask.sum(dim=1).int() for _, _, mask in streams])
-        st = ed = 0
+                ctx1s, q_hidden, [mask.sum(dim=1).int() for _, _, mask in streams])
         with trace.span("excl_head"):
-            for (stream, ctx1, mask), ctx2 in zip(streams, ctx2s):
-                q_rep = q_hidden[:, None, :].expand(q_hidden.shape[0], ctx1.shape[1],
-                                                    q_hidden.shape[-1])
-                feat3 = torch.cat([ctx2, ctx1, q_rep], dim=-1)
-                st = st + mask_logits(getattr(self, f"{stream}_st_predictor")(feat3), mask)
-                ed = ed + mask_logits(getattr(self, f"{stream}_ed_predictor")(feat3), mask)
-        return st / len(streams), ed / len(streams)
+            return (excl_head.excl_heads if kernel else excl_head.excl_heads_plain)(
+                [(getattr(self, f"{stream}_st_predictor"), getattr(self, f"{stream}_ed_predictor"))
+                 for stream, _, _ in streams], ctx2s, ctx1s, q_hidden,
+                [mask for _, _, mask in streams])
 
     def forward(self, query_feat, query_mask, video_feat, video_mask, sub_feat, sub_mask,
                 st_ed_indices, generator: Optional[torch.Generator] = None, shard=None):

@@ -11,7 +11,8 @@ on first use.
 Every kernel wrapper in ``ops/`` launches through ``launch``, which takes
 the current stream, raises on a CUDA error and counts the launch in
 ``LAUNCHES`` by kernel name (plain runs are not counted; ``KERNELS`` names
-each counted kernel's library and entry point).
+each counted kernel's library and entry point). A wrapper that lays a
+model's weights out for its kernel keeps them through ``prepared``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ import re
 import shutil
 import subprocess
 import tempfile
+import weakref
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -72,6 +74,10 @@ SOURCES: Dict[str, tuple] = {
     #               n_pairs, n_clips, n_streams, stream)
     "excl_lstm": (_PKG / "csrc" / "excl_lstm.cu", {
         "tvr_excl_lstm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P]}),
+    # tvr_excl_heads(ctx2_0, ctx1_0, len_0, ctx2_1, ctx1_1, len_1, w, u, u_stride, w1, b1,
+    #                out_st, out_ed, n_pairs, n_clips, n_streams, stream)
+    "excl_head": (_PKG / "csrc" / "excl_head.cu", {
+        "tvr_excl_heads": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P]}),
     # tvr_mma_probe(kind, blocks, iters, out, stream): the mma.sync and the
     # s8 wgmma ceilings (chip_smoke.py phase 2; no engine path runs it)
     "mma_probe": (_PKG / "csrc" / "mma_probe.cu", {
@@ -93,6 +99,7 @@ KERNELS: Dict[str, Tuple[str, str]] = {
     "fused_video_scores_clip_major": ("masked_score", "tvr_masked_scores"),       # B10
     "approx_max_k": ("approx_topk", "tvr_approx_topk"),                           # B11
     "excl_lstm": ("excl_lstm", "tvr_excl_lstm"),
+    "excl_head": ("excl_head", "tvr_excl_heads"),
 }
 
 # launches of each counted kernel since the last reset_launch_counts()
@@ -102,6 +109,26 @@ LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+_PREPARED: "weakref.WeakKeyDictionary[torch.nn.Module, dict]" = weakref.WeakKeyDictionary()
+
+
+def prepared(kernel: str, modules: Sequence[torch.nn.Module], build: Callable[[], tuple]):
+    """``build()``, kernel ``kernel``'s weights laid out from ``modules``'
+    parameters, computed without autograd and kept on the first module
+    until one of those parameters changes its storage or its version
+    counter (``load_state_dict`` and optimizer steps bump it)."""
+    key = tuple(id(m) for m in modules) + tuple(
+        (p.data_ptr(), p._version) for m in modules for p in m.parameters())
+    kept = _PREPARED.setdefault(modules[0], {})
+    hit = kept.get(kernel)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    with torch.no_grad():
+        value = build()
+    kept[kernel] = (key, value)
+    return value
 
 
 class KernelBuildError(RuntimeError):

@@ -20,15 +20,14 @@ of 256, the published ExCL widths (``ops._build.launch`` counts the
 launch).
 
 The kernel's weights are prepared once per model and kept until a parameter
-changes (its storage or its version counter, which ``load_state_dict`` and
-optimizer steps bump): ``W_c`` and ``W_hh`` side by side in f32 in the order
+changes (``_build.prepared``: its storage or its version counter, which
+``load_state_dict`` and optimizer steps bump): ``W_c`` and ``W_hh`` side by side in f32 in the order
 the kernel's lanes read them (``pack_weights``; the kernel splits them into
 TF32 halves as it loads them: stored split, twice the bytes, ran slower),
 ``W_q`` of every stream and direction stacked, and ``b_ih + b_hh``.
 """
 from __future__ import annotations
 
-import weakref
 from typing import List, Sequence, Tuple
 
 import torch
@@ -79,22 +78,13 @@ def split_weights(encoder: nn.Module) -> Tuple[torch.Tensor, torch.Tensor, torch
     return torch.stack(packed), torch.cat(w_q), torch.cat(bias)
 
 
-_PREPARED: "weakref.WeakKeyDictionary[nn.Module, tuple]" = weakref.WeakKeyDictionary()
-
-
 def _prepared(encoders: Sequence[nn.Module]):
-    """The kernel's weights of ``encoders`` (streams in order), kept on the
-    first encoder until a parameter's storage or version changes."""
-    params = [p for enc in encoders for p in enc.parameters()]
-    key = tuple((id(enc),) for enc in encoders) + tuple((p.data_ptr(), p._version) for p in params)
-    hit = _PREPARED.get(encoders[0])
-    if hit is not None and hit[0] == key:
-        return hit[1]
-    with torch.no_grad():
+    """The kernel's weights of ``encoders`` (streams in order), kept until
+    a parameter changes (``_build.prepared``)."""
+    def build():
         parts = [split_weights(enc) for enc in encoders]
-        prepared = tuple(torch.cat(p).contiguous() for p in zip(*parts))
-    _PREPARED[encoders[0]] = (key, prepared)
-    return prepared
+        return tuple(torch.cat(p).contiguous() for p in zip(*parts))
+    return _build.prepared("excl_lstm", encoders, build)
 
 
 def _check(encoders, ctx1s, q_hidden, lengths) -> None:

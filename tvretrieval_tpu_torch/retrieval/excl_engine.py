@@ -29,8 +29,10 @@ the submission's videos; MEE + ExCL over a resident corpus
 The query's and the first context LSTMs are cuDNN's (float32, TF32 off);
 in ``excl_vcmr_batch`` the second LSTMs of both streams are one launch of a
 hand-written kernel on a card (``ExCL.fused_span_logits`` through
-ops/lstm.py), the plain concatenation and LSTM on the CPU; the selections
-are B6 on a card and a stable sort on the CPU.
+ops/lstm.py), and the start / end heads of both streams with the mask and
+the streams' mean another (through ops/excl_head.py); on the CPU the plain
+concatenations, LSTMs and heads; the selections are B6 on a card and a
+stable sort on the CPU.
 """
 from __future__ import annotations
 
@@ -223,9 +225,11 @@ def excl_vcmr_batch(excl: ExCL, ctx: ExCLContextCache, query_feat: torch.Tensor,
 
     Under ``torch.profiler`` its spans are "excl_query", "excl_gather"
     (counting ``gathered_bytes``), "excl_lstm" and "excl_head"
-    (models/excl.py), "excl_topk". Its working memory is about 1 MB a
-    (query, video) pair at published widths on a card, 2 MB on the CPU
-    (where the second LSTMs run over the concatenated input)."""
+    (models/excl.py), "excl_topk". Its working memory is about 0.4 MB a
+    (query, video) pair at published widths on a card (each stream's
+    gathered ctx1 and its ctx2, 0.1 MB each; the heads' kernel keeps its
+    hidden activations in registers), 2 MB on the CPU (where the second
+    LSTMs and the heads run over the concatenated inputs)."""
     with evaluating(excl):
         L = ctx.mask.shape[1]
         V = vr_idx.shape[1]
@@ -288,7 +292,8 @@ def score_mee_excl_batch(mee: MEE, excl: ExCL, cache: MEEExCLCache, query_feat: 
 
 
 # (query, video) pairs a call of ExCL's stage takes on the external-VR
-# path: 1-2 GB of working memory at published widths
+# path: about 0.4 GB of working memory at published widths on a card, 2 GB on
+# the CPU
 EXTERNAL_VR_PAIRS = 1000
 
 
