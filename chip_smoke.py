@@ -116,7 +116,8 @@ Run from the repository root on a machine with one CUDA card. Phases:
    CPU, within 2e-4;
 12. the baselines (MEE, CAL / MCN, ExCL; every launch count is set to 0
    before the phase; after (a)-(d) B6 must read twice the card's calls of
-   ExCL's span stage ``excl_vcmr_batch`` and every other count 0) at the
+   ExCL's span stage ``excl_vcmr_batch`` plus its launches in CAL's
+   selections, and every other count 0) at the
    JAX CLIs' full widths with seeded weights: (a) card
    against CPU on phase 4's corpus: ``mee_retrieve_vr`` (phase 4's f32
    bound), ``encode_proposal_corpus`` + ``cal_retrieve`` (VCMR, SVMR) for
@@ -155,7 +156,15 @@ Run from the repository root on a machine with one CUDA card. Phases:
    the same heads in f64 at the same two shapes: one launch, masked clips
    exactly -1e10, its ms beside its bound, the plain version's and the
    library yardstick's (``F.linear`` heads over the concatenation, which
-   the port never calls);
+   the port never calls); (h) CAL served as the cell cal-b1000 serves it
+   (``baselines_cal_served``): benchmarks/configs/cal_tvr.json's world
+   (21,818 x 170 proposals at the published widths), the cache built by
+   ``encode_cal_corpus``, one ``score_cal_batch`` of 1,000 queries with the
+   counts set to 0 before it: 14 B6 launches and no other kernel, each
+   equal to ``topk_transposed_plain``; VCMR equal in values, indices and
+   spans to one stable sort of each query's whole row of the same
+   products, SVMR to a stable sort of the GT video's; ms a call, peak
+   memory;
 13. the offline feature pipelines and the profiling suite (no hand kernel
    lies on their paths: every launch count is set to 0 before the phase and
    must read 0 after): (a) ResNet-152 (3, 8, 36, 3) on 224 x 224 frames and
@@ -3104,6 +3113,125 @@ def excl_heads_library(heads, ctx2s, ctx1s, q):
     return out
 
 
+CAL_SEED = 2 ** 33 + 30            # (h) the cal_tvr world's and queries' seed
+# (h) B6 launches a call of score_cal_batch at cal_tvr's shape: 3,709,064
+# scoring rows in four chunks of 2^20 (the last 563,336); a chunk's 131,072
+# (the last's 70,417) block maxima are B6 rows of MAX_ROW = 16,384 and one
+# launch over their survivors (2), then one over the 1,600-wide pool (3 a
+# chunk); the merge of 800 candidates, 100 block maxima and their pool (2)
+CAL_B6_LAUNCHES = 14
+CAL_PLAIN_ROWS = 50                # (h) queries a plain whole-row sort
+
+
+@torch.no_grad()
+def baselines_cal_served(dev, tsort):
+    """12h: CAL served as the cell cal-b1000 serves it: the world of
+    benchmarks/configs/cal_tvr.json (21,818 videos x 170 proposals, the
+    published widths, the program's weights and corpus from a seed), the
+    cache built by ``encode_cal_corpus``, one ``score_cal_batch`` of 1,000
+    queries from the traffic b1000 with every count set to 0 before it:
+    ``CAL_B6_LAUNCHES`` B6 launches and no other kernel, each launch equal
+    to ``topk_transposed_plain`` on its input; the VCMR lists equal in
+    values and flat indices to a plain path on the same rows (the served
+    path's products, chunk by chunk, then one stable sort of each query's
+    whole row of 3,709,060 scores), their spans the generator's; the SVMR
+    rows equal to a stable sort of the GT video's scores (the served
+    path's product), within 1e-5 of the whole row's products of the same
+    proposals; ms a call, cache bytes, peak memory."""
+    from pathlib import Path
+
+    from benchmarks.programs import cal as program
+    from tvretrieval_tpu_torch.ops import _build
+    from tvretrieval_tpu_torch.ops.span import topk_stable
+    from tvretrieval_tpu_torch.retrieval import proposal_engine as pe
+
+    root = Path(__file__).resolve().parent / "benchmarks"
+    config = json.loads((root / "configs" / "cal_tvr.json").read_text())
+    traffic = json.loads((root / "traffic" / "b1000.json").read_text())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    net, cache, cfg, score = program.build(config, dev, CAL_SEED)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    q_feat, q_mask, gt = program.queries(traffic, config, cache.n_videos, dev, CAL_SEED, 0)
+    bsz, (nv, P) = q_feat.shape[0], cache.prop_mask.shape
+    n, k = nv * P, cfg.max_before_nms
+    call = lambda: score(net, cache, q_feat, q_mask, gt, cfg)
+    call()                                                  # warm-up
+    torch.cuda.synchronize()
+
+    seen, launch, rows_of = [], tsort._launch, pe._query_rows
+    captured = []
+
+    def recording(x, kk):
+        vals, idx = launch(x, kk)
+        seen.append((x.clone(), kk, vals, idx))
+        return vals, idx
+
+    def capturing(*args, **kw):
+        captured.append(rows_of(*args, **kw))
+        return captured[-1]
+
+    _build.reset_launch_counts()
+    tsort._launch, pe._query_rows = recording, capturing
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    finally:
+        tsort._launch, pe._query_rows = launch, rows_of
+    launches = dict(_build.LAUNCHES)
+    want = {**{name: 0 for name in launches}, "topk_transposed": CAL_B6_LAUNCHES}
+    if launches != want or len(seen) != CAL_B6_LAUNCHES:
+        raise AssertionError(f"CAL: hand-kernel launches in a call {launches}, expected {want}")
+    shapes = []
+    for x, kk, vals, idx in seen:
+        pv, pi = tsort.topk_transposed_plain(x, kk)
+        if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
+            raise AssertionError(f"CAL: B6 on {tuple(x.shape)} k={kk} differs from its plain "
+                                 "version")
+        shapes.append(f"{tuple(x.shape)} k={kk}")
+    del seen
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(call, reps=5)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # the plain path: the served path's products, the whole row, one sort
+    a, rows = captured[0], cache.score_rows
+    chunk = -(-cfg.proposal_chunk // pe.ROW_ALIGN) * pe.ROW_ALIGN
+    full = torch.empty((bsz, n), device=dev)
+    for c0 in range(0, n, chunk):
+        full[:, c0:c0 + chunk] = (a @ rows[c0:c0 + chunk].T)[:, :n - c0]
+    flat = out["vcmr_video"].long() * P + out["vcmr_prop"].long()
+    host_spans = torch.from_numpy(cache.prop_spans.reshape(n, 2)).to(dev)
+    for q0 in range(0, bsz, CAL_PLAIN_ROWS):
+        sl = slice(q0, q0 + CAL_PLAIN_ROWS)
+        pv, pi = topk_stable(full[sl], k)
+        if not (torch.equal(out["vcmr_scores"][sl], pv) and torch.equal(flat[sl], pi)
+                and torch.equal(out["vcmr_spans"][sl], host_spans[pi])):
+            raise AssertionError(f"CAL: VCMR of queries {q0}-{q0 + CAL_PLAIN_ROWS - 1} differs "
+                                 "from the plain whole-row top-k")
+    own = rows[:n].view(nv, P, -1)[gt.long()]
+    g_scores = torch.bmm(own, a[:, :, None])[..., 0]
+    sv, si = topk_stable(g_scores, P)
+    g = gt.long()[:, None]
+    gemm = full.view(bsz, nv, P)[torch.arange(bsz, device=dev), gt.long()]
+    g_err = float((out["svmr_scores"] - torch.gather(gemm, 1, out["svmr_prop"].long()))
+                  .abs().max())
+    if not (torch.equal(out["svmr_scores"], sv) and torch.equal(out["svmr_prop"].long(), si)
+            and torch.equal(out["svmr_spans"], host_spans[g * P + si]) and g_err <= 1e-5):
+        raise AssertionError(f"CAL: SVMR differs from the plain stable sort (or lies {g_err:.3g}"
+                             " from the whole row's products)")
+    del full, gemm, own
+    log("baselines", f"CAL at {nv} videos x {P} proposals ({n} rows, cal_tvr's widths) through "
+        f"encode_cal_corpus + score_cal_batch: scoring rows {nbytes(rows) / 1e9:.2f} GB built "
+        f"in {t_enc:.1f} s (host clock); {bsz} queries a call: {ms:.2f} ms a call = "
+        f"{bsz / ms * 1e3:.0f} q/s; {CAL_B6_LAUNCHES} B6 launches and no other kernel a call, "
+        f"each equal to its plain version: {'; '.join(shapes)}; VCMR equal in values, indices "
+        f"and spans to the whole-row stable top {k}, SVMR to the stable sort (the whole row's "
+        f"products within {g_err:.3g}); peak {peak:.2f} GiB")
+    del net, cache, captured, out
+
+
 @torch.no_grad()
 def baselines_excl_head(dev):
     """12g: ExCL's span-head kernel (``ops/excl_head.py::excl_heads``,
@@ -3192,25 +3320,34 @@ def baselines_excl_head(dev):
 def phase_baselines(dev, e2e_world, train_world, train_builder):
     """Phase 12: the baselines (see the module docstring). Every count is
     set to 0 before (a)-(d); after them B6 reads twice the card's calls of
-    ExCL's span stage (each video's top spans, the merge), the second-LSTM
-    and the span-head kernels once each, and every other count 0. (e), (f)
-    and (g) count their own."""
+    ExCL's span stage (each video's top spans, the merge) plus the launches
+    inside CAL's selections (``proposal_engine._top_moments``, at least
+    one), the second-LSTM and the span-head kernels once each, and every
+    other count 0. (e)-(h) count their own."""
     import tempfile
 
     from tvretrieval_tpu_torch.ops import _build
     from tvretrieval_tpu_torch.ops import sort as tsort
 
     from tvretrieval_tpu_torch.retrieval import excl_engine as ee
+    from tvretrieval_tpu_torch.retrieval import proposal_engine as pe
 
     _build.reset_launch_counts()
     stage, card_calls = ee.excl_vcmr_batch, [0]
+    top_moments, cal_b6 = pe._top_moments, [0]
 
     def counted(excl, ctx, *args, **kw):
         card_calls[0] += int(ctx.mask.is_cuda)
         return stage(excl, ctx, *args, **kw)
 
+    def counted_top(*args, **kw):
+        before = _build.LAUNCHES["topk_transposed"]
+        out = top_moments(*args, **kw)
+        cal_b6[0] += _build.LAUNCHES["topk_transposed"] - before
+        return out
+
     t0 = time.perf_counter()
-    ee.excl_vcmr_batch = counted
+    ee.excl_vcmr_batch, pe._top_moments = counted, counted_top
     try:
         with tempfile.TemporaryDirectory() as tmpdir:
             vr_path = baselines_card_vs_cpu(dev, e2e_world, tmpdir)
@@ -3221,15 +3358,15 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
             t2 = time.perf_counter()
             baselines_train_and_cli(dev, train_world, train_builder, tmpdir)
     finally:
-        ee.excl_vcmr_batch = stage
+        ee.excl_vcmr_batch, pe._top_moments = stage, top_moments
     t3 = time.perf_counter()
     launches = dict(_build.LAUNCHES)
-    want = {**{k: 0 for k in launches}, "topk_transposed": 2 * card_calls[0],
+    want = {**{k: 0 for k in launches}, "topk_transposed": 2 * card_calls[0] + cal_b6[0],
             "excl_lstm": card_calls[0], "excl_head": card_calls[0]}
     log("baselines", f"12a-d took {t3 - t0:.1f} s (12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, "
         f"12c + 12d {t3 - t2:.1f} s); hand-kernel launches {launches}, B6 for "
-        f"{card_calls[0]} card calls of ExCL's span stage")
-    if launches != want or not card_calls[0]:
+        f"{card_calls[0]} card calls of ExCL's span stage and {cal_b6[0]} in CAL's selections")
+    if launches != want or not card_calls[0] or not cal_b6[0]:
         raise AssertionError(f"hand-kernel launches on the baseline paths {launches}, "
                              f"expected {want}")
     torch.cuda.empty_cache()
@@ -3242,7 +3379,11 @@ def phase_baselines(dev, e2e_world, train_world, train_builder):
     log("baselines", f"12f took {t5 - t4:.1f} s")
     torch.cuda.empty_cache()
     baselines_excl_head(dev)
-    log("baselines", f"12g took {time.perf_counter() - t5:.1f} s")
+    t6 = time.perf_counter()
+    log("baselines", f"12g took {t6 - t5:.1f} s")
+    torch.cuda.empty_cache()
+    baselines_cal_served(dev, tsort)
+    log("baselines", f"12h took {time.perf_counter() - t6:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 13

@@ -122,6 +122,67 @@ class CALWithSub(nn.Module):
     def encode_moments(self, moment_feat, stream: str):
         return getattr(self, f"{stream}_moment_mlp")(moment_feat)       # (..., Lc, Do)
 
+    # ------------------------------------------------------ corpus encoding
+    def streams(self):
+        """The streams whose moment MLPs read clip features."""
+        c = self.cfg
+        if c.use_tef_only:
+            raise ValueError("a TEF-only CAL has no clip features to encode")
+        return [s for s, on in (("video", c.use_video), ("sub", c.use_sub)) if on]
+
+    @torch.no_grad()
+    def encode_clip_parts(self, clip_feat, clip_mask):
+        """Eval only. ``clip_feat``: {stream: (n, L, D) raw clip features},
+        ``clip_mask``: (n, L) -> {stream: (local (n, L, H), global (n,
+        H))}: ``Dense_0`` of the moment MLP split by linearity over a
+        clip's row [local; global], the local part ``W_l x`` once a clip and
+        the global part ``W_g g + b`` once a video, as
+        ``CALExampleBuilder._stream_moment`` builds the row with its
+        default normalization: ``x`` the clip L2-normed (``x / (|x| +
+        1e-5)``), ``g`` the mean of the video's raw clips L2-normed the
+        same way. Rows with a TEF are not split."""
+        if self.cfg.dtype is not torch.float32:
+            raise NotImplementedError("the split corpus encoder runs in float32")
+        m = clip_mask.float()
+        out = {}
+        for stream in self.streams():
+            x = clip_feat[stream].float()
+            dense = getattr(self, f"{stream}_moment_mlp").Dense_0
+            d = x.shape[-1]
+            if dense.in_features != 2 * d:
+                raise ValueError(f"{stream}: Dense_0 takes {dense.in_features} inputs, not "
+                                 f"[local; global] = 2 x {d} (a TEF is not split)")
+            g = (x * m[:, :, None]).sum(dim=1) / m.sum(dim=1, keepdim=True).clamp_min(1.0)
+            g = g / (torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-5)
+            x = x / (torch.linalg.norm(x, dim=-1, keepdim=True) + 1e-5)
+            out[stream] = (x @ dense.weight[:, :d].T,
+                           torch.addmm(dense.bias, g, dense.weight[:, d:].T))
+        return out
+
+    @torch.no_grad()
+    def encode_proposal_means(self, parts, clip_index, clip_mask):
+        """Eval only. ``parts`` from ``encode_clip_parts``; ``clip_index``
+        (n, P, C) int64 clip positions of each proposal's clips,
+        ``clip_mask`` (n, P, C) -> {stream: (mean_emb (n, P, Do), mean_sq
+        (n, P))}: the mean over a proposal's clips of the embedding
+        ``L2(Dense_1(ReLU(local + global)))`` and of its squared norm. A
+        clip's row is the same in every proposal that holds it, so each
+        clip is encoded once and gathered."""
+        m = clip_mask.float()
+        denom = m.sum(dim=-1).clamp_min(1.0)                              # (n, P)
+        n, P, C = clip_index.shape
+        flat = clip_index.reshape(n, P * C)
+        out = {}
+        for stream, (local, glob) in parts.items():
+            mlp = getattr(self, f"{stream}_moment_mlp")
+            emb = l2_normalize(mlp.Dense_1(torch.relu(local + glob[:, None])))  # (n, L, Do)
+            sq = sum_last(emb ** 2)                                       # (n, L)
+            e = torch.gather(emb, 1, flat[:, :, None].expand(-1, -1, emb.shape[-1]))
+            mean_emb = (e.view(n, P, C, -1) * m[..., None]).sum(dim=-2) / denom[..., None]
+            mean_sq = (torch.gather(sq, 1, flat).view(n, P, C) * m).sum(dim=-1) / denom
+            out[stream] = (mean_emb, mean_sq)
+        return out
+
     # -------------------------------------------------------------- distances
     def _pdist(self, query_embed, moment_feat, moment_mask, stream):
         """Mean squared-L2 distance over a proposal's clips (model.py:186-196)."""

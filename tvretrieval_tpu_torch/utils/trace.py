@@ -2,7 +2,12 @@
 
 The engine's per-batch entry (``retrieval/engine.py::_score_query_batch``)
 opens one span around the call and one around each of its stages; the span
-head in ``models/xml.py`` opens its own inside the span sweep's. A span
+head in ``models/xml.py`` opens its own inside the span sweep's. CAL's
+served entry (``retrieval/proposal_engine.py::score_cal_batch``) opens
+``score_query_batch`` (counters ``proposals``, ``cache_bytes`` and
+``out_bytes``) around ``cal_query``, a ``cal_dist`` and a ``cal_topk``
+for each chunk of proposals, one more ``cal_topk`` for the merge, and
+``cal_svmr``; a reader sums the spans of one name. A span
 records only while a ``torch.profiler`` session records in the calling
 thread: no flag, variable or configuration field turns it on, so whoever
 profiles ``retrieve`` or the engine gets the spans. Off, ``span(name)`` is
